@@ -1,0 +1,45 @@
+"""The port stands alone: it imports neither jax nor anything of ``repro``."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+MODULES = ["repro_torch", "repro_torch.core.hashing",
+           "repro_torch.core.simulate", "repro_torch.core.device_simulate",
+           "repro_torch.kernels.sketch_common",
+           "repro_torch.kernels.sketch_step", "repro_torch.kernels._build",
+           "repro_torch.kernels.phase_timing", "repro_torch.traces.synthetic"]
+
+
+def test_imports_with_jax_and_repro_blocked():
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_jax_or_repro_import_anywhere_in_the_port():
+    assert len(PORT_FILES) > 8
+    for path in PORT_FILES:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
