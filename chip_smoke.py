@@ -20,8 +20,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 4. run F, the main path at its real size (C=65,536, assoc=8, a 1.2M-access
    Zipf trace), through ``simulate_trace`` with the launch counts set to 0
    just before and read just after; hits, registers and state digest must
-   equal the JAX engine's, and the run is timed;
-5. print the ``kernels`` JSON line, then the result line.
+   equal the JAX engine's, and the call is timed on the host's clock;
+5. run F again through the engine's chunk runner with CUDA events around
+   each launch: the kernel's time per launch, and the share of the runner's
+   stream time in which no kernel ran; the result must equal the main run's;
+6. print the kernel's bound for F's chunks, counted from the words F's keys
+   address, then the ``kernels`` JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -92,28 +96,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def run_chunks(fn, spec, params, state, lo, hi, chunk):
-    """Drive ``fn`` (step or step_ref) chunk by chunk, the last chunk padded
-    with zero keys past its n_valid, as the engine's runner does."""
-    import torch
-    n = lo.shape[0]
-    hits = []
-    for s in range(0, n, chunk):
-        nv = min(chunk, n - s)
-        clo, chi = lo[s:s + chunk], hi[s:s + chunk]
-        if nv < chunk:
-            z = torch.zeros(chunk - nv, dtype=lo.dtype, device=lo.device)
-            clo, chi = torch.cat([clo, z]), torch.cat([chi, z])
-        _, h = fn(spec, params, state, clo, chi, nv)
-        hits.append(h[:nv])
-    return torch.cat(hits)
-
-
 def compare_case(name, cfg, trace, chunk, timed=False):
-    """Kernel vs plain on the card from the same initial state; returns
-    (max abs difference, kernel ms per chunk, plain ms per chunk)."""
+    """Kernel vs plain on the card from the same initial state, both driven
+    by the engine's chunk runner; returns (max abs difference, plain ms per
+    chunk)."""
     import torch
-    from repro_torch.core.device_simulate import _trace_lanes
+    from repro_torch.core.device_simulate import _trace_lanes, run_chunks
     from repro_torch.kernels import sketch_step as ks
     spec = cfg.spec()
     params = cfg.params(device="cuda")
@@ -126,7 +114,7 @@ def compare_case(name, cfg, trace, chunk, timed=False):
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         e0.record()
-        hits = run_chunks(fn, spec, params, state, lo, hi, chunk)
+        state, hits = run_chunks(spec, params, state, lo, hi, chunk, fn=fn)
         e1.record()
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1) / math.ceil(len(trace) / chunk))
@@ -140,15 +128,83 @@ def compare_case(name, cfg, trace, chunk, timed=False):
     check(err == 0, f"{name}: kernel and plain differ in the hit flags")
     check(int(p_state["regs"][ks.R_T]) == len(trace),
           f"{name}: the plain run did not advance over the trace")
-    timing = (f"; kernel {ms[0]:.4f} ms/chunk, plain {ms[1]:.1f} ms/chunk"
-              if timed else "")
+    timing = f"; plain {ms[1]:.1f} ms/chunk" if timed else ""
     print(f"phase 2  {name}: kernel == plain over {len(trace)} accesses "
           f"(chunk {chunk}, W={cfg.sample_size}){timing}")
-    return err, ms[0], ms[1]
+    return err, ms[1]
 
 
-def state_bytes(state: dict) -> int:
-    return sum(v.numel() * v.element_size() for v in state.values())
+def timed_launches(trace, cfg, chunk, warmup):
+    """F through the engine's chunk runner with CUDA events around each
+    launch; returns (state, hit flags, per-launch kernel ms, the runner's
+    stream ms from its first launch to its last)."""
+    import torch
+    from repro_torch.core.device_simulate import _trace_lanes, run_chunks
+    from repro_torch.kernels import sketch_step as ks
+    spec = cfg.spec()
+    params = cfg.params(warmup=warmup, device="cuda")
+    state = ks.init_step_state(spec, cfg.window_cap, cfg.main_cap,
+                               device="cuda")
+    lo, hi = _trace_lanes(trace, "cuda")
+    events = []
+
+    def step(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = ks.step(*args)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    state, hits = run_chunks(spec, params, state, lo, hi, chunk, fn=step)
+    torch.cuda.synchronize()
+    kernel_ms = [a.elapsed_time(b) for a, b in events]
+    return state, hits, kernel_ms, events[0][0].elapsed_time(events[-1][1])
+
+
+def bound_bytes(spec, trace, chunk, sample):
+    """Bytes the step kernel must move over the whole trace, chunk by
+    chunk: each access's key lanes and probes read and its hit flag written
+    once; per chunk the params read and the registers read and written once,
+    and every distinct state word its keys address (their window set and two
+    main sets, their counter and doorkeeper words) read and written once;
+    and the whole sketch read and written once at each section 3.3 reset.
+    The candidates' sets and the victims' estimate words depend on the
+    run's decisions and are left out, so this is a lower bound.  Returns
+    (bytes, number of resets)."""
+    import torch
+    from repro_torch.core.device_simulate import _trace_lanes
+    from repro_torch.kernels import sketch_step as ks
+    lo, hi = _trace_lanes(trace, "cuda")
+    kidx, kdkb, kwset, kmset = ks.precompute_probes(spec, lo, hi)
+    n = lo.shape[0]
+    c = torch.arange(n, device=lo.device) // chunk
+
+    def distinct(ids, per_chunk):
+        ids = ids.long().reshape(n, -1)
+        return int(torch.unique(c[:, None] * per_chunk + ids).numel())
+
+    word_shift = 3 if spec.counter_bits == 4 else 2
+    rows = torch.arange(spec.rows, device=lo.device) * spec.words_per_row
+    words = (distinct(kwset, spec.window_sets) * spec.assoc * spec.wcols
+             + distinct(kmset, spec.main_sets) * spec.assoc * spec.mcols
+             + distinct(rows + (kidx >> word_shift), spec.counter_words))
+    if spec.dk_bits:
+        words += distinct(kdkb >> 5, spec.dk_words)
+    per_access = 4 * (2 + spec.rows + spec.dkp + 1 + 2) + 4
+    nchunks = -(-n // chunk)
+    size, resets = 0, 0
+    for s in range(0, n, chunk):
+        left = min(chunk, n - s)
+        while size + left >= sample:       # the reset fires at size == W
+            left -= sample - size
+            size, resets = sample // 2, resets + 1
+        size += left
+    total = (2 * 4 * words + n * per_access
+             + nchunks * 4 * (ks.NPARAMS + 2 * ks.NREGS)
+             + resets * 2 * 4 * (spec.counter_words + spec.dk_words))
+    return total, resets, size
 
 
 def main() -> int:
@@ -167,9 +223,10 @@ def main() -> int:
     print(card)
     t0 = time.perf_counter()
     _build.load_library()
-    info = _build.build_info["sketch_step"]
-    print(f"phase 1  build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {info['seconds']:.1f} s)")
+    info = _build.build_info[("sketch_step", ())]
+    nvcc = (f"nvcc {info['seconds']:.1f} s" if info["seconds"]
+            else "built before; its ptxas log was kept")
+    print(f"phase 1  build: {time.perf_counter() - t0:.1f} s ({nvcc})")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             print("phase 1  ptxas:", line.strip())
@@ -197,9 +254,8 @@ def main() -> int:
     for name, cfg, tr, chunk in cases:
         max_err = max(max_err, compare_case(name, cfg, tr, chunk)[0])
     f_cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC)
-    err, k_ms_f, plain_ms = compare_case("F geometry", f_cfg,
-                                         f_trace[:2 * F_CHUNK], F_CHUNK,
-                                         timed=True)
+    err, plain_ms = compare_case("F geometry", f_cfg, f_trace[:2 * F_CHUNK],
+                                 F_CHUNK, timed=True)
     max_err = max(max_err, err)
 
     # -- phase 3: golden traces through the entry point --------------------
@@ -247,24 +303,39 @@ def main() -> int:
           f"F: state digest {digest(state)} != JAX {F_DIGEST}")
     check(int(hit_flags[F_WARMUP:].sum()) == F_HITS and hit_flags.shape[0]
           == len(f_trace), "F: hit flags disagree with the hit register")
-    ms_chunk = dev_ms / launches
     print(f"phase 4  F: C={F_CAPACITY} assoc={F_ASSOC} hits {res.hits}/"
           f"{res.accesses} ratio {res.hit_ratio:.6f}, regs and digest == JAX")
-    print(f"phase 4  F: wall {wall:.3f} s, {len(f_trace) / wall:,.0f} acc/s; "
-          f"device {dev_ms:.1f} ms over the run = {ms_chunk:.4f} ms/chunk "
-          f"({dev_ms * 1e6 / len(f_trace):.0f} ns/access); launches "
-          f"{launches}; max_memory_allocated "
+    print(f"phase 4  F: wall {wall:.3f} s, {len(f_trace) / wall:,.0f} acc/s "
+          f"(host clock around simulate_trace, trace upload and hashing "
+          f"included); stream {dev_ms:.1f} ms between CUDA events around the "
+          f"call; launches {launches}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} bytes; card {card}")
 
-    # least time for one chunk: every state leaf read and written once, the
-    # chunk's keys, probes and params read once, its hit flags written once
+    # -- phase 5: kernel time per launch, device idle share ---------------
+    t_state, t_hits, kernel_ms, stream_ms = timed_launches(
+        f_trace, f_cfg, F_CHUNK, F_WARMUP)
+    check(t_state["regs"].cpu().tolist() == F_REGS
+          and digest(t_state) == F_DIGEST
+          and bool((t_hits == hit_flags).all()),
+          "F: the timed run differs from the main run")
+    ms_chunk = sum(kernel_ms) / len(kernel_ms)
+    idle = 1.0 - sum(kernel_ms) / stream_ms
+    print(f"phase 5  F: kernel {ms_chunk:.4f} ms per launch (CUDA events "
+          f"around each of {len(kernel_ms)} launches; min "
+          f"{min(kernel_ms):.4f}, max {max(kernel_ms):.4f}), "
+          f"{ms_chunk * 1e6 / F_CHUNK:.0f} ns/access; runner stream "
+          f"{stream_ms:.1f} ms, device idle share {idle:.6f}")
+
+    # -- phase 6: bound ----------------------------------------------------
     spec = f_cfg.spec()
-    per_key = 4 * (2 + spec.rows + spec.dkp + 1 + 2)
-    chunk_bytes = (2 * state_bytes(state) + F_CHUNK * per_key
-                   + 4 * ks.NPARAMS + 4 * F_CHUNK)
-    bound_ms = chunk_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"phase 4  bound: {chunk_bytes} bytes/chunk over 3.35 TB/s = "
-          f"{bound_ms:.5f} ms/chunk; kernel is {ms_chunk / bound_ms:.0f}x "
+    total, resets, size = bound_bytes(spec, f_trace, F_CHUNK,
+                                      f_cfg.sample_size)
+    check(size == F_REGS[0], f"F: reset count model ends at size {size}, "
+          f"the kernel at {F_REGS[0]}")
+    bound_ms = total / launches / HBM_BYTES_PER_S * 1e3
+    print(f"phase 6  bound: {total} bytes over F ({resets} resets) = "
+          f"{total / launches:.0f} bytes/chunk over 3.35 TB/s = "
+          f"{bound_ms:.6f} ms/chunk; kernel is {ms_chunk / bound_ms:.0f}x "
           f"above it (a dependent per-access chain: latency-bound)")
 
     kernels = [{
@@ -274,7 +345,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "matches_plain": max_err == 0, "ms": ms_chunk,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": None, "kernel_ms_f_geometry": k_ms_f}]
+        "library_ms": None}]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

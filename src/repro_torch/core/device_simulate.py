@@ -24,8 +24,8 @@ import torch
 
 from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels.sketch_step import (
-    StepSpec, make_step_params, init_step_state, precompute_probes, step_ref,
-    _launch, R_HITS)
+    StepSpec, make_step_params, init_step_state, precompute_probes, step,
+    resolve_device, R_HITS)
 from repro_torch.kernels.sketch_common import keys_to_lanes, POLICIES
 from .hashing import assoc_geometry, slots_for, _pow2ceil
 from .simulate import SimResult
@@ -254,8 +254,8 @@ class DeviceWTinyLFU:
                              f"the mesh size {n} (block placement)")
         return n
 
-    def params(self, warmup: int = 0,
-               device: torch.device | str = "cpu") -> torch.Tensor:
+    def params(self, warmup: int = 0, device=None) -> torch.Tensor:
+        """The params vector on ``device`` (the card unless ``"cpu"``)."""
         return make_step_params(self.window_cap, self.main_cap, self.prot_cap,
                                 self.sample_size, self.cap, warmup,
                                 counter_bits=self.counter_bits, device=device)
@@ -337,49 +337,30 @@ def _require_ported(cfg: DeviceWTinyLFU, climb):
     ks._require_ported(cfg.spec())
 
 
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller asks for the CPU; no silent fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the engine runs on the card; pass "
-                "device='cpu' to run the plain version on the CPU")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device {device!r} must be 'cuda' or 'cpu'")
-    return dev
-
-
-def _run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int):
+def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
+               fn=step):
     """Chunked runner (counterpart of the reference's ``_run_pallas``): pad
     the trace to whole chunks, hash every key once, then advance the state in
-    place one chunk per launch with the chunk's ``n_valid``.  On the card
-    nothing here waits for the device."""
+    place one chunk per ``fn`` call (``step``, or ``step_ref`` to drive the
+    plain version) with the chunk's ``n_valid``; returns (state, the hit
+    flags of the unpadded trace).  ``step`` picks the kernel or the plain
+    version by the tensors' device; on the card nothing here waits for it."""
     n = lo.shape[0]
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be >= 1")
-    if lo.device.type == "cpu":
-        hits = torch.zeros((n,), dtype=torch.int32)
-        for s in range(0, n, chunk):
-            e = min(n, s + chunk)
-            _, hits[s:e] = step_ref(spec, params, state, lo[s:e], hi[s:e])
-        return state, hits
     pad = (-n) % chunk
     if pad:
         z = torch.zeros((pad,), dtype=lo.dtype, device=lo.device)
         lo = torch.cat([lo, z])
         hi = torch.cat([hi, z])
     probes = precompute_probes(spec, lo, hi)
-    hits = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
+    hits = []
     for s in range(0, lo.shape[0], chunk):
         e = s + chunk
-        _launch(spec, params, state, lo[s:e], hi[s:e],
-                tuple(p[s:e] for p in probes), min(chunk, n - s), hits[s:e])
-    return state, hits[:n]
+        _, h = fn(spec, params, state, lo[s:e], hi[s:e], min(chunk, n - s),
+                  tuple(p[s:e] for p in probes))
+        hits.append(h)
+    return state, torch.cat(hits)[:n]
 
 
 def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
@@ -394,7 +375,7 @@ def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
     lo, hi = _trace_lanes(trace, dev)
 
     t0 = time.perf_counter()
-    state, hits = _run_chunks(spec, params, state, lo, hi, chunk)
+    state, hits = run_chunks(spec, params, state, lo, hi, chunk)
     n_hits = int(state["regs"][R_HITS])          # waits for the device
     wall = time.perf_counter() - t0
 

@@ -29,6 +29,10 @@
 // by one per access and halves at a reset, independent of the data), so the
 // whole block meets at __syncthreads only on the accesses where the reset
 // fires and then halves the sketch together.
+//
+// Timing probes (python -m repro_torch.kernels.phase_timing) build this file
+// with -DSKETCH_STEP_SKIP_ADD or -DSKETCH_STEP_SKIP_ACCESS to compile one
+// phase out of the loop; the engine's build defines neither.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -510,9 +514,11 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   const uint32_t halve_mask = a.counter_bits == 4 ? 0x77777777u : 0x7F7F7F7Fu;
 
   for (int i = 0; i < a.n_valid; ++i) {
+#ifndef SKETCH_STEP_SKIP_ADD
     if (warp == 0)
       sketch_add(a, s, P[P_CAP], a.kidx + i * a.rows, a.kdkb + i * a.dkp,
                  lane);
+#endif
     // size is data-independent, so every thread agrees on when to reset
     size += 1;
     if (P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
@@ -525,9 +531,13 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
       size /= 2;
     }
     if (warp == 0) {
+#ifdef SKETCH_STEP_SKIP_ACCESS
+      const int hit = 0;
+#else
       const int hit = a.assoc == 0
           ? access_flat(a, s, P, i, t, pcount, lane)
           : access_set(a, s, P, i, t, smem, lane);
+#endif
       if (lane == 0) a.hits[i] = hit;
       nhits += (hit && t >= P[P_WARMUP]) ? 1 : 0;
       t += 1;

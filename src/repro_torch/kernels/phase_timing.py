@@ -1,19 +1,40 @@
-"""Where the step kernel's time goes, by phase, on the card.
+"""Where the step kernel's time goes on the card, and its latency floor.
 
-Builds the kernel of ``csrc/sketch_step.cu`` three ways (as it is; with the
-per-access table work removed; with the sketch add removed) and times each
-on the same chunks, so the difference shows what each phase costs per
-access.  Only the full build computes the engine's result; the other two are
-timing probes and their state is discarded.  Run on a machine with a card,
-from the repository root:
+Builds ``csrc/sketch_step.cu`` three ways: as the engine builds it, with
+``-DSKETCH_STEP_SKIP_ACCESS`` (the per-access table work compiled out) and
+with ``-DSKETCH_STEP_SKIP_ADD`` (the sketch add compiled out).  It builds
+``csrc/l2_chase.cu`` too, and starts all four nvcc runs together.  Each
+build of the step kernel is timed on the same chunks, so the differences
+show what each phase costs per access.  Only the full build computes the
+engine's result; the other two are timing probes and their state is
+discarded.
+
+The L2 probe measures the round-trip time of one dependent load.  In the
+set-associative path the kernel waits on 4 such round trips per hit and 6
+per miss, one after another:
+
+* the access's probes;
+* the sketch words they address;
+* the key and its set indices;
+* the three set blocks;
+* on a miss, the candidate's two sets;
+* then the estimate's sketch words.
+
+So ``4 h + 6 (1 - h)`` round trips per access, with ``h`` the hit share of
+the timed chunks, is the floor that the chain of memory round trips alone
+sets.  The time the kernel takes above it goes to instruction latency
+(shuffles, shared memory, barriers).
+
+Run on a machine with a card, from the repository root:
 
     PYTHONPATH=src python -m repro_torch.kernels.phase_timing
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from repro_torch.core.device_simulate import DeviceWTinyLFU, _trace_lanes
@@ -21,52 +42,24 @@ from repro_torch.traces.synthetic import zipf_trace
 from . import _build
 from . import sketch_step as ks
 
-_ACCESS = """const int hit = a.assoc == 0
-          ? access_flat(a, s, P, i, t, pcount, lane)
-          : access_set(a, s, P, i, t, smem, lane);"""
-_ADD = ("      sketch_add(a, s, P[P_CAP], a.kidx + i * a.rows, "
-        "a.kdkb + i * a.dkp,\n                 lane);")
+VARIANTS = {"full": (), "no table access": ("SKETCH_STEP_SKIP_ACCESS",),
+            "no sketch add": ("SKETCH_STEP_SKIP_ADD",)}
+RT_HIT, RT_MISS = 4, 6          # dependent L2 round trips per set access
 
 
-def _variants() -> dict[str, str]:
-    src = (_build._CSRC / "sketch_step.cu").read_text()
-    if _ACCESS not in src or _ADD not in src:
-        raise RuntimeError("sketch_step.cu no longer has the phase calls "
-                           "this script removes; update the patterns")
-    return {"full": src,
-            "no table access": src.replace(_ACCESS, "const int hit = 0;"),
-            "no sketch add": src.replace(_ADD, "      ;")}
+def _build_all():
+    """The three step-kernel libraries and the L2 probe, built at once."""
+    jobs = [("sketch_step", d) for d in VARIANTS.values()] + [("l2_chase",
+                                                              ())]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        libs = list(ex.map(lambda job: _build.load_library(*job), jobs))
+    return dict(zip(VARIANTS, libs)), libs[-1]
 
 
-def _build_all(variants: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    out = _build.BUILD_DIR / "phase_timing"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, src) in enumerate(variants.items()):
-        cu = out / f"v{i}.cu"
-        cu.write_text(src)
-        procs[name] = (out / f"v{i}.so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"v{i}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name!r}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.sketch_step_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-        lib.sketch_step_launch.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
-
-
-def _ms_per_chunk(cfg: DeviceWTinyLFU, trace, nchunks: int,
-                  chunk: int = 512) -> float:
-    """Mean device ms per chunk over chunks 1..nchunks-1 (chunk 0 warms)."""
+def _ms_per_chunk(lib, cfg: DeviceWTinyLFU, trace, nchunks: int,
+                  chunk: int = 512) -> tuple[float, float]:
+    """Mean device ms per chunk over chunks 1..nchunks-1 (chunk 0 warms),
+    and the hit share of those chunks."""
     spec = cfg.spec()
     params = cfg.params(device="cuda")
     state = ks.init_step_state(spec, cfg.window_cap, cfg.main_cap,
@@ -82,16 +75,45 @@ def _ms_per_chunk(cfg: DeviceWTinyLFU, trace, nchunks: int,
         s = c * chunk
         ks._launch(spec, params, state, lo[s:s + chunk], hi[s:s + chunk],
                    tuple(p[s:s + chunk] for p in probes), chunk,
-                   hits[s:s + chunk])
+                   hits[s:s + chunk], lib=lib)
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / (nchunks - 1)
+    return (e0.elapsed_time(e1) / (nchunks - 1),
+            float(hits[chunk:].float().mean()))
+
+
+def l2_round_trip_ns(lib, n: int = 1 << 20) -> float:
+    """ns per dependent load along one cycle through a 4 MB int32 buffer
+    (L2-resident after one warming pass)."""
+    order = np.random.default_rng(0).permutation(n)
+    nxt = np.empty(n, np.int32)
+    nxt[order] = np.roll(order, -1)          # one cycle through every slot
+    buf = torch.from_numpy(nxt).cuda()
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for timed in (False, True):
+        if timed:
+            e0.record()
+        err = lib.l2_chase_launch(buf.data_ptr(), n, out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"l2_chase launch failed: CUDA error {err}")
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) * 1e6 / n
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("phase_timing needs a CUDA device")
-    libs = _build_all(_variants())
+    libs, chase = _build_all()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card or torch.cuda.get_device_name(0))
+    rt = l2_round_trip_ns(chase)
+    print(f"L2 round trip: {rt:.1f} ns per dependent load (4 MB chain)")
     cells = [
         ("F (C=65536, assoc=8)", DeviceWTinyLFU(65536, assoc=8),
          zipf_trace(1_200_000, n_items=1_000_000, alpha=0.9, seed=11)),
@@ -100,21 +122,21 @@ def main():
         ("G4 (C=1000, assoc=8)", DeviceWTinyLFU(1000, assoc=8),
          zipf_trace(60_000, n_items=50_000, alpha=0.9, seed=7)),
     ]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card or torch.cuda.get_device_name(0))
-    launches = ks.step.launches
-    try:
-        for cell, cfg, trace in cells:
-            for name, lib in libs.items():
-                _build._libs["sketch_step"] = lib
-                ms = _ms_per_chunk(cfg, trace, nchunks=60)
-                print(f"{cell:22s} {name:16s} {ms:.4f} ms/chunk "
-                      f"{ms * 1e6 / 512:.0f} ns/access", flush=True)
-    finally:
-        _build._libs.pop("sketch_step", None)   # next use loads the build
-        ks.step.launches = launches
+    for cell, cfg, trace in cells:
+        for name, lib in libs.items():
+            ms, h = _ms_per_chunk(lib, cfg, trace, nchunks=60)
+            print(f"{cell:22s} {name:16s} {ms:.4f} ms/chunk "
+                  f"{ms * 1e6 / 512:.0f} ns/access", flush=True)
+            if name != "full":
+                continue
+            if cfg.assoc is None:
+                print(f"{cell:22s} latency floor    not counted for the "
+                      "flat path", flush=True)
+                continue
+            trips = RT_HIT * h + RT_MISS * (1 - h)
+            print(f"{cell:22s} latency floor    {trips:.2f} round trips/"
+                  f"access (hit share {h:.4f}) x {rt:.1f} ns = "
+                  f"{trips * rt:.0f} ns/access", flush=True)
 
 
 if __name__ == "__main__":

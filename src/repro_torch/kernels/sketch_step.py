@@ -233,16 +233,33 @@ def _require_ported(spec: StepSpec):
             f"policy {spec.policy!r} is ROADMAP queue 1 item 9")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller asks for the CPU; no silent fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the engine runs on the card; pass "
+                "device='cpu' to run the plain version on the CPU")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {device!r} must be 'cuda' or 'cpu'")
+    return dev
+
+
 def make_step_params(window_cap: int, main_cap: int, prot_cap: int,
                      sample_size: int, cap: int, warmup: int = 0,
-                     counter_bits: int = 4,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
-    """Pack per-config scalars into the (NPARAMS,) int32 params vector."""
+                     counter_bits: int = 4, device=None) -> torch.Tensor:
+    """Pack per-config scalars into the (NPARAMS,) int32 params vector on
+    ``device`` (the card unless ``"cpu"``; see :func:`resolve_device`)."""
     _check(1 <= cap <= (1 << counter_bits) - 1,
            f"cap {cap} does not fit {counter_bits}-bit counters")
     p = [int(window_cap), int(main_cap), int(prot_cap), int(sample_size),
          int(cap), int(warmup)] + [0] * (NPARAMS - 6)
-    return torch.tensor(p, dtype=torch.int32, device=device)
+    return torch.tensor(p, dtype=torch.int32, device=resolve_device(device))
 
 
 def _state_keys(spec: StepSpec) -> tuple[str, ...]:
@@ -267,9 +284,9 @@ def _state_shapes(spec: StepSpec) -> dict:
 
 
 def init_step_state(spec: StepSpec, window_cap: int | None = None,
-                    main_cap: int | None = None,
-                    device: torch.device | str = "cpu") -> dict:
-    """Zeroed simulation state: a dict of int32 tensors on ``device``.
+                    main_cap: int | None = None, device=None) -> dict:
+    """Zeroed simulation state: a dict of int32 tensors on ``device`` (the
+    card unless ``"cpu"``).
 
     ``window_cap``/``main_cap`` below the static slot counts mark the excess
     slots as permanent padding (set mode: spread over the sets by
@@ -310,13 +327,14 @@ def init_step_state(spec: StepSpec, window_cap: int | None = None,
     return state_from_numpy(spec, arrays, device)
 
 
-def state_from_numpy(spec: StepSpec, arrays: dict,
-                     device: torch.device | str = "cpu") -> dict:
-    """Reference-layout numpy leaves -> the port's state dict on ``device``.
+def state_from_numpy(spec: StepSpec, arrays: dict, device=None) -> dict:
+    """Reference-layout numpy leaves -> the port's state dict on ``device``
+    (the card unless ``"cpu"``).
 
     Checks every key and shape against ``spec``, so a state written by the
     JAX package (``{k: np.asarray(v)}``) carries across leaf for leaf.
     """
+    dev = resolve_device(device)
     shapes = _state_shapes(spec)
     _check(set(arrays) == set(shapes),
            f"state keys {sorted(arrays)} != {sorted(shapes)}")
@@ -325,7 +343,7 @@ def state_from_numpy(spec: StepSpec, arrays: dict,
         a = np.ascontiguousarray(np.asarray(arrays[k]).astype(np.int32))
         _check(a.shape == shapes[k],
                f"state[{k!r}] shape {a.shape} != {shapes[k]}")
-        out[k] = torch.from_numpy(a.copy()).to(device)
+        out[k] = torch.from_numpy(a.copy()).to(dev)
     return out
 
 
@@ -623,7 +641,8 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     return hit
 
 
-def _check_inputs(spec: StepSpec, params, state: dict, lo, hi, n_valid):
+def _check_inputs(spec: StepSpec, params, state: dict, lo, hi, n_valid,
+                  probes=None):
     _require_ported(spec)
     shapes = _state_shapes(spec)
     _check(set(state) == set(shapes),
@@ -639,24 +658,32 @@ def _check_inputs(spec: StepSpec, params, state: dict, lo, hi, n_valid):
     _check(params.shape == (NPARAMS,) and params.device == dev,
            f"params must be ({NPARAMS},) on {dev}")
     b = lo.shape[0]
+    if probes is not None:
+        _check(len(probes) == 4 and all(p.shape[0] == b and p.device == dev
+                                        for p in probes),
+               "probes must be precompute_probes' four tensors for lo/hi")
     n = b if n_valid is None else int(n_valid)
     _check(0 <= n <= b, f"n_valid {n} must be in [0, {b}]")
     return n
 
 
 def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
-             lo: torch.Tensor, hi: torch.Tensor, n_valid: int | None = None):
+             lo: torch.Tensor, hi: torch.Tensor, n_valid: int | None = None,
+             probes=None):
     """Plain version: advance ``state`` (in place) through the first
     ``n_valid`` accesses of ``lo/hi``; returns (state, hit flags).
 
     Accesses at positions >= n_valid leave the state untouched and report
-    hit 0.  Runs on any device, one tensor op at a time.
+    hit 0.  ``probes`` may carry ``precompute_probes(spec, lo, hi)`` when the
+    caller hashed the keys already.  Runs on any device, one tensor op at a
+    time.
     """
-    n = _check_inputs(spec, params, state, lo, hi, n_valid)
+    n = _check_inputs(spec, params, state, lo, hi, n_valid, probes)
     lo = lo.to(torch.int32)
     hi = hi.to(torch.int32)
     params = params.to(torch.int32)
-    kidx, kdkb, kwset, kmset = precompute_probes(spec, lo, hi)
+    kidx, kdkb, kwset, kmset = (precompute_probes(spec, lo, hi)
+                                if probes is None else probes)
     hits = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
     for i in range(n):
         if spec.assoc is None:
@@ -695,9 +722,10 @@ def _smem_bytes(spec: StepSpec) -> int:
 
 
 def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
-            probes, n_valid: int, hits: torch.Tensor):
+            probes, n_valid: int, hits: torch.Tensor, lib=None):
     """One kernel launch over one chunk: state updated in place, hit flags
-    written to ``hits`` (zeros past n_valid).  No host sync."""
+    written to ``hits`` (zeros past n_valid).  No host sync.  ``lib`` is the
+    loaded kernel library (default: the build of ``csrc/sketch_step.cu``)."""
     from ._build import load_library
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
@@ -726,7 +754,7 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
                  assoc=spec.assoc or 0,
                  wcols=spec.wcols if spec.assoc else 0,
                  mcols=spec.mcols if spec.assoc else 0)
-    lib = load_library()
+    lib = lib or load_library()
     stream = torch.cuda.current_stream(lo.device).cuda_stream
     err = lib.sketch_step_launch(ctypes.addressof(args), _THREADS,
                                  _smem_bytes(spec), stream)
@@ -737,16 +765,17 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
 
 
 def step(spec: StepSpec, params: torch.Tensor, state: dict,
-         lo: torch.Tensor, hi: torch.Tensor, n_valid: int | None = None):
+         lo: torch.Tensor, hi: torch.Tensor, n_valid: int | None = None,
+         probes=None):
     """Fused chunk step; same contract as :func:`step_ref`.
 
     CUDA tensors: one launch of the hand-written kernel, state updated in
     place (the analogue of the reference's donated buffers); a failed build
     or launch raises.  CPU tensors: the plain version.
     """
-    n = _check_inputs(spec, params, state, lo, hi, n_valid)
+    n = _check_inputs(spec, params, state, lo, hi, n_valid, probes)
     if lo.device.type == "cpu":
-        return step_ref(spec, params, state, lo, hi, n)
+        return step_ref(spec, params, state, lo, hi, n, probes)
     if lo.device.type != "cuda":
         raise ValueError(f"step runs on CUDA or CPU tensors, not "
                          f"{lo.device.type}")
@@ -754,8 +783,9 @@ def step(spec: StepSpec, params: torch.Tensor, state: dict,
     hi = hi.to(torch.int32).contiguous()
     params = params.to(torch.int32).contiguous()
     hits = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
-    _launch(spec, params, state, lo, hi, precompute_probes(spec, lo, hi), n,
-            hits)
+    if probes is None:
+        probes = precompute_probes(spec, lo, hi)
+    _launch(spec, params, state, lo, hi, probes, n, hits)
     return state, hits
 
 

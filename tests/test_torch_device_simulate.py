@@ -34,7 +34,8 @@ def test_sizing_matches_reference(capacity, assoc):
         for name in SIZING:
             assert getattr(p, name) == getattr(j, name), name
         assert _spec_dict(p.spec()) == _spec_dict(j.spec())
-        np.testing.assert_array_equal(p.params(warmup=5).numpy(),
+        np.testing.assert_array_equal(p.params(warmup=5,
+                                               device="cpu").numpy(),
                                       np.asarray(j.params(warmup=5)))
 
 
@@ -125,6 +126,8 @@ def test_no_card_and_no_device_raises():
         pds.simulate_trace(np.arange(10), 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         pds.simulate_trace(np.arange(10), 16, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pds.DeviceWTinyLFU(16).params()
 
 
 def test_trace_shape_checked():

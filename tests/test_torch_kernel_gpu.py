@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.device_simulate import run_chunks
 from repro_torch.kernels import sketch_step as port
 from repro_torch.kernels.sketch_common import keys_to_lanes
 
@@ -28,15 +29,10 @@ CASES = [
 ]
 
 
-def run_chunks(fn, spec, params, wcap, mcap, lo, hi, chunk):
+def run(fn, spec, params, wcap, mcap, lo, hi, chunk):
     state = port.init_step_state(spec, wcap, mcap, device=lo.device)
-    hits = []
-    n = lo.shape[0]
-    for s in range(0, n, chunk):
-        _, h = fn(spec, params, state, lo[s:s + chunk], hi[s:s + chunk],
-                  min(chunk, n - s))
-        hits.append(h.cpu().numpy())
-    return port.state_to_numpy(state), np.concatenate(hits)
+    state, hits = run_chunks(spec, params, state, lo, hi, chunk, fn=fn)
+    return port.state_to_numpy(state), hits.cpu().numpy()
 
 
 @pytest.mark.gpu
@@ -53,8 +49,8 @@ def test_kernel_matches_plain_on_card(case):
     keys = np.random.default_rng(case).integers(0, 300, size=700,
                                                 dtype=np.uint64)
     lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
-    got = run_chunks(port.step, spec, params, wcap, mcap, lo, hi, 256)
-    ref = run_chunks(port.step_ref, spec, params, wcap, mcap, lo, hi, 256)
+    got = run(port.step, spec, params, wcap, mcap, lo, hi, 256)
+    ref = run(port.step_ref, spec, params, wcap, mcap, lo, hi, 256)
     for k in ref[0]:
         np.testing.assert_array_equal(got[0][k], ref[0][k],
                                       err_msg=f"state[{k}]")
@@ -66,9 +62,9 @@ def test_launch_refuses_cpu_tensors():
     CPU tensor to the plain version."""
     kw, pargs, wcap, mcap = CASES[0]
     spec = port.StepSpec(**kw)
-    state = port.init_step_state(spec)
+    state = port.init_step_state(spec, device="cpu")
     lo = torch.zeros(4, dtype=torch.int32)
     probes = port.precompute_probes(spec, lo, lo)
     with pytest.raises(ValueError, match="CUDA"):
-        port._launch(spec, port.make_step_params(*pargs), state, lo, lo,
-                     probes, 4, torch.zeros(4, dtype=torch.int32))
+        port._launch(spec, port.make_step_params(*pargs, device="cpu"), state,
+                     lo, lo, probes, 4, torch.zeros(4, dtype=torch.int32))

@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import sketch_step as jref
+from repro_torch.core.device_simulate import run_chunks
 from repro_torch.kernels import sketch_step as port
 from repro_torch.kernels.sketch_common import keys_to_lanes
 
@@ -60,19 +61,21 @@ def run_jax(kw, pargs, wcap, mcap, keys, n_valid=None):
     return {k: np.asarray(v) for k, v in state.items()}, np.asarray(hits)
 
 
-def run_port(kw, pargs, wcap, mcap, keys, chunk=None, n_valid=None):
+def port_inputs(kw, pargs, wcap, mcap, keys):
     spec = port.StepSpec(**kw)
-    params = port.make_step_params(*pargs, counter_bits=spec.counter_bits)
-    state = port.init_step_state(spec, wcap, mcap)
+    params = port.make_step_params(*pargs, counter_bits=spec.counter_bits,
+                                   device="cpu")
+    state = port.init_step_state(spec, wcap, mcap, device="cpu")
     lo, hi = (torch.from_numpy(x) for x in keys_to_lanes(keys))
-    chunk = chunk or len(keys)
-    hits = []
-    for s in range(0, len(keys), chunk):
-        nv = None if n_valid is None else max(0, min(chunk, n_valid - s))
-        state, h = port.step(spec, params, state, lo[s:s + chunk],
-                             hi[s:s + chunk], nv)
-        hits.append(h.numpy())
-    return port.state_to_numpy(state), np.concatenate(hits)
+    return spec, params, state, lo, hi
+
+
+def run_port(kw, pargs, wcap, mcap, keys, chunk=None):
+    """The engine's chunk runner: the last chunk padded past its n_valid."""
+    spec, params, state, lo, hi = port_inputs(kw, pargs, wcap, mcap, keys)
+    state, hits = run_chunks(spec, params, state, lo, hi,
+                             chunk or len(keys))
+    return port.state_to_numpy(state), hits.numpy()
 
 
 def assert_same(a, b):
@@ -107,14 +110,19 @@ def test_reset_straddles_chunks(case):
 
 @pytest.mark.parametrize("case", [1, len(FLAT) + 1])
 def test_n_valid_tail_and_warmup(case):
-    """Accesses past n_valid leave the state untouched and report 0; hits
-    count from the warmup access on."""
+    """Accesses past n_valid leave the state untouched and report 0 (one
+    step call with n_valid, and the runner's padded last chunk); hits count
+    from the warmup access on."""
     kw, pargs, wcap, mcap = (FLAT + SET)[case]
     pargs = pargs[:5] + (250,)
     keys = _keys(200 + case, 600, 150)
     ref = run_jax(kw, pargs, wcap, mcap, keys, n_valid=450)
-    got = run_port(kw, pargs, wcap, mcap, keys, chunk=200, n_valid=450)
+    spec, params, state, lo, hi = port_inputs(kw, pargs, wcap, mcap, keys)
+    state, hits = port.step(spec, params, state, lo, hi, 450)
+    got = port.state_to_numpy(state), hits.numpy()
     assert_same(ref, got)
+    assert_same((ref[0], ref[1][:450]),
+                run_port(kw, pargs, wcap, mcap, keys[:450], chunk=200))
     regs = got[0]["regs"]
     assert regs[port.R_T] == 450 and not got[1][450:].any()
     assert 0 < regs[port.R_HITS] == got[1][250:450].sum() < got[1].sum()
@@ -128,18 +136,36 @@ def test_state_carries_across_from_jax():
     ref = run_jax(kw, pargs, wcap, mcap, keys)
     head, _ = run_jax(kw, pargs, wcap, mcap, keys[:350])
     spec = port.StepSpec(**kw)
-    state = port.state_from_numpy(spec, head)
+    state = port.state_from_numpy(spec, head, "cpu")
     lo, hi = (torch.from_numpy(x) for x in keys_to_lanes(keys[350:]))
-    state, hits = port.step_ref(spec, port.make_step_params(*pargs), state,
-                                lo, hi)
+    state, hits = port.step_ref(spec,
+                                port.make_step_params(*pargs, device="cpu"),
+                                state, lo, hi)
     assert_same((ref[0], ref[1][350:]), (port.state_to_numpy(state),
                                         hits.numpy()))
 
 
 def test_state_from_numpy_checks_layout():
     spec = port.StepSpec(width=256, window_slots=2, main_slots=8)
-    arrays = port.state_to_numpy(port.init_step_state(spec))
+    arrays = port.state_to_numpy(port.init_step_state(spec, device="cpu"))
     arrays["wmeta"] = arrays["wmeta"][:1]
     with pytest.raises(ValueError, match="wmeta"):
-        port.state_from_numpy(spec, arrays)
+        port.state_from_numpy(spec, arrays, "cpu")
+
+
+def test_step_api_defaults_to_the_card():
+    """Params and state are made on the card unless the caller asks for the
+    CPU; without a card they raise rather than land on the CPU, where
+    ``step`` would quietly run the plain version."""
+    spec = port.StepSpec(width=256, window_slots=2, main_slots=8)
+    arrays = port.state_to_numpy(port.init_step_state(spec, device="cpu"))
+    makers = [lambda: port.make_step_params(2, 8, 6, 100, 7),
+              lambda: port.init_step_state(spec)["counters"],
+              lambda: port.state_from_numpy(spec, arrays)["regs"]]
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
 
