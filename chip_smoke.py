@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the TinyLFU trace engine on one GPU.
+"""Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
+trace engine and the serving-admission path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -7,8 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
-1. print the card's name and power limit, build the step kernel from
-   ``src/repro_torch/kernels/csrc`` and print its ptxas register/spill line;
+1. print the card's name and power limit, build the five kernels from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once) and
+   print their ptxas register/spill lines;
 2. hold the kernel (``step``) against its plain PyTorch version
    (``step_ref``) on the card: flat and set-associative tables, 4- and 8-bit
    counters, doorkeeper on and off, resets inside and across chunk
@@ -25,7 +27,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    each launch: the kernel's time per launch, and the share of the runner's
    stream time in which no kernel ran; the result must equal the main run's;
 6. print the kernel's bound for F's chunks, counted from the words F's keys
-   address, then the ``kernels`` JSON line, then the result line.
+   address;
+7. hold the four batched sketch kernels (add, estimate, admit, reset)
+   against their plain versions on the card: the tests/test_kernels.py
+   configurations x batches 1, 7, 128, 300 and 1024, no doorkeeper, cap
+   saturation, the automatic reset at W=256, a standalone reset of
+   full-range words, and S's geometry; every leaf and output must be equal;
+8. run S, the batched sketch ops at F's capacity, through ``DeviceTinyLFU``
+   (counts set to 0 just before, read just after): record F's trace in
+   4,096-key batches, then estimate and admit 50,000 keys; the state
+   digest, the resets, the estimates' digest and the admitted count must
+   equal the JAX package's; then time each kernel with CUDA events;
+9. run P1 (benchmarks/bench_serving.py's grid) and P2 (its generator at
+   C=65,536) through ``PrefixCache``, counts set to 0 around each run; every
+   ``PrefixCacheStats`` field must equal the JAX cache's;
+10. print the sketch kernels' bounds, then the ``kernels`` JSON line, the
+   card line and the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -37,6 +54,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -67,6 +85,46 @@ F_HITS = 455639
 F_REGS = [413568, 0, 1200000, 455639, 0, 0, 0, 0]
 F_DIGEST = "822de2a898615740"
 
+# Run S: the batched sketch ops at F's capacity.  DeviceTinyLFU(S_BLOCKS)
+# records F's trace in S_BATCH-key batches, then estimates its first
+# S_DECISIONS keys and admits them against np.roll(cands, 1).  The pins are
+# the JAX package's (ops with use_pallas=False, bit-equal to its Pallas
+# kernels): state digest, resets, estimate digest, admitted count
+# (python tests/test_torch_sketch_ops.py prints them).
+S_BLOCKS, S_BATCH, S_DECISIONS = 65_536, 4096, 50_000
+S_PINS = ("b0683a28b7852844", 3, "f40dc4a77ca0f007", 17188)
+
+# Runs P: benchmarks/bench_serving.py's replay through PrefixCache.  P1 is
+# its full grid (lru / tinylfu / wtinylfu x P1_CAPS); P2 the same generator
+# scaled to F's capacity, wtinylfu.  The pins are every PrefixCacheStats
+# field (lookups, block_hits, block_misses, inserts, admitted, rejected,
+# evicted) of the JAX PrefixCache with DeviceAdmission(use_pallas=False)
+# (python tests/test_torch_prefix_cache.py prints them).
+P1_TRACE = dict(n_requests=6000, n_tenants=400, tenant_alpha=1.0, seed=81)
+P1_CAPS = (1000, 2000, 4000)
+P2_TRACE = dict(n_requests=30_000, n_tenants=4_000, tenant_alpha=1.0,
+                seed=81)
+P2_CAP = 65_536
+P_PINS = {
+    ("P1", "lru", 1000): (6779, 33236, 183667, 143909, 142909, 0, 142909),
+    ("P1", "lru", 2000): (6779, 44339, 172564, 121745, 119745, 0, 119745),
+    ("P1", "lru", 4000): (6779, 54812, 162091, 100251, 96251, 0, 96251),
+    ("P1", "tinylfu", 1000): (6779, 45884, 171019, 120466, 3700, 115766,
+                              3700),
+    ("P1", "tinylfu", 2000): (6779, 55059, 161844, 103460, 2557, 98903,
+                              2557),
+    ("P1", "tinylfu", 4000): (6779, 63273, 153630, 87314, 1857, 81457,
+                              1857),
+    ("P1", "wtinylfu", 1000): (6779, 47856, 169047, 116584, 4719, 110865,
+                               4719),
+    ("P1", "wtinylfu", 2000): (6779, 55802, 161101, 103332, 2125, 99207,
+                               2125),
+    ("P1", "wtinylfu", 4000): (6779, 63346, 153557, 87308, 2459, 80849,
+                               2459),
+    ("P2", "wtinylfu", 65536): (33523, 334740, 737969, 376310, 1197, 309577,
+                                1197),
+}
+
 
 class SmokeFailure(Exception):
     pass
@@ -86,6 +144,22 @@ def digest(state: dict) -> str:
         h.update(np.ascontiguousarray(state[k].cpu().numpy(),
                                       dtype="<i4").tobytes())
     return h.hexdigest()[:16]
+
+
+def replay(pc, stream, block: int = 32):
+    """benchmarks/bench_serving.py's replay: the stream cut into 32-block
+    pseudo-requests; each looks up its chain, then offers every block past
+    the cached prefix that the cache does not hold.  Works on the
+    PrefixCache of either package; returns its stats."""
+    slot = 0
+    for i in range(0, len(stream), block):
+        chunk = [int(x) for x in stream[i:i + block]]
+        hits = pc.lookup(chunk)
+        for h in chunk[len(hits):]:
+            if h not in pc:
+                pc.insert(h, slot)
+                slot += 1
+    return pc.stats
 
 
 def card_line() -> str:
@@ -207,6 +281,441 @@ def bound_bytes(spec, trace, chunk, sample):
     return total, resets, size
 
 
+SOURCES = ("sketch_step", "sketch_update", "sketch_estimate", "admission",
+           "sketch_reset")
+SKETCH_KERNELS = ("sketch_update", "sketch_estimate", "admission",
+                  "sketch_reset")
+# the tests/test_kernels.py CFGS (DeviceSketchConfig kwargs)
+SKETCH_CFGS = [dict(width=256, rows=4, cap=15, dk_bits=1024),
+               dict(width=1024, rows=4, cap=7, dk_bits=4096),
+               dict(width=512, rows=2, cap=15, dk_bits=0),
+               dict(width=2048, rows=1, cap=3, dk_bits=2048)]
+L2_ROUND_TRIP_NS = 146.4        # phase_timing, H100 80GB HBM3 at 700 W
+REPLACES = {"sketch_update": "src/repro/kernels/sketch_update.py:80",
+            "sketch_estimate": "src/repro/kernels/sketch_estimate.py:71",
+            "admission": "src/repro/kernels/admission.py:34",
+            "sketch_reset": "src/repro/kernels/sketch_reset.py:33"}
+# 32-bit integer operations per hashed probe: 20 for the salted hash (two
+# mix32 finalizers of 8 each, the salt add and three xors), 5 to mask, index
+# and test.  They are counted against the H100 SXM's 67 T/s 32-bit rate
+# outside the tensor cores (data sheet, float32), as no integer rate is
+# published beside it.
+HASH_OPS_PER_PROBE = 25
+F32_OPS_PER_S = 67e12
+
+
+def sketch_fns():
+    """name -> (kernel wrapper, plain version) of the four sketch kernels."""
+    from repro_torch.kernels import (admission, sketch_estimate,
+                                     sketch_reset, sketch_update)
+    return {"sketch_update": (sketch_update.add, sketch_update.add_ref),
+            "sketch_estimate": (sketch_estimate.estimate,
+                                sketch_estimate.estimate_ref),
+            "admission": (admission.admit, admission.admission_ref),
+            "sketch_reset": (sketch_reset.reset, sketch_reset.reset_ref)}
+
+
+def set_launches(n: int = 0):
+    """Set every kernel wrapper's launch count to ``n``."""
+    from repro_torch.kernels import sketch_step as ks
+    ks.step.launches = n
+    for kernel, _ in sketch_fns().values():
+        kernel.launches = n
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import sketch_step as ks
+    out = {name: kernel.launches for name, (kernel, _) in sketch_fns().items()}
+    out["sketch_step"] = ks.step.launches
+    return out
+
+
+def lanes_on_card(keys):
+    import torch
+    from repro_torch.kernels.sketch_common import keys_to_lanes
+    lo, hi = keys_to_lanes(np.asarray(keys, np.uint64))
+    return torch.from_numpy(lo).cuda(), torch.from_numpy(hi).cuda()
+
+
+def mixed_keys(seed: int, n: int) -> np.ndarray:
+    """Half from 40 keys (repeats pass the doorkeeper and bump counters),
+    half from 2^63."""
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 40, size=n, dtype=np.uint64)
+    big = rng.integers(0, 1 << 63, size=n, dtype=np.uint64)
+    return np.where(rng.random(n) < 0.5, small, big)
+
+
+def timed_ms(fn, reps: int = 1) -> float:
+    """Mean ms of ``fn()`` on the card: CUDA events around ``reps`` calls,
+    after one untimed call."""
+    import torch
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def compare_sketch(name, cfg, batches, queries, errs, *, auto_reset=False,
+                   plain_ms=None):
+    """Kernel vs plain on the card, from two zeroed states: the batches
+    added (with ``ops.add``'s automatic reset when ``auto_reset``), then
+    estimates and verdicts of ``queries`` against their roll by one, then a
+    standalone reset.  Every leaf and output must be equal; ``errs`` keeps
+    the largest difference per kernel.  With ``plain_ms`` (a dict), the
+    plain version of each kernel is timed on the last batch / the queries."""
+    import torch
+    from repro_torch.kernels import sketch_common as sc
+    fns = sketch_fns()
+    add, add_ref = fns["sketch_update"]
+    reset, reset_ref = fns["sketch_reset"]
+    k_state = sc.init_state(cfg, device="cuda")
+    p_state = sc.init_state(cfg, device="cuda")
+    resets = 0
+
+    def leaf_err(a, b):
+        return max(int((a[k].long() - b[k].long()).abs().max()) for k in a)
+
+    for keys in batches:
+        lo, hi = lanes_on_card(keys)
+        add(cfg, k_state, lo, hi)
+        add_ref(cfg, p_state, lo, hi)
+        if auto_reset and int(k_state["size"]) >= cfg.sample_size:
+            reset(cfg, k_state)
+            reset_ref(cfg, p_state)
+            resets += 1
+        errs["sketch_update"] = max(errs["sketch_update"],
+                                    leaf_err(k_state, p_state))
+    if plain_ms is not None:
+        plain_ms["sketch_update"] = timed_ms(
+            lambda: add_ref(cfg, sc.init_state(cfg, device="cuda"), lo, hi))
+    qlo, qhi = lanes_on_card(queries)
+    vlo, vhi = lanes_on_card(np.roll(queries, 1))
+    for kname, args in (("sketch_estimate", (qlo, qhi)),
+                        ("admission", (qlo, qhi, vlo, vhi))):
+        kernel, plain = fns[kname]
+        got = kernel(cfg, k_state, *args).long()
+        want = plain(cfg, p_state, *args).long()
+        errs[kname] = max(errs[kname], int((got - want).abs().max()))
+        if plain_ms is not None:
+            plain_ms[kname] = timed_ms(lambda: plain(cfg, p_state, *args), 5)
+    if plain_ms is not None:
+        saved = {k: v.clone() for k, v in p_state.items()}
+        plain_ms["sketch_reset"] = timed_ms(
+            lambda: reset_ref(cfg, {k: v.clone() for k, v in saved.items()}))
+    reset(cfg, k_state)
+    reset_ref(cfg, p_state)
+    errs["sketch_reset"] = max(errs["sketch_reset"],
+                               leaf_err(k_state, p_state))
+    for kname in SKETCH_KERNELS:
+        check(errs[kname] == 0, f"{name}: {kname} kernel and plain differ")
+    check(int(k_state["size"]) == int(p_state["size"]),
+          f"{name}: sizes differ")
+    n = sum(len(b) for b in batches)
+    print(f"phase 7  {name}: kernel == plain for add ({n} keys"
+          f"{f', {resets} resets' if auto_reset else ''}), estimate, admit "
+          f"({len(queries)} keys) and reset")
+    return k_state
+
+
+def sketch_phase7(f_trace):
+    """Phase 7: the four sketch kernels against their plain versions on the
+    card.  Returns (max abs error per kernel, plain ms per kernel at S's
+    shapes)."""
+    import torch
+    from repro_torch.kernels import sketch_common as sc
+    from repro_torch.kernels.ops import make_config
+    errs = {k: 0 for k in SKETCH_KERNELS}
+    for ci, kw in enumerate(SKETCH_CFGS):
+        cfg = sc.DeviceSketchConfig(**kw)
+        for batch in (1, 7, 128, 300, 1024):
+            keys = mixed_keys(ci * 10_000 + batch, batch)
+            compare_sketch(f"cfg{ci} batch {batch}", cfg, [keys],
+                           np.concatenate([keys[:64], mixed_keys(batch, 64)]),
+                           errs)
+    for dk in (1024, 0):
+        compare_sketch(f"cap saturation dk_bits={dk}",
+                       sc.DeviceSketchConfig(width=256, cap=7, dk_bits=dk),
+                       [np.full(50, 123456, np.uint64)],
+                       np.array([123456, 7], np.uint64), errs)
+    w256 = sc.DeviceSketchConfig(width=256, cap=15, dk_bits=1024,
+                                 sample_size=256)
+    st = compare_sketch("auto-reset W=256", w256,
+                        [np.tile(np.arange(100, dtype=np.uint64), 3)],
+                        np.arange(128, dtype=np.uint64), errs,
+                        auto_reset=True)
+    check(int(st["size"]) == 75, "auto-reset: size 300 -> 150 -> reset 75")
+    # standalone reset on words with every bit pattern, sign bit included
+    cfg = sc.DeviceSketchConfig(width=4096, dk_bits=4096)
+    rng = np.random.default_rng(5)
+    arrays = {"counters": rng.integers(-2**31, 2**31, (4, 512),
+                                       dtype=np.int64).astype(np.int32),
+              "doorkeeper": rng.integers(-2**31, 2**31, (1, 128),
+                                         dtype=np.int64).astype(np.int32),
+              "size": np.array(1001, np.int32)}
+    k = sc.sketch_state_from_numpy(cfg, arrays, device="cuda")
+    p = sc.sketch_state_from_numpy(cfg, arrays, device="cuda")
+    reset, reset_ref = sketch_fns()["sketch_reset"]
+    reset(cfg, k)
+    reset_ref(cfg, p)
+    err = max(int((k[n].long() - p[n].long()).abs().max()) for n in k)
+    errs["sketch_reset"] = max(errs["sketch_reset"], err)
+    check(err == 0 and int(k["size"]) == 500,
+          "standalone reset: kernel and plain differ")
+    print("phase 7  standalone reset of random full-range words: kernel == "
+          "plain, size 1001 -> 500")
+    plain_ms = {}
+    s_cfg = make_config(S_BLOCKS)
+    compare_sketch("S geometry", s_cfg,
+                   [f_trace[:S_BATCH], f_trace[S_BATCH:2 * S_BATCH]],
+                   f_trace[:S_DECISIONS], errs, auto_reset=True,
+                   plain_ms=plain_ms)
+    torch.cuda.synchronize()
+    return errs, plain_ms
+
+
+SPIN_CYCLES = 1_000_000_000      # ~0.5 s of spin at the H100's clock
+
+
+def kernel_ms(calls):
+    """Device ms of each call, for ``calls`` an iterable of (name, function
+    that launches one kernel): CUDA events around each call, all queued
+    behind a spin kernel, so the events time the kernels back to back and
+    not the host's enqueue.  Checks that the host finished queueing before
+    the spin ended.  Returns ([(name, ms)], [each call's result])."""
+    import torch
+    torch.cuda.synchronize()
+    s0 = torch.cuda.Event(enable_timing=True)
+    s1 = torch.cuda.Event(enable_timing=True)
+    s0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    s1.record()
+    t0 = time.perf_counter()
+    events, outs = [], []
+    for name, fn in calls:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs.append(fn())
+        e1.record()
+        events.append((name, e0, e1))
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = s0.elapsed_time(s1)
+    check(enqueue_ms < spin_ms, f"kernel timing: the host took {enqueue_ms:.1f}"
+          f" ms to queue the launches, longer than the {spin_ms:.1f} ms spin")
+    return [(n, a.elapsed_time(b)) for n, a, b in events], outs
+
+
+def sketch_bound_bytes(cfg, batches, queries):
+    """Bytes each sketch kernel must move at S's shapes, from the words the
+    keys address: per add launch, every distinct counter and doorkeeper
+    word of its batch read and written once and its lanes read; per
+    estimate, the distinct words of the queries read once, their lanes read
+    and the int32 estimates written; per admit the same over candidates and
+    victims, with one byte out per pair; per reset the whole sketch (counter
+    words read and written, doorkeeper words written).  Returns the mean
+    bytes per launch of each kernel."""
+    import torch
+    from repro_torch.kernels.sketch_common import key_probes
+
+    def words(keys):
+        lo, hi = lanes_on_card(keys)
+        idx, dkb = key_probes(lo, hi, cfg.rows, cfg.width, cfg.dk_bits,
+                              cfg.dk_probes)
+        rows = torch.arange(cfg.rows, device=idx.device) * cfg.words_per_row
+        cw = torch.unique(rows + (idx >> 3)).numel()
+        return cw + torch.unique(dkb >> 5).numel()
+
+    add = sum(2 * 4 * words(b) + 8 * len(b) for b in batches) / len(batches)
+    est = 4 * words(queries) + 8 * len(queries) + 4 * len(queries)
+    both = np.concatenate([queries, np.roll(queries, 1)])
+    adm = 4 * words(both) + 16 * len(queries) + len(queries)
+    reset = 4 * (2 * cfg.rows * cfg.words_per_row + cfg.dk_words)
+    return {"sketch_update": add, "sketch_estimate": est, "admission": adm,
+            "sketch_reset": reset}
+
+
+def sketch_phase8(f_trace, card):
+    """Phase 8: run S through DeviceTinyLFU (the launch counts set to 0
+    just before and read just after), check its pins, then time every
+    kernel with CUDA events around each launch.  Returns (launches, ms per
+    launch, the batches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sketch_common as sc
+    batches = [f_trace[s:s + S_BATCH] for s in range(0, len(f_trace),
+                                                     S_BATCH)]
+    cands = f_trace[:S_DECISIONS]
+    victims = np.roll(cands, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = ops.DeviceTinyLFU(S_BLOCKS)
+    set_launches(0)
+    t0 = time.perf_counter()
+    for b in batches:
+        t.record(b)
+    torch.cuda.synchronize()
+    rec_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = t.estimate(cands)
+    verdicts = t.admit(cands, victims)
+    dec_wall = time.perf_counter() - t0
+    launches = read_launches()
+    resets = launches["sketch_reset"]
+    got = (digest(t.state), resets,
+           digest({"estimate": torch.from_numpy(est)}), int(verdicts.sum()))
+    check(got == S_PINS, f"S: (state digest, resets, estimate digest, "
+          f"admitted) {got} != JAX {S_PINS}")
+    check(launches["sketch_update"] == len(batches)
+          and launches["sketch_estimate"] == 1
+          and launches["admission"] == 1 and resets > 0,
+          f"S: launches {launches}")
+    print(f"phase 8  S: DeviceTinyLFU({S_BLOCKS}) width {t.cfg.width} rows "
+          f"{t.cfg.rows} cap {t.cfg.cap} dk_bits {t.cfg.dk_bits} W "
+          f"{t.cfg.sample_size}: state digest, {resets} resets, estimate "
+          f"digest and {got[3]} admitted of {S_DECISIONS} == JAX")
+    print(f"phase 8  S: record {len(f_trace)} keys in {len(batches)} "
+          f"batches {rec_wall:.3f} s wall ({len(f_trace) / rec_wall:,.0f} "
+          f"keys/s, host clock, lane upload included); estimate + admit of "
+          f"{S_DECISIONS} keys {dec_wall * 1e3:.2f} ms wall; launches "
+          f"{launches}; card {card}")
+
+    # the same run again, CUDA events around each kernel launch
+    fns = sketch_fns()
+    add, reset = fns["sketch_update"][0], fns["sketch_reset"][0]
+    cfg = t.cfg
+    state = sc.init_state(cfg, device="cuda")
+    lanes = [lanes_on_card(b) for b in batches]
+    qlo, qhi = lanes_on_card(cands)
+    vlo, vhi = lanes_on_card(victims)
+
+    def record_calls():
+        for lo, hi in lanes:
+            yield "sketch_update", lambda: add(cfg, state, lo, hi)
+            if int(state["size"]) >= cfg.sample_size:
+                yield "sketch_reset", lambda: reset(cfg, state)
+
+    ms = {k: [] for k in SKETCH_KERNELS}
+    peak = {}
+    for kinds, calls in (
+            (("sketch_update", "sketch_reset"), record_calls()),
+            (("sketch_estimate",), [("sketch_estimate", lambda: fns[
+                "sketch_estimate"][0](cfg, state, qlo, qhi))] * 20),
+            (("admission",), [("admission", lambda: fns["admission"][0](
+                cfg, state, qlo, qhi, vlo, vhi))] * 20)):
+        torch.cuda.reset_peak_memory_stats()
+        timed, outs = kernel_ms(calls)
+        for k in kinds:
+            peak[k] = torch.cuda.max_memory_allocated()
+        for k, v in timed:
+            ms[k].append(v)
+        if kinds == ("sketch_estimate",):
+            e = outs[-1]
+        elif kinds == ("admission",):
+            a = outs[-1]
+    check(digest(state) == got[0], "S: the timed run differs from the "
+          "main run")
+    check(np.array_equal(e.cpu().numpy(), est)
+          and np.array_equal(a.cpu().numpy(), verdicts),
+          "S: the timed estimates or verdicts differ from the main run's")
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    for k in SKETCH_KERNELS:
+        print(f"phase 8  S: {k} {mean[k]:.4f} ms per launch over "
+              f"{len(ms[k])} timed launches (min {min(ms[k]):.4f}, max "
+              f"{max(ms[k]):.4f}); main-run launches {launches[k]}; "
+              f"max_memory_allocated {peak[k]} bytes")
+    busy = (sum(ms["sketch_update"]) + sum(ms["sketch_reset"])) / (
+        rec_wall * 1e3)
+    print(f"phase 8  S: the record kernels' time is a share {busy:.4f} of "
+          f"the main run's record wall time")
+    return launches, mean, batches
+
+
+def serving_phase9(card):
+    """Phase 9: P1 and P2 through PrefixCache on the card, each run with
+    the launch counts set to 0 just before and read just after; every
+    PrefixCacheStats field must equal the JAX cache's."""
+    import dataclasses
+    import torch
+    from repro_torch.serve import PrefixCache
+    from repro_torch.traces.synthetic import multi_tenant_prompt_trace
+    p1 = multi_tenant_prompt_trace(**P1_TRACE)
+    p2 = multi_tenant_prompt_trace(**P2_TRACE)
+    runs = [("P1", p, c, p1) for p in ("lru", "tinylfu", "wtinylfu")
+            for c in P1_CAPS] + [("P2", "wtinylfu", P2_CAP, p2)]
+    totals = {}
+    for name, policy, cap, stream in runs:
+        pc = PrefixCache(cap, policy=policy, sample_factor=8)
+        set_launches(0)
+        t0 = time.perf_counter()
+        stats = replay(pc, stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        got = dataclasses.astuple(stats)
+        want = P_PINS[(name, policy, cap)]
+        check(got == want, f"{name} {policy} C={cap}: stats {got} != JAX "
+              f"{want}")
+        decisions = stats.admitted + stats.rejected
+        if policy != "lru":
+            check(launches["sketch_update"] == stats.lookups
+                  and launches["admission"] == decisions,
+                  f"{name} {policy} C={cap}: launches {launches}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"phase 9  {name} {policy:8s} C={cap:<6d} stats == JAX, hit "
+              f"ratio {stats.hit_ratio:.6f}; wall {wall:.3f} s, "
+              f"{len(stream) / wall:,.0f} block accesses/s, "
+              f"{decisions / wall:,.0f} admission decisions/s; launches add "
+              f"{launches['sketch_update']} admit {launches['admission']} "
+              f"reset {launches['sketch_reset']}")
+    print(f"phase 9  {len(runs)} runs on {card}; launches in all {totals}")
+    decision_breakdown(p2)
+
+
+def decision_breakdown(stream, n: int = 2000):
+    """Where one serving decision's time goes: wall µs per
+    ``DeviceAdmission.admit`` (one batch-of-one launch and one verdict read
+    each) against the device µs of the admit kernel at one pair and of the
+    add kernel at one 32-block lookup (CUDA events, launches queued behind
+    a spin kernel so the events time the kernels, not the enqueue)."""
+    import torch
+    from repro_torch.kernels import admission, sketch_update
+    from repro_torch.serve.prefix_cache import DeviceAdmission
+    adm = DeviceAdmission(P2_CAP)
+    for s in range(0, 64 * 32, 32):
+        adm.record_batch([int(x) for x in stream[s:s + 32]])
+    pairs = [(int(stream[i % len(stream)]), int(stream[(i + 7) % len(stream)]))
+             for i in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c, v in pairs:
+        adm.admit(c, v)
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    cfg, state = adm.t.cfg, adm.t.state
+    lo, hi = lanes_on_card(stream[:32])
+
+    def device_us(name, fn, reps=200):
+        timed, _ = kernel_ms([(name, fn)] * reps)
+        return sum(v for _, v in timed) / reps * 1e3
+
+    admit_us = device_us("admission", lambda: admission.admit(
+        cfg, state, lo[:1], hi[:1], lo[1:2], hi[1:2]))
+    add_us = device_us("sketch_update",
+                       lambda: sketch_update.add(cfg, state, lo, hi))
+    print(f"phase 9  one decision: DeviceAdmission.admit {host_us:.1f} us "
+          f"of wall (host clock over {n} calls, one verdict read each); "
+          f"admit kernel at 1 pair {admit_us:.2f} us and add kernel at a "
+          f"32-block lookup {add_us:.2f} us of device time; the host holds "
+          f"{1 - admit_us / host_us:.3f} of a decision")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -222,14 +731,18 @@ def main() -> int:
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    _build.load_library()
-    info = _build.build_info[("sketch_step", ())]
-    nvcc = (f"nvcc {info['seconds']:.1f} s" if info["seconds"]
-            else "built before; its ptxas log was kept")
-    print(f"phase 1  build: {time.perf_counter() - t0:.1f} s ({nvcc})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("phase 1  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(SOURCES)) as ex:     # one nvcc per source
+        list(ex.map(_build.load_library, SOURCES))
+    print(f"phase 1  build of {len(SOURCES)} sources in parallel: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in SOURCES:
+        info = _build.build_info[(name, ())]
+        nvcc = (f"nvcc {info['seconds']:.1f} s" if info["seconds"]
+                else "built before; its ptxas log was kept")
+        print(f"phase 1  {name}: {nvcc}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"phase 1  {name} ptxas:", line.strip())
 
     # -- phase 2: kernel vs plain on the card ------------------------------
     zipf = zipf_trace(60_000, n_items=50_000, alpha=0.9, seed=7)
@@ -338,6 +851,40 @@ def main() -> int:
           f"{bound_ms:.6f} ms/chunk; kernel is {ms_chunk / bound_ms:.0f}x "
           f"above it (a dependent per-access chain: latency-bound)")
 
+    # -- phase 7: the sketch kernels vs plain on the card ------------------
+    errs, s_plain_ms = sketch_phase7(f_trace)
+
+    # -- phase 8: S, the batched sketch ops at real size ------------------
+    s_launches, s_ms, s_batches = sketch_phase8(f_trace, card)
+
+    # -- phase 9: P1 and P2, the serving path through PrefixCache ---------
+    serving_phase9(card)
+
+    # -- phase 10: the sketch kernels' bounds -------------------------------
+    from repro_torch.kernels.ops import make_config
+    s_cfg = make_config(S_BLOCKS)
+    nbytes = sketch_bound_bytes(s_cfg, s_batches, f_trace[:S_DECISIONS])
+    probe_ops = HASH_OPS_PER_PROBE * (s_cfg.rows + s_cfg.dk_probes)
+    nops = {"sketch_update": probe_ops * S_BATCH,
+            "sketch_estimate": probe_ops * S_DECISIONS,
+            "admission": 2 * probe_ops * S_DECISIONS,
+            "sketch_reset": 2 * s_cfg.rows * s_cfg.words_per_row}
+    bounds = {}
+    for k in SKETCH_KERNELS:
+        b_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        o_ms = nops[k] / F32_OPS_PER_S * 1e3
+        bounds[k] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else
+                     "operations")
+        print(f"phase 10 bound {k}: {nbytes[k]:.0f} bytes per launch over "
+              f"3.35 TB/s = {b_ms:.6f} ms; {nops[k]} 32-bit ops over "
+              f"67 T/s = {o_ms:.6f} ms; kernel {s_ms[k]:.4f} ms is "
+              f"{s_ms[k] / bounds[k][0]:.0f}x above the larger")
+    floor_ms = S_BATCH * L2_ROUND_TRIP_NS * 1e-6
+    print(f"phase 10 latency floor sketch_update: 1 dependent L2 round trip "
+          f"per key x {L2_ROUND_TRIP_NS} ns x {S_BATCH} keys = {floor_ms:.4f}"
+          f" ms per launch; kernel at {s_ms['sketch_update'] / floor_ms:.2f}x"
+          f" of it")
+
     kernels = [{
         "name": "sketch_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sketch_step.cu",
@@ -346,6 +893,15 @@ def main() -> int:
         "matches_plain": max_err == 0, "ms": ms_chunk,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": None}]
+    for k in SKETCH_KERNELS:
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{k}.cu",
+            "replaces": REPLACES[k], "launches": s_launches[k],
+            "max_abs_err": errs[k], "matches_plain": errs[k] == 0,
+            "ms": s_ms[k], "plain_ms": s_plain_ms[k],
+            "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+            "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

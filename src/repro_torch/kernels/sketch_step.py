@@ -31,8 +31,9 @@ import torch
 
 from repro_torch.core.hashing import (WSET_SALT, MSET_SALT, MSET2_SALT,
                                       set_ways, shard_geometry)
-from .sketch_common import (POLICIES, probe_index, dk_probe_index, set_index,
-                            halve_words)
+from .sketch_common import (POLICIES, _check, _pow2, halve_words, key_probes,
+                            resolve_device, set_index)
+from .sketch_update import add_one
 
 _I32_MAX = 2**31 - 1          # padding-slot meta: never free, never a victim
 _PROT = 1 << 30               # meta bit 30: protected segment
@@ -65,15 +66,6 @@ MT_LO, MT_HI, MT_META = 0, 1, 2
 # the kernel keeps one access's probes in registers
 _MAX_ROWS = 8
 _MAX_DKP = 8
-
-
-def _pow2(x: int) -> bool:
-    return x > 0 and (x & (x - 1)) == 0
-
-
-def _check(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
 
 
 @dataclass(frozen=True)
@@ -233,23 +225,6 @@ def _require_ported(spec: StepSpec):
             f"policy {spec.policy!r} is ROADMAP queue 1 item 9")
 
 
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller asks for the CPU; no silent fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the engine runs on the card; pass "
-                "device='cpu' to run the plain version on the CPU")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device {device!r} must be 'cuda' or 'cpu'")
-    return dev
-
-
 def make_step_params(window_cap: int, main_cap: int, prot_cap: int,
                      sample_size: int, cap: int, warmup: int = 0,
                      counter_bits: int = 4, device=None) -> torch.Tensor:
@@ -361,14 +336,8 @@ def precompute_probes(spec: StepSpec, lo: torch.Tensor, hi: torch.Tensor):
     """(B,) key lanes -> ((B, rows) probes, (B, dkp) doorkeeper bits,
     (B,) window set, (B, 2) main set choices), all int32 on lo's device.
     Set indices are zeros in flat mode."""
-    idx = torch.stack([probe_index(lo, hi, r, spec.width)
-                       for r in range(spec.rows)], dim=-1)
-    if spec.dk_bits:
-        dkb = torch.stack([dk_probe_index(lo, hi, p, spec.dk_bits)
-                           for p in range(spec.dk_probes)], dim=-1)
-    else:
-        dkb = torch.zeros(lo.shape + (1,), dtype=torch.int32,
-                          device=lo.device)
+    idx, dkb = key_probes(lo, hi, spec.rows, spec.width, spec.dk_bits,
+                          spec.dk_probes)
     if spec.assoc is not None:
         wset = set_index(lo, hi, spec.window_sets, WSET_SALT)
         mset = torch.stack([set_index(lo, hi, spec.main_sets, MSET_SALT),
@@ -378,8 +347,7 @@ def precompute_probes(spec: StepSpec, lo: torch.Tensor, hi: torch.Tensor):
         wset = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
         mset = torch.zeros(lo.shape + (2,), dtype=torch.int32,
                            device=lo.device)
-    return (idx.contiguous(), dkb.contiguous(), wset.contiguous(),
-            mset.contiguous())
+    return idx, dkb, wset.contiguous(), mset.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -415,41 +383,12 @@ def _word_of(spec: StepSpec, idx):
 
 
 def _sketch_add(spec: StepSpec, params, counters, dk, size, kidx, kdkb):
-    """Doorkeeper gate -> conservative increment -> §3.3 reset, in place on
-    ``counters``/``dk``; returns the new size (0-d tensor).
-
-    Every read uses the words gathered before any write: a later doorkeeper
-    probe of the same access sees an earlier probe's bit through the
-    pairwise comparison, and probes sharing a word write a merged value.
-    """
-    if spec.dk_bits:
-        w_idx = (kdkb >> 5).long()
-        bpos = kdkb & 31
-        words = dk[w_idx]                              # (dkp,) one gather
-        pre = (words >> bpos) & 1
-        n = spec.dk_probes
-        earlier = torch.tril(kdkb[:, None] == kdkb[None, :], diagonal=-1)
-        present = ((pre == 1) | earlier.any(dim=1)).all()
-        bitm = torch.ones_like(bpos) << bpos
-        same = w_idx[:, None] == w_idx[None, :]
-        merged = words.clone()
-        for j in range(n):
-            merged = merged | torch.where(same[:, j], bitm[j], 0)
-        dk[w_idx] = merged                 # duplicate words carry one value
-        gate = present
-    else:
-        gate = torch.ones((), dtype=torch.bool, device=counters.device)
-
-    rows = torch.arange(spec.rows, device=counters.device)
-    flat = (rows * spec.words_per_row + _word_of(spec, kidx)).long()
-    words = counters[flat]
-    vals = _counter_vals(spec, words, kidx)
-    m = vals.min()
-    bump = gate & (m < params[P_CAP])
-    sub = kidx & (spec.counters_per_word - 1)
-    inc = torch.ones_like(sub) << (sub * spec.counter_bits)
-    counters[flat] = torch.where(bump & (vals == m), words + inc, words)
-
+    """Doorkeeper gate -> conservative increment (``add_one``, shared with
+    the batched add) -> §3.3 reset, in place on ``counters``/``dk``; returns
+    the new size (0-d tensor)."""
+    add_one(counters, dk, kidx, kdkb, words_per_row=spec.words_per_row,
+            counter_bits=spec.counter_bits, cap=params[P_CAP],
+            dk_bits=spec.dk_bits)
     size = size + 1
     do_reset = (params[P_SAMPLE] > 0) & (size >= params[P_SAMPLE])
     counters.copy_(torch.where(do_reset,
@@ -726,7 +665,7 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     """One kernel launch over one chunk: state updated in place, hit flags
     written to ``hits`` (zeros past n_valid).  No host sync.  ``lib`` is the
     loaded kernel library (default: the build of ``csrc/sketch_step.cu``)."""
-    from ._build import load_library
+    from ._build import check_error, load_library
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
            f"{_MAX_DKP}")
@@ -756,11 +695,8 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
                  mcols=spec.mcols if spec.assoc else 0)
     lib = lib or load_library()
     stream = torch.cuda.current_stream(lo.device).cuda_stream
-    err = lib.sketch_step_launch(ctypes.addressof(args), _THREADS,
-                                 _smem_bytes(spec), stream)
-    if err != 0:
-        raise RuntimeError(f"sketch_step kernel launch failed: CUDA error "
-                           f"{err} ({lib.cuda_error_string(err).decode()})")
+    check_error("sketch_step", lib, lib.sketch_step_launch(
+        ctypes.addressof(args), _THREADS, _smem_bytes(spec), stream))
     step.launches += 1
 
 

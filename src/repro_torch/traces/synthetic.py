@@ -36,3 +36,31 @@ def scan_then_hotspot_trace() -> np.ndarray:
     hot = _sample_from_probs(zipf_probs(2_000, 1.0), 35_000,
                              rng).astype(np.int64)
     return np.concatenate([scan, hot])
+
+
+def multi_tenant_prompt_trace(n_requests: int, n_tenants: int = 200,
+                              tenant_alpha: float = 1.0,
+                              prefix_blocks_mean: int = 24,
+                              suffix_blocks_mean: int = 6,
+                              block_reuse_alpha: float = 0.8,
+                              seed: int = 0) -> np.ndarray:
+    """Serving workload: each request touches its tenant's shared prefix
+    blocks (ids stable per tenant) then some per-request suffix blocks
+    (unique).  Emits the block-id access stream seen by the prefix cache.
+    ``block_reuse_alpha`` is accepted, as the reference accepts it, and
+    unused, as there."""
+    rng = np.random.default_rng(seed)
+    tprobs = zipf_probs(n_tenants, tenant_alpha)
+    tenant_prefix_len = rng.poisson(prefix_blocks_mean, n_tenants) + 4
+    # globally unique block id ranges per tenant
+    prefix_base = np.concatenate([[0], np.cumsum(tenant_prefix_len)])[:-1]
+    next_suffix = int(prefix_base[-1] + tenant_prefix_len[-1])
+    chunks = []
+    tenants = _sample_from_probs(tprobs, n_requests, rng)
+    for t in tenants:
+        plen = tenant_prefix_len[t]
+        chunks.append(prefix_base[t] + np.arange(plen))
+        slen = rng.poisson(suffix_blocks_mean) + 1
+        chunks.append(np.arange(next_suffix, next_suffix + slen))
+        next_suffix += slen
+    return np.concatenate(chunks).astype(np.int64)

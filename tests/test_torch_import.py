@@ -9,9 +9,16 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 MODULES = ["repro_torch", "repro_torch.core.hashing",
            "repro_torch.core.simulate", "repro_torch.core.device_simulate",
+           "repro_torch.core.policies",
            "repro_torch.kernels.sketch_common",
            "repro_torch.kernels.sketch_step", "repro_torch.kernels._build",
-           "repro_torch.kernels.phase_timing", "repro_torch.traces.synthetic"]
+           "repro_torch.kernels.phase_timing",
+           "repro_torch.kernels.sketch_update",
+           "repro_torch.kernels.sketch_estimate",
+           "repro_torch.kernels.admission",
+           "repro_torch.kernels.sketch_reset", "repro_torch.kernels.ops",
+           "repro_torch.traces.synthetic", "repro_torch.serve",
+           "repro_torch.serve.prefix_cache"]
 
 
 def test_imports_with_jax_and_repro_blocked():

@@ -1,14 +1,18 @@
-"""The CUDA step kernel against the port's plain version, on the card.
+"""The CUDA kernels against the port's plain versions, on the card: the step
+kernel and the four batched sketch kernels (add, estimate, admit, reset).
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
-Without a card the kernel test skips; the wrapper checks below run anywhere.
+Without a card the kernel tests skip; the wrapper checks below run anywhere.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.device_simulate import run_chunks
+from repro_torch.kernels import (admission, sketch_estimate, sketch_reset,
+                                 sketch_update)
+from repro_torch.kernels import sketch_common as sc
 from repro_torch.kernels import sketch_step as port
 from repro_torch.kernels.sketch_common import keys_to_lanes
 
@@ -68,3 +72,69 @@ def test_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port._launch(spec, port.make_step_params(*pargs, device="cpu"), state,
                      lo, lo, probes, 4, torch.zeros(4, dtype=torch.int32))
+
+
+# DeviceSketchConfig kwargs: the tests/test_kernels.py CFGS, one with W
+SKETCH_CFGS = [dict(width=256, rows=4, cap=15, dk_bits=1024),
+               dict(width=1024, rows=4, cap=7, dk_bits=4096),
+               dict(width=512, rows=2, cap=15, dk_bits=0),
+               dict(width=2048, rows=1, cap=3, dk_bits=2048),
+               dict(width=256, rows=4, cap=15, dk_bits=1024, sample_size=256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(SKETCH_CFGS)))
+@pytest.mark.parametrize("batch", [1, 7, 128, 300, 1024])
+def test_sketch_kernels_match_plain_on_card(case, batch):
+    """add (with the automatic reset), estimate, admit and a standalone
+    reset: kernel == plain on every leaf and output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = sc.DeviceSketchConfig(**SKETCH_CFGS[case])
+    rng = np.random.default_rng(case * 7919 + batch)
+    keys = np.where(rng.random(batch) < 0.5,
+                    rng.integers(0, 40, batch, dtype=np.uint64),
+                    rng.integers(0, 1 << 63, batch, dtype=np.uint64))
+    lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
+    q = np.concatenate([keys[:64], np.arange(64, dtype=np.uint64)])
+    qlo, qhi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(q))
+    vlo, vhi = qlo.roll(1), qhi.roll(1)
+    states = []
+    for add, reset, est, adm in (
+            (sketch_update.add, sketch_reset.reset, sketch_estimate.estimate,
+             admission.admit),
+            (sketch_update.add_ref, sketch_reset.reset_ref,
+             sketch_estimate.estimate_ref, admission.admission_ref)):
+        state = sc.init_state(cfg, device="cuda")
+        add(cfg, state, lo, hi)
+        if cfg.sample_size and int(state["size"]) >= cfg.sample_size:
+            reset(cfg, state)
+        outs = [est(cfg, state, qlo, qhi).cpu(),
+                adm(cfg, state, qlo, qhi, vlo, vhi).cpu()]
+        reset(cfg, state)
+        states.append((sc.sketch_state_to_numpy(state), outs))
+    (got, got_out), (ref, ref_out) = states
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=f"state[{k}]")
+    for g, r in zip(got_out, ref_out):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("module,wrapper,args", [
+    (sketch_update, "add", lambda c, s, x: (c, s, x, x, 4)),
+    (sketch_estimate, "estimate", lambda c, s, x: (c, s, x, x, x)),
+    (admission, "admit", lambda c, s, x: (
+        c, s, x, x, x, x, torch.zeros(4, dtype=torch.bool))),
+    (sketch_reset, "reset", lambda c, s, x: (c, s)),
+])
+def test_sketch_launch_refuses_cpu_tensors(module, wrapper, args):
+    """The sketch kernels' launch paths never take CPU tensors (only the
+    wrappers may route a CPU tensor to the plain version), and a refused
+    launch is not counted."""
+    cfg = sc.DeviceSketchConfig(width=256, dk_bits=1024)
+    state = sc.init_state(cfg, device="cpu")
+    x = torch.zeros(4, dtype=torch.int32)
+    before = getattr(module, wrapper).launches
+    with pytest.raises(ValueError, match="CUDA"):
+        module._launch(*args(cfg, state, x))
+    assert getattr(module, wrapper).launches == before

@@ -86,6 +86,20 @@ def test_halve_words_matches(bits):
         got, np.asarray(jsc.halve_words(jnp.asarray(w), bits)))
 
 
+def test_nibble_helpers_match():
+    rng = np.random.default_rng(3)
+    words = rng.integers(-2**31, 2**31, size=400, dtype=np.int64).astype(
+        np.int32)
+    nibs = rng.integers(0, 8, size=400).astype(np.int32)
+    pw, pn = torch.from_numpy(words), torch.from_numpy(nibs)
+    jw, jn = jnp.asarray(words), jnp.asarray(nibs)
+    np.testing.assert_array_equal(psc.nibble_get(pw, pn).numpy(),
+                                  np.asarray(jsc.nibble_get(jw, jn)))
+    below = np.asarray(jsc.nibble_get(jw, jn)) < 15      # the caller's promise
+    np.testing.assert_array_equal(psc.nibble_inc(pw, pn).numpy()[below],
+                                  np.asarray(jsc.nibble_inc(jw, jn))[below])
+
+
 def test_keys_to_lanes_bit_patterns():
     keys = np.array([0, 1, 2**32 - 1, 2**32, 2**63, 2**64 - 2], np.uint64)
     plo, phi = psc.keys_to_lanes(keys)
