@@ -48,7 +48,6 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import math
 import subprocess
@@ -61,6 +60,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.check_runs import (P1_CAPS, P1_TRACE, P2_CAP,  # noqa: E402
+                                    P2_TRACE, P_PINS, S_BATCH, S_BLOCKS,
+                                    S_DECISIONS, S_PINS, SKETCH_CFGS, digest,
+                                    mixed_keys, replay)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 
@@ -84,46 +87,8 @@ F_CAPACITY, F_ASSOC, F_WARMUP, F_CHUNK = 65536, 8, 480_000, 512
 F_HITS = 455639
 F_REGS = [413568, 0, 1200000, 455639, 0, 0, 0, 0]
 F_DIGEST = "822de2a898615740"
-
-# Run S: the batched sketch ops at F's capacity.  DeviceTinyLFU(S_BLOCKS)
-# records F's trace in S_BATCH-key batches, then estimates its first
-# S_DECISIONS keys and admits them against np.roll(cands, 1).  The pins are
-# the JAX package's (ops with use_pallas=False, bit-equal to its Pallas
-# kernels): state digest, resets, estimate digest, admitted count
-# (python tests/test_torch_sketch_ops.py prints them).
-S_BLOCKS, S_BATCH, S_DECISIONS = 65_536, 4096, 50_000
-S_PINS = ("b0683a28b7852844", 3, "f40dc4a77ca0f007", 17188)
-
-# Runs P: benchmarks/bench_serving.py's replay through PrefixCache.  P1 is
-# its full grid (lru / tinylfu / wtinylfu x P1_CAPS); P2 the same generator
-# scaled to F's capacity, wtinylfu.  The pins are every PrefixCacheStats
-# field (lookups, block_hits, block_misses, inserts, admitted, rejected,
-# evicted) of the JAX PrefixCache with DeviceAdmission(use_pallas=False)
-# (python tests/test_torch_prefix_cache.py prints them).
-P1_TRACE = dict(n_requests=6000, n_tenants=400, tenant_alpha=1.0, seed=81)
-P1_CAPS = (1000, 2000, 4000)
-P2_TRACE = dict(n_requests=30_000, n_tenants=4_000, tenant_alpha=1.0,
-                seed=81)
-P2_CAP = 65_536
-P_PINS = {
-    ("P1", "lru", 1000): (6779, 33236, 183667, 143909, 142909, 0, 142909),
-    ("P1", "lru", 2000): (6779, 44339, 172564, 121745, 119745, 0, 119745),
-    ("P1", "lru", 4000): (6779, 54812, 162091, 100251, 96251, 0, 96251),
-    ("P1", "tinylfu", 1000): (6779, 45884, 171019, 120466, 3700, 115766,
-                              3700),
-    ("P1", "tinylfu", 2000): (6779, 55059, 161844, 103460, 2557, 98903,
-                              2557),
-    ("P1", "tinylfu", 4000): (6779, 63273, 153630, 87314, 1857, 81457,
-                              1857),
-    ("P1", "wtinylfu", 1000): (6779, 47856, 169047, 116584, 4719, 110865,
-                               4719),
-    ("P1", "wtinylfu", 2000): (6779, 55802, 161101, 103332, 2125, 99207,
-                               2125),
-    ("P1", "wtinylfu", 4000): (6779, 63346, 153557, 87308, 2459, 80849,
-                               2459),
-    ("P2", "wtinylfu", 65536): (33523, 334740, 737969, 376310, 1197, 309577,
-                                1197),
-}
+# Runs S and P, the serving-admission path, and their JAX pins are defined
+# in repro_torch.check_runs, which the CPU tests share.
 
 
 class SmokeFailure(Exception):
@@ -133,33 +98,6 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def digest(state: dict) -> str:
-    """sha256 over the state leaves in sorted key order: the key's UTF-8
-    bytes, then the leaf as contiguous little-endian int32; 16 hex chars."""
-    h = hashlib.sha256()
-    for k in sorted(state):
-        h.update(k.encode())
-        h.update(np.ascontiguousarray(state[k].cpu().numpy(),
-                                      dtype="<i4").tobytes())
-    return h.hexdigest()[:16]
-
-
-def replay(pc, stream, block: int = 32):
-    """benchmarks/bench_serving.py's replay: the stream cut into 32-block
-    pseudo-requests; each looks up its chain, then offers every block past
-    the cached prefix that the cache does not hold.  Works on the
-    PrefixCache of either package; returns its stats."""
-    slot = 0
-    for i in range(0, len(stream), block):
-        chunk = [int(x) for x in stream[i:i + block]]
-        hits = pc.lookup(chunk)
-        for h in chunk[len(hits):]:
-            if h not in pc:
-                pc.insert(h, slot)
-                slot += 1
-    return pc.stats
 
 
 def card_line() -> str:
@@ -233,8 +171,8 @@ def timed_launches(trace, cfg, chunk, warmup):
 
     state, hits = run_chunks(spec, params, state, lo, hi, chunk, fn=step)
     torch.cuda.synchronize()
-    kernel_ms = [a.elapsed_time(b) for a, b in events]
-    return state, hits, kernel_ms, events[0][0].elapsed_time(events[-1][1])
+    launch_ms = [a.elapsed_time(b) for a, b in events]
+    return state, hits, launch_ms, events[0][0].elapsed_time(events[-1][1])
 
 
 def bound_bytes(spec, trace, chunk, sample):
@@ -285,11 +223,6 @@ SOURCES = ("sketch_step", "sketch_update", "sketch_estimate", "admission",
            "sketch_reset")
 SKETCH_KERNELS = ("sketch_update", "sketch_estimate", "admission",
                   "sketch_reset")
-# the tests/test_kernels.py CFGS (DeviceSketchConfig kwargs)
-SKETCH_CFGS = [dict(width=256, rows=4, cap=15, dk_bits=1024),
-               dict(width=1024, rows=4, cap=7, dk_bits=4096),
-               dict(width=512, rows=2, cap=15, dk_bits=0),
-               dict(width=2048, rows=1, cap=3, dk_bits=2048)]
 L2_ROUND_TRIP_NS = 146.4        # phase_timing, H100 80GB HBM3 at 700 W
 REPLACES = {"sketch_update": "src/repro/kernels/sketch_update.py:80",
             "sketch_estimate": "src/repro/kernels/sketch_estimate.py:71",
@@ -337,15 +270,6 @@ def lanes_on_card(keys):
     return torch.from_numpy(lo).cuda(), torch.from_numpy(hi).cuda()
 
 
-def mixed_keys(seed: int, n: int) -> np.ndarray:
-    """Half from 40 keys (repeats pass the doorkeeper and bump counters),
-    half from 2^63."""
-    rng = np.random.default_rng(seed)
-    small = rng.integers(0, 40, size=n, dtype=np.uint64)
-    big = rng.integers(0, 1 << 63, size=n, dtype=np.uint64)
-    return np.where(rng.random(n) < 0.5, small, big)
-
-
 def timed_ms(fn, reps: int = 1) -> float:
     """Mean ms of ``fn()`` on the card: CUDA events around ``reps`` calls,
     after one untimed call."""
@@ -391,9 +315,10 @@ def compare_sketch(name, cfg, batches, queries, errs, *, auto_reset=False,
             resets += 1
         errs["sketch_update"] = max(errs["sketch_update"],
                                     leaf_err(k_state, p_state))
-    if plain_ms is not None:
+    if plain_ms is not None:                # zeroed states made untimed
+        fresh = [sc.init_state(cfg, device="cuda") for _ in range(2)]
         plain_ms["sketch_update"] = timed_ms(
-            lambda: add_ref(cfg, sc.init_state(cfg, device="cuda"), lo, hi))
+            lambda: add_ref(cfg, fresh.pop(), lo, hi))
     qlo, qhi = lanes_on_card(queries)
     vlo, vhi = lanes_on_card(np.roll(queries, 1))
     for kname, args in (("sketch_estimate", (qlo, qhi)),
@@ -404,10 +329,11 @@ def compare_sketch(name, cfg, batches, queries, errs, *, auto_reset=False,
         errs[kname] = max(errs[kname], int((got - want).abs().max()))
         if plain_ms is not None:
             plain_ms[kname] = timed_ms(lambda: plain(cfg, p_state, *args), 5)
-    if plain_ms is not None:
-        saved = {k: v.clone() for k, v in p_state.items()}
+    if plain_ms is not None:                # copies of the state made untimed
+        copies = [{k: v.clone() for k, v in p_state.items()}
+                  for _ in range(6)]
         plain_ms["sketch_reset"] = timed_ms(
-            lambda: reset_ref(cfg, {k: v.clone() for k, v in saved.items()}))
+            lambda: reset_ref(cfg, copies.pop()), 5)
     reset(cfg, k_state)
     reset_ref(cfg, p_state)
     errs["sketch_reset"] = max(errs["sketch_reset"],
@@ -825,17 +751,17 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated()} bytes; card {card}")
 
     # -- phase 5: kernel time per launch, device idle share ---------------
-    t_state, t_hits, kernel_ms, stream_ms = timed_launches(
+    t_state, t_hits, step_launch_ms, stream_ms = timed_launches(
         f_trace, f_cfg, F_CHUNK, F_WARMUP)
     check(t_state["regs"].cpu().tolist() == F_REGS
           and digest(t_state) == F_DIGEST
           and bool((t_hits == hit_flags).all()),
           "F: the timed run differs from the main run")
-    ms_chunk = sum(kernel_ms) / len(kernel_ms)
-    idle = 1.0 - sum(kernel_ms) / stream_ms
+    ms_chunk = sum(step_launch_ms) / len(step_launch_ms)
+    idle = 1.0 - sum(step_launch_ms) / stream_ms
     print(f"phase 5  F: kernel {ms_chunk:.4f} ms per launch (CUDA events "
-          f"around each of {len(kernel_ms)} launches; min "
-          f"{min(kernel_ms):.4f}, max {max(kernel_ms):.4f}), "
+          f"around each of {len(step_launch_ms)} launches; min "
+          f"{min(step_launch_ms):.4f}, max {max(step_launch_ms):.4f}), "
           f"{ms_chunk * 1e6 / F_CHUNK:.0f} ns/access; runner stream "
           f"{stream_ms:.1f} ms, device idle share {idle:.6f}")
 

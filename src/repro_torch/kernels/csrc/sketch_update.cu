@@ -1,8 +1,8 @@
 // Sequential conservative-update adds for Hopper (sm_90a).
 //
 // Replaces the TPU kernel add_pallas / _update_kernel of
-// src/repro/kernels/sketch_update.py.  One launch adds the first n_valid
-// keys of a batch, in order, to the sketch in device memory, in place (the
+// src/repro/kernels/sketch_update.py.  One launch adds the b keys of a
+// batch, in order, to the sketch in device memory, in place (the
 // analogue of the reference's input_output_aliases).  Per key: doorkeeper
 // test-and-set, where each probe sees the bits the key's earlier probes
 // set; then, iff the key was present (or there is no doorkeeper), +1 on
@@ -88,13 +88,13 @@ __device__ __forceinline__ void add_key(uint32_t* counters, uint32_t* dk,
 template <int D>
 __global__ void __launch_bounds__(32) sketch_update_kernel(
     uint32_t* counters, uint32_t* dk, const uint32_t* __restrict__ lo,
-    const uint32_t* __restrict__ hi, int n_valid, int rows, int width,
+    const uint32_t* __restrict__ hi, int b, int rows, int width,
     int cap, int dk_bits) {
   const int lane = threadIdx.x;
   const int wpr = width >> 3;
-  for (int base = 0; base < n_valid; base += 32) {
+  for (int base = 0; base < b; base += 32) {
     uint32_t ridx[kMaxRows] = {}, rbit[D > 0 ? D : 1] = {};
-    if (base + lane < n_valid) {
+    if (base + lane < b) {
       const uint32_t klo = lo[base + lane], khi = hi[base + lane];
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r)
@@ -103,7 +103,7 @@ __global__ void __launch_bounds__(32) sketch_update_kernel(
       for (int p = 0; p < D; ++p)
         rbit[p] = sketch::dk_probe_index(klo, khi, p, dk_bits);
     }
-    const int tile = n_valid - base < 32 ? n_valid - base : 32;
+    const int tile = b - base < 32 ? b - base : 32;
     for (int j = 0; j < tile; ++j) {
       uint32_t idx[kMaxRows], bit[D > 0 ? D : 1];
 #pragma unroll
@@ -123,10 +123,10 @@ using Launch = void (*)(uint32_t*, uint32_t*, const uint32_t*,
 
 template <int D>
 void launch(uint32_t* counters, uint32_t* dk, const uint32_t* lo,
-            const uint32_t* hi, int n_valid, int rows, int width, int cap,
+            const uint32_t* hi, int b, int rows, int width, int cap,
             int dk_bits, cudaStream_t stream) {
   sketch_update_kernel<D><<<1, 32, 0, stream>>>(counters, dk, lo, hi,
-                                                n_valid, rows, width, cap,
+                                                b, rows, width, cap,
                                                 dk_bits);
 }
 
@@ -137,7 +137,7 @@ constexpr Launch kLaunch[kMaxDkp + 1] = {
 }  // namespace
 
 extern "C" int sketch_update_launch(int* counters, int* dk, const int* lo,
-                                    const int* hi, int n_valid, int rows,
+                                    const int* hi, int b, int rows,
                                     int width, int cap, int dk_bits,
                                     int dk_probes, void* stream) {
   const int d = dk_bits ? dk_probes : 0;
@@ -146,7 +146,7 @@ extern "C" int sketch_update_launch(int* counters, int* dk, const int* lo,
   kLaunch[d](reinterpret_cast<uint32_t*>(counters),
              reinterpret_cast<uint32_t*>(dk),
              reinterpret_cast<const uint32_t*>(lo),
-             reinterpret_cast<const uint32_t*>(hi), n_valid, rows, width, cap,
+             reinterpret_cast<const uint32_t*>(hi), b, rows, width, cap,
              dk_bits, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -211,21 +211,6 @@ def probe_matrix(lo: torch.Tensor, hi: torch.Tensor, salts: list[int],
             & mask).to(torch.int32).contiguous()
 
 
-def probe_index(lo: torch.Tensor, hi: torch.Tensor, p: int,
-                width: int) -> torch.Tensor:
-    """Index of probe ``p`` into a row of ``width`` (pow2) counters."""
-    return (_salted_hash(lo, hi, probe_salts(p + 1)[p])
-            & (width - 1)).to(torch.int32)
-
-
-def dk_probe_index(lo: torch.Tensor, hi: torch.Tensor, p: int,
-                   dk_bits: int) -> torch.Tensor:
-    """Bit position of doorkeeper probe ``p`` in a ``dk_bits`` (pow2)
-    filter."""
-    return (_salted_hash(lo, hi, dk_probe_salts(p + 1)[p])
-            & (dk_bits - 1)).to(torch.int32)
-
-
 def set_index(lo: torch.Tensor, hi: torch.Tensor, n_sets: int,
               salt: int) -> torch.Tensor:
     """Set index for the set-associative cache tables (n_sets pow2)."""

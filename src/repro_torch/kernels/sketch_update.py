@@ -65,55 +65,45 @@ def add_one(counters: torch.Tensor, dk: torch.Tensor, kidx: torch.Tensor,
     counters[flat] = torch.where(bump & (vals == m), words + inc, words)
 
 
-def _n_valid(lo: torch.Tensor, n_valid) -> int:
-    b = lo.shape[0]
-    n = b if n_valid is None else int(n_valid)
-    _check(0 <= n <= b, f"n_valid {n} must be in [0, {b}]")
-    return n
-
-
 def add_ref(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
-            hi: torch.Tensor, n_valid: int | None = None) -> dict:
-    """Plain version: add the first ``n_valid`` keys of ``lo/hi`` in order,
-    in place; ``size += n_valid``.  Runs on any device, one tensor op at a
-    time."""
+            hi: torch.Tensor) -> dict:
+    """Plain version: add the keys of ``lo/hi`` in order, in place;
+    ``size += B``.  Runs on any device, one tensor op at a time."""
     check_sketch_inputs(cfg, state, lo, hi)
-    n = _n_valid(lo, n_valid)
     idx, dkb = key_probes(lo, hi, cfg.rows, cfg.width, cfg.dk_bits,
                           cfg.dk_probes)
     counters = state["counters"].view(-1)
     dk = state["doorkeeper"].view(-1)
-    for i in range(n):
+    for i in range(lo.shape[0]):
         add_one(counters, dk, idx[i], dkb[i], words_per_row=cfg.words_per_row,
                 counter_bits=4, cap=cfg.cap, dk_bits=cfg.dk_bits)
-    state["size"] = state["size"] + n
+    state["size"] = state["size"] + lo.shape[0]
     return state
 
 
 def _launch(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
-            hi: torch.Tensor, n_valid: int) -> None:
+            hi: torch.Tensor) -> None:
     """One launch of ``csrc/sketch_update.cu`` on the current stream: the
-    first ``n_valid`` keys added in place.  No host sync."""
+    batch added in place.  No host sync."""
     from ._build import launch
     _check(cfg.dk_probes <= 8, "the kernel takes dk_probes <= 8")
     launch("sketch_update", "sketch_update_launch",
-           state["counters"], state["doorkeeper"], lo, hi, n_valid, cfg.rows,
-           cfg.width, cfg.cap, cfg.dk_bits, cfg.dk_probes)
+           state["counters"], state["doorkeeper"], lo, hi, lo.shape[0],
+           cfg.rows, cfg.width, cfg.cap, cfg.dk_bits, cfg.dk_probes)
     add.launches += 1
 
 
 def add(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
-        hi: torch.Tensor, n_valid: int | None = None) -> dict:
+        hi: torch.Tensor) -> dict:
     """Sequential batch add; same contract as :func:`add_ref`.  CUDA
     tensors: one kernel launch (a failed build or launch raises); CPU
     tensors: the plain version."""
     dev = check_sketch_inputs(cfg, state, lo, hi)
-    n = _n_valid(lo, n_valid)
     if dev.type == "cpu":
-        return add_ref(cfg, state, lo, hi, n)
-    if n:
-        _launch(cfg, state, lo, hi, n)
-    state["size"] = state["size"] + n
+        return add_ref(cfg, state, lo, hi)
+    if lo.shape[0]:
+        _launch(cfg, state, lo, hi)
+    state["size"] = state["size"] + lo.shape[0]
     return state
 
 

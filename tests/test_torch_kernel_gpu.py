@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.check_runs import SKETCH_CFGS as CFGS, mixed_keys
 from repro_torch.core.device_simulate import run_chunks
 from repro_torch.kernels import (admission, sketch_estimate, sketch_reset,
                                  sketch_update)
@@ -74,12 +75,9 @@ def test_launch_refuses_cpu_tensors():
                      lo, lo, probes, 4, torch.zeros(4, dtype=torch.int32))
 
 
-# DeviceSketchConfig kwargs: the tests/test_kernels.py CFGS, one with W
-SKETCH_CFGS = [dict(width=256, rows=4, cap=15, dk_bits=1024),
-               dict(width=1024, rows=4, cap=7, dk_bits=4096),
-               dict(width=512, rows=2, cap=15, dk_bits=0),
-               dict(width=2048, rows=1, cap=3, dk_bits=2048),
-               dict(width=256, rows=4, cap=15, dk_bits=1024, sample_size=256)]
+# DeviceSketchConfig kwargs: the tests/test_kernels.py CFGS and one with W
+SKETCH_CFGS = CFGS + [dict(width=256, rows=4, cap=15, dk_bits=1024,
+                           sample_size=256)]
 
 
 @pytest.mark.gpu
@@ -91,10 +89,7 @@ def test_sketch_kernels_match_plain_on_card(case, batch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = sc.DeviceSketchConfig(**SKETCH_CFGS[case])
-    rng = np.random.default_rng(case * 7919 + batch)
-    keys = np.where(rng.random(batch) < 0.5,
-                    rng.integers(0, 40, batch, dtype=np.uint64),
-                    rng.integers(0, 1 << 63, batch, dtype=np.uint64))
+    keys = mixed_keys(case * 7919 + batch, batch)
     lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
     q = np.concatenate([keys[:64], np.arange(64, dtype=np.uint64)])
     qlo, qhi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(q))
@@ -121,7 +116,7 @@ def test_sketch_kernels_match_plain_on_card(case, batch):
 
 
 @pytest.mark.parametrize("module,wrapper,args", [
-    (sketch_update, "add", lambda c, s, x: (c, s, x, x, 4)),
+    (sketch_update, "add", lambda c, s, x: (c, s, x, x)),
     (sketch_estimate, "estimate", lambda c, s, x: (c, s, x, x, x)),
     (admission, "admit", lambda c, s, x: (
         c, s, x, x, x, x, torch.zeros(4, dtype=torch.bool))),

@@ -8,12 +8,11 @@ The JAX cache runs its ``DeviceAdmission`` with the jnp oracles
 tests/test_kernels.py); the port runs its plain versions on the CPU.
 
 Run as a script, it prints the JAX package's exact stats for runs P1 and P2
-of ``chip_smoke.py`` (``PYTHONPATH=src python tests/test_torch_prefix_cache.py``;
-several minutes on a CPU).
+(``repro_torch.check_runs``, run on the card by ``chip_smoke.py``):
+``PYTHONPATH=src python tests/test_torch_prefix_cache.py``, several minutes
+on a CPU.
 """
 import dataclasses
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,11 +20,9 @@ import torch
 
 from repro.serve import prefix_cache as jpc
 from repro.traces import synthetic as jsyn
+from repro_torch.check_runs import P1_CAPS, P1_TRACE, P2_CAP, P2_TRACE, replay
 from repro_torch.serve import prefix_cache as ppc
 from repro_torch.traces import synthetic as psyn
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import P1_CAPS, P1_TRACE, P2_CAP, P2_TRACE, replay  # noqa: E402
 
 torch.set_num_threads(1)
 

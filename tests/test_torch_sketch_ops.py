@@ -10,12 +10,10 @@ the sample boundary, cap saturation, order dependence, the standalone reset,
 the count-min lower bound, the ``DeviceTinyLFU`` facade and JAX-built state
 carried into the port.
 
-Run as a script, it prints the JAX package's exact results for run S of
-``chip_smoke.py`` (``PYTHONPATH=src python tests/test_torch_sketch_ops.py``).
+Run as a script, it prints the JAX package's exact results for run S
+(``repro_torch.check_runs``, run on the card by ``chip_smoke.py``):
+``PYTHONPATH=src python tests/test_torch_sketch_ops.py``.
 """
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -29,10 +27,9 @@ from repro_torch.kernels import ops as pops
 from repro_torch.kernels import sketch_common as psc
 from repro_torch.kernels import sketch_estimate, sketch_update, sketch_reset
 from repro_torch.kernels import admission
+from repro_torch.check_runs import (S_BATCH, S_BLOCKS, S_DECISIONS,
+                                    SKETCH_CFGS as CFGS, digest, mixed_keys)
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import (S_BATCH, S_BLOCKS, S_DECISIONS,  # noqa: E402
-                        SKETCH_CFGS as CFGS, digest, mixed_keys)
 
 # the plain add issues a few dozen tiny ops per key: intra-op threads only
 # spin, and under parallel test workers they contend for every core
@@ -234,8 +231,6 @@ def test_config_and_inputs_are_checked():
         pops.estimate(pcfg, state, lo, torch.zeros(5, dtype=torch.int32))
     with pytest.raises(ValueError, match="lanes"):
         pops.add(pcfg, state, lo.long(), lo.long())
-    with pytest.raises(ValueError, match="n_valid"):
-        sketch_update.add(pcfg, state, lo, lo, n_valid=5)
 
 
 def test_entry_points_default_to_the_card():
