@@ -1,11 +1,12 @@
-"""The serving-admission path's check runs, their pinned JAX results, and
-the helpers that drive them in either package.
+"""The check runs of the serving paths, their pinned JAX results, and the
+helpers that drive them in either package.
 
-``chip_smoke.py`` runs S and P at full size on the card and holds them to
-the pins below; ``tests/test_torch_sketch_ops.py`` and
-``tests/test_torch_prefix_cache.py`` run the same procedures at a small
-size against the JAX package, and, run as scripts, print the JAX results
-that are pinned here.  Imports numpy only.
+``chip_smoke.py`` runs S, P and L at full size on the card and holds them
+to the pins below; ``tests/test_torch_sketch_ops.py``,
+``tests/test_torch_prefix_cache.py``, ``tests/test_torch_serving.py`` and
+``tests/test_torch_models.py`` run the same procedures at a small size
+against the JAX package, and, run as scripts, print the JAX results that
+are pinned here.  Imports numpy only.
 """
 from __future__ import annotations
 
@@ -96,3 +97,114 @@ def replay(pc, stream, block: int = 32):
                 pc.insert(h, slot)
                 slot += 1
     return pc.stats
+
+
+# The flash kernel's cases on the card (chip_smoke.py phase 11 and
+# tests/test_torch_kernel_gpu.py): tests/test_flash_kernel.py's shapes
+# causal and not, ragged lengths, an extend, per-row kv_len, GQA groups 1,
+# 2, 4 and 16, head dims 16 to 128, softcap 30, and run L's shapes (the
+# extend reads a 2,048-slot cache up to kv_len 1,280).
+# (name, B, Sq, Skv, Hq, Hkv, D, causal, q_offset, kv_len, softcap)
+FLASH_CASES = [
+    ("2x256x4x64 causal", 2, 256, 256, 4, 4, 64, True, 0, None, 0.0),
+    ("2x256x4x64 full", 2, 256, 256, 4, 4, 64, False, 0, None, 0.0),
+    ("1x512x2x128 causal", 1, 512, 512, 2, 2, 128, True, 0, None, 0.0),
+    ("1x512x2x128 full", 1, 512, 512, 2, 2, 128, False, 0, None, 0.0),
+    ("2x128x8x32 causal", 2, 128, 128, 8, 8, 32, True, 0, None, 0.0),
+    ("2x128x8x32 full", 2, 128, 128, 8, 8, 32, False, 0, None, 0.0),
+    ("ragged S=100 GQA 2", 1, 100, 100, 4, 2, 64, True, 0, None, 0.0),
+    ("ragged extend Sq=77 q_offset=123", 2, 77, 300, 8, 2, 128, True, 123,
+     200, 0.0),
+    ("kv_len per row, full", 2, 40, 130, 4, 2, 64, False, 0, [77, 130],
+     0.0),
+    ("GQA 1 softcap 30", 1, 200, 200, 8, 8, 128, True, 0, None, 30.0),
+    ("GQA 16", 1, 150, 150, 16, 1, 128, True, 0, None, 0.0),
+    ("smoke heads D=16", 2, 37, 37, 4, 2, 16, True, 0, None, 0.0),
+    ("L prefill", 1, 1280, 1280, 32, 8, 128, True, 0, None, 0.0),
+    ("L prefill softcap 30", 1, 1280, 1280, 32, 8, 128, True, 0, None, 30.0),
+    ("L extend q_offset 1024", 1, 256, 2048, 32, 8, 128, True, 1024, 1280,
+     0.0),
+]
+
+# Run L: the LLM serving path at full width.  ServeEngine(Model(qwen3-4b),
+# **L_ENGINE, prefix_policy="wtinylfu") replays make_workload(cfg,
+# **L_WORKLOAD) with L_NEW_TOKENS new tokens each: 24 prompts of a shared
+# 1,024-token tenant prefix (6 Zipf tenants) and a 256-token user suffix.
+# The engine's stats depend only on the prompts' token ids, the schedule
+# and the cache, not on the model's numbers, so the pins come from the JAX
+# ServeEngine on the qwen3 smoke config with the published vocabulary and
+# its admission on DeviceAdmission(use_pallas=False)
+# (``python tests/test_torch_serving.py`` prints them).  The pool fills and
+# then takes no payload, so no candidate reaches admission.
+L_ENGINE = dict(max_batch=4, max_len=2048, block_size=16, pool_slots=512)
+L_WORKLOAD = dict(n_requests=24, n_tenants=6, prefix_len=1024,
+                  suffix_len=256, seed=0)
+L_NEW_TOKENS = 8
+L_PINS = {"prefix_hit_ratio": 0.4666666666666667, "block_hits": 896,
+          "block_misses": 1024, "admitted": 0, "rejected": 0,
+          "tokens_prefilled": 16384, "tokens_reused": 14336,
+          "reuse_frac": 0.4666666666666667, "pool_used": 512}
+
+# The depth-2 pin: qwen3-4b at full width with n_layers=2 and the weights
+# numpy_params(cfg, D2_SEED) prefills D2_PROMPT_LEN tokens drawn by
+# d2_prompt(), then decodes D2_STEPS tokens, each the JAX model's greedy
+# token of the step before.  Per step (the prefill's last token, then each
+# decode) the JAX package's top-8 token ids and their fp32 logits
+# (``python tests/test_torch_models.py`` prints them).
+D2_SEED, D2_PROMPT_LEN, D2_STEPS, D2_MAX_LEN = 0, 1280, 4, 2048
+D2_PINS = [
+    ((69720, 3637, 88408, 120032, 99561, 84631, 142015, 12029),
+     (4.34375, 4.1875, 3.984375, 3.984375, 3.875, 3.84375, 3.796875, 3.78125)),
+    ((41621, 114060, 121561, 109247, 69169, 110847, 26450, 100668),
+     (4.125, 3.875, 3.875, 3.78125, 3.703125, 3.703125, 3.6875, 3.671875)),
+    ((9696, 7365, 14065, 99982, 38500, 142829, 48752, 148353),
+     (4.15625, 4.03125, 3.9375, 3.828125, 3.8125, 3.75, 3.734375, 3.734375)),
+    ((112189, 135893, 85057, 111349, 67115, 81801, 110753, 30512),
+     (4.03125, 4.0, 3.890625, 3.890625, 3.703125, 3.703125, 3.6875, 3.671875)),
+    ((113232, 94596, 49353, 116508, 150924, 38728, 131563, 105765),
+     (4.4375, 4.34375, 3.921875, 3.84375,
+      3.84375, 3.703125, 3.6875, 3.671875)),
+]
+
+
+def d2_prompt(vocab_size: int) -> np.ndarray:
+    return np.random.default_rng(D2_SEED + 1).integers(
+        0, vocab_size, D2_PROMPT_LEN)
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """Weights for ``cfg`` in the JAX package's tree layout
+    (``init_params``: leaves of the layer stack on a leading axis), made
+    with numpy alone, fp32: embeddings N(0, 0.02), matrices N(0, 1/fan-in)
+    clipped at 2 sigma, norm weights 1 + N(0, 0.1) clipped at ±0.2.
+    Either package loads them (the port through
+    ``models.convert.params_from_numpy``)."""
+    rng = np.random.default_rng(seed)
+    M, hd, F, L = cfg.d_model, cfg.hd, cfg.d_ff, cfg.n_layers
+    Hq, Hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def normal(shape, std):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        np.clip(a, -2.0, 2.0, out=a)
+        a *= np.float32(std)
+        return a
+
+    def dense(*shape):
+        return normal(shape, 1.0 / np.sqrt(shape[-2]))
+
+    def norm(*shape):
+        return 1.0 + normal(shape, 0.1)
+
+    tree = {"embed": normal((cfg.padded_vocab, M), 0.02),
+            "final_norm": norm(M)}
+    if not cfg.tie_embeddings:
+        tree["out_head"] = dense(M, cfg.padded_vocab)
+    attn = {"norm": norm(L, M), "wq": dense(L, M, Hq), "wk": dense(L, M, Hkv),
+            "wv": dense(L, M, Hkv), "wo": dense(L, Hq, M)}
+    if cfg.qk_norm:
+        attn["q_norm"] = norm(L, hd)
+        attn["k_norm"] = norm(L, hd)
+    mlp = {"norm": norm(L, M), "w_gate": dense(L, M, F),
+           "w_up": dense(L, M, F), "w_down": dense(L, F, M)}
+    tree["layers"] = {"attn0": attn, "mlp0": mlp}
+    return tree

@@ -30,7 +30,7 @@ BUILD_DIR = _ROOT / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ERR = {"cuda_error_string": ([_I], ctypes.c_char_p)}
 # the C functions of each source: name -> (argtypes, restype); the stream
 # is the last argument of every launch function
@@ -48,6 +48,10 @@ _C_API = {
             ([_P] * 7 + [_I] * 5 + [_P], _I), **_ERR},
     "sketch_reset": {       # counters, n_counter_words, dk, n_dk_words
         "sketch_reset_launch": ([_P, _I, _P, _I, _P], _I), **_ERR},
+    "flash_attention": {    # q, k, v, out, kv_len or NULL; B, Sq, Skv,
+        "flash_attention_launch":   # Hq, Hkv, D; k and v's (b, s, h) strides;
+            ([_P] * 5 + [_I] * 15      # causal, q_offset, kv_len default;
+             + [_F, _F, _P], _I), **_ERR},    # softcap, scale
     "l2_chase": {
         "l2_chase_launch": ([_P, _I, _P, _P], _I)},
 }
@@ -113,7 +117,8 @@ def load_library(name: str = "sketch_step",
 
 def launch(name: str, fn: str, *args) -> None:
     """Call the launch function ``fn`` of ``csrc/<name>.cu`` on the current
-    CUDA stream: tensors pass as pointers, ints as C ints.  Raises
+    CUDA stream: tensors pass as pointers, floats as C floats, other
+    numbers as C ints (or pointers, as ``_C_API`` declares).  Raises
     ValueError if a tensor is not a contiguous CUDA tensor (checked before
     anything is built) and RuntimeError on a non-zero CUDA error."""
     ptrs = []
@@ -126,7 +131,7 @@ def launch(name: str, fn: str, *args) -> None:
             ptrs.append(a.data_ptr())
             stream_dev = stream_dev or a.device
         else:
-            ptrs.append(int(a))
+            ptrs.append(a if isinstance(a, float) else int(a))
     lib = load_library(name)
     check_error(name, lib, getattr(lib, fn)(
         *ptrs, torch.cuda.current_stream(stream_dev).cuda_stream))

@@ -19,7 +19,16 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.kernels.admission",
            "repro_torch.kernels.sketch_reset", "repro_torch.kernels.ops",
            "repro_torch.traces.synthetic", "repro_torch.serve",
-           "repro_torch.serve.prefix_cache"]
+           "repro_torch.serve.prefix_cache",
+           "repro_torch.kernels.flash_attention", "repro_torch.configs",
+           "repro_torch.configs.qwen3_4b", "repro_torch.configs.chatglm3_6b",
+           "repro_torch.configs.minicpm_2b",
+           "repro_torch.configs.mistral_nemo_12b",
+           "repro_torch.models", "repro_torch.models.common",
+           "repro_torch.models.layers", "repro_torch.models.transformer",
+           "repro_torch.models.api", "repro_torch.models.convert",
+           "repro_torch.serve.extend", "repro_torch.serve.engine",
+           "repro_torch.serve.driver"]
 
 
 def test_imports_with_jax_and_repro_blocked():

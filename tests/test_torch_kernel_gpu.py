@@ -1,5 +1,6 @@
 """The CUDA kernels against the port's plain versions, on the card: the step
-kernel and the four batched sketch kernels (add, estimate, admit, reset).
+kernel, the four batched sketch kernels (add, estimate, admit, reset) and
+the flash-attention kernel.
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
@@ -9,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.check_runs import SKETCH_CFGS as CFGS, mixed_keys
+from repro_torch.check_runs import FLASH_CASES, SKETCH_CFGS as CFGS, mixed_keys
 from repro_torch.core.device_simulate import run_chunks
-from repro_torch.kernels import (admission, sketch_estimate, sketch_reset,
-                                 sketch_update)
+from repro_torch.kernels import (admission, flash_attention, sketch_estimate,
+                                 sketch_reset, sketch_update)
 from repro_torch.kernels import sketch_common as sc
 from repro_torch.kernels import sketch_step as port
 from repro_torch.kernels.sketch_common import keys_to_lanes
@@ -133,3 +134,39 @@ def test_sketch_launch_refuses_cpu_tensors(module, wrapper, args):
     with pytest.raises(ValueError, match="CUDA"):
         module._launch(*args(cfg, state, x))
     assert getattr(module, wrapper).launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_flash_kernel_matches_plain_on_card(case):
+    """Kernel vs plain within max-abs 2e-2 in bf16 (the reference's bf16
+    bound) on chip_smoke.py's cases; K/V as a slice of a larger tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, B, Sq, Skv, Hq, Hkv, D, causal, off, kv_len, cap = FLASH_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(case)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((B + 1, Skv, Hkv, D), generator=g,
+                        device="cuda").bfloat16()[1:] for _ in range(2))
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, device="cuda")
+    kw = dict(causal=causal, q_offset=off, kv_len=kv_len, softcap=cap)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, **kw)
+    want = flash_attention.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+def test_flash_launch_refuses_cpu_tensors():
+    """The flash kernel's launch path never takes CPU tensors (only the
+    wrapper routes them to the plain version), and a refused launch is not
+    counted."""
+    q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16)
+    before = flash_attention.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention._launch(q, q, q, causal=True, q_offset=0,
+                                kv_len=None, softcap=0.0)
+    assert flash_attention.flash_attention.launches == before
