@@ -14,8 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 2. hold the kernel (``step``) against its plain PyTorch version
    (``step_ref``) on the card: flat and set-associative tables, 4- and 8-bit
    counters, doorkeeper on and off, resets inside and across chunk
-   boundaries, padded tails, and the main run's own geometry; every state
-   leaf and hit flag must be equal;
+   boundaries, padded tails, the hazard traces of ``check_runs.HAZARD_CASES``
+   (runs of one key, one- and two-set tables, alternating keys, resets at
+   every chunk boundary and mid-chunk; 4, 8 and 16 ways) and the main run's
+   own geometry; every state leaf and hit flag must be equal;
 3. run the golden traces G1-G6 through ``simulate_trace`` on the card; hit
    counts (and, for G1/G2/G4, the final registers and a digest of the whole
    state) must equal the values the JAX engine gives on the same traces;
@@ -45,9 +47,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 11. hold the flash-attention kernel against its plain version
    (``flash_attention_ref``) on the card, within max-abs 2e-2 in bf16:
    tests/test_flash_kernel.py's shapes causal and not, ragged lengths,
-   q_offset 0 and 1024 at run L's shapes (K/V read from a slot of a KV
-   cache), per-row kv_len, GQA groups 1, 4 and 16, head dims 16 to 128,
-   softcap 0 and 30;
+   q_offset 0, 512 and 1024 at run L's three shapes (K/V read from a slot
+   of a KV cache), per-row kv_len, GQA groups 1, 4, 8 and 16, head dims 16
+   to 128, softcap 0 and 30; and cache slots past kv_len holding NaN and
+   +-3e38 must give an output bit-equal to a zeroed tail;
 12. run L, qwen3-4b at full width (36 layers, random weights from a seed)
    serving 24 prompts of 1,280 tokens through ``ServeEngine`` (counts set
    to 0 just before, read just after); every ``stats`` field must equal
@@ -78,10 +81,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.check_runs import (FLASH_CASES, P1_CAPS,  # noqa: E402
-                                    P1_TRACE, P2_CAP, P2_TRACE, P_PINS,
-                                    S_BATCH, S_BLOCKS, S_DECISIONS, S_PINS,
-                                    SKETCH_CFGS, digest, mixed_keys, replay)
+from repro_torch.check_runs import (FLASH_CASES,  # noqa: E402
+                                    FLASH_TAIL, FLASH_TAIL_LENS, HAZARD_CASES,
+                                    P1_CAPS, P1_TRACE, P2_CAP, P2_TRACE,
+                                    P_PINS, S_BATCH, S_BLOCKS, S_DECISIONS,
+                                    S_PINS, SKETCH_CFGS, cache_tails, digest,
+                                    hazard_keys, mixed_keys, replay)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 
@@ -129,17 +134,21 @@ def card_line() -> str:
 def compare_case(name, cfg, trace, chunk, timed=False):
     """Kernel vs plain on the card from the same initial state, both driven
     by the engine's chunk runner; returns (max abs difference, plain ms per
-    chunk)."""
+    chunk).  ``cfg`` is a DeviceWTinyLFU or a (StepSpec, params, window_cap,
+    main_cap) tuple."""
     import torch
     from repro_torch.core.device_simulate import _trace_lanes, run_chunks
     from repro_torch.kernels import sketch_step as ks
-    spec = cfg.spec()
-    params = cfg.params(device="cuda")
+    if isinstance(cfg, tuple):
+        spec, params, wcap, mcap = cfg
+        sample = int(params[ks.P_SAMPLE])
+    else:
+        spec, params = cfg.spec(), cfg.params(device="cuda")
+        wcap, mcap, sample = cfg.window_cap, cfg.main_cap, cfg.sample_size
     lo, hi = _trace_lanes(trace, "cuda")
     outs, ms = [], []
     for fn in (ks.step, ks.step_ref):
-        state = ks.init_step_state(spec, cfg.window_cap, cfg.main_cap,
-                                   device="cuda")
+        state = ks.init_step_state(spec, wcap, mcap, device="cuda")
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -160,7 +169,8 @@ def compare_case(name, cfg, trace, chunk, timed=False):
           f"{name}: the plain run did not advance over the trace")
     timing = f"; plain {ms[1]:.1f} ms/chunk" if timed else ""
     print(f"phase 2  {name}: kernel == plain over {len(trace)} accesses "
-          f"(chunk {chunk}, W={cfg.sample_size}){timing}")
+          f"(chunk {chunk}, W={sample}, {spec.assoc or 'flat'} ways)"
+          f"{timing}")
     return err, ms[1]
 
 
@@ -709,6 +719,22 @@ def flash_phase11():
         print(f"phase 11 flash {name}: B={B} Sq={Sq} Skv={Skv} Hq={Hq} "
               f"Hkv={Hkv} D={D} causal={causal} q_offset={off} kv_len="
               f"{lens} softcap={cap}: max |kernel - plain| {err:.6f}")
+    c = FLASH_TAIL
+    q, k, v = flash_inputs(99, c["B"], c["Sq"], c["Skv"], c["Hq"], c["Hkv"],
+                           c["D"])
+    for kvl in FLASH_TAIL_LENS:
+        lens = [kvl] * c["B"] if isinstance(kvl, int) else kvl
+        zeroed, poisoned = cache_tails(k, v, lens)
+        if isinstance(kvl, list):
+            kvl = torch.tensor(kvl, device="cuda")
+        kw = dict(causal=True, q_offset=c["q_offset"], kv_len=kvl)
+        want = fa.flash_attention(q, *zeroed, **kw)
+        got = fa.flash_attention(q, *poisoned, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()) and torch.equal(got, want),
+              f"flash: cache slots past kv_len {lens} reach the output")
+        print(f"phase 11 flash cache tail: slots past kv_len {lens} hold NaN "
+              f"and +-3e38; output bit-equal to a zeroed tail")
     return worst
 
 
@@ -891,7 +917,14 @@ def llm_phase12(card):
         o_ms = flops / BF16_FLOPS_PER_S * 1e3
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         per[(Sq, off, kvl)] = (ms, plain, lib, o_ms, b_ms)
+        gp = 1                          # the kernel's work items and CTAs
+        while gp < 16 and (cfg.n_heads // cfg.n_kv_heads) % (2 * gp) == 0:
+            gp *= 2
+        items = -(-Sq // (128 // gp)) * (cfg.n_heads // gp)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         print(f"phase 12 L flash Sq={Sq} q_offset={off} kv_len={kvl}: "
+              f"{items} work items of {128 // gp} positions x {gp} heads on "
+              f"{min(items, sms)} persistent CTAs (1 per SM); "
               f"{n} launches; kernel {ms:.4f} ms; plain {plain:.3f} ms; "
               f"scaled_dot_product_attention {lib:.4f} ms (max |sdpa - "
               f"plain| {lib_err:.4f}); bound: {flops / 1e9:.3f} GFLOP over "
@@ -1012,6 +1045,13 @@ def main() -> int:
                                             doorkeeper=False),
          scanhot[24_800:26_000], 384),
     ]
+    for i, (name, kw, pargs, wcap, mcap, kind, n,
+            chunk) in enumerate(HAZARD_CASES):
+        spec = ks.StepSpec(**kw)
+        params = ks.make_step_params(*pargs, counter_bits=spec.counter_bits,
+                                     device="cuda")
+        cases.append((f"hazard: {name}", (spec, params, wcap, mcap),
+                      hazard_keys(kind, n, seed=i), chunk))
     max_err = 0
     for name, cfg, tr, chunk in cases:
         max_err = max(max_err, compare_case(name, cfg, tr, chunk)[0])

@@ -99,11 +99,69 @@ def replay(pc, stream, block: int = 32):
     return pc.stats
 
 
+# Hazard cases of the step kernel's set-associative path: traces whose
+# consecutive accesses read the words the access before them wrote.
+# chip_smoke.py phase 2 and tests/test_torch_kernel_gpu.py hold the kernel to
+# the plain step_ref on the card; tests/test_torch_hazards.py holds step_ref
+# to the JAX step_ref bitwise on the CPU.  Each case is (name, StepSpec
+# kwargs, make_step_params args (window_cap, main_cap, prot_cap, W, cap,
+# warmup), window_cap, main_cap, trace kind, accesses, chunk).
+_TINY4 = dict(width=256, rows=4, dk_bits=1024, window_slots=4, main_slots=8,
+              assoc=4)
+_TINY8 = dict(width=512, rows=3, dk_bits=2048, window_slots=8, main_slots=16,
+              assoc=8, counter_bits=8)
+_TINY16 = dict(width=256, rows=4, dk_bits=1024, window_slots=16,
+               main_slots=32, assoc=16)
+# DeviceWTinyLFU(65_536, assoc=8).spec() and its params: run F's geometry
+_F_SPEC = dict(width=131_072, rows=4, dk_bits=2_097_152, window_slots=1024,
+               main_slots=65_536, assoc=16)
+HAZARD_CASES = [
+    ("runs of one key, ways 4", _TINY4, (3, 8, 6, 300, 7, 0), 3, 8,
+     "runs", 600, 128),
+    ("tiny tables, ways 8", _TINY8, (6, 16, 12, 400, 30, 0), 6, 16,
+     "skewed", 600, 256),
+    ("alternating keys, ways 16", _TINY16, (12, 32, 25, 500, 15, 0), 12, 32,
+     "alternating", 600, 256),
+    ("reset at every chunk boundary, ways 8", _TINY8, (8, 16, 12, 64, 30, 0),
+     8, 16, "skewed", 512, 64),
+    ("resets mid-chunk, ways 4", _TINY4, (4, 8, 6, 50, 7, 0), 4, 8,
+     "alternating", 500, 64),
+    ("F geometry", _F_SPEC, (655, 64_881, 51_904, 524_288, 7, 0), 655,
+     64_881, "wide", 1200, 512),
+]
+
+
+def hazard_keys(kind: str, n: int, seed: int = 0) -> np.ndarray:
+    """n uint64 keys: ``runs``, runs of 1-12 repeats of one of 24 keys;
+    ``skewed``, 60% from 6 hot keys and the rest from 200; ``wide``, 30%
+    from 6 hot keys and the rest from 3,000 (enough to push window records
+    out at F's 64 window sets); ``alternating``,
+    a hot key between fresh keys, with every fourth fresh key a repeat
+    (its set was just written by the candidate the hot key pushed)."""
+    rng = np.random.default_rng(seed)
+    if kind == "runs":
+        keys = np.repeat(rng.integers(0, 24, n), rng.integers(1, 13, n))
+    elif kind == "skewed":
+        keys = np.where(rng.random(n) < 0.6, rng.integers(0, 6, n),
+                        rng.integers(6, 206, n))
+    elif kind == "wide":
+        keys = np.where(rng.random(n) < 0.3, rng.integers(0, 6, n),
+                        rng.integers(6, 3006, n))
+    elif kind == "alternating":
+        fresh = 1000 + np.arange(n)
+        fresh[3::4] = fresh[1::4][:len(fresh[3::4])]
+        keys = np.stack([np.full(n, 7), fresh], axis=1).reshape(-1)
+    else:
+        raise ValueError(f"unknown hazard trace {kind!r}")
+    return keys[:n].astype(np.uint64)
+
+
 # The flash kernel's cases on the card (chip_smoke.py phase 11 and
 # tests/test_torch_kernel_gpu.py): tests/test_flash_kernel.py's shapes
-# causal and not, ragged lengths, an extend, per-row kv_len, GQA groups 1,
-# 2, 4 and 16, head dims 16 to 128, softcap 30, and run L's shapes (the
-# extend reads a 2,048-slot cache up to kv_len 1,280).
+# causal and not, ragged lengths, extends, per-row kv_len, GQA groups 1,
+# 2, 4, 8 and 16 (the kernel puts up to 16 query heads of one KV group in a
+# CTA), head dims 16 to 128, softcap 30, and run L's three shapes (the
+# extends read a 2,048-slot cache up to kv_len 1,280).
 # (name, B, Sq, Skv, Hq, Hkv, D, causal, q_offset, kv_len, softcap)
 FLASH_CASES = [
     ("2x256x4x64 causal", 2, 256, 256, 4, 4, 64, True, 0, None, 0.0),
@@ -124,7 +182,35 @@ FLASH_CASES = [
     ("L prefill softcap 30", 1, 1280, 1280, 32, 8, 128, True, 0, None, 30.0),
     ("L extend q_offset 1024", 1, 256, 2048, 32, 8, 128, True, 1024, 1280,
      0.0),
+    ("L extend q_offset 512", 1, 768, 2048, 32, 8, 128, True, 512, 1280,
+     0.0),
+    ("kv_len per row, extend GQA 4", 2, 64, 512, 8, 2, 128, True, 300,
+     [310, 364], 0.0),
+    ("GQA 8 D=32 extend", 1, 100, 400, 16, 2, 32, True, 250, 350, 0.0),
+    ("GQA 4 D=64 softcap 30", 2, 90, 90, 8, 2, 64, True, 0, None, 30.0),
 ]
+
+# The flash kernel's cache-tail case: a causal extend at q_offset 123 over
+# (B, Skv, Hkv, D) = (2, 300, 2, 128) slices with 8 query heads, kv_len one
+# value or one per row.  Slots at or past kv_len hold NaN and +-3e38 in one
+# copy and zeros in the other; the kernel must give bit-equal outputs.
+FLASH_TAIL = dict(B=2, Sq=77, Skv=300, Hq=8, Hkv=2, D=128, q_offset=123)
+FLASH_TAIL_LENS = (200, [130, 250])
+
+
+def cache_tails(k, v, lens):
+    """(zeroed, poisoned): two copies of the cache slices k, v (tensors),
+    their slots at or past each row's length set to 0 in one and to NaN,
+    with every third slot +3e38 in k and -3e38 in v, in the other."""
+    zeroed, poisoned = (k.clone(), v.clone()), (k.clone(), v.clone())
+    for b, n in enumerate(lens):
+        for x in zeroed:
+            x[b, n:] = 0
+        for x, big in zip(poisoned, (3e38, -3e38)):
+            x[b, n:] = float("nan")
+            x[b, n + 1::3] = big
+    return zeroed, poisoned
+
 
 # Run L: the LLM serving path at full width.  ServeEngine(Model(qwen3-4b),
 # **L_ENGINE, prefix_policy="wtinylfu") replays make_workload(cfg,

@@ -36,7 +36,7 @@ _ERR = {"cuda_error_string": ([_I], ctypes.c_char_p)}
 # is the last argument of every launch function
 _C_API = {
     "sketch_step": {
-        "sketch_step_launch": ([_P, _I, _I, _P], _I), **_ERR},
+        "sketch_step_launch": ([_P, _I, _P], _I), **_ERR},   # args, threads
     "sketch_update": {      # counters, dk, lo, hi, b, rows, width,
         "sketch_update_launch":                 # cap, dk_bits, dk_probes
             ([_P] * 4 + [_I] * 6 + [_P], _I), **_ERR},

@@ -9,8 +9,9 @@
 // their strides (a slice of the KV cache, no copy), and query head h reads
 // KV head h / (Hq / Hkv).  Scores are fp32 dots times 1/sqrt(D), then the
 // softcap; masked scores are -1e30; the running max, denominator and
-// accumulator are fp32; P is rounded to bf16 before P.V; the output is
-// acc / max(l, 1e-30) rounded to bf16.
+// accumulator are fp32; P is rounded to bf16 before P.V while the
+// denominator sums the fp32 P; the output is acc / max(l, 1e-30) rounded
+// to bf16.
 //
 // What bounds it on this card: a prefill of S tokens does 4*D*Hq flops
 // per visible (query, key) pair, about S^2/2 pairs when causal, against
@@ -18,48 +19,293 @@
 // (S = 1280, D = 128, 32 query and 8 KV heads) that is ~13 GFLOP against
 // ~26 MB, so the bf16 tensor cores bound it, not the memory.
 //
-// The design, simple and right first: one block of four warps per
-// (64-row query tile, query head, batch row); each warp owns 16 query rows
-// and keeps their Q fragments, running max and denominator, and fp32
-// accumulator (16 x D) in registers.  The block loops over 64-key tiles
-// only up to the last key its rows may see, which takes the place of the
-// Pallas kernel's sequential kv grid axis and its pl.when skip.  Each K/V
-// tile is staged in shared memory (rows padded by 16 bytes, so the
-// fragment loads hit distinct banks); keys past kv_len or Skv are zero.
-// S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, fp32
-// accumulate); P goes from the S accumulators to the A fragments in
-// registers.  Heavier query tiles (later rows, when causal) start first.
-// wgmma, TMA, a pipelined tile ring and warp specialisation are later work.
+// The design: a work item is 128 rows of one batch row, namely gp query
+// heads that share one KV head times 128 / gp query positions (gp = the
+// largest power of two that divides Hq / Hkv, at most 16), so a K/V tile is
+// fetched once for the gp heads.  Items are numbered heaviest first (later
+// positions, when causal), and one persistent CTA per SM (224 KB of shared
+// memory at D = 128) takes them in a zigzag over the CTAs, so a CTA's next
+// item loads while it finishes the last and the causal tail balances.  A
+// CTA is three warpgroups:
+//
+// * Warpgroup 2 is the producer: one thread loads each item's Q and streams
+//   its 128-key K and V tiles into a three-stage ring in shared memory with
+//   TMA (cp.async.bulk.tensor over 4-D maps of (D, H, S, B) built on the
+//   host for every call, with the caller's strides), with full and empty
+//   mbarriers per stage and one for Q.  Tiles are D / 64 sub-tiles of 64
+//   columns in the 128-byte swizzle (64- and 32-byte swizzles at D = 32 and
+//   16).  It keeps 40 registers (setmaxnreg) and gives the rest to the
+//   consumers.
+// * Warpgroups 0 and 1 are the consumers, 64 rows each, 232 registers.
+//   S = Q K^T is wgmma m64n128k16 from shared memory (Q and K K-major),
+//   fp32 accumulators; then scale, softcap and mask, and the online
+//   softmax in registers (a row's four threads reduce by shuffles).  P is
+//   the S accumulator rounded to bf16 in place, which is the A fragment
+//   layout of wgmma with A in registers, so O += P V is wgmma m64nDk16
+//   with V from shared memory as an MN-major B operand.  Tile t's S GEMM
+//   is issued with tile t-1's P V, so a warpgroup's softmax runs while the
+//   tensor cores do its P V, and the two warpgroups take turns to issue
+//   (named barriers), so one's softmax also overlaps the other's GEMMs.
+// * Keys past kv_len: the map's bounds zero-fill rows past Skv, but cache
+//   slots between kv_len and Skv hold whatever the cache held, and a
+//   masked P of 0 times a NaN there is NaN.  So the consumers zero the V
+//   rows from kv_len to the end of the last tile in shared memory before
+//   its P V (scores of such keys are masked by a select, so K needs none).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 64;            // keys per tile
-constexpr int NWARPS = BQ / 16;
+constexpr int BM = 128;           // rows per CTA: two consumer warpgroups
+constexpr int BN = 128;           // keys per tile
+constexpr int STAGES = 3;         // K/V ring depth
+constexpr int THREADS = 384;      // consumers: warps 0-7; producer: 8-11
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-struct Args {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+struct Params {
+  CUtensorMap q_map, k_map, v_map;
   __nv_bfloat16* out;
   const int* kv_len;              // (B,) or null: then kv_len_default
-  int b, sq, skv, hq, hkv;
-  int ksb, kss, ksh, vsb, vss, vsh;
+  int b, sq, skv, hq, hkv, gp;    // gp: query heads per work item
   int causal, q_offset, kv_len_default;
   float softcap, scale;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// Shared-memory layout (bytes from a 1024-aligned base) for head dim D.
+template <int D>
+struct Layout {
+  static constexpr int DS = D < 64 ? D : 64;      // columns per sub-tile
+  static constexpr int ROWB = DS * 2;             // bytes per sub-tile row
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;     // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;           // + stage * KV_BYTES
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 128 + 1024;  // + alignment slack
+  // wgmma layout type of the sub-tiles' swizzle: 128B / 64B / 32B
+  static constexpr uint32_t SWIZZLE = DS == 64 ? 1 : DS == 32 ? 2 : 3;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16
+         | static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32
+         | static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.  A
+// wait of more than ~2^32 cycles (seconds) traps, so a lost completion
+// fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 32)) asm volatile("trap;");
+  }
+}
+
+// One 4-D TMA box into shared memory, completing on an mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma accumulators across the
+// asynchronous instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16, bf16, shared, K-major) *
+// B (128 x 16, bf16, shared, K-major)^T; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, fp32) += A (64 x 16, bf16, registers) *
+// B (16 x 16, bf16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16, registers) *
+// B (16 x 32, bf16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16, registers) *
+// B (16 x 64, bf16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16, registers) *
+// B (16 x 128, bf16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// O += P V over one tile: BN / 16 k-steps of wgmma with P (bf16 A
+// fragments) in registers and V (MN-major) at vt in shared memory.
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2],
+                                   const uint32_t (&pa)[BN / 16][4],
+                                   uint32_t vt, uint32_t sbo) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<D>(o, pa[kk], desc(vt + kk * 16 * L::ROWB, BN * L::ROWB, sbo,
+                                L::SWIZZLE));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -67,183 +313,436 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
-         | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ float ex2(float x) {     // 2^x, 2 ulp
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_attention_kernel(Args a) {
-  constexpr int LD = D + 8;       // padded shared-memory row, in elements
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
+// Named barriers of the consumer warpgroups (256 threads): 1 orders the
+// tail zeroing; 2 + w is warpgroup w's turn to issue its S GEMM.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
 
-  const int qt = gridDim.x - 1 - blockIdx.x;     // heaviest tiles first
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / (a.hq / a.hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = qt * BQ;
-  const int r0 = q0 + warp * 16 + (lane >> 2);   // this thread's two rows
-  const int r1 = r0 + 8;
-  const int c = (lane & 3) * 2;                  // its column pair
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
 
-  int kv_lim = a.kv_len ? a.kv_len[bi] : a.kv_len_default;
-  kv_lim = min(kv_lim, a.skv);
-  int hi = kv_lim;
-  if (a.causal) hi = min(hi, a.q_offset + min(q0 + BQ, a.sq));
-  const int ntiles = hi > 0 ? (hi + BK - 1) / BK : 0;
-
-  // Q fragments (A operand, row-major 16 x 16 per k-step) in registers
-  const size_t q_row = static_cast<size_t>(a.hq) * D;
-  const __nv_bfloat16* qb =
-      a.q + (static_cast<size_t>(bi) * a.sq * a.hq + h) * D;
-  uint32_t qf[D / 16][4];
+// Scores of one tile in place: softcapped (then scaled first) and masked:
+// of this thread's columns c, c + 1 of each group of 8, the ones at or past
+// lim0 (row r0) / lim1 (row r0 + 8), counted from the tile's first key
+// plus c, are masked.  Without a softcap the scale is left to the exponent
+// (see softmax), which takes it in its one FFMA.
+template <bool MASK, bool SOFTCAP, int N>
+__device__ __forceinline__ void scores(float (&s)[N], const Params& p,
+                                       int lim0, int lim1) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int col = kk * 16 + c;
-    const uint32_t* p0 =
-        reinterpret_cast<const uint32_t*>(qb + r0 * q_row + col);
-    const uint32_t* p1 =
-        reinterpret_cast<const uint32_t*>(qb + r1 * q_row + col);
-    qf[kk][0] = r0 < a.sq ? p0[0] : 0u;
-    qf[kk][1] = r1 < a.sq ? p1[0] : 0u;
-    qf[kk][2] = r0 < a.sq ? p0[4] : 0u;          // 8 columns on
-    qf[kk][3] = r1 < a.sq ? p1[4] : 0u;
-  }
-
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-
-  const __nv_bfloat16* kb = a.k + static_cast<size_t>(bi) * a.ksb
-                            + static_cast<size_t>(hk) * a.ksh;
-  const __nv_bfloat16* vb = a.v + static_cast<size_t>(bi) * a.vsb
-                            + static_cast<size_t>(hk) * a.vsh;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();                             // last tile's reads done
-    for (int i = threadIdx.x; i < BK * (D / 8); i += NWARPS * 32) {
-      const int r = i / (D / 8), cc = (i % (D / 8)) * 8;
-      const int kp = k0 + r;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (kp < kv_lim) {
-        kx = *reinterpret_cast<const uint4*>(
-            kb + static_cast<size_t>(kp) * a.kss + cc);
-        vx = *reinterpret_cast<const uint4*>(
-            vb + static_cast<size_t>(kp) * a.vss + cc);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LD + cc) = kx;
-      *reinterpret_cast<uint4*>(vs + r * LD + cc) = vx;
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      if constexpr (SOFTCAP) x = tanhf(x * p.scale / p.softcap) * p.softcap;
+      if constexpr (MASK)
+        x = 8 * j + (e & 1) < (e < 2 ? lim0 : lim1) ? x : NEG_INF;
+      s[4 * j + e] = x;
     }
-    __syncthreads();
+  }
+}
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[BK / 8][4];
+// One level of a pairwise tree over r[0 .. 2W), then the levels below.
+template <bool SUM, int W, int M>
+__device__ __forceinline__ void tree(float (&r)[M]) {
+  if constexpr (W > 0) {
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = ks + (n * 8 + (lane >> 2)) * LD + c;
+    for (int j = 0; j < W; ++j)
+      r[j] = SUM ? r[j] + r[j + W] : fmaxf(r[j], r[j + W]);
+    tree<SUM, W / 2>(r);
+  }
+}
+
+// Max (or sum) over the thread's columns of its row h (0: elements 0, 1 of
+// each group of four; 1: elements 2, 3), as a tree.
+template <bool SUM, int N>
+__device__ __forceinline__ float row_reduce(const float (&s)[N], int h) {
+  float r[N / 4];
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    r[j] = SUM ? s[4 * j + 2 * h] + s[4 * j + 2 * h + 1]
+               : fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+  tree<SUM, N / 8>(r);
+  return r[0];
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// One work item: 128 rows (gp query heads x BM / gp positions) of one
+// batch row, and the key tiles they see.  Items are numbered heaviest
+// first (later positions, when causal).
+struct Item {
+  int h0, hk, bi, q0, kv_lim, ntiles;
+};
+
+__device__ __forceinline__ Item item_of(const Params& p, int u) {
+  const int ngroups = p.hq / p.gp, npos = BM / p.gp;
+  const int per_tile = ngroups * p.b;
+  Item it;
+  it.q0 = ((p.sq + npos - 1) / npos - 1 - u / per_tile) * npos;
+  it.h0 = (u % ngroups) * p.gp;
+  it.bi = (u % per_tile) / ngroups;
+  it.hk = it.h0 / (p.hq / p.hkv);
+  int kv_lim = p.kv_len ? p.kv_len[it.bi] : p.kv_len_default;
+  it.kv_lim = min(kv_lim, p.skv);
+  int hi = it.kv_lim;
+  if (p.causal) hi = min(hi, p.q_offset + min(it.q0 + npos, p.sq));
+  it.ntiles = hi > 0 ? (hi + BN - 1) / BN : 0;
+  return it;
+}
+
+// The CTA's items: a zigzag over the CTAs (c, 2G - 1 - c, 2G + c, ...), so
+// each takes a heavy and a light one in turn.
+__device__ __forceinline__ int next_item(int u) {
+  const int g = gridDim.x, c = blockIdx.x, r = u / g + 1;
+  return r * g + (r & 1 ? g - 1 - c : c);
+}
+
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ Params p) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::BAR_OFF;     // Q loaded
+  const uint32_t bar_q_empty = bar_q + 8;       // Q no longer read
+  const uint32_t bar_full = bar_q + 16;         // + 8 * stage: tile loaded
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // tile released
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_items = ((p.sq + BM / p.gp - 1) / (BM / p.gp)) * (p.hq / p.gp)
+                      * p.b;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q_empty, 2);                  // one arrive per consumer
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer: one thread issues every TMA load --------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (warp == 8 && lane == 0) {
+      int n = 0, done = 0;            // K/V tiles and items so far
+      for (int u = blockIdx.x; u < n_items; u = next_item(u), ++done) {
+        const Item it = item_of(p, u);
+        if (done > 0) mbar_wait(bar_q_empty, (done - 1) & 1);
+        mbar_expect_tx(bar_q, L::Q_BYTES);
+        for (int s = 0; s < D / L::DS; ++s)
+          tma_load(base + s * BM * L::ROWB, &p.q_map, bar_q, s * L::DS, it.h0,
+                   it.q0, it.bi);
+        for (int t = 0; t < it.ntiles; ++t, ++n) {
+          const int st = n % STAGES;
+          if (n >= STAGES) mbar_wait(bar_empty + 8 * st, (n / STAGES - 1) & 1);
+          const uint32_t full = bar_full + 8 * st;
+          mbar_expect_tx(full, 2 * L::KV_BYTES);
+          for (int s = 0; s < D / L::DS; ++s) {
+            const uint32_t off = st * L::KV_BYTES + s * BN * L::ROWB;
+            tma_load(base + L::K_OFF + off, &p.k_map, full, s * L::DS, it.hk,
+                     t * BN, it.bi);
+            tma_load(base + L::V_OFF + off, &p.v_map, full, s * L::DS, it.hk,
+                     t * BN, it.bi);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows per warpgroup ------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
+    const int wg = warp >> 2;
+    const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);   // rows r0,
+    const int c = 2 * (lane & 3);                               // r0 + 8
+    const uint32_t sbo = 8 * L::ROWB;
+    float o[D / 2], s[BN / 2];
+    uint32_t pa[BN / 16][4];          // P of the tile before, bf16
+    float m0, m1, l0, l1;
+    int n = 0;                        // K/V tiles consumed so far
+    Item it{};
+    int vis0 = 0, vis1 = 0;           // the rows' last visible keys (causal)
+
+    // Wait for tile t of the item, zero its V rows past kv_len (see the
+    // top), then issue its S = Q K^T (64 x 128 per warpgroup) in this
+    // warpgroup's turn.
+    auto issue_s = [&](int t) {
+      const int st = (n + t) % STAGES, k0 = t * BN;
+      mbar_wait(bar_full + 8 * st, ((n + t) / STAGES) & 1);
+      if (k0 + BN > it.kv_lim && it.kv_lim < p.skv) {
+        const int z0 = it.kv_lim - k0, nz = min(BN, p.skv - k0) - z0;
+        constexpr int CH = L::ROWB / 16;
+        uint8_t* vt = smem + L::V_OFF + st * L::KV_BYTES;
+        for (int i = tid; i < (D / L::DS) * nz * CH; i += 256) {
+          const int sub = i / (nz * CH), rem = i % (nz * CH);
+          *reinterpret_cast<uint4*>(vt + sub * BN * L::ROWB
+                                    + (z0 + rem / CH) * L::ROWB
+                                    + (rem % CH) * 16) = make_uint4(0, 0, 0, 0);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_sync(1);
+      }
+      const uint32_t kt = base + L::K_OFF + st * L::KV_BYTES;
+      named_sync(2 + wg);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(s[n], qf[kk], b0, b1);
+        const int sub = kk * 16 / L::DS, col = (kk * 16 % L::DS) * 2;
+        wgmma_ss_n128(
+            s,
+            desc(base + sub * BM * L::ROWB + wg * 64 * L::ROWB + col, 16, sbo,
+                 L::SWIZZLE),
+            desc(kt + sub * BN * L::ROWB + col, 16, sbo, L::SWIZZLE),
+            kk > 0);
+      }
+      wgmma_commit();
+    };
+    // After the item's last S GEMM: this warpgroup reads Q no more.
+    auto q_done = [&](int t) {
+      if (t == it.ntiles - 1 && (tid & 127) == 0) mbar_arrive(bar_q_empty);
+    };
+    // Softcap, mask; the online softmax of the thread's two rows: s
+    // becomes p = exp(scale * (x - max)) (as 2^(x c - max c), c = scale *
+    // log2e; with a softcap x is already scaled and c = log2e); corr0 and
+    // corr1 get the rescale factors of the two rows.
+    auto softmax = [&](int t, float& corr0, float& corr1) {
+      const int k0 = t * BN;
+      if (k0 + BN > it.kv_lim
+          || (p.causal && k0 + BN - 1 > p.q_offset + it.q0)) {
+        // a key is visible below kv_lim and, when causal, at or before the
+        // row's position
+        const int lim0 = p.causal ? min(it.kv_lim, vis0 + 1) : it.kv_lim;
+        const int lim1 = p.causal ? min(it.kv_lim, vis1 + 1) : it.kv_lim;
+        scores<true, SOFTCAP>(s, p, lim0 - k0 - c, lim1 - k0 - c);
+      } else {
+        scores<false, SOFTCAP>(s, p, 0, 0);
+      }
+      float mx0 = fmaxf(m0, row_reduce<false>(s, 0));
+      float mx1 = fmaxf(m1, row_reduce<false>(s, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float cl = SOFTCAP ? LOG2E : p.scale * LOG2E;
+      const float ml0 = mx0 * cl, ml1 = mx1 * cl;
+      corr0 = ex2(m0 * cl - ml0);
+      corr1 = ex2(m1 * cl - ml1);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        s[4 * j] = ex2(fmaf(s[4 * j], cl, -ml0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], cl, -ml0));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], cl, -ml1));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], cl, -ml1));
+      }
+      l0 = l0 * corr0 + row_reduce<true>(s, 0);   // this thread's columns
+      l1 = l1 * corr1 + row_reduce<true>(s, 1);
+      m0 = mx0;
+      m1 = mx1;
+    };
+    // P to the A fragments: chunk j holds keys 8j..8j+7, k-step j / 2.
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        pa[j / 2][2 * (j & 1)] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pa[j / 2][2 * (j & 1) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+    };
+
+    if (wg == 1) named_arrive(2);     // warpgroup 0 issues first
+    int done = 0;
+    for (int u = blockIdx.x; u < n_items; u = next_item(u), ++done) {
+      it = item_of(p, u);
+      const int pos0 = it.q0 + r0 / p.gp, pos1 = it.q0 + (r0 + 8) / p.gp;
+      vis0 = p.q_offset + pos0;
+      vis1 = p.q_offset + pos1;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      m0 = m1 = NEG_INF;
+      l0 = l1 = 0.f;
+      mbar_wait(bar_q, done & 1);
+      if (it.ntiles == 0 && (tid & 127) == 0) mbar_arrive(bar_q_empty);
+
+      // Tile t's S GEMM is issued together with tile t-1's P V, so this
+      // warpgroup's softmax of tile t runs while the tensor cores do its
+      // P V (and the other warpgroup's GEMMs: the two take turns to
+      // issue).  The first tile is peeled off, so every wgmma wait is
+      // unconditional (ptxas serializes all of a kernel's wgmma otherwise).
+      float corr0, corr1;
+      if (it.ntiles > 0) {
+        issue_s(0);
+        named_arrive(3 - wg);
+        wgmma_wait<0>();
+        fence_regs(s);
+        q_done(0);
+        softmax(0, corr0, corr1);     // o is zero: nothing to rescale
+        pack_p();
+      }
+      for (int t = 1; t < it.ntiles; ++t) {
+        const int prev = (n + t - 1) % STAGES;
+        issue_s(t);
+        pv<D>(o, pa, base + L::V_OFF + prev * L::KV_BYTES, sbo);
+        wgmma_commit();
+        named_arrive(3 - wg);
+        wgmma_wait<1>();              // S(t) done, P V of t - 1 may run on
+        fence_regs(s);
+        q_done(t);
+        softmax(t, corr0, corr1);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        if ((tid & 127) == 0) mbar_arrive(bar_empty + 8 * prev);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= corr0;
+          o[4 * j + 1] *= corr0;
+          o[4 * j + 2] *= corr1;
+          o[4 * j + 3] *= corr1;
+        }
+        pack_p();
+      }
+      if (it.ntiles > 0) {            // the last tile's P V
+        const int last = (n + it.ntiles - 1) % STAGES;
+        wgmma_fence();
+        pv<D>(o, pa, base + L::V_OFF + last * L::KV_BYTES, sbo);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        if ((tid & 127) == 0) mbar_arrive(bar_empty + 8 * last);
+      }
+      n += it.ntiles;
+
+      // the denominators over the row's four threads, then the output
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float d0 = 1.f / fmaxf(l0, 1e-30f), d1 = 1.f / fmaxf(l1, 1e-30f);
+      __nv_bfloat16* out0 = p.out + ((static_cast<size_t>(it.bi) * p.sq
+                                      + pos0) * p.hq + it.h0 + r0 % p.gp)
+                                    * D + c;
+      __nv_bfloat16* out1 = p.out + ((static_cast<size_t>(it.bi) * p.sq
+                                      + pos1) * p.hq + it.h0
+                                     + (r0 + 8) % p.gp) * D + c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        if (pos0 < p.sq)
+          *reinterpret_cast<uint32_t*>(out0 + 8 * j) =
+              pack_bf16(o[4 * j] * d0, o[4 * j + 1] * d0);
+        if (pos1 < p.sq)
+          *reinterpret_cast<uint32_t*>(out1 + 8 * j) =
+              pack_bf16(o[4 * j + 2] * d1, o[4 * j + 3] * d1);
       }
     }
-
-    // scale, softcap, mask; the tile's row maxima
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = k0 + n * 8 + c + (e & 1);
-        float x = s[n][e] * a.scale;
-        if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
-        const bool ok = col < kv_lim && (!a.causal || col <= a.q_offset + row);
-        s[n][e] = ok ? x : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {                // the row's four threads
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    const float corr0 = expf(m[0] - mx[0]), corr1 = expf(m[1] - mx[1]);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = expf(s[n][0] - mx[0]);
-      s[n][1] = expf(s[n][1] - mx[0]);
-      s[n][2] = expf(s[n][2] - mx[1]);
-      s[n][3] = expf(s[n][3] - mx[1]);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l[0] = l[0] * corr0 + rs0;                   // this thread's columns
-    l[1] = l[1] * corr1 + rs1;
-    m[0] = mx[0];
-    m[1] = mx[1];
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= corr0;
-      o[dn][1] *= corr0;
-      o[dn][2] *= corr1;
-      o[dn][3] *= corr1;
-    }
-
-    // O += P V: P (bf16) from the S accumulators, 16 keys per k-step
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const __nv_bfloat16* v0 = vs + (j * 16 + c) * LD + (lane >> 2);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* vp = v0 + dn * 8;
-        const uint32_t b0 = pack_raw(vp[0], vp[LD]);
-        const uint32_t b1 = pack_raw(vp[8 * LD], vp[9 * LD]);
-        mma_bf16(o[dn], pa, b0, b1);
-      }
-    }
-  }
-
-  // the denominators over the row's four threads, then the output
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
-  __nv_bfloat16* ob = a.out + (static_cast<size_t>(bi) * a.sq * a.hq + h) * D;
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + c;
-    if (r0 < a.sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_row + col) =
-          pack_bf16(o[dn][0] / d0, o[dn][1] / d0);
-    if (r1 < a.sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_row + col) =
-          pack_bf16(o[dn][2] / d1, o[dn][3] / d1);
+    if (wg == 0) named_sync(2);       // warpgroup 1's last turn signal
   }
 }
 
-template <int D>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.sq + BQ - 1) / BQ, a.hq, a.b);
-  flash_attention_kernel<D><<<grid, NWARPS * 32, 0, stream>>>(a);
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
+// link against libcuda).
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    fn = reinterpret_cast<EncodeFn>(f);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over (D, H, S, B) with the given element strides of H, S
+// and B, read in boxes of (ds, bh, bs, 1).
+bool make_map(CUtensorMap* map, const void* ptr, int d, int h, int s, int b,
+              long long sh, long long ss, long long sb, int ds, int bh,
+              int bs) {
+  const EncodeFn fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(ds),
+                             static_cast<cuuint32_t>(bh),
+                             static_cast<cuuint32_t>(bs), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = ds == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : ds == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool SOFTCAP>
+cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
+                   int b, int d, long long ksb, long long kss, long long ksh,
+                   long long vsb, long long vss, long long vsh,
+                   cudaStream_t stream) {
+  using L = Layout<D>;
+  const int npos = BM / p.gp;
+  if (!make_map(&p.q_map, q, d, p.hq, p.sq, b, d,
+                static_cast<long long>(p.hq) * d,
+                static_cast<long long>(p.sq) * p.hq * d, L::DS, p.gp, npos)
+      || !make_map(&p.k_map, k, d, p.hkv, p.skv, b, ksh, kss, ksb, L::DS, 1,
+                   BN)
+      || !make_map(&p.v_map, v, d, p.hkv, p.skv, b, vsh, vss, vsb, L::DS, 1,
+                   BN))
+    return cudaErrorInvalidValue;
+  static bool sized = false;      // per instantiation: above 48 KB opt-in
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<D, SOFTCAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  // persistent: one CTA per SM (or per item, when there are fewer)
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms < 1) sms = 1;
+  }
+  const int items = (p.sq + npos - 1) / npos * (p.hq / p.gp) * b;
+  flash_attention_kernel<D, SOFTCAP>
+      <<<items < sms ? items : sms, THREADS, L::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -254,21 +753,46 @@ extern "C" int flash_attention_launch(
     int b, int sq, int skv, int hq, int hkv, int d, int ksb, int kss, int ksh,
     int vsb, int vss, int vsh, int causal, int q_offset, int kv_len_default,
     float softcap, float scale, void* stream) {
-  const Args a{static_cast<const __nv_bfloat16*>(q),
-               static_cast<const __nv_bfloat16*>(k),
-               static_cast<const __nv_bfloat16*>(v),
-               static_cast<__nv_bfloat16*>(out),
-               kv_len, b, sq, skv, hq, hkv, ksb, kss, ksh, vsb, vss, vsh,
-               causal, q_offset, kv_len_default, softcap, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq == 0 || b == 0) return 0;
+  int gp = 1;                     // query heads of one KV group per CTA
+  while (gp < 16 && (hq / hkv) % (2 * gp) == 0) gp *= 2;
+  Params p{};
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.kv_len = kv_len;
+  p.b = b;
+  p.sq = sq;
+  p.skv = skv;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.gp = gp;
+  p.causal = causal;
+  p.q_offset = q_offset;
+  p.kv_len_default = kv_len_default;
+  p.softcap = softcap;
+  p.scale = scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool cap = softcap > 0.f;
+  cudaError_t err;
   switch (d) {
-    case 16: return static_cast<int>(launch<16>(a, s));
-    case 32: return static_cast<int>(launch<32>(a, s));
-    case 64: return static_cast<int>(launch<64>(a, s));
-    case 128: return static_cast<int>(launch<128>(a, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: err = cap ? launch<16, true>(p, q, k, v, b, d, ksb, kss, ksh, vsb,
+                                          vss, vsh, s)
+                       : launch<16, false>(p, q, k, v, b, d, ksb, kss, ksh,
+                                           vsb, vss, vsh, s); break;
+    case 32: err = cap ? launch<32, true>(p, q, k, v, b, d, ksb, kss, ksh, vsb,
+                                          vss, vsh, s)
+                       : launch<32, false>(p, q, k, v, b, d, ksb, kss, ksh,
+                                           vsb, vss, vsh, s); break;
+    case 64: err = cap ? launch<64, true>(p, q, k, v, b, d, ksb, kss, ksh, vsb,
+                                          vss, vsh, s)
+                       : launch<64, false>(p, q, k, v, b, d, ksb, kss, ksh,
+                                           vsb, vss, vsh, s); break;
+    case 128: err = cap ? launch<128, true>(p, q, k, v, b, d, ksb, kss, ksh,
+                                            vsb, vss, vsh, s)
+                        : launch<128, false>(p, q, k, v, b, d, ksb, kss, ksh,
+                                             vsb, vss, vsh, s); break;
+    default: err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* cuda_error_string(int err) {

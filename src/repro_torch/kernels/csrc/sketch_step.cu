@@ -13,22 +13,45 @@
 // access left, so the chunk is one dependent chain.  Per access it touches a
 // few dozen words (probe words of the sketch, one window set and up to four
 // main sets), so the bytes it must move are tiny against 3.35 TB/s; the time
-// goes to the latency of the dependent L2 round trips and warp reductions.
+// goes to the latency of the dependent L2 round trips and of the one warp's
+// instruction chain.
 //
-// What the design does about it: one block per stream (streams > 1 later
-// becomes one block per lane).  Warp 0 runs the per-access chain; its
-// reductions (first-index argmin / argmax over the flat tables or over the
-// A-record window set and the 2A-record candidate sets) are warp shuffles,
-// so no block barrier sits on the per-access path.  The set-associative
-// blocks are staged in shared memory, so every decision of an access reads
-// on-chip copies of the pre-access records, and the block writes go last
-// (km1, km2, c1, c2, window; later writes win, and a given word is always
-// written by the same lane, so program order is write order).  The sketch
-// stays in global memory (L2-resident at the main path's 512 KB).  Every
-// thread of the block tracks the sketch size register itself (it advances
-// by one per access and halves at a reset, independent of the data), so the
-// whole block meets at __syncthreads only on the accesses where the reset
-// fires and then halves the sketch together.
+// What the design does about it: one block per stream; warp 0 runs the
+// per-access chain, and every thread of the block tracks the sketch size
+// register itself (it advances by one per access and halves at a reset,
+// independent of the data), so the whole block meets at __syncthreads only
+// on the accesses where the reset fires and then halves the sketch together.
+// In the set-associative layout an access waits on at most three dependent
+// round trips to L2 (one on a hit):
+//
+//  0. The inputs (key lanes, set indices, probes) come an access ahead.  The
+//     access's window set, the lo/hi/meta columns of its two main sets and
+//     its sketch add's words are loaded together.  (Loading the next
+//     access's sets ahead too, before this access's writes, and reloading
+//     what it wrote, measured slower: the extra loads delay the warp's
+//     reductions more than the round trip they hide.)
+//  1. The records sit in registers: lane l holds way l (+ 32 r) of the
+//     window set, and lanes 0-15 / 16-31 hold way (l & 15) (+ 16 r) of the
+//     first / second main set, so a first-match lookup is one __ballot_sync
+//     and __ffs, and a first-index argmin is __reduce_min_sync, a ballot of
+//     equality and __ffs (ties go to the lowest way, the first set before
+//     the second).  An entry's probes sit one per lane (row r in lane r,
+//     doorkeeper probe p in lane 8 + p), so its sketch words are one load
+//     and its estimate one __reduce_min_sync and one ballot; the add's
+//     doorkeeper bits go in with atomicOr (probes sharing a word merge).
+//  2. On a miss that pushes the window's LRU record out, the candidate's two
+//     main sets (meta and probe columns) and its sketch words are loaded
+//     together.  The main sets cannot have changed in this access (only a
+//     hit changes them), so they are read straight from the table.
+//  3. If the weakest of those 2A records is occupied, its sketch words.
+//
+// Only what changes is written: on a hit the meta word of the hit way (and
+// of the demoted way); on a miss the window row written and the inserted
+// victim record.  No two of these writes share a word, so the reference's
+// write order (km1, km2, c1, c2, window) holds trivially.  The sketch stays
+// in global memory (L2-resident at the main path's 512 KB).  The flat layout
+// (exact global tables, the golden runs' G1/G2) keeps warp-shuffle
+// reductions over slots in global memory.
 //
 // Timing probes (python -m repro_torch.kernels.phase_timing) build this file
 // with -DSKETCH_STEP_SKIP_ADD or -DSKETCH_STEP_SKIP_ACCESS to compile one
@@ -43,6 +66,7 @@ constexpr int kProt = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRows = 8;
 constexpr int kMaxDkp = 8;
+constexpr int kMaxWays = 128;    // the wrapper's _MAX_WAYS
 
 enum { P_WINDOW_CAP, P_MAIN_CAP, P_PROT_CAP, P_SAMPLE, P_CAP, P_WARMUP };
 enum { R_SIZE, R_PCOUNT, R_T, R_HITS };
@@ -79,6 +103,90 @@ struct Sketch {
   uint32_t capmax;      // field mask
 };
 
+// What each lane of warp 0 holds of an entry's probes: lane r < rows the
+// counter probe of row r, lane 8 + p (p < dkp) the doorkeeper probe p (the
+// stored column; it is tested only with a doorkeeper).
+struct Lanes {
+  int lane;
+  bool row, dk, dk_on;
+};
+
+// One entry's lanes, set indices and this lane's probe: an access's inputs
+// (loaded an access ahead of their use), a candidate or a victim.
+struct Entry {
+  int lo, hi, w, m1, m2, pr;
+};
+
+__device__ __forceinline__ void load_key(const StepArgs& a, const Lanes& ln,
+                                         int i, Entry& k) {
+  k.lo = __ldg(a.lo + i);
+  k.hi = __ldg(a.hi + i);
+  k.w = __ldg(a.kwset + i);
+  k.m1 = __ldg(a.kmset + 2 * i);
+  k.m2 = __ldg(a.kmset + 2 * i + 1);
+  const int* src = ln.row ? a.kidx + i * a.rows + ln.lane
+                          : a.kdkb + i * a.dkp + ln.lane - 8;
+  k.pr = ln.row || ln.dk ? __ldg(src) : 0;
+}
+
+// The sketch word this lane's probe addresses (loads only).
+__device__ __forceinline__ uint32_t load_word(const StepArgs& a,
+                                              const Sketch& s, const Lanes& ln,
+                                              int pr) {
+  const int* p = ln.row ? a.counters + ln.lane * a.words_per_row
+                              + (pr >> s.shift)
+                        : a.dk + (pr >> 5);
+  return ln.row || ln.dk_on ? static_cast<uint32_t>(*p) : 0u;
+}
+
+// This lane's counter (row lanes; the maximum in the others).
+__device__ __forceinline__ uint32_t counter_of(const StepArgs& a,
+                                               const Sketch& s,
+                                               const Lanes& ln, uint32_t w,
+                                               int pr) {
+  return ln.row ? (w >> ((pr & s.cpw_mask) * a.counter_bits)) & s.capmax
+                : 0xffffffffu;
+}
+
+// TinyLFU estimate of an entry from its loaded words: the minimum over the
+// row lanes, +1 when every doorkeeper lane's bit is set.
+__device__ __forceinline__ int estimate_of(const StepArgs& a, const Sketch& s,
+                                           const Lanes& ln, uint32_t w,
+                                           int pr) {
+  int est = static_cast<int>(
+      __reduce_min_sync(kFull, counter_of(a, s, ln, w, pr)));
+  if (a.dk_bits)
+    est += __ballot_sync(kFull, ln.dk_on && !((w >> (pr & 31)) & 1u)) == 0;
+  return est;
+}
+
+// Doorkeeper gate -> conservative increment, from the key's loaded words.
+// A doorkeeper probe passes if its bit was set or an earlier probe has the
+// same bit (the reference tests and sets them in turn).  The doorkeeper
+// lanes OR their bits in (probes sharing a word merge); the row lanes at the
+// minimum bump their counter.  Every lane's load was consumed by the
+// reductions before any store.
+__device__ __forceinline__ void add_words(const StepArgs& a, const Sketch& s,
+                                          const Lanes& ln, int cap,
+                                          const Entry& k, uint32_t w) {
+  bool gate = true;
+  if (a.dk_bits) {
+    const unsigned same = __match_any_sync(kFull, ln.dk_on ? k.pr
+                                                           : -1 - ln.lane);
+    const bool eff = ((w >> (k.pr & 31)) & 1u)
+                     || (same & ((1u << ln.lane) - 1u));
+    gate = __ballot_sync(kFull, ln.dk_on && !eff) == 0;
+  }
+  const uint32_t v = counter_of(a, s, ln, w, k.pr);
+  const uint32_t m = __reduce_min_sync(kFull, v);
+  if (ln.dk_on)
+    atomicOr(reinterpret_cast<unsigned*>(a.dk) + (k.pr >> 5),
+             1u << (k.pr & 31));
+  if (gate && static_cast<int>(m) < cap && ln.row && v == m)
+    a.counters[ln.lane * a.words_per_row + (k.pr >> s.shift)] = static_cast<
+        int>(w + (1u << ((k.pr & s.cpw_mask) * a.counter_bits)));
+}
+
 // Warp-wide minimum of (value, index) pairs: ties go to the smaller index,
 // and every lane ends with the same pair.
 __device__ __forceinline__ void warp_argmin(int& v, int& i) {
@@ -113,83 +221,8 @@ __device__ __forceinline__ int first_true(int n, Pred pred, bool& found) {
   return j;
 }
 
-// Doorkeeper gate -> conservative increment.  Every lane of warp 0 issues
-// all the reads (doorkeeper and counter words together: the two arrays are
-// disjoint, so no read waits on the other's writes) and decides; lane 0
-// writes after all lanes have read.
-__device__ __forceinline__ void sketch_add(const StepArgs& a, const Sketch& s,
-                                           int cap, const int* kidx,
-                                           const int* kdkb, int lane) {
-  int kb[kMaxDkp], w_idx[kMaxDkp];
-  uint32_t words[kMaxDkp];
-  int flat[kMaxRows], sub[kMaxRows];
-  uint32_t cw[kMaxRows], vals[kMaxRows];
-  if (a.dk_bits) {
-#pragma unroll
-    for (int p = 0; p < kMaxDkp; ++p) {
-      if (p < a.dkp) {
-        kb[p] = __ldg(kdkb + p);
-        w_idx[p] = kb[p] >> 5;
-        words[p] = static_cast<uint32_t>(a.dk[w_idx[p]]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < a.rows) {
-      const int k = __ldg(kidx + r);
-      flat[r] = r * a.words_per_row + (k >> s.shift);
-      sub[r] = (k & s.cpw_mask) * a.counter_bits;
-      cw[r] = static_cast<uint32_t>(a.counters[flat[r]]);
-    }
-  }
-  bool gate = true;
-  if (a.dk_bits) {
-#pragma unroll
-    for (int p = 0; p < kMaxDkp; ++p) {
-      if (p < a.dkp) {
-        bool eff = (words[p] >> (kb[p] & 31)) & 1u;
-#pragma unroll
-        for (int q = 0; q < p; ++q) eff |= (kb[q] == kb[p]);  // earlier probe
-        gate &= eff;
-      }
-    }
-  }
-  uint32_t m = 0xffffffffu;
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    if (r < a.rows) {
-      vals[r] = (cw[r] >> sub[r]) & s.capmax;
-      m = vals[r] < m ? vals[r] : m;
-    }
-  }
-  const bool bump = gate && static_cast<int>(m) < cap;
-  __syncwarp();
-  if (lane == 0) {
-    if (a.dk_bits) {
-#pragma unroll
-      for (int p = 0; p < kMaxDkp; ++p) {
-        if (p < a.dkp) {
-          uint32_t merged = words[p] | (1u << (kb[p] & 31));
-#pragma unroll
-          for (int q = 0; q < kMaxDkp; ++q)   // probes sharing a word merge
-            if (q < a.dkp && q != p && w_idx[q] == w_idx[p])
-              merged |= 1u << (kb[q] & 31);
-          a.dk[w_idx[p]] = static_cast<int>(merged);
-        }
-      }
-    }
-    if (bump) {
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r)   // every row at the minimum
-        if (r < a.rows && vals[r] == m)
-          a.counters[flat[r]] = static_cast<int>(cw[r] + (1u << sub[r]));
-    }
-  }
-  __syncwarp();
-}
-
-// TinyLFU estimate of one entry from its stored probes.
+// TinyLFU estimate of one entry from its stored probes (the flat path:
+// every lane loads every word).
 __device__ __forceinline__ int estimate(const StepArgs& a, const Sketch& s,
                                         const int (&idx)[kMaxRows],
                                         const int (&dkb)[kMaxDkp]) {
@@ -307,202 +340,310 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
   return 0;
 }
 
-__device__ __forceinline__ void copy_block(int* dst, const int* src, int n,
-                                           int lane) {
-  for (int e = lane; e < n; e += 32) dst[e] = src[e];
+
+// v[r] for a runtime r < N, by selects (register arrays are indexed by
+// unrolled constants only, so they stay in registers).
+template <int N>
+__device__ __forceinline__ int pick(const int (&v)[N], int r) {
+  int x = v[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    if (r == k) x = v[k];
+  return x;
 }
 
-// Up to three block copies (n_k = 0 skips one) with each lane's loads all
-// issued before its stores, so the round trips to L2 overlap instead of
-// queueing one behind the other.  Same lane-to-element map as copy_block.
-__device__ __forceinline__ void copy_blocks(int* d0, const int* s0, int n0,
-                                            int* d1, const int* s1, int n1,
-                                            int* d2, const int* s2, int n2,
-                                            int lane) {
-  constexpr int K = 8;
-  const int n = max(n0, max(n1, n2));
-  for (int base = lane; base < n; base += 32 * K) {
-    int v0[K], v1[K], v2[K];
+// First index of the minimum over one set whose way j sits in lane j & 31,
+// record j >> 5 (absent ways hold kI32Max); m receives the minimum.
+template <int N>
+__device__ __forceinline__ int first_min32(const int (&v)[N], int& m) {
+  int loc = v[0];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int e = base + 32 * k;
-      if (e < n0) v0[k] = s0[e];
-      if (e < n1) v1[k] = s1[e];
-      if (e < n2) v2[k] = s2[e];
+  for (int r = 1; r < N; ++r) loc = min(loc, v[r]);
+  m = __reduce_min_sync(kFull, loc);
+  int j = 0;
+  bool found = false;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const unsigned b = __ballot_sync(kFull, v[r] == m);
+    if (!found && b) { found = true; j = 32 * r + __ffs(b) - 1; }
+  }
+  return j;
+}
+
+// First index of the minimum over set h of a pair whose way j sits in lane
+// 16 h + (j & 15), record j >> 4; m receives the minimum.
+template <int N>
+__device__ __forceinline__ int first_min16(const int (&v)[N], int h, int lane,
+                                           int& m) {
+  int loc = v[0];
+#pragma unroll
+  for (int r = 1; r < N; ++r) loc = min(loc, v[r]);
+  m = __reduce_min_sync(kFull, (lane >> 4) == h ? loc : kI32Max);
+  int j = 0;
+  bool found = false;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const unsigned b = (__ballot_sync(kFull, v[r] == m) >> (16 * h)) & 0xffffu;
+    if (!found && b) { found = true; j = 16 * r + __ffs(b) - 1; }
+  }
+  return j;
+}
+
+// The probes of way (src lane, record rr) of records held a way per lane,
+// handed to the probe lanes: lane r gets idx[r], lane 8 + p gets dkb[p].
+template <int N>
+__device__ __forceinline__ int probes_from(const StepArgs& a, const Lanes& ln,
+                                           const int (&idx)[N][kMaxRows],
+                                           const int (&dkb)[N][kMaxDkp],
+                                           int src, int rr) {
+  int pr = 0;
+#pragma unroll
+  for (int q = 0; q < kMaxRows; ++q) {
+    if (q < a.rows) {
+      int col[N];
+#pragma unroll
+      for (int r = 0; r < N; ++r) col[r] = idx[r][q];
+      const int x = __shfl_sync(kFull, pick(col, rr), src);
+      if (ln.lane == q) pr = x;
     }
+  }
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int e = base + 32 * k;
-      if (e < n0) d0[e] = v0[k];
-      if (e < n1) d1[e] = v1[k];
-      if (e < n2) d2[e] = v2[k];
+  for (int q = 0; q < kMaxDkp; ++q) {
+    if (q < a.dkp) {
+      int col[N];
+#pragma unroll
+      for (int r = 0; r < N; ++r) col[r] = dkb[r][q];
+      const int x = __shfl_sync(kFull, pick(col, rr), src);
+      if (ln.lane == 8 + q) pr = x;
+    }
+  }
+  return pr;
+}
+
+// Write an entry into a table row: the header fields (n_head of them) from
+// lanes 16.., the probes from the probe lanes (after the header columns).
+__device__ __forceinline__ void write_row(const StepArgs& a, const Lanes& ln,
+                                          int* row, int n_head,
+                                          const int (&head)[5], int pr) {
+  const int l = ln.lane;
+  int col = -1, v = pr;
+  if (ln.row) col = n_head + l;
+  else if (ln.dk) col = n_head + a.rows + l - 8;
+  else if (l >= 16 && l < 16 + n_head) { col = l - 16; v = pick(head, col); }
+  if (col >= 0) row[col] = v;
+}
+
+// The records of one access's sets, in registers.  RM = ceil(ways / 16)
+// records per lane of a pair of main sets, RW = ceil(ways / 32) of the
+// window set.
+template <int RM>
+struct SetRegs {
+  static constexpr int RW = (RM + 1) / 2;
+  int wlo[RW], whi[RW], wmeta[RW], wms1[RW], wms2[RW];    // window set
+  int widx[RW][kMaxRows], wdkb[RW][kMaxDkp];
+  int mlo[RM], mhi[RM], mmeta[RM];        // the key's two main sets
+};
+
+// Load the key's window set (every column) and the lo/hi/meta columns of
+// its two main sets.  Loads only: nothing waits for them here.
+template <int RM>
+__device__ __forceinline__ void load_sets(const StepArgs& a, const Entry& k,
+                                          SetRegs<RM>& g, int lane) {
+  const int A = a.assoc;
+#pragma unroll
+  for (int r = 0; r < SetRegs<RM>::RW; ++r) {
+    const int j = lane + 32 * r;
+    g.wmeta[r] = kI32Max;
+    if (j < A) {
+      const int* p = a.wtab + (k.w * A + j) * a.wcols;
+      g.wlo[r] = p[WT_LO];
+      g.whi[r] = p[WT_HI];
+      g.wmeta[r] = p[WT_META];
+      g.wms1[r] = p[WT_MSET];
+      g.wms2[r] = p[WT_MSET2];
+#pragma unroll
+      for (int q = 0; q < kMaxRows; ++q)
+        if (q < a.rows) g.widx[r][q] = p[5 + q];
+#pragma unroll
+      for (int q = 0; q < kMaxDkp; ++q)
+        if (q < a.dkp) g.wdkb[r][q] = p[5 + a.rows + q];
+    }
+  }
+  const int set = lane < 16 ? k.m1 : k.m2;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int j = (lane & 15) + 16 * r;
+    g.mmeta[r] = kI32Max;
+    if (j < A) {
+      const int* p = a.mtab + (set * A + j) * a.mcols;
+      g.mlo[r] = p[MT_LO];
+      g.mhi[r] = p[MT_HI];
+      g.mmeta[r] = p[MT_META];
     }
   }
 }
 
-// SLRU promote-or-refresh of way j of a main set block in shared memory,
-// then the per-set protected budget check (integer floor division).
-__device__ void hit_update(const StepArgs& a, const int* P, int* blk, int j,
-                           int t, int lane) {
-  const int A = a.assoc, MC = a.mcols;
-  __syncwarp();
-  if (lane == 0) blk[j * MC + MT_META] = kProt | t;
-  __syncwarp();
+// SLRU promote-or-refresh of way j of main set h (in lanes 16 h ..), then
+// the set's protected budget check (prot_cap[usable], the reference's
+// max(1, usable * prot_cap // max(main_cap, 1))); writes the changed meta
+// words.
+template <int RM>
+__device__ void hit_update(const StepArgs& a, const int* prot_cap,
+                           SetRegs<RM>& g, int h, int j, int set, int t,
+                           int lane) {
+  const bool mine = (lane >> 4) == h;
   int usable = 0, nprot = 0;
-  for (int w = lane; w < A; w += 32) {
-    const int mm = blk[w * MC + MT_META];
-    usable += mm != kI32Max;
-    nprot += mm >= kProt && mm != kI32Max;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int mm = mine && (lane & 15) + 16 * r == j ? (kProt | t)
+                                                     : g.mmeta[r];
+    g.mmeta[r] = mm;
+    usable += __popc(__ballot_sync(kFull, mine && mm != kI32Max));
+    nprot += __popc(__ballot_sync(kFull, mine && mm >= kProt
+                                  && mm != kI32Max));
   }
-  usable = __reduce_add_sync(kFull, usable);
-  nprot = __reduce_add_sync(kFull, nprot);
-  const int main_cap = P[P_MAIN_CAP] > 1 ? P[P_MAIN_CAP] : 1;
-  long long cap = static_cast<long long>(usable) * P[P_PROT_CAP] / main_cap;
-  if (cap < 1) cap = 1;
-  if (nprot > cap) {
-    int v;
-    const int kd = argmin_over(A, [&](int w) {
-      const int mm = blk[w * MC + MT_META]; return mm >= kProt ? mm : kI32Max;
-    }, v);
-    __syncwarp();
-    if (lane == 0) blk[kd * MC + MT_META] = t;
-    __syncwarp();
+  int* meta = a.mtab + set * a.assoc * a.mcols + MT_META;
+  if (lane == 0) meta[j * a.mcols] = kProt | t;
+  if (nprot > prot_cap[usable]) {     // demote the set's protected LRU
+    int pv[RM], v;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) pv[r] = g.mmeta[r] >= kProt ? g.mmeta[r]
+                                                             : kI32Max;
+    const int kd = first_min16(pv, h, lane, v);
+    if (lane == 0) meta[kd * a.mcols] = t;
   }
 }
 
-// One access against the set-associative tables; returns the hit flag.
-__device__ int access_set(const StepArgs& a, const Sketch& s, const int* P,
-                          int i, int t, int* smem, int lane) {
-  const int A = a.assoc, WC = a.wcols, MC = a.mcols;
-  int* wb = smem;                 // key's window set
-  int* mb1 = wb + A * WC;         // key's main choice sets
-  int* mb2 = mb1 + A * MC;
-  int* cb1 = mb2 + A * MC;        // candidate's main choice sets
-  int* cb2 = cb1 + A * MC;
-  const int klo = __ldg(a.lo + i), khi = __ldg(a.hi + i);
-  const int kw = __ldg(a.kwset + i);
-  const int km1 = __ldg(a.kmset + 2 * i), km2 = __ldg(a.kmset + 2 * i + 1);
-  const bool same_km = km1 == km2;
-  copy_blocks(wb, a.wtab + kw * A * WC, A * WC, mb1, a.mtab + km1 * A * MC,
-              A * MC, mb2, a.mtab + km2 * A * MC, A * MC, lane);
-  __syncwarp();
-
-  bool hit_w, hit1, hit2;
-  const int jw = first_true(A, [&](int j) {
-    return wb[j * WC + WT_LO] == klo && wb[j * WC + WT_HI] == khi &&
-           wb[j * WC + WT_META] >= 0; }, hit_w);
-  const int j1 = first_true(A, [&](int j) {
-    return mb1[j * MC + MT_LO] == klo && mb1[j * MC + MT_HI] == khi &&
-           mb1[j * MC + MT_META] >= 0; }, hit1);
-  const int j2 = first_true(A, [&](int j) {
-    return mb2[j * MC + MT_LO] == klo && mb2[j * MC + MT_HI] == khi &&
-           mb2[j * MC + MT_META] >= 0; }, hit2);
+// One access against the set-associative tables, from the registers
+// load_sets filled (the pre-access records); returns the hit flag.
+template <int RM>
+__device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
+                          const int* prot_cap, int t, const Entry& k,
+                          SetRegs<RM>& g) {
+  constexpr int RW = SetRegs<RM>::RW;
+  const int A = a.assoc, lane = ln.lane;
+  const bool same_km = k.m1 == k.m2;
+  bool hit_w = false, hit1 = false, hit2 = false;
+  int jw = 0, j1 = 0, j2 = 0;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const unsigned b = __ballot_sync(
+        kFull, lane + 32 * r < A && g.wlo[r] == k.lo && g.whi[r] == k.hi
+                   && g.wmeta[r] >= 0);
+    if (!hit_w && b) { hit_w = true; jw = 32 * r + __ffs(b) - 1; }
+  }
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const unsigned b = __ballot_sync(
+        kFull, (lane & 15) + 16 * r < A && g.mlo[r] == k.lo
+                   && g.mhi[r] == k.hi && g.mmeta[r] >= 0);
+    const unsigned b1 = b & 0xffffu, b2 = b >> 16;
+    if (!hit1 && b1) { hit1 = true; j1 = 16 * r + __ffs(b1) - 1; }
+    if (!hit2 && b2) { hit2 = true; j2 = 16 * r + __ffs(b2) - 1; }
+  }
   hit2 = hit2 && !same_km;        // aliased choices: count set 1 only
-  const bool hit = hit_w || hit1 || hit2;
-  __syncwarp();
-  if (lane == 0 && hit_w) wb[jw * WC + WT_META] = t;
-  if (hit1) hit_update(a, P, mb1, j1, t, lane);
-  if (hit2) hit_update(a, P, mb2, j2, t, lane);
-  int* m2 = same_km ? mb1 : mb2;  // aliased sets follow set 1
-
-  int c1 = 0, c2 = 0;
-  if (!hit) {
-    int wsm;
-    const int ws = argmin_over(A, [&](int j) {
-      return wb[j * WC + WT_META]; }, wsm);
-    // a zero-way window set (argmin on padding) bypasses the window: the
-    // incoming key itself becomes the candidate
-    const bool w_ok = wsm != kI32Max;
-    const bool push = wsm >= 0 || !w_ok;
-    // candidate record: the window's LRU entry, or the key itself when the
-    // window is bypassed.  Register arrays are indexed by unrolled constants
-    // only, so they stay in registers.
-    const int* kidx = a.kidx + i * a.rows;
-    const int* kdkb = a.kdkb + i * a.dkp;
-    const int* wrow = wb + ws * WC;
-    int cidx[kMaxRows], cdkb[kMaxDkp];
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      if (r < a.rows) cidx[r] = w_ok ? wrow[5 + r] : __ldg(kidx + r);
-#pragma unroll
-    for (int p = 0; p < kMaxDkp; ++p)
-      if (p < a.dkp) cdkb[p] = w_ok ? wrow[5 + a.rows + p] : __ldg(kdkb + p);
-    const int cand_lo = w_ok ? wrow[WT_LO] : klo;
-    const int cand_hi = w_ok ? wrow[WT_HI] : khi;
-    c1 = w_ok ? wrow[WT_MSET] : km1;
-    c2 = w_ok ? wrow[WT_MSET2] : km2;
-    __syncwarp();
-    if (lane == 0 && w_ok) {          // insert the key into the window
-      int* row = wb + ws * WC;
-      row[WT_LO] = klo; row[WT_HI] = khi; row[WT_META] = t;
-      row[WT_MSET] = km1; row[WT_MSET2] = km2;
-      for (int r = 0; r < a.rows; ++r) row[5 + r] = __ldg(kidx + r);
-      for (int p = 0; p < a.dkp; ++p) row[5 + a.rows + p] = __ldg(kdkb + p);
-    }
-    // the candidate's sets come from the pre-access table, with the hit
-    // updates replayed where they alias the key's sets
-    copy_blocks(cb1, c1 == km2 ? m2 : c1 == km1 ? mb1 : a.mtab + c1 * A * MC,
-                A * MC,
-                cb2, c2 == km2 ? m2 : c2 == km1 ? mb1 : a.mtab + c2 * A * MC,
-                A * MC, nullptr, nullptr, 0, lane);
-    __syncwarp();
-    // weakest of the 2A records; ties pick the first half
-    int vm;
-    const int ts = argmin_over(2 * A, [&](int k) {
-      return k < A ? cb1[k * MC + MT_META] : cb2[(k - A) * MC + MT_META];
-    }, vm);
-    int* vic = ts < A ? cb1 + ts * MC : cb2 + (ts - A) * MC;
-    bool do_ins = false;
-    if (push && vm != kI32Max) {  // padding victims never accept an insert
-      do_ins = vm < 0;
-      if (!do_ins) {
-        int vidx[kMaxRows], vdkb[kMaxDkp];
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r)
-          if (r < a.rows) vidx[r] = vic[3 + r];
-#pragma unroll
-        for (int p = 0; p < kMaxDkp; ++p)
-          if (p < a.dkp) vdkb[p] = vic[3 + a.rows + p];
-        do_ins = estimate(a, s, cidx, cdkb) > estimate(a, s, vidx, vdkb);
-      }
-    }
-    __syncwarp();
-    if (do_ins && lane == 0) {
-      vic[MT_LO] = cand_lo;
-      vic[MT_HI] = cand_hi;
-      vic[MT_META] = t;
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r)
-        if (r < a.rows) vic[3 + r] = cidx[r];
-#pragma unroll
-      for (int p = 0; p < kMaxDkp; ++p)
-        if (p < a.dkp) vic[3 + a.rows + p] = cdkb[p];
-    }
-    __syncwarp();
-    if (c1 == c2) copy_block(cb2, cb1, A * MC, lane);
-    __syncwarp();
+  if (hit_w || hit1 || hit2) {
+    if (hit_w && lane == 0)       // window hit: refresh
+      a.wtab[(k.w * A + jw) * a.wcols + WT_META] = t;
+    if (hit1) hit_update(a, prot_cap, g, 0, j1, k.m1, t, lane);
+    if (hit2) hit_update(a, prot_cap, g, 1, j2, k.m2, t, lane);
+    return 1;
   }
 
-  // writes last, in the reference's order; with a hit the candidate's sets
-  // hold exactly what the km writes leave, so only a miss writes them
-  copy_block(a.mtab + km1 * A * MC, mb1, A * MC, lane);
-  copy_block(a.mtab + km2 * A * MC, m2, A * MC, lane);
-  if (!hit) {
-    copy_block(a.mtab + c1 * A * MC, cb1, A * MC, lane);
-    copy_block(a.mtab + c2 * A * MC, cb2, A * MC, lane);
+  // miss: the window's LRU record is the admission candidate; a zero-way
+  // window set (argmin on padding) is bypassed and the key itself is it
+  int wsm;
+  const int ws = first_min32(g.wmeta, wsm);
+  const bool w_ok = wsm != kI32Max;
+  const bool push = wsm >= 0 || !w_ok;
+  Entry c = k;
+  if (w_ok) {
+    const int src = ws & 31, rr = ws >> 5;
+    c.lo = __shfl_sync(kFull, pick(g.wlo, rr), src);
+    c.hi = __shfl_sync(kFull, pick(g.whi, rr), src);
+    c.m1 = __shfl_sync(kFull, pick(g.wms1, rr), src);
+    c.m2 = __shfl_sync(kFull, pick(g.wms2, rr), src);
+    c.pr = probes_from(a, ln, g.widx, g.wdkb, src, rr);
+    // the key takes the candidate's window row
+    const int head[5] = {k.lo, k.hi, t, k.m1, k.m2};
+    write_row(a, ln, a.wtab + (k.w * A + ws) * a.wcols, 5, head, k.pr);
   }
-  copy_block(a.wtab + kw * A * WC, wb, A * WC, lane);
-  return hit ? 1 : 0;
+  if (!push) return 0;            // the window had room
+
+  // the candidate's two main sets (meta and probe columns: on a miss no
+  // main set changed, so the table holds the pre-access records) and its
+  // sketch words, loaded together
+  const int cset = lane < 16 ? c.m1 : c.m2;
+  int cmeta[RM], cidx[RM][kMaxRows], cdkb[RM][kMaxDkp];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int j = (lane & 15) + 16 * r;
+    cmeta[r] = kI32Max;
+    if (j < A) {
+      const int* p = a.mtab + (cset * A + j) * a.mcols;
+      cmeta[r] = p[MT_META];
+#pragma unroll
+      for (int q = 0; q < kMaxRows; ++q)
+        if (q < a.rows) cidx[r][q] = p[3 + q];
+#pragma unroll
+      for (int q = 0; q < kMaxDkp; ++q)
+        if (q < a.dkp) cdkb[r][q] = p[3 + a.rows + q];
+    }
+  }
+  const uint32_t cw = load_word(a, s, ln, c.pr);
+
+  // weakest of the 2A records; ties pick the first set, then the lower way
+  int loc = cmeta[0];
+#pragma unroll
+  for (int r = 1; r < RM; ++r) loc = min(loc, cmeta[r]);
+  const int vm = __reduce_min_sync(kFull, loc);
+  unsigned eq[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) eq[r] = __ballot_sync(kFull, cmeta[r] == vm);
+  int vh = 1, vj = 0;
+  bool found = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const unsigned b = (eq[r] >> (16 * h)) & 0xffffu;
+      if (!found && b) { found = true; vh = h; vj = 16 * r + __ffs(b) - 1; }
+    }
+  }
+  if (vm == kI32Max) return 0;    // padding victims never accept an insert
+  bool do_ins = vm < 0;
+  if (!do_ins) {
+    const int vpr = probes_from(a, ln, cidx, cdkb, 16 * vh + (vj & 15),
+                                vj >> 4);
+    const uint32_t vw = load_word(a, s, ln, vpr);
+    do_ins = estimate_of(a, s, ln, cw, c.pr) > estimate_of(a, s, ln, vw, vpr);
+  }
+  if (do_ins) {                   // the candidate takes the victim's way
+    const int head[5] = {c.lo, c.hi, t, 0, 0};
+    write_row(a, ln, a.mtab + ((vh ? c.m2 : c.m1) * A + vj) * a.mcols, 3,
+              head, c.pr);
+  }
+  return 0;
 }
 
+// The chunk loop.  RM = 0: the flat tables; else the set-associative path
+// with RM records per lane of a pair of main sets.
+template <int RM>
 __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
-  extern __shared__ int smem[];
+  __shared__ int prot_cap[kMaxWays + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = a.n_valid + tid; j < a.b; j += blockDim.x) a.hits[j] = 0;
 
   int P[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) P[k] = a.params[k];
+  // the set path's protected budget per count of usable ways
+  const int main_cap = P[P_MAIN_CAP] > 1 ? P[P_MAIN_CAP] : 1;
+  for (int u = tid; u <= a.assoc && u <= kMaxWays; u += blockDim.x) {
+    const long long c = static_cast<long long>(u) * P[P_PROT_CAP] / main_cap;
+    prot_cap[u] = c < 1 ? 1 : static_cast<int>(c);
+  }
+  __syncthreads();
   int size = a.regs[R_SIZE];
   int pcount = a.regs[R_PCOUNT];
   int t = a.regs[R_T];
@@ -512,13 +653,26 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   s.cpw_mask = 32 / a.counter_bits - 1;
   s.capmax = (1u << a.counter_bits) - 1u;
   const uint32_t halve_mask = a.counter_bits == 4 ? 0x77777777u : 0x7F7F7F7Fu;
+  Lanes ln;
+  ln.lane = lane;
+  ln.row = lane < a.rows;
+  ln.dk = lane >= 8 && lane < 8 + a.dkp;
+  ln.dk_on = ln.dk && a.dk_bits != 0;
 
+  Entry k, next;
+  if (warp == 0 && a.n_valid > 0) load_key(a, ln, 0, k);
   for (int i = 0; i < a.n_valid; ++i) {
-#ifndef SKETCH_STEP_SKIP_ADD
-    if (warp == 0)
-      sketch_add(a, s, P[P_CAP], a.kidx + i * a.rows, a.kdkb + i * a.dkp,
-                 lane);
+    SetRegs<RM == 0 ? 1 : RM> g;
+    if (warp == 0) {
+      if (i + 1 < a.n_valid) load_key(a, ln, i + 1, next);   // one ahead
+#ifndef SKETCH_STEP_SKIP_ACCESS
+      if constexpr (RM != 0) load_sets(a, k, g, lane);
 #endif
+#ifndef SKETCH_STEP_SKIP_ADD
+      add_words(a, s, ln, P[P_CAP], k, load_word(a, s, ln, k.pr));
+      __syncwarp();
+#endif
+    }
     // size is data-independent, so every thread agrees on when to reset
     size += 1;
     if (P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
@@ -534,13 +688,16 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
 #ifdef SKETCH_STEP_SKIP_ACCESS
       const int hit = 0;
 #else
-      const int hit = a.assoc == 0
-          ? access_flat(a, s, P, i, t, pcount, lane)
-          : access_set(a, s, P, i, t, smem, lane);
+      int hit;
+      if constexpr (RM == 0)
+        hit = access_flat(a, s, P, i, t, pcount, lane);
+      else
+        hit = access_set(a, s, ln, prot_cap, t, k, g);
 #endif
       if (lane == 0) a.hits[i] = hit;
       nhits += (hit && t >= P[P_WARMUP]) ? 1 : 0;
       t += 1;
+      k = next;
       __syncwarp();
     }
   }
@@ -556,9 +713,22 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
 }  // namespace
 
 extern "C" int sketch_step_launch(const StepArgs* args, int threads,
-                                  int smem_bytes, void* stream) {
-  sketch_step_kernel<<<1, threads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(*args);
+                                  void* stream) {
+  const StepArgs& a = *args;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rm = (a.assoc + 15) / 16;
+  if (a.assoc == 0)
+    sketch_step_kernel<0><<<1, threads, 0, st>>>(a);
+  else if (rm <= 1)
+    sketch_step_kernel<1><<<1, threads, 0, st>>>(a);
+  else if (rm <= 2)
+    sketch_step_kernel<2><<<1, threads, 0, st>>>(a);
+  else if (rm <= 4)
+    sketch_step_kernel<4><<<1, threads, 0, st>>>(a);
+  else if (rm <= 8)
+    sketch_step_kernel<8><<<1, threads, 0, st>>>(a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

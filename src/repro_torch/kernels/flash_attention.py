@@ -14,14 +14,17 @@ dtype before P·V, and the result is acc / max(l, 1e-30) in q's dtype.
 Every row needs at least one key it may see (kv_len >= 1).
 
 ``flash_attention_ref`` is the plain version: the online softmax over
-64-key tiles, the tiles of the kernel, with k and v cast to q's dtype
-first (the reference reads the bf16 cache as the compute dtype).  Tiles
-past the last key any row may see are skipped; in the reference they add
-exact zeros.  ``flash_attention`` is the wrapper: on CUDA tensors it
-launches the hand-written kernel in ``csrc/flash_attention.cu`` (bf16
-only; K and V are read through their strides, so a slice of the KV cache
-goes in without a copy); on CPU tensors it runs the plain version.  There
-is no fallback from the kernel to the plain version.
+64-key tiles, with k and v cast to q's dtype first (the reference reads
+the bf16 cache as the compute dtype).  Tiles past the last key any row may
+see are skipped; in the reference they add exact zeros.
+``flash_attention`` is the wrapper: on CUDA tensors it launches the
+hand-written kernel in ``csrc/flash_attention.cu`` (bf16 only); on CPU
+tensors it runs the plain version.  There is no fallback from the kernel to
+the plain version.  The kernel (wgmma and a TMA ring of 128-key K/V tiles,
+one CTA per 128 rows of up to 16 query heads that share a KV head; see the
+source) reads K and V through their strides, so a slice of the KV cache
+goes in without a copy, and cache slots past ``kv_len`` never reach its
+output, whatever they hold.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from .sketch_common import _check
 
 NEG_INF = -1e30
-TILE = 64                       # keys per tile, in the kernel and here
+TILE = 64                       # keys per tile of the plain version
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -137,6 +140,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(D in KERNEL_HEAD_DIMS, f"flash_attention: head dim {D} not in "
            f"{KERNEL_HEAD_DIMS}")
     q = q.contiguous()
+    if q.data_ptr() % 16:           # the kernel's TMA map needs 16-byte rows
+        q = q.clone()
     kp, vp = _strided_ptr("k", k), _strided_ptr("v", v)
     out = torch.empty_like(q)
     if isinstance(kv_len, torch.Tensor):

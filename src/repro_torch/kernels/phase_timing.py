@@ -10,20 +10,21 @@ engine's result; the other two are timing probes and their state is
 discarded.
 
 The L2 probe measures the round-trip time of one dependent load.  In the
-set-associative path the kernel waits on 4 such round trips per hit and 6
-per miss, one after another:
+set-associative path an access's inputs (key, set indices, probes) are
+loaded while the access before it runs, so the kernel waits on 1 such
+round trip per hit and at most 3 per miss, one after another:
 
-* the access's probes;
-* the sketch words they address;
-* the key and its set indices;
-* the three set blocks;
-* on a miss, the candidate's two sets;
-* then the estimate's sketch words.
+* the window set, the key's two main sets and its sketch add's words,
+  loaded together;
+* on a miss that pushes a window record out, the candidate's two main sets
+  and its sketch words;
+* if the victim's way is occupied, the victim's sketch words.
 
-So ``4 h + 6 (1 - h)`` round trips per access, with ``h`` the hit share of
+So ``1 h + 3 (1 - h)`` round trips per access, with ``h`` the hit share of
 the timed chunks, is the floor that the chain of memory round trips alone
-sets.  The time the kernel takes above it goes to instruction latency
-(shuffles, shared memory, barriers).
+sets (a miss that stops early needs fewer).  The time the kernel takes
+above it goes to the one warp's instruction chain (reductions, shuffles,
+address arithmetic).
 
 Run on a machine with a card, from the repository root:
 
@@ -44,7 +45,7 @@ from . import sketch_step as ks
 
 VARIANTS = {"full": (), "no table access": ("SKETCH_STEP_SKIP_ACCESS",),
             "no sketch add": ("SKETCH_STEP_SKIP_ADD",)}
-RT_HIT, RT_MISS = 4, 6          # dependent L2 round trips per set access
+RT_HIT, RT_MISS = 1, 3          # dependent L2 round trips per set access
 
 
 def _build_all():

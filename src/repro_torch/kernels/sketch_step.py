@@ -63,9 +63,10 @@ NREGS = 8
 WT_LO, WT_HI, WT_META, WT_MSET, WT_MSET2 = 0, 1, 2, 3, 4
 MT_LO, MT_HI, MT_META = 0, 1, 2
 
-# the kernel keeps one access's probes in registers
+# the kernel keeps one access's probes and its sets' records in registers
 _MAX_ROWS = 8
 _MAX_DKP = 8
+_MAX_WAYS = 128
 
 
 @dataclass(frozen=True)
@@ -654,12 +655,6 @@ class _Args(ctypes.Structure):
             "main_slots", "assoc", "wcols", "mcols")]
 
 
-def _smem_bytes(spec: StepSpec) -> int:
-    if spec.assoc is None:
-        return 0
-    return 4 * spec.assoc * (spec.wcols + 4 * spec.mcols)
-
-
 def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
             probes, n_valid: int, hits: torch.Tensor, lib=None):
     """One kernel launch over one chunk: state updated in place, hit flags
@@ -669,9 +664,9 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
            f"{_MAX_DKP}")
-    _check(_smem_bytes(spec) <= 48 * 1024,
-           f"assoc {spec.assoc} needs {_smem_bytes(spec)} bytes of shared "
-           "memory per set block; the kernel takes at most 48 KB")
+    _check((spec.assoc or 0) <= _MAX_WAYS,
+           f"the kernel holds at most {_MAX_WAYS} ways per set in registers, "
+           f"not {spec.assoc}")
     kidx, kdkb, kwset, kmset = probes
     ptr = {"lo": lo, "hi": hi, "kidx": kidx, "kdkb": kdkb, "kwset": kwset,
            "kmset": kmset, "params": params, "counters": state["counters"],
@@ -696,7 +691,7 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     lib = lib or load_library()
     stream = torch.cuda.current_stream(lo.device).cuda_stream
     check_error("sketch_step", lib, lib.sketch_step_launch(
-        ctypes.addressof(args), _THREADS, _smem_bytes(spec), stream))
+        ctypes.addressof(args), _THREADS, stream))
     step.launches += 1
 
 

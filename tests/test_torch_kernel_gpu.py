@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.check_runs import FLASH_CASES, SKETCH_CFGS as CFGS, mixed_keys
+from repro_torch.check_runs import (FLASH_CASES, FLASH_TAIL,
+                                    FLASH_TAIL_LENS, HAZARD_CASES,
+                                    SKETCH_CFGS as CFGS, cache_tails,
+                                    hazard_keys, mixed_keys)
 from repro_torch.core.device_simulate import run_chunks
 from repro_torch.kernels import (admission, flash_attention, sketch_estimate,
                                  sketch_reset, sketch_update)
@@ -63,6 +66,28 @@ def test_kernel_matches_plain_on_card(case):
     np.testing.assert_array_equal(got[1], ref[1], err_msg="hit flags")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(HAZARD_CASES)),
+                         ids=[c[0] for c in HAZARD_CASES])
+def test_kernel_matches_plain_on_hazards(case):
+    """Kernel == plain on every state leaf and hit flag over the traces
+    whose accesses read what the access before them wrote."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, kw, pargs, wcap, mcap, kind, n, chunk = HAZARD_CASES[case]
+    spec = port.StepSpec(**kw)
+    params = port.make_step_params(*pargs, counter_bits=spec.counter_bits,
+                                   device="cuda")
+    keys = hazard_keys(kind, n, seed=case)
+    lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
+    got = run(port.step, spec, params, wcap, mcap, lo, hi, chunk)
+    ref = run(port.step_ref, spec, params, wcap, mcap, lo, hi, chunk)
+    for k in ref[0]:
+        np.testing.assert_array_equal(got[0][k], ref[0][k],
+                                      err_msg=f"state[{k}]")
+    np.testing.assert_array_equal(got[1], ref[1], err_msg="hit flags")
+
+
 def test_launch_refuses_cpu_tensors():
     """The kernel path never takes CPU tensors: only ``step`` may route a
     CPU tensor to the plain version."""
@@ -74,6 +99,23 @@ def test_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port._launch(spec, port.make_step_params(*pargs, device="cpu"), state,
                      lo, lo, probes, 4, torch.zeros(4, dtype=torch.int32))
+
+
+def test_launch_refuses_more_ways_than_registers_hold():
+    """The set path holds a set's ways in registers, at most 128: more are
+    refused before anything is built or launched."""
+    spec = port.StepSpec(width=256, rows=4, dk_bits=1024, window_slots=129,
+                         main_slots=129, assoc=129)
+    state = port.init_step_state(spec, device="cpu")
+    lo = torch.zeros(4, dtype=torch.int32)
+    probes = port.precompute_probes(spec, lo, lo)
+    before = port.step.launches
+    with pytest.raises(ValueError, match="128 ways"):
+        port._launch(spec, port.make_step_params(2, 120, 96, 500, 7,
+                                                 device="cpu"),
+                     state, lo, lo, probes, 4,
+                     torch.zeros(4, dtype=torch.int32))
+    assert port.step.launches == before
 
 
 # DeviceSketchConfig kwargs: the tests/test_kernels.py CFGS and one with W
@@ -158,6 +200,31 @@ def test_flash_kernel_matches_plain_on_card(case):
     assert flash_attention.flash_attention.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_len", FLASH_TAIL_LENS)
+def test_flash_kernel_ignores_the_cache_past_kv_len(kv_len):
+    """Cache slots past kv_len filled with NaN and +-3e38 give an output
+    bit-equal to the same launch on a zeroed tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c = FLASH_TAIL
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn((c["B"], c["Sq"], c["Hq"], c["D"]), generator=g,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((c["B"], c["Skv"], c["Hkv"], c["D"]), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    lens = [kv_len] * c["B"] if isinstance(kv_len, int) else kv_len
+    zeroed, poisoned = cache_tails(k, v, lens)
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, device="cuda")
+    kw = dict(causal=True, q_offset=c["q_offset"], kv_len=kv_len)
+    want = flash_attention.flash_attention(q, *zeroed, **kw)
+    got = flash_attention.flash_attention(q, *poisoned, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
 
 
 def test_flash_launch_refuses_cpu_tensors():
