@@ -8,9 +8,10 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
-1. print the card's name and power limit, build the six kernels from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once) and
-   print their ptxas register/spill lines;
+1. print the card's name and power limit, build the six kernels and the
+   empty-launch probe (``l2_chase.cu``) from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all at once) and print their ptxas register/spill
+   lines;
 2. hold the kernel (``step``) against its plain PyTorch version
    (``step_ref``) on the card: flat and set-associative tables, 4- and 8-bit
    counters, doorkeeper on and off, resets inside and across chunk
@@ -34,7 +35,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    against their plain versions on the card: the tests/test_kernels.py
    configurations x batches 1, 7, 128, 300 and 1024, no doorkeeper, cap
    saturation, the automatic reset at W=256, a standalone reset of
-   full-range words, and S's geometry; every leaf and output must be equal;
+   full-range words, and S's geometry; the add on every case of
+   ``check_runs.ADD_HAZARD_CASES``; both paths of the admit (a warp per
+   pair, a thread per pair) at ``check_runs.ADMIT_SIZES`` pairs, each size
+   with the candidates and fresh victims both ways round; every leaf and
+   output must be equal;
 8. run S, the batched sketch ops at F's capacity, through ``DeviceTinyLFU``
    (counts set to 0 just before, read just after): record F's trace in
    4,096-key batches, then estimate and admit 50,000 keys; the state
@@ -42,8 +47,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    equal the JAX package's; then time each kernel with CUDA events;
 9. run P1 (benchmarks/bench_serving.py's grid) and P2 (its generator at
    C=65,536) through ``PrefixCache``, counts set to 0 around each run; every
-   ``PrefixCacheStats`` field must equal the JAX cache's;
-10. print the sketch kernels' bounds;
+   ``PrefixCacheStats`` field must equal the JAX cache's; then one
+   decision's wall time beside the admit kernel at one pair, the add kernel
+   at a 32-block lookup and an empty launch;
+10. print the sketch kernels' bounds; run S through the numpy model of the
+   add kernel's schedule (``check_runs.add_schedule``; its final state must
+   equal S's pin) and print its longest sequential chain beside the bound;
+   print the empty-launch floor beside the four sketch kernels; time the
+   add and both paths of the admit over a range of batch sizes (where the
+   admit wrapper's threshold comes from);
 11. hold the flash-attention kernel against its plain version
    (``flash_attention_ref``) on the card, within max-abs 2e-2 in bf16:
    tests/test_flash_kernel.py's shapes causal and not, ragged lengths,
@@ -81,11 +93,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.check_runs import (FLASH_CASES,  # noqa: E402
-                                    FLASH_TAIL, FLASH_TAIL_LENS, HAZARD_CASES,
-                                    P1_CAPS, P1_TRACE, P2_CAP, P2_TRACE,
-                                    P_PINS, S_BATCH, S_BLOCKS, S_DECISIONS,
-                                    S_PINS, SKETCH_CFGS, cache_tails, digest,
+from repro_torch.check_runs import (ADD_HAZARD_CASES,  # noqa: E402
+                                    ADD_TILE, ADMIT_SIZES, FLASH_CASES,
+                                    FLASH_TAIL, FLASH_TAIL_LENS,
+                                    HAZARD_CASES, P1_CAPS, P1_TRACE, P2_CAP,
+                                    P2_TRACE, P_PINS,
+                                    S_BATCH, S_BLOCKS, S_DECISIONS, S_PINS,
+                                    SKETCH_CFGS, add_hazard_batches,
+                                    add_schedule, cache_tails, digest,
                                     hazard_keys, mixed_keys, replay)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
@@ -249,9 +264,9 @@ def bound_bytes(spec, trace, chunk, sample):
 
 SOURCES = ("sketch_step", "sketch_update", "sketch_estimate", "admission",
            "sketch_reset", "flash_attention")
+PROBES = ("l2_chase",)          # built beside them: the empty-launch floor
 SKETCH_KERNELS = ("sketch_update", "sketch_estimate", "admission",
                   "sketch_reset")
-L2_ROUND_TRIP_NS = 146.4        # phase_timing, H100 80GB HBM3 at 700 W
 REPLACES = {"sketch_update": "src/repro/kernels/sketch_update.py:80",
             "sketch_estimate": "src/repro/kernels/sketch_estimate.py:71",
             "admission": "src/repro/kernels/admission.py:34",
@@ -433,8 +448,77 @@ def sketch_phase7(f_trace):
                    [f_trace[:S_BATCH], f_trace[S_BATCH:2 * S_BATCH]],
                    f_trace[:S_DECISIONS], errs, auto_reset=True,
                    plain_ms=plain_ms)
+    add_hazards(errs)
+    admit_sizes(s_cfg, f_trace, errs)
     torch.cuda.synchronize()
     return errs, plain_ms
+
+
+def add_hazards(errs):
+    """The add kernel against add_ref on every case of ADD_HAZARD_CASES,
+    the batches added one after another to one sketch each."""
+    from repro_torch.kernels import sketch_common as sc
+    from repro_torch.kernels import sketch_update as su
+    for case, (name, kw, _, sizes) in enumerate(ADD_HAZARD_CASES):
+        cfg = sc.DeviceSketchConfig(**kw)
+        kernel = sc.init_state(cfg, device="cuda")
+        plain = sc.init_state(cfg, device="cuda")
+        for keys in add_hazard_batches(case):
+            lo, hi = lanes_on_card(keys)
+            su._launch(cfg, kernel, lo, hi)
+            su.add_ref(cfg, plain, lo, hi)
+            err = max(int((kernel[k].long() - plain[k].long()).abs().max())
+                      for k in ("counters", "doorkeeper"))
+            errs["sketch_update"] = max(errs["sketch_update"], err)
+            check(err == 0, f"add hazard {name}: kernel and add_ref differ")
+        print(f"phase 7  add hazard {name} (width {cfg.width} rows "
+              f"{cfg.rows} cap {cfg.cap} dk_bits {cfg.dk_bits}; batches "
+              f"{list(sizes)}, tile {ADD_TILE}): kernel == add_ref")
+
+
+def admit_pairs(f_trace, n):
+    """The admit's two inputs at ``n`` pairs, both ways round: F's first
+    ``n`` keys (recorded by S's first batch) and ``n`` keys drawn from a
+    seed that no batch recorded.  With victims the candidates do not
+    share, a wrong verdict can show at 1 and 2 pairs."""
+    cands = f_trace[:n]
+    fresh = np.random.default_rng(n).integers(1 << 62, 1 << 63, n,
+                                              dtype=np.uint64)
+    return [(*lanes_on_card(cands), *lanes_on_card(fresh)),
+            (*lanes_on_card(fresh), *lanes_on_card(cands))]
+
+
+def admit_sizes(cfg, f_trace, errs):
+    """The admit kernel's two paths (a warp per pair, a thread per pair)
+    against admission_ref at ADMIT_SIZES pairs, on S's geometry after two
+    of its batches."""
+    import torch
+    from repro_torch.kernels import admission, sketch_update
+    from repro_torch.kernels.sketch_common import init_state
+    state = init_state(cfg, device="cuda")
+    for s in (0, S_BATCH):
+        sketch_update.add(cfg, state, *lanes_on_card(f_trace[s:s + S_BATCH]))
+    admitted = []
+    for n in ADMIT_SIZES:
+        for args in admit_pairs(f_trace, n):
+            want = admission.admission_ref(cfg, state, *args)
+            admitted.append(int(want.sum()))
+            for per_thread in (False, True):
+                out = torch.empty(n, dtype=torch.bool, device="cuda")
+                admission._launch(cfg, state, *args, out,
+                                  per_thread=per_thread)
+                err = int((out.long() - want.long()).abs().max())
+                errs["admission"] = max(errs["admission"], err)
+                check(err == 0, f"admit at {n} pairs: the "
+                      f"{'thread' if per_thread else 'warp'}-per-pair path "
+                      f"and admission_ref differ")
+    check(admitted[:2] == [1, 0], f"admit at 1 pair: admission_ref admits "
+          f"{admitted[:2]} both ways round, so a wrong verdict could hide")
+    print(f"phase 7  admit at {', '.join(map(str, ADMIT_SIZES))} pairs, "
+          f"candidates and fresh victims both ways round (admission_ref "
+          f"admits {admitted}): the warp-per-pair and thread-per-pair paths "
+          f"== admission_ref (the wrapper takes the warp path up to "
+          f"{admission.WARP_MAX_PAIRS} pairs)")
 
 
 SPIN_CYCLES = 1_000_000_000      # ~0.5 s of spin at the H100's clock
@@ -670,8 +754,100 @@ def decision_breakdown(stream, n: int = 2000):
     print(f"phase 9  one decision: DeviceAdmission.admit {host_us:.1f} us "
           f"of wall (host clock over {n} calls, one verdict read each); "
           f"admit kernel at 1 pair {admit_us:.2f} us and add kernel at a "
-          f"32-block lookup {add_us:.2f} us of device time; the host holds "
+          f"32-block lookup {add_us:.2f} us of device time, against an "
+          f"empty launch's {launch_floor_us():.2f} us; the host holds "
           f"{1 - admit_us / host_us:.3f} of a decision")
+
+
+def launch_floor_us(reps: int = 200) -> float:
+    """Device us of an empty launch through the kernels' ctypes path:
+    csrc/l2_chase.cu with 0 steps (one thread writes one int), timed by
+    kernel_ms like the sketch kernels."""
+    import torch
+    from repro_torch.kernels._build import launch
+    buf = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def empty():
+        launch("l2_chase", "l2_chase_launch", buf, 0, out)
+    empty()                         # its first launch loads the module
+    timed, _ = kernel_ms([("floor", empty)] * reps)
+    return sum(v for _, v in timed) / reps * 1e3
+
+
+def add_schedule_stats(f_trace, cfg):
+    """Run S's record loop through check_runs.add_schedule (the numpy model
+    of the add kernel's schedule), with the section 3.3 resets; its final
+    state must equal S's pin.  Returns per 4,096-key batch the model's
+    per-tile statistics (gated keys, components, largest component's keys,
+    largest several-key component's keys)."""
+    import torch
+    from repro_torch.kernels.sketch_common import key_probes, keys_to_lanes
+    from repro_torch.kernels.sketch_reset import reset_ref
+    lo, hi = (torch.from_numpy(x) for x in keys_to_lanes(f_trace))
+    idx, dkb = (x.numpy() for x in key_probes(lo, hi, cfg.rows, cfg.width,
+                                              cfg.dk_bits, cfg.dk_probes))
+    counters = np.zeros((cfg.rows, cfg.words_per_row), np.int32)
+    dk = np.zeros((1, cfg.dk_words), np.int32)
+    # CPU tensors over the model's arrays: the plain reset halves them
+    state = {"counters": torch.from_numpy(counters),
+             "doorkeeper": torch.from_numpy(dk),
+             "size": torch.tensor(0, dtype=torch.int32)}
+    stats = []
+    for s in range(0, len(f_trace), S_BATCH):
+        stats.append(add_schedule(counters, dk, idx[s:s + S_BATCH],
+                                  dkb[s:s + S_BATCH], width=cfg.width,
+                                  cap=cfg.cap, dk_bits=cfg.dk_bits))
+        state["size"] = state["size"] + len(idx[s:s + S_BATCH])
+        if int(state["size"]) >= cfg.sample_size:
+            reset_ref(cfg, state)
+    got = digest(state)
+    check(got == S_PINS[0], f"S through the add schedule model: state "
+          f"digest {got} != JAX {S_PINS[0]}")
+    return stats
+
+
+ADD_SWEEP = (1, 2, 4, 8, 16, 32, 64, 256, 1024, 4096)
+ADMIT_SWEEP = (1, 2, 8, 32, 128, 1024, 8192, 50_000)
+
+
+def path_sweep(f_trace, cfg, card):
+    """Device ms per launch of the add and of each path of the admit at a
+    range of batch sizes, on S's geometry after 100 of its batches
+    (kernel_ms, 20 launches each): where the admit wrapper's threshold
+    comes from."""
+    import torch
+    from repro_torch.kernels import admission, ops, sketch_update
+    t = ops.DeviceTinyLFU(S_BLOCKS)
+    for s in range(0, 100 * S_BATCH, S_BATCH):
+        t.record(f_trace[s:s + S_BATCH])
+    state = t.state
+    for n in ADD_SWEEP:
+        lo, hi = lanes_on_card(f_trace[:n])
+
+        def call():
+            sketch_update._launch(cfg, state, lo, hi)
+        call()                              # loads the module if first
+        timed, _ = kernel_ms([("add", call)] * 20)
+        print(f"phase 10 add at {n} keys: "
+              f"{sum(v for _, v in timed) / len(timed):.4f} ms per launch; "
+              f"card {card}")
+    for n in ADMIT_SWEEP:
+        args = admit_pairs(f_trace, n)[0]
+        out = torch.empty(n, dtype=torch.bool, device="cuda")
+        ms = {}
+        for path in ("warp", "thread"):
+            def call():
+                admission._launch(cfg, state, *args, out,
+                                  per_thread=path == "thread")
+            call()                          # loads the module if first
+            timed, _ = kernel_ms([(path, call)] * 20)
+            ms[path] = sum(v for _, v in timed) / len(timed)
+        print(f"phase 10 admit paths at {n} pairs: warp per pair "
+              f"{ms['warp']:.4f} ms, thread per pair {ms['thread']:.4f} ms "
+              f"per launch; the wrapper takes the "
+              f"{'warp' if n <= admission.WARP_MAX_PAIRS else 'thread'} path;"
+              f" card {card}")
 
 
 FLASH_TOL = 2e-2    # max |kernel - plain| in bf16: the reference's bf16 bound
@@ -1013,11 +1189,12 @@ def main() -> int:
     card = card_line()
     print(card)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as ex:     # one nvcc per source
-        list(ex.map(_build.load_library, SOURCES))
-    print(f"phase 1  build of {len(SOURCES)} sources in parallel: "
+    builds = SOURCES + PROBES
+    with ThreadPoolExecutor(len(builds)) as ex:      # one nvcc per source
+        list(ex.map(_build.load_library, builds))
+    print(f"phase 1  build of {len(builds)} sources in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
-    for name in SOURCES:
+    for name in builds:
         info = _build.build_info[(name, ())]
         nvcc = (f"nvcc {info['seconds']:.1f} s" if info["seconds"]
                 else "built before; its ptxas log was kept")
@@ -1168,11 +1345,27 @@ def main() -> int:
               f"3.35 TB/s = {b_ms:.6f} ms; {nops[k]} 32-bit ops over "
               f"67 T/s = {o_ms:.6f} ms; kernel {s_ms[k]:.4f} ms is "
               f"{s_ms[k] / bounds[k][0]:.0f}x above the larger")
-    floor_ms = S_BATCH * L2_ROUND_TRIP_NS * 1e-6
-    print(f"phase 10 latency floor sketch_update: 1 dependent L2 round trip "
-          f"per key x {L2_ROUND_TRIP_NS} ns x {S_BATCH} keys = {floor_ms:.4f}"
-          f" ms per launch; kernel at {s_ms['sketch_update'] / floor_ms:.2f}x"
-          f" of it")
+    stats = add_schedule_stats(f_trace, s_cfg)
+    tiles = [t for batch in stats for t in batch]
+    chain = max(max(t[2] for t in batch) for batch in stats)
+    several = max(t[3] for t in tiles)
+    print(f"phase 10 add schedule of S (check_runs.add_schedule, the numpy "
+          f"model; its final state == S's pin): per {ADD_TILE}-key tile "
+          f"{np.mean([t[0] for t in tiles]):.1f} gated keys in "
+          f"{np.mean([t[1] for t in tiles]):.1f} components; longest "
+          f"sequential chain (the largest component's keys) {chain} in a "
+          f"tile, {max(sum(t[2] for t in batch) for batch in stats)} over a "
+          f"{S_BATCH}-key batch's {-(-S_BATCH // ADD_TILE)} tiles in order; "
+          f"largest component of several keys {several}; beside the bound "
+          f"{bounds['sketch_update'][0]:.6f} ms and the kernel's "
+          f"{s_ms['sketch_update']:.4f} ms")
+    floor = launch_floor_us()
+    print(f"phase 10 launch floor: an empty launch (l2_chase, 0 steps) "
+          f"{floor:.2f} us of device time; at S's shapes "
+          + ", ".join(f"{k} {s_ms[k] * 1e3:.2f} us "
+                      f"({s_ms[k] * 1e3 / floor:.1f}x)"
+                      for k in SKETCH_KERNELS) + f"; card {card}")
+    path_sweep(f_trace, s_cfg, card)
 
     kernels = [{
         "name": "sketch_step", "route": "cuda",

@@ -6,7 +6,8 @@ to the pins below; ``tests/test_torch_sketch_ops.py``,
 ``tests/test_torch_prefix_cache.py``, ``tests/test_torch_serving.py`` and
 ``tests/test_torch_models.py`` run the same procedures at a small size
 against the JAX package, and, run as scripts, print the JAX results that
-are pinned here.  Imports numpy only.
+are pinned here.  The hazard cases of the step and add kernels and a numpy
+model of the add kernel's schedule live here too.  Imports numpy only.
 """
 from __future__ import annotations
 
@@ -81,6 +82,135 @@ def mixed_keys(seed: int, n: int) -> np.ndarray:
     small = rng.integers(0, 40, size=n, dtype=np.uint64)
     big = rng.integers(0, 1 << 63, size=n, dtype=np.uint64)
     return np.where(rng.random(n) < 0.5, small, big)
+
+
+# The add kernel's batch update (csrc/sketch_update.cu) runs a batch as
+# tiles of ADD_TILE keys.  ADD_HAZARD_CASES are the batches on which its
+# schedule could go wrong: tests/test_torch_add_schedule.py holds
+# add_schedule (a numpy model of that schedule) to the JAX add_ref on the
+# CPU, and chip_smoke.py phase 7 and tests/test_torch_kernel_gpu.py hold the
+# kernel to the port's add_ref on the card.  Each case is (name,
+# DeviceSketchConfig kwargs, key kind, batch sizes); the batches are added
+# one after another to one sketch, so every batch after the first lands on
+# a sketch an earlier batch filled.  Key kinds: ``mixed`` (mixed_keys),
+# ``one`` (one key, every time).
+ADD_TILE = 1024
+ADD_HAZARD_CASES = [
+    ("width 8, every key collides", dict(width=8, rows=4, cap=15,
+                                         dk_bits=1024), "mixed", (300, 300)),
+    ("width 8, no doorkeeper", dict(width=8, rows=4, cap=15, dk_bits=0),
+     "mixed", (300, 300)),
+    ("dk_bits 32, shared doorkeeper words", dict(width=256, rows=4, cap=15,
+                                                 dk_bits=32),
+     "mixed", (300, 300)),
+    ("one key x200, cap 7", dict(width=256, cap=7, dk_bits=1024), "one",
+     (200, 200)),
+    ("one key x200, cap 15", dict(width=256, cap=15, dk_bits=1024), "one",
+     (200, 200)),
+    ("one key x200, cap 7, no doorkeeper", dict(width=256, cap=7, dk_bits=0),
+     "one", (200, 200)),
+    ("one key x200, cap 15, no doorkeeper", dict(width=256, cap=15,
+                                                 dk_bits=0), "one",
+     (200, 200)),
+    ("10,000 keys across tiles", dict(width=1024, rows=4, cap=7,
+                                      dk_bits=4096), "mixed", (10_000,)),
+    ("tile - 1", dict(width=1024, rows=4, cap=7, dk_bits=4096), "mixed",
+     (ADD_TILE - 1, ADD_TILE - 1)),
+    ("tile + 1", dict(width=1024, rows=4, cap=7, dk_bits=4096), "mixed",
+     (ADD_TILE + 1, ADD_TILE + 1)),
+    ("a batch of 1", dict(width=1024, rows=4, cap=7, dk_bits=4096), "mixed",
+     (300, 1, 1)),
+    ("mixed keys at S's geometry", dict(width=262_144, rows=4, cap=7,
+                                        dk_bits=2_097_152), "mixed",
+     (4096, 4096)),
+]
+
+
+# Batch sizes at which chip_smoke.py phase 7 and tests/test_torch_kernel_gpu.py
+# hold both paths of the admit kernel (a warp per pair, a thread per pair)
+# to admission_ref on the card: the serving path's one pair, a warp's worth
+# either side of 32, and run S's 50,000.
+ADMIT_SIZES = (1, 2, 31, 32, 33, 50_000)
+
+
+def add_hazard_batches(case: int) -> list:
+    """The uint64 key batches of ADD_HAZARD_CASES[case]."""
+    _, _, kind, sizes = ADD_HAZARD_CASES[case]
+    if kind == "one":
+        return [np.full(n, 123_456_789, np.uint64) for n in sizes]
+    return [mixed_keys(1000 * case + j, n) for j, n in enumerate(sizes)]
+
+
+def add_schedule(counters: np.ndarray, dk: np.ndarray, idx: np.ndarray,
+                 dkb: np.ndarray, *, width: int, cap: int, dk_bits: int,
+                 tile: int = ADD_TILE) -> list:
+    """numpy model of the schedule of the add kernel's batch update: the
+    batch in tiles of ``tile`` keys, each applied in full before the next.
+    Per tile: a key's doorkeeper gate from each probe's bit before the
+    tile, the first key of the tile to probe it, and the key's own earlier
+    probes (then every touched bit set); components of the gated keys
+    joined by shared counter nibbles (min-label propagation); a walk per
+    component in batch order on the nibbles' values before the tile; and
+    each nibble's change added to its word once.
+
+    ``counters`` (rows, width // 8) and ``dk`` (1, dk_words) int32 are
+    updated in place; ``idx`` (B, rows) and ``dkb`` (B, dk_probes) hold the
+    keys' counter probes and doorkeeper bits (``key_probes``).  Returns,
+    per tile, (gated keys, components, the largest component's keys, the
+    largest several-key component's keys), counting repeats of a key."""
+    cw = counters.reshape(-1).view(np.uint32)
+    dw = dk.reshape(-1).view(np.uint32)
+    rows = idx.shape[1]
+    stats = []
+    for base in range(0, len(idx), tile):
+        ki = idx[base:base + tile].astype(np.int64)
+        n = len(ki)
+        gate = np.ones(n, bool)
+        if dk_bits:
+            bits = dkb[base:base + tile].astype(np.int64)
+            uniq, first, inv = np.unique(bits.reshape(-1), return_index=True,
+                                         return_inverse=True)
+            first = (first // bits.shape[1])[inv.reshape(-1)].reshape(
+                bits.shape)
+            pre = (dw[bits >> 5] >> (bits & 31)) & 1
+            earlier = np.zeros(bits.shape, bool)
+            for p in range(1, bits.shape[1]):
+                earlier[:, p] = (bits[:, :p] == bits[:, p:p + 1]).any(1)
+            gate = ((pre == 1) | (first < np.arange(n)[:, None])
+                    | earlier).all(1)
+            np.bitwise_or.at(dw, uniq >> 5,
+                             (np.uint64(1) << (uniq & 31).astype(np.uint64)
+                              ).astype(np.uint32))
+        nib = np.arange(rows) * width + ki[gate]          # (gated, rows)
+        m = len(nib)
+        uniq, inv = np.unique(nib.reshape(-1), return_inverse=True)
+        inv = inv.reshape(nib.shape)
+        lab = np.arange(m)
+        while True:                        # components: min-label propagation
+            tv = np.full(len(uniq), m)
+            np.minimum.at(tv, inv.reshape(-1), np.repeat(lab, rows))
+            new = tv[inv].min(1) if m else lab
+            if np.array_equal(new, lab):
+                break
+            lab = new
+        word = (uniq // width) * (width // 8) + (uniq % width) // 8
+        shift = (uniq % 8) * 4
+        vals = (cw[word].astype(np.int64) >> shift) & 15
+        before = vals.copy()
+        for j in np.lexsort((np.arange(m), lab)):   # by component, in order
+            s = inv[j]
+            v = vals[s]
+            low = v.min()
+            if low < cap:
+                vals[s[v == low]] += 1
+        np.add.at(cw, word, ((vals - before) << shift).astype(np.uint32))
+        size = np.bincount(lab, minlength=1)
+        # distinct keys (nibble tuples) per component
+        pairs = np.unique(np.column_stack([lab, inv]), axis=0) if m else inv
+        keys = np.bincount(pairs[:, 0], minlength=len(size))
+        stats.append((m, int((size > 0).sum()), int(size.max()),
+                      int(size[keys > 1].max(initial=0))))
+    return stats
 
 
 def replay(pc, stream, block: int = 32):

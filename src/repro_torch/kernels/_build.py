@@ -44,8 +44,8 @@ _C_API = {
         "sketch_estimate_launch":               # dk_bits, dk_probes
             ([_P] * 5 + [_I] * 5 + [_P], _I), **_ERR},
     "admission": {          # counters, dk, clo, chi, vlo, vhi, out, b,
-        "admission_launch":                     # rows, width, dk_bits, dkp
-            ([_P] * 7 + [_I] * 5 + [_P], _I), **_ERR},
+        "admission_launch":                     # rows, width, dk_bits, dkp,
+            ([_P] * 7 + [_I] * 6 + [_P], _I), **_ERR},     # per_thread
     "sketch_reset": {       # counters, n_counter_words, dk, n_dk_words
         "sketch_reset_launch": ([_P, _I, _P, _I, _P], _I), **_ERR},
     "flash_attention": {    # q, k, v, out, kv_len or NULL; B, Sq, Skv,
@@ -115,10 +115,11 @@ def load_library(name: str = "sketch_step",
         return _libs.setdefault(key, lib)
 
 
-def launch(name: str, fn: str, *args) -> None:
-    """Call the launch function ``fn`` of ``csrc/<name>.cu`` on the current
-    CUDA stream: tensors pass as pointers, floats as C floats, other
-    numbers as C ints (or pointers, as ``_C_API`` declares).  Raises
+def launch(name: str, fn: str, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call the launch function ``fn`` of ``csrc/<name>.cu`` (of ``lib``,
+    default the plain build) on the current CUDA stream: tensors pass as
+    pointers, floats as C floats, other numbers as C ints (or pointers, as
+    ``_C_API`` declares).  Raises
     ValueError if a tensor is not a contiguous CUDA tensor (checked before
     anything is built) and RuntimeError on a non-zero CUDA error."""
     ptrs = []
@@ -132,7 +133,7 @@ def launch(name: str, fn: str, *args) -> None:
             stream_dev = stream_dev or a.device
         else:
             ptrs.append(a if isinstance(a, float) else int(a))
-    lib = load_library(name)
+    lib = lib or load_library(name)
     check_error(name, lib, getattr(lib, fn)(
         *ptrs, torch.cuda.current_stream(stream_dev).cuda_stream))
 

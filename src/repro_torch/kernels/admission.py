@@ -6,9 +6,9 @@ Counterpart of ``repro/kernels/admission.py`` (``admit_pallas``) and of
 candidate ``i`` over victim ``i`` iff its estimate is strictly greater.
 
 ``admission_ref`` is the plain version (two plain estimates, any device);
-``admit`` launches ``csrc/admission.cu`` on CUDA tensors, both estimates of a
-pair in one thread, and runs ``admission_ref`` on CPU tensors, with no
-fallback between them.
+``admit`` launches ``csrc/admission.cu`` on CUDA tensors (a warp per pair,
+one probe per lane, up to ``WARP_MAX_PAIRS`` pairs; a thread per pair above)
+and runs ``admission_ref`` on CPU tensors, with no fallback between them.
 """
 from __future__ import annotations
 
@@ -28,15 +28,26 @@ def admission_ref(cfg: DeviceSketchConfig, state: dict, cand_lo, cand_hi,
     return est[:b] > est[b:]
 
 
+# Batches of at most this many pairs take the kernel's warp-per-pair path,
+# larger ones its thread-per-pair path (the crossover measured on the card:
+# chip_smoke.py phase 10, PERF.md).
+WARP_MAX_PAIRS = 8192
+
+
 def _launch(cfg: DeviceSketchConfig, state: dict, cand_lo, cand_hi,
-            victim_lo, victim_hi, out: torch.Tensor) -> None:
+            victim_lo, victim_hi, out: torch.Tensor,
+            per_thread: bool | None = None) -> None:
     """One launch of ``csrc/admission.cu``: ``out`` (B,) bool gets the
-    verdicts.  No host sync."""
+    verdicts, a thread per pair if ``per_thread`` (default: more than
+    ``WARP_MAX_PAIRS`` pairs), else a warp per pair.  No host sync."""
     from ._build import launch
     _check(cfg.dk_probes <= 8, "the kernel takes dk_probes <= 8")
+    if per_thread is None:
+        per_thread = cand_lo.shape[0] > WARP_MAX_PAIRS
     launch("admission", "admission_launch", state["counters"],
            state["doorkeeper"], cand_lo, cand_hi, victim_lo, victim_hi, out,
-           cand_lo.shape[0], cfg.rows, cfg.width, cfg.dk_bits, cfg.dk_probes)
+           cand_lo.shape[0], cfg.rows, cfg.width, cfg.dk_bits, cfg.dk_probes,
+           int(per_thread))
     admit.launches += 1
 
 

@@ -13,9 +13,11 @@ number of keys added.  No reset here: ``ops.add`` composes it.
 ``add_ref`` is the plain version, a Python loop over the keys written with
 tensor ops that run on any device.  ``add`` is the wrapper replacing
 ``add_pallas``: on CUDA tensors it launches the hand-written kernel in
-``csrc/sketch_update.cu``; on CPU tensors it runs ``add_ref``.  Both update
-the state in place (the analogue of the reference's aliased buffers) and
-return it.  There is no fallback from the kernel to the plain version.
+``csrc/sketch_update.cu`` (an exact parallel batch update: doorkeeper gates
+from first touches, components of keys sharing a counter nibble, a walk per
+component); on CPU tensors it runs ``add_ref``.  Both update the state
+in place (the analogue of the reference's aliased buffers) and return it.
+There is no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -82,14 +84,18 @@ def add_ref(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
 
 
 def _launch(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
-            hi: torch.Tensor) -> None:
+            hi: torch.Tensor, lib=None) -> None:
     """One launch of ``csrc/sketch_update.cu`` on the current stream: the
-    batch added in place.  No host sync."""
+    batch added in place by the parallel batch update.  No host sync.
+    ``lib`` is the loaded kernel library (default: the build of
+    ``csrc/sketch_update.cu``)."""
     from ._build import launch
     _check(cfg.dk_probes <= 8, "the kernel takes dk_probes <= 8")
+    _check(1 <= cfg.rows <= 8 and cfg.rows * cfg.width < 2 ** 32,
+           "the kernel takes 1 <= rows <= 8 and rows * width < 2^32")
     launch("sketch_update", "sketch_update_launch",
            state["counters"], state["doorkeeper"], lo, hi, lo.shape[0],
-           cfg.rows, cfg.width, cfg.cap, cfg.dk_bits, cfg.dk_probes)
+           cfg.rows, cfg.width, cfg.cap, cfg.dk_bits, cfg.dk_probes, lib=lib)
     add.launches += 1
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against the port's plain versions, on the card: the step
-kernel, the four batched sketch kernels (add, estimate, admit, reset) and
-the flash-attention kernel.
+kernel, the four batched sketch kernels (add, estimate, admit, reset; both
+paths of the add on its hazard cases and of the admit at small and large
+batches) and the flash-attention kernel.
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
@@ -10,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.check_runs import (FLASH_CASES, FLASH_TAIL,
+from repro_torch.check_runs import (ADD_HAZARD_CASES, ADMIT_SIZES,
+                                    FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES,
-                                    SKETCH_CFGS as CFGS, cache_tails,
-                                    hazard_keys, mixed_keys)
+                                    SKETCH_CFGS as CFGS, add_hazard_batches,
+                                    cache_tails, hazard_keys, mixed_keys)
 from repro_torch.core.device_simulate import run_chunks
 from repro_torch.kernels import (admission, flash_attention, sketch_estimate,
                                  sketch_reset, sketch_update)
@@ -156,6 +158,51 @@ def test_sketch_kernels_match_plain_on_card(case, batch):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=f"state[{k}]")
     for g, r in zip(got_out, ref_out):
         assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(ADD_HAZARD_CASES)),
+                         ids=[c[0] for c in ADD_HAZARD_CASES])
+def test_add_kernel_matches_plain_on_hazards(case):
+    """The add kernel == add_ref after every batch of the add's hazard
+    cases (one component for a whole batch, shared doorkeeper words, one
+    key repeated past cap, batches across and beside the tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = sc.DeviceSketchConfig(**ADD_HAZARD_CASES[case][1])
+    kernel = sc.init_state(cfg, device="cuda")
+    plain = sc.init_state(cfg, device="cuda")
+    for keys in add_hazard_batches(case):
+        lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
+        sketch_update._launch(cfg, kernel, lo, hi)
+        sketch_update.add_ref(cfg, plain, lo, hi)
+        for k in ("counters", "doorkeeper"):
+            assert torch.equal(kernel[k], plain[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_thread", [False, True], ids=["warp", "thread"])
+@pytest.mark.parametrize("n", ADMIT_SIZES)
+def test_admit_kernel_matches_plain_at_batch_sizes(n, per_thread):
+    """Each path of the admit kernel == admission_ref at S's geometry, on a
+    sketch of random nibbles and doorkeeper words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = sc.DeviceSketchConfig(width=262_144, rows=4, cap=7,
+                                dk_bits=2_097_152)
+    rng = np.random.default_rng(n)
+    words = lambda *shape: rng.integers(-2**31, 2**31, shape,  # noqa: E731
+                                        dtype=np.int64).astype(np.int32)
+    state = sc.sketch_state_from_numpy(cfg, {
+        "counters": words(cfg.rows, cfg.words_per_row),
+        "doorkeeper": words(1, cfg.dk_words),
+        "size": np.array(0, np.int32)}, device="cuda")
+    keys = rng.integers(0, 1 << 63, 2 * n, dtype=np.uint64)
+    lanes = [torch.from_numpy(x).cuda() for k in (keys[:n], keys[n:])
+             for x in keys_to_lanes(k)]
+    out = torch.empty(n, dtype=torch.bool, device="cuda")
+    admission._launch(cfg, state, *lanes, out, per_thread=per_thread)
+    assert torch.equal(out, admission.admission_ref(cfg, state, *lanes))
 
 
 @pytest.mark.parametrize("module,wrapper,args", [
