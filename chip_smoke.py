@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
-trace engine, the serving-admission path and the LLM serving path.
+trace engine (one stream, tenant lanes, sweeps), the serving-admission path
+(device and host sketch) and the LLM serving path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -73,8 +74,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 13. run qwen3-4b at full width and depth 2 with ``numpy_params`` weights:
    prefill 1,280 tokens, decode 4; each step's logits at the JAX top-8
    ids within 0.05 of the largest (the reference's decode bound);
-14. print the ``kernels`` JSON line (six kernels), the card line and the
-   result line.
+14. hold the step kernel's lane grid (one CTA per lane, one launch per
+   chunk) against ``step_ref`` with lanes on the card over
+   ``check_runs.LANE_CASES`` (4 lanes; flat and set tables, shared and
+   per-lane params, a lane with a shorter ``n_valid`` and one with none,
+   F's geometry); every state leaf and hit flag must be equal;
+15. run T, 64 tenant caches at F's geometry (1.2M accesses per lane, lane 0
+   replaying F's trace), through ``simulate_trace(streams=64)`` (counts set
+   to 0 just before, read just after: 2,344 launches for all lanes); lane
+   0's hits, registers and digest must equal F's JAX pins, lanes 1, 32 and
+   63 their solo runs; then the same run with CUDA events around each
+   launch (ns per access per lane, device idle share) and its bound (bytes,
+   and the latency floor of the lanes' chains side by side);
+16. time F's geometry at 1, 8, 64, 132 and 264 lanes over each lane's first
+   131,072 accesses, and one lane through the lane kernel (equal to the
+   single-stream kernel's run): ns per access per lane, aggregate
+   accesses/s, ``scaling_1_to_64`` and the state's bytes against the 50 MB
+   L2;
+17. run W, ``simulate_sweep`` over F's trace (capacities 32,768 / 65,536 /
+   131,072 x window 0.01 / 0.05 / 0.2, assoc=8) as nine lanes of one run
+   (counts set to 0 around it) and one configuration after another; the
+   sequential (65,536, 0.01) row must equal F, and two lane rows solo runs
+   of their padded configuration;
+18. run P1's admitting policies through default-constructed
+   ``PrefixCache``s (the host sketch, no launch); every stat must equal the
+   default JAX cache's;
+19. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+   with its lane-grid launches and check), the card line and the result
+   line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -96,12 +123,17 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.check_runs import (ADD_HAZARD_CASES,  # noqa: E402
                                     ADD_TILE, ADMIT_SIZES, FLASH_CASES,
                                     FLASH_TAIL, FLASH_TAIL_LENS,
-                                    HAZARD_CASES, P1_CAPS, P1_TRACE, P2_CAP,
+                                    HAZARD_CASES, LANE_CASES, LANES,
+                                    P1_CAPS, P1_HOST_PINS, P1_TRACE, P2_CAP,
                                     P2_TRACE, P_PINS,
                                     S_BATCH, S_BLOCKS, S_DECISIONS, S_PINS,
-                                    SKETCH_CFGS, add_hazard_batches,
-                                    add_schedule, cache_tails, digest,
-                                    hazard_keys, mixed_keys, replay)
+                                    SKETCH_CFGS, T_ACCESSES, T_LANES,
+                                    T_SCALING, T_SCALING_ACCESSES, T_SOLO,
+                                    T_TENANTS, W_CAPS, W_FRACS,
+                                    add_hazard_batches, add_schedule,
+                                    cache_tails, digest, hazard_keys,
+                                    lane_keys, lane_n_valid, mixed_keys,
+                                    replay)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 
@@ -189,10 +221,11 @@ def compare_case(name, cfg, trace, chunk, timed=False):
     return err, ms[1]
 
 
-def timed_launches(trace, cfg, chunk, warmup):
+def timed_launches(trace, cfg, chunk, warmup, fn=None):
     """F through the engine's chunk runner with CUDA events around each
-    launch; returns (state, hit flags, per-launch kernel ms, the runner's
-    stream ms from its first launch to its last)."""
+    launch (of ``fn``, default the ``step`` wrapper); returns (state, hit
+    flags, per-launch kernel ms, the runner's stream ms from its first
+    launch to its last)."""
     import torch
     from repro_torch.core.device_simulate import _trace_lanes, run_chunks
     from repro_torch.kernels import sketch_step as ks
@@ -207,7 +240,7 @@ def timed_launches(trace, cfg, chunk, warmup):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = ks.step(*args)
+        out = (fn or ks.step)(*args)
         e1.record()
         events.append((e0, e1))
         return out
@@ -680,9 +713,10 @@ def sketch_phase8(f_trace, card):
 
 
 def serving_phase9(card):
-    """Phase 9: P1 and P2 through PrefixCache on the card, each run with
-    the launch counts set to 0 just before and read just after; every
-    PrefixCacheStats field must equal the JAX cache's."""
+    """Phase 9: P1 and P2 through PrefixCache on the card (the device
+    sketch), each run with the launch counts set to 0 just before and read
+    just after; every PrefixCacheStats field must equal the JAX cache's.
+    Returns each run's admission decisions per second of wall."""
     import dataclasses
     import torch
     from repro_torch.serve import PrefixCache
@@ -691,9 +725,10 @@ def serving_phase9(card):
     p2 = multi_tenant_prompt_trace(**P2_TRACE)
     runs = [("P1", p, c, p1) for p in ("lru", "tinylfu", "wtinylfu")
             for c in P1_CAPS] + [("P2", "wtinylfu", P2_CAP, p2)]
-    totals = {}
+    totals, rates = {}, {}
     for name, policy, cap, stream in runs:
-        pc = PrefixCache(cap, policy=policy, sample_factor=8)
+        pc = PrefixCache(cap, policy=policy, sample_factor=8,
+                         device_sketch=True)
         set_launches(0)
         t0 = time.perf_counter()
         stats = replay(pc, stream)
@@ -711,6 +746,7 @@ def serving_phase9(card):
                   f"{name} {policy} C={cap}: launches {launches}")
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
+        rates[(name, policy, cap)] = decisions / wall
         print(f"phase 9  {name} {policy:8s} C={cap:<6d} stats == JAX, hit "
               f"ratio {stats.hit_ratio:.6f}; wall {wall:.3f} s, "
               f"{len(stream) / wall:,.0f} block accesses/s, "
@@ -719,6 +755,7 @@ def serving_phase9(card):
               f"reset {launches['sketch_reset']}")
     print(f"phase 9  {len(runs)} runs on {card}; launches in all {totals}")
     decision_breakdown(p2)
+    return rates
 
 
 def decision_breakdown(stream, n: int = 2000):
@@ -983,7 +1020,7 @@ def llm_phase12(card):
     prompts = make_workload(cfg, wl.pop("n_requests"), **wl)
 
     def serve_l(engine_cls):
-        eng = engine_cls(model, params, **L_ENGINE)
+        eng = engine_cls(model, params, **L_ENGINE, device_sketch=True)
         for pr in prompts:
             eng.submit(pr, L_NEW_TOKENS)
         reqs = list(eng.queue)
@@ -1174,6 +1211,297 @@ def llm_phase13(card):
           f"{worst:.5f}); card {card}")
 
 
+def lanes_phase14():
+    """Phase 14: the step kernel's lane grid (one CTA per lane, one launch
+    per chunk) against step_ref with lanes on the card, over
+    check_runs.LANE_CASES: flat and set tables, shared and per-lane params,
+    lane_n_valid's shorter and empty lanes, F's geometry; every state leaf
+    and hit flag must be equal.  Returns the max abs difference."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    err = 0
+    for name, kw, prows, wcap, mcap, kind, n, chunk in LANE_CASES:
+        spec = ks.StepSpec(**kw, streams=LANES)
+        lo, hi = lanes_on_card(lane_keys(kind, n))
+        counts = [lane_n_valid(chunk, c, n - s)
+                  for c, s in enumerate(range(0, n, chunk))]
+        outs = []
+        for fn in (ks.step, ks.step_ref):
+            params = torch.stack([ks.make_step_params(
+                *p, counter_bits=spec.counter_bits, device="cuda")
+                for p in prows])
+            params = params[0] if len(prows) == 1 else params
+            state = ks.init_step_state(spec, wcap, mcap, device="cuda")
+            hits = [fn(spec, params, state, lo[:, s:s + chunk],
+                       hi[:, s:s + chunk], nv)[1]
+                    for s, nv in zip(range(0, n, chunk), counts)]
+            outs.append((state, torch.cat(hits, dim=1)))
+        (k_state, k_hits), (p_state, p_hits) = outs
+        d = max([int((k_hits - p_hits).abs().max())]
+                + [int((k_state[k].long() - p_state[k].long()).abs().max())
+                   for k in p_state])
+        check(d == 0, f"lanes {name}: kernel and plain differ")
+        steps = [int(x) for x in np.sum(counts, axis=0)]
+        check(p_state["regs"][:, ks.R_T].tolist() == steps,
+              f"lanes {name}: the plain run did not take each lane's "
+              f"n_valid")
+        err = max(err, d)
+        print(f"phase 14 lanes {name}: kernel == plain, {LANES} lanes x "
+              f"{n} accesses (chunk {chunk}, accesses per lane {steps}, "
+              f"{len(prows)} params row(s), {spec.assoc or 'flat'} ways)")
+    return err
+
+
+def t_trace(f_trace):
+    """Run T's (T_LANES, T_ACCESSES) keys: lane 0 is F's trace."""
+    from repro_torch.traces.synthetic import tenant_lanes_trace
+    tr = np.empty((T_LANES, T_ACCESSES), np.int64)
+    tr[0] = f_trace
+    tr[1:] = tenant_lanes_trace(T_LANES - 1, T_ACCESSES, **T_TENANTS)
+    return tr
+
+
+def tenant_phase15(tr, card):
+    """Phase 15: run T (T_LANES tenant caches at F's geometry) through
+    simulate_trace, the launch counts set to 0 just before and read just
+    after: one launch per chunk for all lanes; lane 0 must equal F's JAX
+    pins and lanes T_SOLO their solo runs.  Then the same run with CUDA
+    events around each launch, and the bound.  Returns (launches, ms per
+    launch, bound ms per launch)."""
+    import torch
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  simulate_trace)
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.phase_timing import RT_HIT, RT_MISS, \
+        l2_round_trip_ns
+    kw = dict(warmup=F_WARMUP, assoc=F_ASSOC, chunk=F_CHUNK,
+              return_state=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_launches(0)
+    t0 = time.perf_counter()
+    res, state, flags = simulate_trace(tr, F_CAPACITY, streams=T_LANES,
+                                       trace_name="tenants-64", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    nchunks = math.ceil(T_ACCESSES / F_CHUNK)
+    check(launches["sketch_step"] == nchunks
+          and sum(launches.values()) == nchunks,
+          f"T: launches {launches}, expected {nchunks} step launches")
+    lane_hits = res.extra["lane_hits"]
+
+    def lane(b):
+        return {k: v[b] for k, v in state.items()}
+
+    check(lane_hits[0] == F_HITS
+          and state["regs"][0].cpu().tolist() == F_REGS
+          and digest(lane(0)) == F_DIGEST
+          and int(flags[0, F_WARMUP:].sum()) == F_HITS,
+          f"T: lane 0 (F's trace) hits {lane_hits[0]} regs "
+          f"{state['regs'][0].cpu().tolist()} digest {digest(lane(0))} != "
+          f"F's JAX pins")
+    check(res.hits == sum(lane_hits)
+          and res.accesses == (T_ACCESSES - F_WARMUP) * T_LANES
+          and flags.shape == tr.shape, "T: aggregate result disagrees")
+    state_bytes = sum(v.numel() * v.element_size() for v in state.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 15 T: {T_LANES} lanes x {T_ACCESSES} accesses at F's "
+          f"geometry; lane 0 hits, regs and digest == F's JAX pins; hits "
+          f"{res.hits}/{res.accesses} ratio {res.hit_ratio:.6f}; lane hits "
+          f"min {min(lane_hits)} max {max(lane_hits)}")
+    print(f"phase 15 T: wall {wall:.3f} s, {tr.size / wall:,.0f} acc/s "
+          f"aggregate (host clock around simulate_trace, upload and hashing "
+          f"included); launches {launches['sketch_step']}; state "
+          f"{state_bytes} bytes ({state_bytes / 2**20:.1f} MiB); "
+          f"max_memory_allocated {peak} bytes; card {card}")
+    for b in T_SOLO:
+        r, s, h = simulate_trace(tr[b], F_CAPACITY, **kw)
+        check(r.hits == lane_hits[b] and bool(torch.equal(h, flags[b]))
+              and digest(s) == digest(lane(b)),
+              f"T: lane {b} differs from its solo run")
+    print(f"phase 15 T: lanes {T_SOLO} == their solo runs (hit flags, "
+          f"state digest)")
+
+    # the same run, CUDA events around each launch
+    cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, streams=T_LANES)
+    t_state, t_hits, launch_ms, stream_ms = timed_launches(tr, cfg, F_CHUNK,
+                                                           F_WARMUP)
+    check(digest(t_state) == digest(state)
+          and bool(torch.equal(t_hits, flags)),
+          "T: the timed run differs from the main run")
+    del t_state, t_hits
+    ms = sum(launch_ms) / len(launch_ms)
+    idle = 1.0 - sum(launch_ms) / stream_ms
+    print(f"phase 15 T: kernel {ms:.4f} ms per launch (CUDA events around "
+          f"each of {len(launch_ms)}; min {min(launch_ms):.4f}, max "
+          f"{max(launch_ms):.4f}), {ms * 1e6 / F_CHUNK:.0f} ns per access "
+          f"per lane, {T_LANES * F_CHUNK / ms * 1e3:,.0f} acc/s aggregate "
+          f"of kernel time; runner stream {stream_ms:.1f} ms, device idle "
+          f"share {idle:.6f}")
+
+    # bound: each lane's words (bound_bytes), summed; the latency floor of
+    # one lane's chain, the lanes running side by side
+    spec1 = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC).spec()
+    total = sum(bound_bytes(spec1, tr[b], F_CHUNK, cfg.sample_size)[0]
+                for b in range(T_LANES))
+    bound_ms = total / nchunks / HBM_BYTES_PER_S * 1e3
+    h = float(flags.float().mean())
+    rt = l2_round_trip_ns(load_library("l2_chase"))
+    trips = RT_HIT * h + RT_MISS * (1 - h)
+    floor_ms = F_CHUNK * trips * rt / 1e6
+    print(f"phase 15 T: bound {total} bytes over the run = "
+          f"{total / nchunks:.0f} bytes per launch over 3.35 TB/s = "
+          f"{bound_ms:.6f} ms per launch (the kernel is "
+          f"{ms / bound_ms:.0f}x above it); latency floor {trips:.2f} "
+          f"dependent L2 round trips per access (hit share {h:.4f}) x "
+          f"{rt:.1f} ns = {trips * rt:.0f} ns per access per lane, "
+          f"{floor_ms:.4f} ms per launch with the {T_LANES} lanes side by "
+          f"side (the kernel is {ms / floor_ms:.1f}x above it)")
+    return launches["sketch_step"], ms, bound_ms
+
+
+def lane_grid_step(spec, params, state, lo, hi, n_valid, probes):
+    """One launch of the lane kernel over unbatched inputs: one lane."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    hits = torch.empty_like(lo)
+    ks._launch(spec, params, state, lo, hi, probes, n_valid, hits,
+               lane_grid=True)
+    return state, hits
+
+
+def scaling_phase16(tr, card):
+    """Phase 16: F's geometry at T_SCALING lanes over the first
+    T_SCALING_ACCESSES accesses of each lane (lane b replays lane b %
+    T_LANES), and at one lane through the lane kernel too: kernel ms per
+    launch, ns per access per lane and aggregate accesses per second of
+    kernel time, the state's bytes against the 50 MB L2.  Lanes replaying
+    one trace, and the lane kernel at one lane, must give equal hit
+    flags."""
+    import torch
+    from repro_torch.core.device_simulate import DeviceWTinyLFU
+    agg, one = {}, None
+    for B, fn in [(1, None), (1, lane_grid_step)] + [
+            (B, None) for B in T_SCALING if B > 1]:
+        sub = tr[np.arange(B) % T_LANES, :T_SCALING_ACCESSES]
+        cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, streams=B)
+        state, hits, launch_ms, stream_ms = timed_launches(
+            sub[0] if B == 1 else sub, cfg, F_CHUNK, 0, fn)
+        nbytes = sum(v.numel() * v.element_size() for v in state.values())
+        if B > T_LANES:
+            twins = np.arange(T_LANES, B)
+            check(bool(torch.equal(hits[twins], hits[twins % T_LANES])),
+                  f"scaling B={B}: lanes replaying one trace differ")
+        if B == 1:
+            check(one is None or (bool(torch.equal(hits, one[1]))
+                                  and digest(state) == one[0]),
+                  "scaling: the lane kernel at one lane differs from the "
+                  "single-stream kernel")
+            one = (digest(state), hits)
+        dev_ms = sum(launch_ms)
+        agg.setdefault(B, B * T_SCALING_ACCESSES / dev_ms * 1e3)
+        kind = "lane kernel" if fn else "kernel"
+        print(f"phase 16 B={B:<3d} {kind:11s} {dev_ms / len(launch_ms):.4f} "
+              f"ms per launch, {dev_ms * 1e6 / T_SCALING_ACCESSES:.0f} ns per "
+              f"access per lane, {B * T_SCALING_ACCESSES / dev_ms * 1e3:,.0f} "
+              f"acc/s aggregate (kernel time, {len(launch_ms)} launches); "
+              f"idle share {1 - dev_ms / stream_ms:.6f}; state {nbytes} "
+              f"bytes ({nbytes / 2**20:.1f} MiB, {nbytes / 50e6:.2f}x the "
+              f"50 MB L2)")
+        del state, hits
+        torch.cuda.empty_cache()
+    print(f"phase 16 scaling_1_to_64 {agg[64] / agg[1]:.2f} (aggregate "
+          f"acc/s at 64 lanes over 1 stream); card {card}")
+
+
+def sweep_phase17(f_trace, card):
+    """Phase 17: run W, simulate_sweep over F's trace as lanes of one run
+    (mode="vmap", the launch counts set to 0 just before and read just
+    after) and one configuration after another (mode="sequential"): the
+    sequential (65,536, 0.01) row is F; two vmap rows must equal solo runs
+    of their padded configuration."""
+    import torch
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  _padded_grid, _trace_lanes,
+                                                  run_chunks, simulate_sweep)
+    from repro_torch.kernels import sketch_step as ks
+    kw = dict(window_fracs=W_FRACS, assoc=F_ASSOC, warmup=F_WARMUP,
+              chunk=F_CHUNK, trace_name="zipf-1.2M")
+    seq = simulate_sweep(f_trace, W_CAPS, mode="sequential", **kw)
+    set_launches(0)
+    vm = simulate_sweep(f_trace, W_CAPS, mode="vmap", **kw)
+    launches = read_launches()
+    nchunks = math.ceil(len(f_trace) / F_CHUNK)
+    check(launches["sketch_step"] == nchunks
+          and sum(launches.values()) == nchunks, f"W: launches {launches}")
+    key = [(r.cache_size, r.extra["window_frac"]) for r in seq]
+    check(seq[key.index((65_536, 0.01))].hits == F_HITS,
+          "W: the sequential (65536, 0.01) row differs from F")
+    grid = [DeviceWTinyLFU(C, window_frac=wf, assoc=F_ASSOC)
+            for C in W_CAPS for wf in W_FRACS]
+    spec, states = _padded_grid(grid, "cuda")
+    nbytes = sum(v.numel() * v.element_size() for s in states
+                 for v in s.values())
+    lo, hi = _trace_lanes(f_trace, "cuda")
+    for cw in ((32_768, 0.01), (131_072, 0.2)):
+        g = key.index(cw)
+        st, _ = run_chunks(spec, grid[g].params(warmup=F_WARMUP,
+                                                device="cuda"),
+                           states[g], lo, hi, F_CHUNK)
+        check(int(st["regs"][ks.R_HITS]) == vm[g].hits,
+              f"W: the vmap row {cw} differs from its padded solo run")
+    for s_row, v_row in zip(seq, vm):
+        print(f"phase 17 W: C={s_row.cache_size:<6d} wf="
+              f"{s_row.extra['window_frac']:<4} vmap hits {v_row.hits} "
+              f"(ratio {v_row.hit_ratio:.6f}), sequential {s_row.hits} "
+              f"(ratio {s_row.hit_ratio:.6f})")
+    v_wall, s_wall = vm[0].extra["grid_wall_s"], seq[0].extra["grid_wall_s"]
+    n = len(grid) * len(f_trace)
+    print(f"phase 17 W: vmap {len(grid)} lanes padded to C={max(W_CAPS)}'s "
+          f"geometry ({nbytes} bytes of state, {nbytes / 2**20:.1f} MiB): "
+          f"wall {v_wall:.3f} s, {n / v_wall:,.0f} acc/s aggregate, "
+          f"{launches['sketch_step']} launches; sequential {s_wall:.3f} s, "
+          f"{n / s_wall:,.0f} acc/s ({s_wall / v_wall:.2f}x the vmap wall); "
+          f"the (65536, 0.01) sequential row == F; vmap rows (32768, 0.01) "
+          f"and (131072, 0.2) == their padded solo runs; card {card}")
+    del states
+    torch.cuda.empty_cache()
+
+
+def host_phase18(card, device_rates):
+    """Phase 18: P1's admitting policies through default-constructed
+    caches (the host sketch; no kernel launch, counts set to 0 just before
+    and read just after); every PrefixCacheStats field must equal the
+    default JAX cache's."""
+    import dataclasses
+    from repro_torch.serve import PrefixCache
+    from repro_torch.traces.synthetic import multi_tenant_prompt_trace
+    p1 = multi_tenant_prompt_trace(**P1_TRACE)
+    for policy in ("tinylfu", "wtinylfu"):
+        for cap in P1_CAPS:
+            pc = PrefixCache(cap, policy=policy)
+            set_launches(0)
+            t0 = time.perf_counter()
+            stats = replay(pc, p1)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            got = dataclasses.astuple(stats)
+            want = P1_HOST_PINS[(policy, cap)]
+            check(got == want, f"P1-host {policy} C={cap}: stats {got} != "
+                  f"JAX {want}")
+            check(sum(launches.values()) == 0,
+                  f"P1-host {policy} C={cap}: launches {launches}")
+            decisions = stats.admitted + stats.rejected
+            print(f"phase 18 P1-host {policy:8s} C={cap:<5d} stats == JAX "
+                  f"(default PrefixCache, host sketch), hit ratio "
+                  f"{stats.hit_ratio:.6f}; wall {wall:.3f} s, "
+                  f"{len(p1) / wall:,.0f} block accesses/s, "
+                  f"{decisions / wall:,.0f} decisions/s (device sketch, "
+                  f"phase 9: {device_rates[('P1', policy, cap)]:,.0f}); no "
+                  f"launch; {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1324,7 +1652,7 @@ def main() -> int:
     s_launches, s_ms, s_batches = sketch_phase8(f_trace, card)
 
     # -- phase 9: P1 and P2, the serving path through PrefixCache ---------
-    serving_phase9(card)
+    p_rates = serving_phase9(card)
 
     # -- phase 10: the sketch kernels' bounds -------------------------------
     from repro_torch.kernels.ops import make_config
@@ -1391,8 +1719,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     llm_phase13(card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # -- phase 14: the kernels line ----------------------------------------
+    # -- phases 14-18: tenant lanes, sweeps, the host sketch ---------------
+    lane_err = lanes_phase14()
+    tr = t_trace(f_trace)
+    t_launches, t_ms, t_bound_ms = tenant_phase15(tr, card)
+    scaling_phase16(tr, card)
+    del tr
+    sweep_phase17(f_trace, card)
+    host_phase18(card, p_rates)
+    kernels[0].update(max_abs_err=max(max_err, lane_err),
+                      matches_plain=max(max_err, lane_err) == 0,
+                      lane_launches=t_launches, lane_max_abs_err=lane_err,
+                      lane_ms=t_ms, lane_bound_ms=t_bound_ms)
+
+    # -- phase 19: the kernels line ----------------------------------------
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

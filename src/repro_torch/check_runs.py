@@ -1,13 +1,15 @@
 """The check runs of the serving paths, their pinned JAX results, and the
 helpers that drive them in either package.
 
-``chip_smoke.py`` runs S, P and L at full size on the card and holds them
-to the pins below; ``tests/test_torch_sketch_ops.py``,
-``tests/test_torch_prefix_cache.py``, ``tests/test_torch_serving.py`` and
-``tests/test_torch_models.py`` run the same procedures at a small size
-against the JAX package, and, run as scripts, print the JAX results that
-are pinned here.  The hazard cases of the step and add kernels and a numpy
-model of the add kernel's schedule live here too.  Imports numpy only.
+``chip_smoke.py`` runs S, P, P1-host and L at full size on the card and
+holds them to the pins below; ``tests/test_torch_sketch_ops.py``,
+``tests/test_torch_prefix_cache.py``, ``tests/test_torch_host_sketch.py``,
+``tests/test_torch_serving.py`` and ``tests/test_torch_models.py`` run the
+same procedures at a small size against the JAX package, and, run as
+scripts, print the JAX results that are pinned here.  The tenant-lane and
+sweep runs T and W, the hazard cases of the step and add kernels (the step
+kernel's lane grid too) and a numpy model of the add kernel's schedule live
+here as well.  Imports numpy only.
 """
 from __future__ import annotations
 
@@ -31,11 +33,12 @@ SKETCH_CFGS = [dict(width=256, rows=4, cap=15, dk_bits=1024),
 S_BLOCKS, S_BATCH, S_DECISIONS = 65_536, 4096, 50_000
 S_PINS = ("b0683a28b7852844", 3, "f40dc4a77ca0f007", 17188)
 
-# Runs P: benchmarks/bench_serving.py's replay through PrefixCache.  P1 is
-# its full grid (lru / tinylfu / wtinylfu x P1_CAPS); P2 the same generator
-# scaled to S's capacity, wtinylfu.  The pins are every PrefixCacheStats
-# field (lookups, block_hits, block_misses, inserts, admitted, rejected,
-# evicted) of the JAX PrefixCache with DeviceAdmission(use_pallas=False)
+# Runs P: benchmarks/bench_serving.py's replay through PrefixCache with the
+# device sketch (device_sketch=True).  P1 is its full grid (lru / tinylfu /
+# wtinylfu x P1_CAPS); P2 the same generator scaled to S's capacity,
+# wtinylfu.  The pins are every PrefixCacheStats field (lookups,
+# block_hits, block_misses, inserts, admitted, rejected, evicted) of the JAX
+# PrefixCache with DeviceAdmission(use_pallas=False)
 # (``python tests/test_torch_prefix_cache.py`` prints them).
 P1_TRACE = dict(n_requests=6000, n_tenants=400, tenant_alpha=1.0, seed=81)
 P1_CAPS = (1000, 2000, 4000)
@@ -62,6 +65,43 @@ P_PINS = {
                                 1197),
 }
 
+
+# Run T: tenant lanes at run F's geometry, the reference's B=64 point of
+# streams_acc_per_s_total (docs/BENCHMARKS.md).  DeviceWTinyLFU(65_536,
+# assoc=8, streams=T_LANES) runs T_ACCESSES accesses per lane (warmup
+# 480,000 per lane, chunk 512): lane 0 replays run F's trace
+# (zipf_trace(1_200_000, n_items=1_000_000, alpha=0.9, seed=11)) and must
+# give F's JAX pins; lanes 1.. are tenant_lanes_trace(T_LANES - 1,
+# T_ACCESSES, **T_TENANTS), and lanes T_SOLO must equal their solo runs.
+# The lane-scaling phase runs the same geometry at T_SCALING lanes over the
+# first T_SCALING_ACCESSES accesses of each lane (lane b replays lane
+# b % T_LANES's trace).
+T_LANES, T_ACCESSES = 64, 1_200_000
+T_TENANTS = dict(n_items=1_000_000, alpha=0.9, tenant_alpha=1.0, seed=16)
+T_SOLO = (1, 32, 63)
+T_SCALING = (1, 8, 64, 132, 264)
+T_SCALING_ACCESSES = 131_072
+
+# Run W: simulate_sweep over run F's trace, W_CAPS x W_FRACS with assoc=8
+# and warmup 480,000, as lanes of one run (mode="vmap": nine lanes padded to
+# the largest configuration's geometry) and one run after another
+# (mode="sequential", whose (65,536, 0.01) row is run F).
+W_CAPS = (32_768, 65_536, 131_072)
+W_FRACS = (0.01, 0.05, 0.2)
+
+# Run P1-host: P1's admitting policies through default-constructed caches
+# (PrefixCache(cap, policy=...): the host sketch, as bench_serving.py builds
+# them; no kernel launch).  The pins are every PrefixCacheStats field of the
+# default JAX PrefixCache (``python tests/test_torch_host_sketch.py``
+# prints them).
+P1_HOST_PINS = {
+    ("tinylfu", 1000): (6779, 45981, 170922, 120826, 3162, 116664, 3162),
+    ("tinylfu", 2000): (6779, 55143, 161760, 103569, 2582, 98987, 2582),
+    ("tinylfu", 4000): (6779, 63040, 153863, 87382, 1863, 81519, 1863),
+    ("wtinylfu", 1000): (6779, 47727, 169176, 116729, 4959, 110770, 4959),
+    ("wtinylfu", 2000): (6779, 55621, 161282, 103320, 2336, 98984, 2336),
+    ("wtinylfu", 4000): (6779, 63231, 153672, 87280, 2473, 80807, 2473),
+}
 
 def digest(state: dict) -> str:
     """sha256 over the state leaves in sorted key order: the key's UTF-8
@@ -261,6 +301,54 @@ HAZARD_CASES = [
 ]
 
 
+# The step kernel's lane grid (streams=LANES): chip_smoke.py phase 2 and
+# tests/test_torch_kernel_gpu.py hold it to step_ref with lanes on the card,
+# every state leaf and hit flag.  Each case is (name, StepSpec kwargs without
+# streams, the make_step_params args of every lane (one row: shared params,
+# a (LANES, NPARAMS) tensor otherwise), window_cap, main_cap, hazard trace
+# kind, accesses per lane, chunk).  Lane b replays hazard_keys(kind, n,
+# seed=b); the chunks take lane_n_valid's per-lane counts.
+LANES = 4
+_F_LANE = (655, 64_881, 51_904, 524_288, 7, 0)
+LANE_CASES = [
+    ("flat, shared params", dict(width=256, rows=4, dk_bits=1024,
+                                 window_slots=3, main_slots=60),
+     [(3, 60, 48, 300, 7, 0)], 3, 60, "skewed", 400, 128),
+    ("flat, per-lane params", dict(width=256, rows=4, dk_bits=1024,
+                                   window_slots=3, main_slots=60),
+     [(3, 60, 48, 300, 7, 0), (3, 60, 30, 200, 7, 50),
+      (3, 60, 48, 500, 3, 0), (3, 60, 10, 100, 7, 10)], 3, 60, "skewed",
+     400, 128),
+    ("ways 8, shared params", _TINY8, [(6, 16, 12, 400, 30, 0)], 6, 16,
+     "skewed", 400, 128),
+    ("ways 8, per-lane params", _TINY8,
+     [(6, 16, 12, 400, 30, 0), (6, 16, 4, 64, 30, 0),
+      (6, 16, 12, 250, 200, 100), (6, 16, 8, 50, 15, 0)], 6, 16, "runs",
+     400, 128),
+    ("F geometry, per-lane params", _F_SPEC,
+     [_F_LANE, (655, 64_881, 20_000, 524_288, 7, 100),
+      (655, 64_881, 51_904, 1_000, 7, 0), _F_LANE], 655, 64_881, "wide",
+     1024, 256),
+]
+
+
+def lane_keys(kind: str, n: int) -> np.ndarray:
+    """(LANES, n) uint64 keys: lane b is hazard_keys(kind, n, seed=b)."""
+    return np.stack([hazard_keys(kind, n, seed=b) for b in range(LANES)])
+
+
+def lane_n_valid(chunk: int, c: int, left: int) -> list:
+    """Per-lane n_valid of chunk c of a lane case with ``left`` accesses
+    left: every lane up to a full chunk, but lane 1 half a chunk from the
+    second chunk on and lane 3 none in every third chunk."""
+    n = [min(chunk, left)] * LANES
+    if c >= 1:
+        n[1] = min(n[1], chunk // 2)
+    if c % 3 == 2:
+        n[3] = 0
+    return n
+
+
 def hazard_keys(kind: str, n: int, seed: int = 0) -> np.ndarray:
     """n uint64 keys: ``runs``, runs of 1-12 repeats of one of 24 keys;
     ``skewed``, 60% from 6 hot keys and the rest from 200; ``wide``, 30%
@@ -343,7 +431,8 @@ def cache_tails(k, v, lens):
 
 
 # Run L: the LLM serving path at full width.  ServeEngine(Model(qwen3-4b),
-# **L_ENGINE, prefix_policy="wtinylfu") replays make_workload(cfg,
+# **L_ENGINE, prefix_policy="wtinylfu", device_sketch=True) replays
+# make_workload(cfg,
 # **L_WORKLOAD) with L_NEW_TOKENS new tokens each: 24 prompts of a shared
 # 1,024-token tenant prefix (6 Zipf tenants) and a 256-token user suffix.
 # The engine's stats depend only on the prompts' token ids, the schedule

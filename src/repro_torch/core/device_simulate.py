@@ -9,15 +9,17 @@ Sizing mirrors the reference exactly (window 1%, SLRU 80/20, W =
 sample_factor*C, cap = W/C with the doorkeeper absorbing one count), so the
 port's state and hit counts equal the JAX engine's bit for bit.
 
-This slice runs one stream, ``policy="wtinylfu"``, a static window and an
-unsharded sketch, in both table layouts.  Entry points run on the card unless
-the caller passes ``device="cpu"`` (the plain version); without a card they
-raise.
+This slice runs ``policy="wtinylfu"`` with a static window and an unsharded
+sketch, in both table layouts, for one stream or ``streams=B`` tenant lanes
+(one launch per chunk for all lanes), and ``simulate_sweep``'s grids of such
+configurations, either one run per configuration or as lanes of one run.
+Entry points run on the card unless the caller passes ``device="cpu"`` (the
+plain version); without a card they raise.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -45,9 +47,10 @@ class DeviceWTinyLFU:
 
     Same fields, sizing and eager validation as the reference class.
     ``assoc=None`` uses the exact flat tables, ``assoc=W`` the W-way
-    set-associative tables.  ``adaptive``, ``shards > 1``, ``mesh``,
-    ``integrity``, ``streams > 1`` and ``policy != "wtinylfu"`` are accepted
-    for sizing and refused by :meth:`run` until the port carries them.
+    set-associative tables; ``streams=B`` batches B tenant lanes.
+    ``adaptive``, ``shards > 1``, ``mesh``, ``integrity`` and ``policy !=
+    "wtinylfu"`` are accepted for sizing and refused by :meth:`run` until
+    the port carries them.
     """
     capacity: int
     window_frac: float = 0.01
@@ -264,7 +267,9 @@ class DeviceWTinyLFU:
             trace_name: str = "?", climb=None, checkpoint_dir=None,
             checkpoint_every: int = 0, return_state: bool = False,
             on_checkpoint=None, fault_hook=None):
-        """Simulate ``trace`` on ``device`` (the card unless ``"cpu"``).
+        """Simulate ``trace`` (``(B, T)`` with ``streams=B``) on ``device``
+        (the card unless ``"cpu"``).  ``climb`` is ignored unless
+        ``adaptive``, as in the reference.
 
         Checkpointing and fault injection (``checkpoint_dir``,
         ``checkpoint_every``, ``on_checkpoint``, ``fault_hook``) are not
@@ -329,43 +334,47 @@ def _row_extra(cfg: DeviceWTinyLFU, climb, adaptive: bool) -> dict:
     return extra
 
 
-def _require_ported(cfg: DeviceWTinyLFU, climb):
-    """Refuse the configurations this slice of the port does not run."""
-    if climb is not None:
-        raise NotImplementedError(
-            "adaptive window / climb is ROADMAP queue 1 item 7")
-    ks._require_ported(cfg.spec())
-
-
 def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
                fn=step):
     """Chunked runner (counterpart of the reference's ``_run_pallas``): pad
-    the trace to whole chunks, hash every key once, then advance the state in
-    place one chunk per ``fn`` call (``step``, or ``step_ref`` to drive the
-    plain version) with the chunk's ``n_valid``; returns (state, the hit
-    flags of the unpadded trace).  ``step`` picks the kernel or the plain
-    version by the tensors' device; on the card nothing here waits for it."""
-    n = lo.shape[0]
+    the access axis to whole chunks, hash every key once, then advance the
+    state in place one chunk per ``fn`` call (``step``, or ``step_ref`` to
+    drive the plain version) with the chunk's ``n_valid``; returns (state,
+    the hit flags of the unpadded trace).  ``(B, T)`` lanes share the
+    chunking: each call takes a ``(B, chunk)`` slice of every lane (laid
+    out chunk-major, so each slice is contiguous).  ``step`` picks the
+    kernel or the plain version by the tensors' device; on the card nothing
+    here waits for it."""
+    n = lo.shape[-1]
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be >= 1")
     pad = (-n) % chunk
     if pad:
-        z = torch.zeros((pad,), dtype=lo.dtype, device=lo.device)
-        lo = torch.cat([lo, z])
-        hi = torch.cat([hi, z])
+        z = torch.zeros(lo.shape[:-1] + (pad,), dtype=lo.dtype,
+                        device=lo.device)
+        lo = torch.cat([lo, z], dim=-1)
+        hi = torch.cat([hi, z], dim=-1)
+    nc = lo.shape[-1] // chunk
+
+    def chunk_major(x):             # (..., nc * chunk) -> (nc, ..., chunk)
+        if x.dim() == 1:
+            return x.reshape(nc, chunk)
+        return x.reshape(x.shape[0], nc, chunk).transpose(0, 1).contiguous()
+
+    lo, hi = chunk_major(lo), chunk_major(hi)
     probes = precompute_probes(spec, lo, hi)
     hits = []
-    for s in range(0, lo.shape[0], chunk):
-        e = s + chunk
-        _, h = fn(spec, params, state, lo[s:e], hi[s:e], min(chunk, n - s),
-                  tuple(p[s:e] for p in probes))
+    for c in range(nc):
+        _, h = fn(spec, params, state, lo[c], hi[c], min(chunk, n - c * chunk),
+                  tuple(p[c] for p in probes))
         hits.append(h)
-    return state, torch.cat(hits)[:n]
+    return state, torch.cat(hits, dim=-1)[..., :n]
 
 
 def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
               trace_name: str, climb, return_state: bool):
-    _require_ported(cfg, climb)
+    del climb                       # ignored: the window is static
+    ks._require_ported(cfg.spec())
     dev = resolve_device(device)
     trace = np.asarray(trace)
     _check_trace_streams(cfg, trace)
@@ -376,15 +385,19 @@ def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
 
     t0 = time.perf_counter()
     state, hits = run_chunks(spec, params, state, lo, hi, chunk)
-    n_hits = int(state["regs"][R_HITS])          # waits for the device
+    regs = state["regs"].cpu()                   # waits for the device
     wall = time.perf_counter() - t0
 
-    counted = trace.shape[-1] - warmup
+    # warmup applies per lane (each lane's own R_T register counts it)
+    counted = (trace.shape[-1] - warmup) * cfg.streams
     extra = {"backend": "cuda" if dev.type == "cuda" else "plain",
              "window_frac": cfg.window_frac, "assoc": cfg.assoc,
-             "device": (torch.cuda.get_device_name(dev)
-                        if dev.type == "cuda" else "cpu"),
-             **_row_extra(cfg, climb, False)}
+             "device": _device_name(dev), **_row_extra(cfg, None, False)}
+    if cfg.streams > 1:
+        extra["lane_hits"] = [int(h) for h in regs[:, R_HITS]]
+        n_hits = sum(extra["lane_hits"])
+    else:
+        n_hits = int(regs[R_HITS])
     res = SimResult(policy=_policy_label(cfg, False),
                     cache_size=cfg.capacity, trace=trace_name,
                     accesses=counted, hits=n_hits,
@@ -393,6 +406,10 @@ def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
     if return_state:
         return res, state, hits
     return res
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 def simulate_trace(trace: np.ndarray, capacity: int, *,
@@ -416,3 +433,136 @@ def simulate_trace(trace: np.ndarray, capacity: int, *,
     return _simulate(cfg, trace, warmup=warmup, device=device, chunk=chunk,
                      trace_name=trace_name, climb=climb,
                      return_state=return_state)
+
+
+def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
+                   sample_factor: int = 8, warmup: int = 0,
+                   trace_name: str = "?", verbose: bool = False,
+                   mode: str = "auto", adaptive: bool = False, climb=None,
+                   policies=("wtinylfu",), device=None, chunk: int = 512,
+                   **cfg_kw) -> list[SimResult]:
+    """Cartesian (capacity x window_frac) sweep (counterpart of the
+    reference's ``simulate_sweep`` for static, unsharded, unmeshed,
+    single-policy grids).
+
+    ``mode="sequential"`` runs one configuration after another, each with
+    its own tight geometry (sketch sized like the host's, bit-identical to
+    its ``simulate_trace`` run).  ``mode="vmap"`` runs the whole grid as
+    lanes of one run, one launch per chunk: every configuration takes the
+    largest one's geometry (table slots padded up, excess slots marked as
+    padding by a per-configuration ``init_step_state``) with its own params
+    as a per-lane row.  ``"auto"`` picks ``"vmap"`` on the card, as the
+    reference does on its accelerator, and ``"sequential"`` on the CPU.
+
+    ``trace`` may be ``(N,)`` (shared by all configurations) or ``(G, N)``
+    (one trace per grid point).  Rows carry the reference's schema
+    (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Adaptive, sharded,
+    meshed and multi-policy grids are not ported yet and raise.
+    """
+    del climb                       # ignored: the window is static
+    if adaptive:
+        raise NotImplementedError(
+            "adaptive sweeps (the hill-climbed window) are ROADMAP queue 1 "
+            "item 7")
+    policies = tuple(policies)
+    if len(set(policies)) > 1:
+        raise NotImplementedError(
+            "policy grids (the policy panel) are ROADMAP queue 1 item 9")
+    grid = [DeviceWTinyLFU(C, window_frac=wf, sample_factor=sample_factor,
+                           policy=pol, **cfg_kw)
+            for C in capacities for wf in window_fracs for pol in policies]
+    gridlab = [(C, wf) for C in capacities for wf in window_fracs
+               for pol in policies]
+    if any(c.shards > 1 or c.integrity for c in grid):
+        raise NotImplementedError(
+            "sharded sweeps are ROADMAP queue 1 item 6")
+    if any(c.mesh is not None for c in grid):
+        raise NotImplementedError("mesh sweeps are ROADMAP queue 1 item 12")
+    for c in grid:
+        ks._require_ported(c.spec())
+    dev = resolve_device(device)
+    if mode == "auto":
+        mode = "vmap" if dev.type == "cuda" else "sequential"
+    if mode not in ("vmap", "sequential"):
+        raise ValueError(f"unknown mode {mode!r}")
+
+    trace = np.asarray(trace)
+    shared_trace = trace.ndim == 1
+    if not shared_trace and trace.shape[0] != len(grid):
+        raise ValueError(f"trace grid dim {trace.shape[0]} != "
+                         f"{len(grid)} configurations")
+    n_per = trace.shape[-1]
+    G = len(grid)
+
+    t0 = time.perf_counter()
+    if mode == "vmap":
+        spec, states = _padded_grid(grid, dev)
+        pstack = torch.stack([c.params(warmup=warmup, device=dev)
+                              for c in grid])
+        lo, hi = _trace_lanes(trace, dev)
+        if shared_trace:
+            lo, hi = lo.expand(G, n_per), hi.expand(G, n_per)
+        if G > 1:
+            spec = replace(spec, streams=G)
+            state = {k: torch.stack([s[k] for s in states])
+                     for k in states[0]}
+        else:
+            state, pstack, lo, hi = states[0], pstack[0], lo[0], hi[0]
+        state, _ = run_chunks(spec, pstack, state, lo, hi, chunk)
+        regs = state["regs"].reshape(G, -1).cpu()
+    else:
+        outs = []
+        for gi, c in enumerate(grid):
+            spec = c.spec()
+            st = init_step_state(spec, c.window_cap, c.main_cap, device=dev)
+            lo, hi = _trace_lanes(trace if shared_trace else trace[gi], dev)
+            st, _ = run_chunks(spec, c.params(warmup=warmup, device=dev), st,
+                               lo, hi, chunk)
+            outs.append(st["regs"])
+        regs = torch.stack(outs).cpu()
+    wall = time.perf_counter() - t0
+
+    counted = n_per - warmup
+    backend = "cuda" if dev.type == "cuda" else "plain"
+    out = []
+    for g, (C, wf) in enumerate(gridlab):
+        hits = int(regs[g, R_HITS])
+        extra = {"backend": f"{backend}+{mode}", "window_frac": wf,
+                 "grid": G, "grid_wall_s": wall, "assoc": grid[g].assoc,
+                 "device": _device_name(dev),
+                 **_row_extra(grid[g], None, False)}
+        out.append(SimResult(
+            policy=_policy_label(grid[g], False), cache_size=C,
+            trace=trace_name, accesses=counted, hits=hits,
+            hit_ratio=hits / max(1, counted),
+            # per-row amortized wall; the grid's total is in grid_wall_s
+            wall_s=wall / G, extra=extra))
+        if verbose:
+            print(f"  {trace_name:>12s} C={C:<7d} wf={wf:<5.2f} "
+                  f"hit={out[-1].hit_ratio:.4f}  (grid of {G}, "
+                  f"{wall:.1f}s total)", flush=True)
+    return out
+
+
+def _padded_grid(grid: list, device) -> tuple[StepSpec, list]:
+    """The vmap sweep's shared geometry (the largest configuration's, table
+    slots padded to fit every member) and each member's zeroed single-lane
+    state on ``device``, its excess slots marked as padding.  A set-associative
+    member whose main capacity is below the shared main set count would
+    leave most of its sets without a way, so such grids are refused, as in
+    the reference."""
+    big = max(grid, key=lambda c: c.capacity)
+    mslots = max(c._table_slots(c.main_cap, big.ways) for c in grid)
+    if big.assoc is not None:
+        msets = mslots // big.ways
+        for c in grid:
+            if c.main_cap < msets:
+                raise ValueError(
+                    f"vmap assoc sweep: main_cap {c.main_cap} < shared "
+                    f"{msets} sets (capacity {c.capacity} vs "
+                    f"{big.capacity}); run mode='sequential'")
+    spec = big.spec(window_slots=max(c._table_slots(c.window_cap, big.ways)
+                                     for c in grid),
+                    main_slots=mslots, ways=big.ways)
+    return spec, [init_step_state(spec, c.window_cap, c.main_cap,
+                                  device=device) for c in grid]

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel step_pallas / _step_kernel of
 // src/repro/kernels/sketch_step.py: one launch advances one chunk of
-// n_valid accesses of one stream through the doorkeeper test-and-insert,
+// n_valid accesses of one stream (or of each of B tenant lanes, one CTA per
+// lane: the lane grid below) through the doorkeeper test-and-insert,
 // the conservative count-min add with the section 3.3 reset, the window /
 // main lookup, the candidate-vs-victim estimate, the admission verdict and
 // the table writes, with one hit flag per access.  The state lives in device
@@ -53,6 +54,14 @@
 // (exact global tables, the golden runs' G1/G2) keeps warp-shuffle
 // reductions over slots in global memory.
 //
+// The lane grid (streams=B, the reference's pallas grid dimension over
+// lanes): B independent chains, so CTA l takes lane l.  It offsets every
+// state pointer, its key and probe lanes and its hit row by the lane's
+// stride (64-bit arithmetic), reads params with a lane stride of 0 (shared)
+// or NPARAMS (per lane) and its own n_valid, and writes its own regs from
+// its thread 0.  Nothing is shared between CTAs.  A single-stream launch
+// (lanes == 0) runs the kernel instance without the offsets, one CTA.
+//
 // Timing probes (python -m repro_torch.kernels.phase_timing) build this file
 // with -DSKETCH_STEP_SKIP_ADD or -DSKETCH_STEP_SKIP_ACCESS to compile one
 // phase out of the loop; the engine's build defines neither.
@@ -67,6 +76,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRows = 8;
 constexpr int kMaxDkp = 8;
 constexpr int kMaxWays = 128;    // the wrapper's _MAX_WAYS
+constexpr int kNRegs = 8;        // NREGS
 
 enum { P_WINDOW_CAP, P_MAIN_CAP, P_PROT_CAP, P_SAMPLE, P_CAP, P_WARMUP };
 enum { R_SIZE, R_PCOUNT, R_T, R_HITS };
@@ -91,8 +101,11 @@ struct StepArgs {
   int* wtab; int* mtab;                                    // set layout
   int* regs;
   int* hits;            // (b,)
+  const int* nvalid;    // lane grid: (lanes,) per-lane n_valid, or NULL
   int n_valid, b, rows, dkp, dk_bits, counter_bits, words_per_row,
       counter_words, dk_words, window_slots, main_slots, assoc, wcols, mcols;
+  int lanes;            // 0: one stream; B >= 1: the lane grid of B CTAs
+  int params_stride;    // lane grid: 0 (shared params) or NPARAMS
 };
 
 namespace {
@@ -626,10 +639,40 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
   return 0;
 }
 
+// Point a at lane l of the lane-axis operands (every leaf is (lanes, ...)
+// with the single-stream shape behind the lane axis).
+__device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
+  const long long b = a.b;
+  a.lo += l * b;
+  a.hi += l * b;
+  a.kidx += l * b * a.rows;
+  a.kdkb += l * b * a.dkp;
+  a.kwset += l * b;
+  a.kmset += l * 2 * b;
+  a.hits += l * b;
+  a.params += l * a.params_stride;
+  a.counters += l * a.counter_words;
+  a.dk += l * a.dk_words;
+  a.regs += l * kNRegs;
+  if (a.assoc == 0) {
+    const long long w = a.window_slots, m = a.main_slots;
+    a.wlo += l * w; a.whi += l * w; a.wmeta += l * w;
+    a.widx += l * w * a.rows; a.wdkb += l * w * a.dkp;
+    a.mlo += l * m; a.mhi += l * m; a.mmeta += l * m;
+    a.midx += l * m * a.rows; a.mdkb += l * m * a.dkp;
+  } else {
+    a.wtab += l * a.window_slots * static_cast<long long>(a.wcols);
+    a.mtab += l * a.main_slots * static_cast<long long>(a.mcols);
+  }
+  if (a.nvalid) a.n_valid = a.nvalid[l];
+}
+
 // The chunk loop.  RM = 0: the flat tables; else the set-associative path
-// with RM records per lane of a pair of main sets.
-template <int RM>
+// with RM records per lane of a pair of main sets.  kLanes: CTA l runs
+// lane l of the lane grid.
+template <int RM, bool kLanes>
 __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
+  if constexpr (kLanes) to_lane(a, blockIdx.x);
   __shared__ int prot_cap[kMaxWays + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = a.n_valid + tid; j < a.b; j += blockDim.x) a.hits[j] = 0;
@@ -710,26 +753,34 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   }
 }
 
+template <bool kLanes>
+int launch_rm(const StepArgs& a, int threads, cudaStream_t st) {
+  const dim3 grid(kLanes ? a.lanes : 1);
+  const int rm = (a.assoc + 15) / 16;
+  if (a.assoc == 0)
+    sketch_step_kernel<0, kLanes><<<grid, threads, 0, st>>>(a);
+  else if (rm <= 1)
+    sketch_step_kernel<1, kLanes><<<grid, threads, 0, st>>>(a);
+  else if (rm <= 2)
+    sketch_step_kernel<2, kLanes><<<grid, threads, 0, st>>>(a);
+  else if (rm <= 4)
+    sketch_step_kernel<4, kLanes><<<grid, threads, 0, st>>>(a);
+  else if (rm <= 8)
+    sketch_step_kernel<8, kLanes><<<grid, threads, 0, st>>>(a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int sketch_step_launch(const StepArgs* args, int threads,
                                   void* stream) {
   const StepArgs& a = *args;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rm = (a.assoc + 15) / 16;
-  if (a.assoc == 0)
-    sketch_step_kernel<0><<<1, threads, 0, st>>>(a);
-  else if (rm <= 1)
-    sketch_step_kernel<1><<<1, threads, 0, st>>>(a);
-  else if (rm <= 2)
-    sketch_step_kernel<2><<<1, threads, 0, st>>>(a);
-  else if (rm <= 4)
-    sketch_step_kernel<4><<<1, threads, 0, st>>>(a);
-  else if (rm <= 8)
-    sketch_step_kernel<8><<<1, threads, 0, st>>>(a);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (a.lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return a.lanes ? launch_rm<true>(a, threads, st)
+                 : launch_rm<false>(a, threads, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1,7 +1,7 @@
 """Fused per-access W-TinyLFU step: plain PyTorch version and CUDA wrapper.
 
 Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``,
-``streams=1``, ``adaptive=False`` and ``shards=1``, in both table layouts:
+``adaptive=False`` and ``shards=1``, in both table layouts:
 
 * flat (``assoc=None``): exact global LRU window and SLRU main, one packed
   int32 ``meta`` per slot (-1 empty, ``t`` probation, ``2^30|t`` protected,
@@ -10,21 +10,26 @@ Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``,
   mset2,) idx[rows], dkb[dkp]]`` in sets of A ways, two-choice main
   placement, O(A) per access.
 
+``streams=B`` batches B independent tenant lanes (the reference's
+``_step_lanes``): every state leaf carries a leading lane axis, keys come as
+``(B, T)`` lanes, ``params`` is shared ``(NPARAMS,)`` or per-lane ``(B,
+NPARAMS)`` and ``n_valid`` an int or per-lane ``(B,)``.
+
 The state is a dict of int32 tensors with the reference's keys and shapes
 (``_state_keys``), so ``state_from_numpy``/``state_to_numpy`` carry state
 between the JAX package and the port leaf for leaf.
 
 ``step_ref`` is the plain version: a Python loop over the accesses of one
-chunk, written with tensor ops that run on any device.  ``step`` is the
-wrapper that replaces ``step_pallas``: on CUDA tensors it launches the
-hand-written kernel in ``csrc/sketch_step.cu`` (updating the state in place);
-on CPU tensors it runs ``step_ref``.  There is no fallback from the kernel to
-the plain version.
+chunk (and over the lanes), written with tensor ops that run on any device.
+``step`` is the wrapper that replaces ``step_pallas``: on CUDA tensors it
+launches the hand-written kernel in ``csrc/sketch_step.cu`` (updating the
+state in place; one CTA per lane); on CPU tensors it runs ``step_ref``.
+There is no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -210,9 +215,6 @@ class StepSpec:
 
 def _require_ported(spec: StepSpec):
     """Refuse the StepSpec modes this slice of the port does not run."""
-    if spec.streams > 1:
-        raise NotImplementedError(
-            "streams > 1 (tenant lanes) is ROADMAP queue 1 item 5")
     if spec.adaptive:
         raise NotImplementedError(
             "adaptive window is ROADMAP queue 1 item 7")
@@ -255,8 +257,11 @@ def _state_shapes(spec: StepSpec) -> dict:
     else:
         tables = {"wtab": (spec.window_slots, spec.wcols),
                   "mtab": (spec.main_slots, spec.mcols)}
-    return {"counters": (spec.counter_words,), "doorkeeper": (spec.dk_words,),
-            **tables, "regs": (NREGS,)}
+    shapes = {"counters": (spec.counter_words,),
+              "doorkeeper": (spec.dk_words,), **tables, "regs": (NREGS,)}
+    if spec.streams > 1:
+        return {k: (spec.streams,) + v for k, v in shapes.items()}
+    return shapes
 
 
 def init_step_state(spec: StepSpec, window_cap: int | None = None,
@@ -266,9 +271,16 @@ def init_step_state(spec: StepSpec, window_cap: int | None = None,
 
     ``window_cap``/``main_cap`` below the static slot counts mark the excess
     slots as permanent padding (set mode: spread over the sets by
-    ``set_ways``), exactly as the reference's init does.
+    ``set_ways``), exactly as the reference's init does.  With
+    ``spec.streams = B > 1`` every leaf gains a leading lane axis and each
+    lane is the same zeroed instance.
     """
     _require_ported(spec)
+    if spec.streams > 1:
+        base = init_step_state(replace(spec, streams=1), window_cap,
+                               main_cap, device)
+        return {k: v.unsqueeze(0).repeat((spec.streams,) + (1,) * v.dim())
+                for k, v in base.items()}
     wcap = spec.window_slots if window_cap is None else int(window_cap)
     mcap = spec.main_slots if main_cap is None else int(main_cap)
     _check(1 <= wcap <= spec.window_slots and 1 <= mcap <= spec.main_slots,
@@ -334,9 +346,9 @@ def state_to_numpy(state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def precompute_probes(spec: StepSpec, lo: torch.Tensor, hi: torch.Tensor):
-    """(B,) key lanes -> ((B, rows) probes, (B, dkp) doorkeeper bits,
-    (B,) window set, (B, 2) main set choices), all int32 on lo's device.
-    Set indices are zeros in flat mode."""
+    """Key lanes of any shape S ((b,) or (B, T)) -> (S + (rows,) probes,
+    S + (dkp,) doorkeeper bits, S window set, S + (2,) main set choices),
+    all int32 on lo's device.  Set indices are zeros in flat mode."""
     idx, dkb = key_probes(lo, hi, spec.rows, spec.width, spec.dk_bits,
                           spec.dk_probes)
     if spec.assoc is not None:
@@ -581,6 +593,26 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     return hit
 
 
+def _lane_count(n_valid, b: int, lanes: int):
+    """``n_valid`` (None, an int, or with lanes one int per lane) -> an int,
+    or a list of ``lanes`` ints; each in [0, b]."""
+    if n_valid is None:
+        return b
+    if isinstance(n_valid, (torch.Tensor, np.ndarray)):
+        n_valid = n_valid.tolist()
+    if isinstance(n_valid, (list, tuple)):
+        _check(lanes > 1 and len(n_valid) == lanes,
+               f"a per-lane n_valid needs streams > 1 and one entry per "
+               f"lane; got {len(n_valid)} for streams={max(1, lanes)}")
+        n = [int(x) for x in n_valid]
+        _check(all(0 <= x <= b for x in n),
+               f"n_valid {n} must be in [0, {b}]")
+        return n
+    n = int(n_valid)
+    _check(0 <= n <= b, f"n_valid {n} must be in [0, {b}]")
+    return n
+
+
 def _check_inputs(spec: StepSpec, params, state: dict, lo, hi, n_valid,
                   probes=None):
     _require_ported(spec)
@@ -593,18 +625,26 @@ def _check_inputs(spec: StepSpec, params, state: dict, lo, hi, n_valid,
                and v.device == dev and v.is_contiguous(),
                f"state[{k!r}] must be a contiguous int32 {shapes[k]} tensor "
                f"on {dev}")
-    _check(lo.dim() == 1 and lo.shape == hi.shape and hi.device == dev,
-           "lo/hi must be (B,) lanes on one device")
-    _check(params.shape == (NPARAMS,) and params.device == dev,
-           f"params must be ({NPARAMS},) on {dev}")
-    b = lo.shape[0]
+    B = spec.streams
+    if B > 1:
+        _check(lo.dim() == 2 and lo.shape[0] == B,
+               f"streams={B} expects (B, T) key lanes; got trace shape "
+               f"{tuple(lo.shape)} — one row per tenant lane")
+        _check(params.shape in ((NPARAMS,), (B, NPARAMS))
+               and params.device == dev,
+               f"params must be ({NPARAMS},) or ({B}, {NPARAMS}) on {dev}")
+    else:
+        _check(lo.dim() == 1, "lo/hi must be (B,) lanes on one device")
+        _check(params.shape == (NPARAMS,) and params.device == dev,
+               f"params must be ({NPARAMS},) on {dev}")
+    _check(lo.shape == hi.shape and hi.device == dev,
+           "lo/hi must be key lanes of one shape on one device")
     if probes is not None:
-        _check(len(probes) == 4 and all(p.shape[0] == b and p.device == dev
-                                        for p in probes),
-               "probes must be precompute_probes' four tensors for lo/hi")
-    n = b if n_valid is None else int(n_valid)
-    _check(0 <= n <= b, f"n_valid {n} must be in [0, {b}]")
-    return n
+        _check(len(probes) == 4 and all(
+            tuple(p.shape[:lo.dim()]) == tuple(lo.shape) and p.device == dev
+            for p in probes),
+            "probes must be precompute_probes' four tensors for lo/hi")
+    return _lane_count(n_valid, lo.shape[-1], B)
 
 
 def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
@@ -616,9 +656,20 @@ def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
     Accesses at positions >= n_valid leave the state untouched and report
     hit 0.  ``probes`` may carry ``precompute_probes(spec, lo, hi)`` when the
     caller hashed the keys already.  Runs on any device, one tensor op at a
-    time.
+    time.  With ``spec.streams > 1`` it runs each lane in turn through the
+    single-lane body, on that lane's views of the state.
     """
     n = _check_inputs(spec, params, state, lo, hi, n_valid, probes)
+    if spec.streams > 1:
+        lspec = replace(spec, streams=1)
+        hits = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
+        for i in range(spec.streams):
+            _, hits[i] = step_ref(
+                lspec, params[i] if params.dim() == 2 else params,
+                {k: v[i] for k, v in state.items()}, lo[i], hi[i],
+                n[i] if isinstance(n, list) else n,
+                None if probes is None else tuple(p[i] for p in probes))
+        return state, hits
     lo = lo.to(torch.int32)
     hi = hi.to(torch.int32)
     params = params.to(torch.int32)
@@ -648,18 +699,26 @@ class _Args(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "lo", "hi", "kidx", "kdkb", "kwset", "kmset", "params", "counters",
         "dk", "wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi", "mmeta",
-        "midx", "mdkb", "wtab", "mtab", "regs", "hits")] + [
+        "midx", "mdkb", "wtab", "mtab", "regs", "hits", "nvalid")] + [
         (name, ctypes.c_int) for name in (
             "n_valid", "b", "rows", "dkp", "dk_bits", "counter_bits",
             "words_per_row", "counter_words", "dk_words", "window_slots",
-            "main_slots", "assoc", "wcols", "mcols")]
+            "main_slots", "assoc", "wcols", "mcols", "lanes",
+            "params_stride")]
 
 
 def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
-            probes, n_valid: int, hits: torch.Tensor, lib=None):
+            probes, n_valid, hits: torch.Tensor, lib=None,
+            lane_grid: bool | None = None):
     """One kernel launch over one chunk: state updated in place, hit flags
     written to ``hits`` (zeros past n_valid).  No host sync.  ``lib`` is the
-    loaded kernel library (default: the build of ``csrc/sketch_step.cu``)."""
+    loaded kernel library (default: the build of ``csrc/sketch_step.cu``).
+
+    ``lane_grid`` (default: ``spec.streams > 1``) launches the lane kernel,
+    one CTA per lane of ``(B, b)`` keys, lane-axis state, shared or per-lane
+    params; ``n_valid`` is then an int or a (B,) int32 CUDA tensor.  With
+    ``lane_grid=True`` and unbatched inputs it runs one lane, the same work
+    as the single-stream launch."""
     from ._build import check_error, load_library
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
@@ -667,6 +726,8 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     _check((spec.assoc or 0) <= _MAX_WAYS,
            f"the kernel holds at most {_MAX_WAYS} ways per set in registers, "
            f"not {spec.assoc}")
+    if lane_grid is None:
+        lane_grid = spec.streams > 1
     kidx, kdkb, kwset, kmset = probes
     ptr = {"lo": lo, "hi": hi, "kidx": kidx, "kdkb": kdkb, "kwset": kwset,
            "kmset": kmset, "params": params, "counters": state["counters"],
@@ -675,19 +736,27 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
               "midx", "mdkb", "wtab", "mtab"):
         if k in state:
             ptr[k] = state[k]
+    per_lane = isinstance(n_valid, torch.Tensor)
+    _check(lane_grid or not per_lane,
+           "a per-lane n_valid needs the lane grid")
+    if per_lane:
+        ptr["nvalid"] = n_valid
     for k, v in ptr.items():
         _check(v.is_cuda and v.dtype == torch.int32 and v.is_contiguous(),
                f"kernel operand {k!r} must be a contiguous int32 CUDA tensor")
+    lanes = lo.shape[0] if lo.dim() == 2 else 1
     args = _Args(**{k: v.data_ptr() for k, v in ptr.items()},
-                 n_valid=n_valid, b=hits.shape[0], rows=spec.rows,
-                 dkp=spec.dkp, dk_bits=spec.dk_bits,
+                 n_valid=0 if per_lane else int(n_valid), b=lo.shape[-1],
+                 rows=spec.rows, dkp=spec.dkp, dk_bits=spec.dk_bits,
                  counter_bits=spec.counter_bits,
                  words_per_row=spec.words_per_row,
                  counter_words=spec.counter_words, dk_words=spec.dk_words,
                  window_slots=spec.window_slots, main_slots=spec.main_slots,
                  assoc=spec.assoc or 0,
                  wcols=spec.wcols if spec.assoc else 0,
-                 mcols=spec.mcols if spec.assoc else 0)
+                 mcols=spec.mcols if spec.assoc else 0,
+                 lanes=lanes if lane_grid else 0,
+                 params_stride=NPARAMS if params.dim() == 2 else 0)
     lib = lib or load_library()
     stream = torch.cuda.current_stream(lo.device).cuda_stream
     check_error("sketch_step", lib, lib.sketch_step_launch(
@@ -696,13 +765,12 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
 
 
 def step(spec: StepSpec, params: torch.Tensor, state: dict,
-         lo: torch.Tensor, hi: torch.Tensor, n_valid: int | None = None,
-         probes=None):
+         lo: torch.Tensor, hi: torch.Tensor, n_valid=None, probes=None):
     """Fused chunk step; same contract as :func:`step_ref`.
 
-    CUDA tensors: one launch of the hand-written kernel, state updated in
-    place (the analogue of the reference's donated buffers); a failed build
-    or launch raises.  CPU tensors: the plain version.
+    CUDA tensors: one launch of the hand-written kernel for all lanes, state
+    updated in place (the analogue of the reference's donated buffers); a
+    failed build or launch raises.  CPU tensors: the plain version.
     """
     n = _check_inputs(spec, params, state, lo, hi, n_valid, probes)
     if lo.device.type == "cpu":
@@ -716,6 +784,9 @@ def step(spec: StepSpec, params: torch.Tensor, state: dict,
     hits = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
     if probes is None:
         probes = precompute_probes(spec, lo, hi)
+    if isinstance(n, list):         # per-lane counts: one int per lane
+        n = (n[0] if len(set(n)) == 1 else
+             torch.tensor(n, dtype=torch.int32).to(lo.device))
     _launch(spec, params, state, lo, hi, probes, n, hits)
     return state, hits
 

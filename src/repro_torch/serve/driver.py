@@ -10,7 +10,8 @@ Counterpart of ``repro/serve/driver.py``.  On the card by default:
 The first replays the reference's smoke workload on the smoke config;
 ``--full`` serves run L of ``repro_torch.check_runs`` (the published config,
 random weights from ``--seed``: 24 prompts of 1,024 shared tenant tokens
-and 256 user tokens).  ``--device cpu`` runs the plain versions on the CPU
+and 256 user tokens).  Admission runs on the host sketch unless
+``--device-sketch``.  ``--device cpu`` runs the plain versions on the CPU
 (smoke sizes only, in practice).
 """
 from __future__ import annotations
@@ -47,8 +48,9 @@ def make_workload(cfg, n_requests: int, n_tenants: int = 12,
 
 def serve(arch: str, *, smoke: bool = True, n_requests: int = 40,
           policy: str = "wtinylfu", max_new_tokens: int = 4,
-          pool_slots: int = 48, seed: int = 0, engine: dict | None = None,
-          workload: dict | None = None, device=None) -> dict:
+          pool_slots: int = 48, device_sketch: bool = False, seed: int = 0,
+          engine: dict | None = None, workload: dict | None = None,
+          device=None) -> dict:
     """Replay ``make_workload(cfg, n_requests, **workload)`` through a
     ``ServeEngine`` (the reference's smoke engine unless ``engine`` gives
     its keyword arguments); returns the engine's stats with ``completed``
@@ -58,7 +60,7 @@ def serve(arch: str, *, smoke: bool = True, n_requests: int = 40,
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init(gen)
     kw = dict(max_batch=4, max_len=128, block_size=8, pool_slots=pool_slots,
-              prefix_policy=policy)
+              prefix_policy=policy, device_sketch=device_sketch, seed=seed)
     kw.update(engine or {})
     eng = ServeEngine(model, params, **kw)
     for prompt in make_workload(cfg, n_requests, seed=seed,
@@ -82,6 +84,7 @@ def main() -> None:
                     choices=["lru", "tinylfu", "wtinylfu"])
     ap.add_argument("--full", action="store_true",
                     help="run L: the published config at L's sizes")
+    ap.add_argument("--device-sketch", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
     args = ap.parse_args()
@@ -89,11 +92,12 @@ def main() -> None:
         wl = dict(L_WORKLOAD)
         out = serve(args.arch, smoke=False, n_requests=wl.pop("n_requests"),
                     policy=args.policy, max_new_tokens=L_NEW_TOKENS,
-                    seed=args.seed, engine=L_ENGINE, workload=wl,
-                    device=args.device)
+                    device_sketch=args.device_sketch, seed=args.seed,
+                    engine=L_ENGINE, workload=wl, device=args.device)
     else:
         out = serve(args.arch, n_requests=args.requests, policy=args.policy,
-                    seed=args.seed, device=args.device)
+                    device_sketch=args.device_sketch, seed=args.seed,
+                    device=args.device)
     print(json.dumps(out, indent=1))
 
 

@@ -11,11 +11,12 @@ prompt's blocks the cache does not hold, storing the payload in the pool
 before the cache decides (so once the pool is full nothing more is
 offered, as in the reference, whose pool has as many slots as its cache).
 
-The cache, pool and admission sketch live on ``device`` (the card unless
-``"cpu"``), the model's.  ``extend`` writes into the slot of the engine's
-KV cache in place, where the reference copies the slot out and back.
-``device_sketch=False`` (a host sketch) raises, as ``PrefixCache`` does;
-SSM families raise in ``Model``.
+The pool lives on the model's device (the card unless ``"cpu"``), and so
+does the admission sketch with ``device_sketch=True``; by default admission
+runs on the host sketch (seeded by ``seed``), as in the reference.
+``extend`` writes into the slot of the engine's KV cache in place, where
+the reference copies the slot out and back.  SSM families raise in
+``Model``.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ class ServeEngine:
     def __init__(self, model: Model, params, *, max_batch: int = 4,
                  max_len: int = 256, block_size: int = 16,
                  pool_slots: int = 64, prefix_policy: str = "wtinylfu",
-                 sample_factor: int = 8, device_sketch: bool = True):
+                 sample_factor: int = 8, device_sketch: bool = False,
+                 seed: int = 0):
         self.model = model
         self.params = params
         self.cfg = cfg = model.cfg
@@ -55,7 +57,7 @@ class ServeEngine:
         self.prefix_cache = PrefixCache(pool_slots, policy=prefix_policy,
                                         sample_factor=sample_factor,
                                         device_sketch=device_sketch,
-                                        device=self.device)
+                                        seed=seed, device=self.device)
         shp = (cfg.n_layers, block_size, cfg.n_kv_heads, cfg.hd)
         template = {"k": torch.empty(shp, dtype=torch.bfloat16,
                                      device="meta"),

@@ -8,10 +8,11 @@ W-TinyLFU) and TinyLFU admission, where a candidate block displaces the
 eviction victim only if its recent access frequency is higher.  Every lookup
 records all the requested hashes in the sketch in one batch.
 
-Admission runs through ``DeviceTinyLFU``, whose sketch and kernels live on
-the card (``device=None``), or on the CPU with the plain versions
-(``device="cpu"``).  The reference's ``device_sketch=False`` selects a host
-sketch that the port does not carry yet, and raises here.
+Admission runs, as in the reference, through the host sketch by default
+(``HostAdmission`` over ``core/sketch.py``'s ``FrequencySketch``: pure
+Python, nothing on a device) or, with ``device_sketch=True``, through
+``DeviceTinyLFU``, whose sketch and kernels live on the card
+(``device=None``) or on the CPU with the plain versions (``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policies import LRUEviction, SLRUEviction
+from repro_torch.core.sketch import default_sketch
 from repro_torch.kernels.ops import DeviceTinyLFU
 from repro_torch.kernels.sketch_common import resolve_device
 
@@ -102,6 +104,22 @@ class PayloadPool:
 # admission
 # ---------------------------------------------------------------------------
 
+class HostAdmission:
+    """Admission through the host sketch, one key at a time."""
+
+    def __init__(self, capacity: int, sample_factor: int = 8, seed: int = 0):
+        self.sketch = default_sketch(capacity, sample_factor=sample_factor,
+                                     seed=seed)
+
+    def record_batch(self, keys) -> None:
+        for k in keys:
+            self.sketch.add(int(k) & _MASK64)
+
+    def admit(self, cand: int, victim: int) -> bool:
+        return (self.sketch.estimate(int(cand) & _MASK64)
+                > self.sketch.estimate(int(victim) & _MASK64))
+
+
 class DeviceAdmission:
     """Admission through the batched sketch kernels: one add launch per
     recorded batch, one admit launch (and a read of its verdict) per
@@ -144,32 +162,29 @@ class PrefixCache:
     """hash -> payload-slot cache with pluggable retention policy.
 
     policy: "lru" (no admission), "tinylfu" (LRU eviction + admission),
-    "wtinylfu" (1% LRU window + SLRU main + admission).  The admission sketch
-    lives on ``device`` (the card unless ``"cpu"``; without a card and
-    without ``device="cpu"`` construction raises).  The reference's
-    ``seed`` seeds its host sketch only, which the port does not carry.
+    "wtinylfu" (1% LRU window + SLRU main + admission).  Admission runs on
+    the host sketch (seeded by ``seed``) unless ``device_sketch``; the
+    device sketch lives on ``device`` (the card unless ``"cpu"``; without a
+    card and without ``device="cpu"`` its construction raises).  ``device``
+    is consulted for the device sketch only.
     """
 
     def __init__(self, capacity: int, policy: str = "wtinylfu",
                  sample_factor: int = 8, window_frac: float = 0.01,
-                 device_sketch: bool = True, device=None):
+                 device_sketch: bool = False, seed: int = 0, device=None):
         if policy not in ("lru", "tinylfu", "wtinylfu"):
             raise ValueError(f"policy {policy!r} must be 'lru', 'tinylfu' "
                              "or 'wtinylfu'")
-        if not device_sketch:
-            raise NotImplementedError(
-                "device_sketch=False (HostAdmission over the host "
-                "FrequencySketch of core/sketch.py) is ROADMAP queue 1 "
-                "item 15")
-        self.device = resolve_device(device)
         self.policy = policy
         self.capacity = capacity
         self.slots: dict[int, int] = {}           # hash -> payload slot
         self.stats = PrefixCacheStats()
         self.admission = None
         if policy != "lru":
-            self.admission = DeviceAdmission(capacity, sample_factor,
-                                             self.device)
+            self.admission = (DeviceAdmission(capacity, sample_factor,
+                                              resolve_device(device))
+                              if device_sketch else
+                              HostAdmission(capacity, sample_factor, seed))
         if policy == "wtinylfu":
             self.window_cap = max(1, int(round(capacity * window_frac)))
             self.main_cap = capacity - self.window_cap

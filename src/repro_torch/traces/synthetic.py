@@ -38,6 +38,60 @@ def scan_then_hotspot_trace() -> np.ndarray:
     return np.concatenate([scan, hot])
 
 
+def fickle_churn_trace(length: int, n_hot: int = 2000, alpha: float = 1.0,
+                       hot_frac: float = 0.7, seed: int = 0) -> np.ndarray:
+    """A stable Zipf hot set interleaved with one-hit wonders (§2.3's
+    "fickle" churn: every churn key is seen exactly once)."""
+    rng = np.random.default_rng(seed)
+    hot = _sample_from_probs(zipf_probs(n_hot, alpha), length, rng)
+    is_hot = rng.random(length) < hot_frac
+    n_cold = int((~is_hot).sum())
+    # one-hit wonders: fresh ids above the hot range, each seen once
+    cold = n_hot + np.arange(n_cold, dtype=np.int64)
+    out = np.empty(length, dtype=np.int64)
+    out[is_hot] = hot[is_hot]
+    out[~is_hot] = cold
+    return out
+
+
+def tenant_lanes_trace(streams: int, length: int, n_items: int = 10_000,
+                       alpha: float = 0.9, tenant_alpha: float = 1.0,
+                       drift_every: int = 0, seed: int = 0) -> np.ndarray:
+    """Multi-tenant lane trace for ``DeviceWTinyLFU(streams=B)``: a
+    ``(streams, length)`` int64 key matrix, row b = tenant b's accesses.
+
+    Tenant popularity ``Zipf(tenant_alpha)`` over the lanes sets each
+    tenant's working set: the rank-r tenant draws from a ``Zipf(alpha)``
+    over ``n_items / r^tenant_alpha`` keys (floor 64).  Key ids are offset
+    per lane into disjoint ranges.  ``drift_every > 0`` re-draws each
+    lane's rank->key permutation every ``drift_every`` accesses, with a
+    per-lane phase offset of ``b * drift_every / streams`` accesses.
+    """
+    if streams < 1:
+        raise ValueError(f"streams {streams} must be >= 1")
+    rng = np.random.default_rng(seed)
+    tenant_rank = rng.permutation(streams) + 1        # rank 1 = hottest
+    out = np.empty((streams, length), dtype=np.int64)
+    for b in range(streams):
+        nb = max(64, int(n_items / tenant_rank[b] ** tenant_alpha))
+        probs = zipf_probs(nb, alpha)
+        ranks = _sample_from_probs(probs, length, rng)
+        perm = rng.permutation(nb).astype(np.int64)
+        if drift_every and drift_every > 0:
+            phase = (b * drift_every) // streams
+            pos = 0
+            while pos < length:
+                nxt = min(length, pos + (drift_every - (pos + phase)
+                                         % drift_every))
+                out[b, pos:nxt] = perm[ranks[pos:nxt]]
+                perm = rng.permutation(nb).astype(np.int64)
+                pos = nxt
+        else:
+            out[b] = perm[ranks]
+        out[b] += b * (n_items + 64)                  # disjoint id ranges
+    return out
+
+
 def multi_tenant_prompt_trace(n_requests: int, n_tenants: int = 200,
                               tenant_alpha: float = 1.0,
                               prefix_blocks_mean: int = 24,

@@ -84,15 +84,27 @@ def test_simulate_trace_equals_jax_engine(trace, assoc):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(streams=2), "item 5"), (dict(adaptive=True), "item 7"),
+    (dict(adaptive=True), "item 7"),
     (dict(shards=2), "item 6"), (dict(shards=2, integrity=True), "item 6"),
     (dict(assoc=4, policy="s3fifo"), "item 9"),
-    (dict(climb=object()), "item 7"),
 ])
 def test_unported_options_raise(kw, what):
     tr = np.arange(10)
     with pytest.raises(NotImplementedError, match=what):
         pds.simulate_trace(tr, 16, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("assoc", [None, 8])
+def test_climb_is_ignored_without_adaptive(assoc):
+    """As in the reference, climb= changes nothing when adaptive=False."""
+    from repro.core.device_simulate import ClimbSpec
+    tr = TRACES["zipf"]()[:600]
+    a = pds.simulate_trace(tr, 50, assoc=assoc, device="cpu",
+                           climb=ClimbSpec(epoch_len=128))
+    b = pds.simulate_trace(tr, 50, assoc=assoc, device="cpu")
+    j = jds.simulate_trace(tr, 50, assoc=assoc,
+                           climb=ClimbSpec(epoch_len=128))
+    assert a.hits == b.hits == j.hits and a.extra == b.extra
 
 
 def test_unported_run_options_raise():

@@ -10,6 +10,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.core.hashing",
            "repro_torch.core.simulate", "repro_torch.core.device_simulate",
+           "repro_torch.core.sketch",
            "repro_torch.core.policies",
            "repro_torch.kernels.sketch_common",
            "repro_torch.kernels.sketch_step", "repro_torch.kernels._build",

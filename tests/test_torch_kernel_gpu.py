@@ -1,5 +1,5 @@
 """The CUDA kernels against the port's plain versions, on the card: the step
-kernel, the four batched sketch kernels (add, estimate, admit, reset; both
+kernel (one stream and its lane grid), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
 batches) and the flash-attention kernel.
 
@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.check_runs import (ADD_HAZARD_CASES, ADMIT_SIZES,
                                     FLASH_CASES, FLASH_TAIL,
-                                    FLASH_TAIL_LENS, HAZARD_CASES,
+                                    FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
+                                    LANES, lane_keys, lane_n_valid,
                                     SKETCH_CFGS as CFGS, add_hazard_batches,
                                     cache_tails, hazard_keys, mixed_keys)
 from repro_torch.core.device_simulate import run_chunks
@@ -88,6 +89,79 @@ def test_kernel_matches_plain_on_hazards(case):
         np.testing.assert_array_equal(got[0][k], ref[0][k],
                                       err_msg=f"state[{k}]")
     np.testing.assert_array_equal(got[1], ref[1], err_msg="hit flags")
+
+
+def run_lane_case(case, fn, device):
+    """LANE_CASES[case] through ``fn`` (step or step_ref) chunk by chunk
+    with lane_n_valid's per-lane counts; returns (numpy state, hit
+    flags)."""
+    _, kw, prows, wcap, mcap, kind, n, chunk = LANE_CASES[case]
+    spec = port.StepSpec(**kw, streams=LANES)
+    params = torch.stack([port.make_step_params(
+        *p, counter_bits=spec.counter_bits, device=device) for p in prows])
+    params = params[0] if len(prows) == 1 else params
+    state = port.init_step_state(spec, wcap, mcap, device=device)
+    lo, hi = (torch.from_numpy(x).to(device)
+              for x in keys_to_lanes(lane_keys(kind, n)))
+    hits = []
+    for c, s in enumerate(range(0, n, chunk)):
+        _, h = fn(spec, params, state, lo[:, s:s + chunk], hi[:, s:s + chunk],
+                  lane_n_valid(chunk, c, n - s))
+        hits.append(h.cpu())
+    return port.state_to_numpy(state), torch.cat(hits, dim=1).numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(LANE_CASES)),
+                         ids=[c[0] for c in LANE_CASES])
+def test_lane_kernel_matches_plain_on_card(case):
+    """The lane grid (one CTA per lane, one launch per chunk) == step_ref
+    with lanes on every state leaf and hit flag: flat and set, shared and
+    per-lane params, a lane with a shorter n_valid and one with none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = port.step.launches
+    got = run_lane_case(case, port.step, "cuda")
+    _, _, _, _, _, _, n, chunk = LANE_CASES[case]
+    assert port.step.launches - before == -(-n // chunk)
+    ref = run_lane_case(case, port.step_ref, "cuda")
+    for k in ref[0]:
+        np.testing.assert_array_equal(got[0][k], ref[0][k],
+                                      err_msg=f"state[{k}]")
+    np.testing.assert_array_equal(got[1], ref[1], err_msg="hit flags")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [0, 3, 5],
+                         ids=["flat", "ways 4", "ways 4, no doorkeeper"])
+def test_lane_grid_at_one_lane_equals_single_launch(case):
+    """streams=1 through the lane kernel (one CTA at lane 0) == the
+    single-stream launch, leaf for leaf and flag for flag."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw, pargs, wcap, mcap = CASES[case]
+    spec = port.StepSpec(**kw)
+    params = port.make_step_params(*pargs, counter_bits=spec.counter_bits,
+                                   device="cuda")
+    keys = np.random.default_rng(case).integers(0, 300, size=700,
+                                                dtype=np.uint64)
+    lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
+    probes = port.precompute_probes(spec, lo, hi)
+    outs = []
+    for lane_grid in (False, True):
+        state = port.init_step_state(spec, wcap, mcap, device="cuda")
+        hits = torch.empty_like(lo)
+        for s in range(0, 700, 256):
+            e = min(s + 256, 700)
+            port._launch(spec, params, state, lo[s:e], hi[s:e],
+                         tuple(p[s:e] for p in probes), e - s, hits[s:e],
+                         lane_grid=lane_grid)
+        outs.append((port.state_to_numpy(state), hits.cpu().numpy()))
+    (single, sh), (lane, lh) = outs
+    for k in single:
+        np.testing.assert_array_equal(lane[k], single[k],
+                                      err_msg=f"state[{k}]")
+    np.testing.assert_array_equal(lh, sh, err_msg="hit flags")
 
 
 def test_launch_refuses_cpu_tensors():

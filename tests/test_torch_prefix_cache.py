@@ -3,9 +3,11 @@ the JAX package's: block hashes, the payload pool, the multi-tenant prompt
 trace, and a shortened replay of benchmarks/bench_serving.py whose
 ``PrefixCacheStats`` must equal the JAX ``PrefixCache`` stat for stat.
 
-The JAX cache runs its ``DeviceAdmission`` with the jnp oracles
-(``use_pallas=False``, held bit-equal to the Pallas kernels by
-tests/test_kernels.py); the port runs its plain versions on the CPU.
+With the device sketch (``device_sketch=True``) the JAX cache runs its
+``DeviceAdmission`` with the jnp oracles (``use_pallas=False``, held
+bit-equal to the Pallas kernels by tests/test_kernels.py) and the port its
+plain versions on the CPU.  Default-constructed caches (the host sketch) are
+compared with nothing swapped.
 
 Run as a script, it prints the JAX package's exact stats for runs P1 and P2
 (``repro_torch.check_runs``, run on the card by ``chip_smoke.py``):
@@ -88,16 +90,37 @@ def test_shortened_replay_matches_jax(policy):
     """A few hundred requests at capacity 200: every stat equal."""
     stream = psyn.multi_tenant_prompt_trace(300, n_tenants=40,
                                             tenant_alpha=1.0, seed=81)
-    port = replay(ppc.PrefixCache(200, policy=policy, device="cpu"), stream)
+    port = replay(ppc.PrefixCache(200, policy=policy, device_sketch=True,
+                                  device="cpu"), stream)
     ref = replay(jax_cache(200, policy), stream)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     if policy != "lru":
         assert port.admitted > 0 and port.rejected > 0
 
 
+@pytest.mark.parametrize("policy", ["lru", "tinylfu", "wtinylfu"])
+def test_shortened_replay_default_matches_jax_default(policy):
+    """The same replay through default-constructed caches of both packages
+    (the host sketch; nothing swapped): every stat equal.  At C=200 the
+    host sketch decides differently from the device sketch."""
+    stream = psyn.multi_tenant_prompt_trace(300, n_tenants=40,
+                                            tenant_alpha=1.0, seed=81)
+    port = ppc.PrefixCache(200, policy=policy)
+    assert policy == "lru" or isinstance(port.admission, ppc.HostAdmission)
+    got = replay(port, stream)
+    ref = replay(jpc.PrefixCache(200, policy=policy), stream)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    if policy == "wtinylfu":
+        dev = replay(ppc.PrefixCache(200, device_sketch=True, device="cpu"),
+                     stream)
+        assert (got.block_hits, got.admitted) == (2044, 595)
+        assert (dev.block_hits, dev.admitted) == (2052, 577)
+
+
 def test_cache_semantics_match_reference_tests():
     """tests/test_serving.py's policy contracts, on the port."""
-    pc = ppc.PrefixCache(8, policy="tinylfu", device="cpu")
+    pc = ppc.PrefixCache(8, policy="tinylfu", device_sketch=True,
+                         device="cpu")
     hot = list(range(8))
     for _ in range(20):
         pc.lookup(hot)
@@ -107,7 +130,8 @@ def test_cache_semantics_match_reference_tests():
         pc.insert(k, k)
     assert sum(1 for k in hot if k in pc) == 8
     assert pc.stats.rejected >= 30
-    w = ppc.PrefixCache(100, policy="wtinylfu", window_frac=0.1, device="cpu")
+    w = ppc.PrefixCache(100, policy="wtinylfu", window_frac=0.1,
+                        device_sketch=True, device="cpu")
     for i in range(5):
         w.insert(5000 + i, i)
     assert not w.insert(77, 9) and 77 in w
@@ -118,7 +142,8 @@ def test_cache_semantics_match_reference_tests():
 
 def test_lookup_snapshots_matches_jax():
     rng = np.random.default_rng(4)
-    port = ppc.PrefixCache(16, policy="wtinylfu", device="cpu")
+    port = ppc.PrefixCache(16, policy="wtinylfu", device_sketch=True,
+                           device="cpu")
     ref = jax_cache(16, "wtinylfu")
     for _ in range(60):
         hashes = [int(x) for x in rng.integers(0, 40, 12)]
@@ -132,17 +157,23 @@ def test_lookup_snapshots_matches_jax():
 
 
 def test_host_sketch_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppc.PrefixCache(64, device_sketch=False, device="cpu")
+    """Only the sharded host sketch is still to port (item 10); the cache
+    refuses a policy the reference does not have."""
+    from repro_torch.core.sketch import default_sketch
+    with pytest.raises(NotImplementedError, match="item 10"):
+        default_sketch(64, shards=2)
     with pytest.raises(ValueError, match="policy"):
         ppc.PrefixCache(64, policy="arc", device="cpu")
 
 
 def test_cache_defaults_to_the_card():
+    """The device sketch and the pool default to the card; the default
+    cache (the host sketch) touches no device, so it builds anywhere."""
+    for policy in ("lru", "tinylfu", "wtinylfu"):
+        assert ppc.PrefixCache(64, policy=policy).stats.lookups == 0
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default is valid here")
-    for make in (lambda: ppc.PrefixCache(64),
-                 lambda: ppc.PrefixCache(64, policy="lru"),
+    for make in (lambda: ppc.PrefixCache(64, device_sketch=True),
                  lambda: ppc.PayloadPool({"a": torch.zeros(1)}, 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

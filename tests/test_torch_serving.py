@@ -3,9 +3,11 @@ package's, on the CPU: the same prompts (``make_workload``) and the same
 weights (``check_runs.numpy_params``) through both ``ServeEngine``s on the
 qwen3 smoke config.  Every ``stats`` field must be equal (they depend only
 on the prompts, the schedule and the cache), and with fp32 compute the
-generated tokens too.  The JAX engine's admission runs on the jnp oracles
-(``DeviceAdmission(use_pallas=False)``, held bit-equal to its Pallas
-kernels by tests/test_kernels.py); the port's on its plain versions.  Also
+generated tokens too.  With the device sketch the JAX engine's admission
+runs on the jnp oracles (``DeviceAdmission(use_pallas=False)``, held
+bit-equal to its Pallas kernels by tests/test_kernels.py) and the port's
+(``device_sketch=True``) on its plain versions; default-constructed engines
+(the host sketch) are compared with nothing swapped.  Also
 tests/test_serving.py's reuse determinism and tests/test_system.py's
 pool-pressure accounting, on the port.
 
@@ -35,8 +37,9 @@ from repro_torch.serve import driver as pdriver
 torch.set_num_threads(1)
 
 
-def engines(engine_kw, *, fp32=False, vocab=None, seed=0):
-    """(JAX engine, port engine) over the same weights."""
+def engines(engine_kw, *, fp32=False, vocab=None, seed=0, device_sketch=True):
+    """(JAX engine, port engine) over the same weights; both on the device
+    sketch (the JAX one on its jnp oracles) or both on their defaults."""
     jcfg = jax_get_config("qwen3-4b", smoke=True)
     cfg = get_config("qwen3-4b", smoke=True)
     if fp32:
@@ -48,12 +51,13 @@ def engines(engine_kw, *, fp32=False, vocab=None, seed=0):
     tree = numpy_params(cfg, seed)
     jeng = JaxEngine(jax_build_model(jcfg),
                      jax.tree_util.tree_map(jnp.asarray, tree), **engine_kw)
-    if jeng.prefix_cache.admission is not None:
+    if device_sketch and jeng.prefix_cache.admission is not None:
         jeng.prefix_cache.admission = jpc.DeviceAdmission(
             jeng.prefix_cache.capacity, 8, use_pallas=False)
     peng = ServeEngine(Model(cfg, device="cpu"),
                        params_from_numpy(cfg, tree, device="cpu"),
-                       **engine_kw)
+                       **engine_kw, **({"device_sketch": True}
+                                       if device_sketch else {}))
     return jeng, peng
 
 
@@ -92,6 +96,23 @@ def test_engine_matches_jax(fp32):
         assert got == {r: [int(t) for t in v] for r, v in want.items()}
 
 
+def test_engine_default_matches_jax_default():
+    """The driver's smoke setup through default-constructed engines of both
+    packages (the host sketch; nothing swapped): every stat and, in fp32,
+    every token equal.  Every lookup records into the host sketch; the pool
+    has as many slots as the cache, so no candidate reaches admission (the
+    reference's caveat)."""
+    kw = dict(max_batch=4, max_len=128, block_size=8, pool_slots=48)
+    jeng, peng = engines(kw, fp32=True, device_sketch=False)
+    from repro_torch.serve import HostAdmission
+    assert isinstance(peng.prefix_cache.admission, HostAdmission)
+    prompts = pdriver.make_workload(peng.cfg, 16, seed=1)
+    want = replay(jeng, prompts, 3)
+    got = replay(peng, prompts, 3)
+    assert peng.stats == jeng.stats and peng.stats["block_hits"] > 0
+    assert got == {r: [int(t) for t in v] for r, v in want.items()}
+
+
 def test_full_pool_admits_nothing_like_jax():
     """The pool has as many slots as the cache; once it is full no payload
     is stored and no candidate reaches admission: run L's caveat, small."""
@@ -116,7 +137,7 @@ def test_run_l_stats_at_smoke_width():
     cfg = get_config("qwen3-4b", smoke=True).replace(vocab_size=151936)
     m = Model(cfg, device="cpu")
     eng = ServeEngine(m, m.init(torch.Generator().manual_seed(0)),
-                      **L_ENGINE)
+                      **L_ENGINE, device_sketch=True)
     wl = dict(L_WORKLOAD)
     out = replay(eng, pdriver.make_workload(cfg, wl.pop("n_requests"), **wl),
                  L_NEW_TOKENS)
@@ -157,10 +178,13 @@ def test_engine_under_pool_pressure():
 
 
 def test_engine_defaults_and_refusals():
+    from repro_torch.serve import DeviceAdmission, HostAdmission
     cfg = get_config("qwen3-4b", smoke=True)
     m = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ServeEngine(m, None, device_sketch=False)
+    assert isinstance(ServeEngine(m, None).prefix_cache.admission,
+                      HostAdmission)
+    assert isinstance(ServeEngine(m, None, device_sketch=True)
+                      .prefix_cache.admission, DeviceAdmission)
     from repro_torch.serve.extend import zamba_extend
     with pytest.raises(NotImplementedError, match="item 14"):
         zamba_extend()
