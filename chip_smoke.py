@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
-trace engine (one stream, tenant lanes, sweeps), the serving-admission path
-(device and host sketch) and the LLM serving path.
+trace engine (one stream, tenant lanes, sweeps, the sharded sketch), the
+serving-admission path (device and host sketch) and the LLM serving path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -99,9 +99,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 18. run P1's admitting policies through default-constructed
    ``PrefixCache``s (the host sketch, no launch); every stat must equal the
    default JAX cache's;
-19. print the ``kernels`` JSON line (six kernels; the step kernel's entry
-   with its lane-grid launches and check), the card line and the result
-   line.
+19. hold the step kernel's sharded instances (kernel mode 1b: shards=4,
+   ``[global || delta]`` sketch) against ``step_ref`` on the card over
+   ``check_runs.SHARD_CASES``, ``merge_halve`` after every epoch (flat and
+   set tables, 4- and 8-bit counters, doorkeeper on and off, W below the
+   epoch, 4 lanes with per-lane params and shorter lanes, integrity, one
+   epoch at F4's geometry); every state leaf and hit flag must be equal;
+   then the fold on the card against the fold on the CPU from one state
+   with a flipped global word (the shard must be quarantined);
+20. run F4, F with shards=4 (merge epoch 4,096), through ``simulate_trace``
+   (launch and fold counts set to 0 just before, read just after: 293
+   launches, 292 folds); hits, registers and digest must equal the JAX
+   pins, and with ``integrity=True`` its own digest with no shard
+   quarantined; G1's trace at 2 and 4 shards against the JAX hits; then the
+   run with CUDA events around each launch and fold (ns per access beside
+   F's, the fold's ms per epoch and share, device idle share) and its bound;
+21. run T4, T's 64 lanes with shards=4 (counts set to 0 around it); lane 0
+   must equal F4's pins and lanes 1, 32 and 63 their solo sharded runs;
+   then the timed run (ns per access per lane, the fold's share);
+22. run W4, ``simulate_sweep`` over F's trace at 32,768 / 65,536 / 131,072
+   with shards=4: ``auto`` resolves to sequential, the 65,536 row equals
+   F4, ``mode="vmap"`` raises the reference's ``ValueError``;
+23. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+   with the modes it runs, its lane-grid and sharded launches and checks),
+   the card line and the result line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -121,12 +142,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.check_runs import (ADD_HAZARD_CASES,  # noqa: E402
-                                    ADD_TILE, ADMIT_SIZES, FLASH_CASES,
-                                    FLASH_TAIL, FLASH_TAIL_LENS,
-                                    HAZARD_CASES, LANE_CASES, LANES,
+                                    ADD_TILE, ADMIT_SIZES, F4_DIGEST,
+                                    F4_EPOCH, F4_HITS, F4_REGS, F4I_DIGEST,
+                                    FLASH_CASES, FLASH_TAIL, FLASH_TAIL_LENS,
+                                    G1_SHARDED_HITS, HAZARD_CASES,
+                                    LANE_CASES, LANES,
                                     P1_CAPS, P1_HOST_PINS, P1_TRACE, P2_CAP,
                                     P2_TRACE, P_PINS,
                                     S_BATCH, S_BLOCKS, S_DECISIONS, S_PINS,
+                                    SHARD_CASES, SHARDS,
                                     SKETCH_CFGS, T_ACCESSES, T_LANES,
                                     T_SCALING, T_SCALING_ACCESSES, T_SOLO,
                                     T_TENANTS, W_CAPS, W_FRACS,
@@ -222,33 +246,43 @@ def compare_case(name, cfg, trace, chunk, timed=False):
 
 
 def timed_launches(trace, cfg, chunk, warmup, fn=None):
-    """F through the engine's chunk runner with CUDA events around each
-    launch (of ``fn``, default the ``step`` wrapper); returns (state, hit
-    flags, per-launch kernel ms, the runner's stream ms from its first
-    launch to its last)."""
+    """A run through the engine's chunk runner with CUDA events around each
+    launch (of ``fn``, default the ``step`` wrapper); with ``cfg.shards >
+    1`` one launch per merge epoch and events around each fold too.
+    Returns (state, hit flags, per-launch kernel ms, the runner's stream ms
+    from its first launch to its last event, per-fold ms)."""
     import torch
     from repro_torch.core.device_simulate import _trace_lanes, run_chunks
     from repro_torch.kernels import sketch_step as ks
+    from repro_torch.kernels.sketch_merge import merge_halve
     spec = cfg.spec()
     params = cfg.params(warmup=warmup, device="cuda")
     state = ks.init_step_state(spec, cfg.window_cap, cfg.main_cap,
                                device="cuda")
     lo, hi = _trace_lanes(trace, "cuda")
-    events = []
+    steps, folds, marks = [], [], []
 
-    def step(*args):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = (fn or ks.step)(*args)
-        e1.record()
-        events.append((e0, e1))
-        return out
+    def timed(f, out):
+        def call(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = f(*args)
+            e1.record()
+            out.append((e0, e1))
+            marks.append((e0, e1))
+            return r
+        return call
 
-    state, hits = run_chunks(spec, params, state, lo, hi, chunk, fn=step)
+    fold = None
+    if cfg.shards > 1:
+        chunk, fold = cfg.merge_epoch, timed(merge_halve, folds)
+    state, hits = run_chunks(spec, params, state, lo, hi, chunk,
+                             fn=timed(fn or ks.step, steps), fold=fold)
     torch.cuda.synchronize()
-    launch_ms = [a.elapsed_time(b) for a, b in events]
-    return state, hits, launch_ms, events[0][0].elapsed_time(events[-1][1])
+    return (state, hits, [a.elapsed_time(b) for a, b in steps],
+            marks[0][0].elapsed_time(marks[-1][1]),
+            [a.elapsed_time(b) for a, b in folds])
 
 
 def bound_bytes(spec, trace, chunk, sample):
@@ -258,9 +292,11 @@ def bound_bytes(spec, trace, chunk, sample):
     and every distinct state word its keys address (their window set and two
     main sets, their counter and doorkeeper words) read and written once;
     and the whole sketch read and written once at each section 3.3 reset.
-    The candidates' sets and the victims' estimate words depend on the
-    run's decisions and are left out, so this is a lower bound.  Returns
-    (bytes, number of resets)."""
+    With the sharded sketch each counter and doorkeeper word is read in both
+    halves and written in the delta half, and the kernel does no reset (the
+    fold ages the sketch).  The candidates' sets and the victims' estimate
+    words depend on the run's decisions and are left out, so this is a lower
+    bound.  Returns (bytes, number of resets, the size register's model)."""
     import torch
     from repro_torch.core.device_simulate import _trace_lanes
     from repro_torch.kernels import sketch_step as ks
@@ -276,20 +312,21 @@ def bound_bytes(spec, trace, chunk, sample):
     word_shift = 3 if spec.counter_bits == 4 else 2
     rows = torch.arange(spec.rows, device=lo.device) * spec.words_per_row
     words = (distinct(kwset, spec.window_sets) * spec.assoc * spec.wcols
-             + distinct(kmset, spec.main_sets) * spec.assoc * spec.mcols
-             + distinct(rows + (kidx >> word_shift), spec.counter_words))
+             + distinct(kmset, spec.main_sets) * spec.assoc * spec.mcols)
+    sketch = distinct(rows + (kidx >> word_shift), spec.counter_words)
     if spec.dk_bits:
-        words += distinct(kdkb >> 5, spec.dk_words)
+        sketch += distinct(kdkb >> 5, spec.dk_words)
     per_access = 4 * (2 + spec.rows + spec.dkp + 1 + 2) + 4
     nchunks = -(-n // chunk)
     size, resets = 0, 0
     for s in range(0, n, chunk):
         left = min(chunk, n - s)
-        while size + left >= sample:       # the reset fires at size == W
-            left -= sample - size
+        while spec.shards == 1 and size + left >= sample:
+            left -= sample - size          # the reset fires at size == W
             size, resets = sample // 2, resets + 1
         size += left
-    total = (2 * 4 * words + n * per_access
+    moves = 3 if spec.shards > 1 else 2    # sharded: global, delta; delta
+    total = (2 * 4 * words + moves * 4 * sketch + n * per_access
              + nchunks * 4 * (ks.NPARAMS + 2 * ks.NREGS)
              + resets * 2 * 4 * (spec.counter_words + spec.dk_words))
     return total, resets, size
@@ -1227,10 +1264,7 @@ def lanes_phase14():
                   for c, s in enumerate(range(0, n, chunk))]
         outs = []
         for fn in (ks.step, ks.step_ref):
-            params = torch.stack([ks.make_step_params(
-                *p, counter_bits=spec.counter_bits, device="cuda")
-                for p in prows])
-            params = params[0] if len(prows) == 1 else params
+            params = case_params(prows, spec)
             state = ks.init_step_state(spec, wcap, mcap, device="cuda")
             hits = [fn(spec, params, state, lo[:, s:s + chunk],
                        hi[:, s:s + chunk], nv)[1]
@@ -1325,8 +1359,8 @@ def tenant_phase15(tr, card):
 
     # the same run, CUDA events around each launch
     cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, streams=T_LANES)
-    t_state, t_hits, launch_ms, stream_ms = timed_launches(tr, cfg, F_CHUNK,
-                                                           F_WARMUP)
+    t_state, t_hits, launch_ms, stream_ms, _ = timed_launches(
+        tr, cfg, F_CHUNK, F_WARMUP)
     check(digest(t_state) == digest(state)
           and bool(torch.equal(t_hits, flags)),
           "T: the timed run differs from the main run")
@@ -1386,7 +1420,7 @@ def scaling_phase16(tr, card):
             (B, None) for B in T_SCALING if B > 1]:
         sub = tr[np.arange(B) % T_LANES, :T_SCALING_ACCESSES]
         cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, streams=B)
-        state, hits, launch_ms, stream_ms = timed_launches(
+        state, hits, launch_ms, stream_ms, _ = timed_launches(
             sub[0] if B == 1 else sub, cfg, F_CHUNK, 0, fn)
         nbytes = sum(v.numel() * v.element_size() for v in state.values())
         if B > T_LANES:
@@ -1500,6 +1534,296 @@ def host_phase18(card, device_rates):
                   f"{decisions / wall:,.0f} decisions/s (device sketch, "
                   f"phase 9: {device_rates[('P1', policy, cap)]:,.0f}); no "
                   f"launch; {card}")
+
+
+def case_params(prows, spec):
+    """The params of a LANE_CASES / SHARD_CASES case on the card: one row
+    (shared) or one per lane."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    params = torch.stack([ks.make_step_params(
+        *p, counter_bits=spec.counter_bits, device="cuda") for p in prows])
+    return params[0] if len(prows) == 1 else params
+
+
+def flip_fold(spec, params, state):
+    """The fold on the card against the fold on the CPU, from one state
+    with a bit of shard 1's global counter slice flipped: every leaf must be
+    equal, the quarantine count must rise by one and shard 1's global slices
+    must be zero.  Returns the max abs difference."""
+    import torch
+    from repro_torch.kernels.sketch_merge import merge_halve
+    st = {k: v.clone() for k, v in state.items()}
+    word = spec.wps_shard + 5                     # row 0, shard 1
+    st["counters"][word] ^= 1 << 3
+    before = int(st["csum"][spec.shards])
+    cpu = {k: v.cpu() for k, v in st.items()}
+    merge_halve(spec, params, st)
+    merge_halve(spec, params.cpu(), cpu)
+    d = max(int((st[k].cpu().long() - cpu[k].long()).abs().max())
+            for k in cpu)
+    check(d == 0, "sharded fold: the card and the CPU differ")
+    g = st["counters"][:spec.counter_words].reshape(
+        spec.rows, spec.shards, spec.wps_shard)
+    check(int(st["csum"][spec.shards]) == before + 1
+          and not bool(g[:, 1].any())
+          and not bool(st["doorkeeper"][spec.dkw_shard:2 * spec.dkw_shard]
+                       .any()),
+          "sharded fold: shard 1 was not quarantined")
+    return d
+
+
+def sharded_phase19():
+    """Phase 19: the step kernel's sharded instances (kernel mode 1b)
+    against step_ref on the card over check_runs.SHARD_CASES, merge_halve
+    after every epoch: flat and set tables, 4- and 8-bit counters,
+    doorkeeper on and off, W below the epoch, 4 lanes with per-lane params
+    and shorter lanes, integrity, F4's geometry; every state leaf and hit
+    flag must be equal.  Then the fold on the card against the fold on the
+    CPU with a flipped global word.  Returns (max abs difference, the plain
+    version's ms per F4 epoch)."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    from repro_torch.kernels.sketch_merge import merge_halve
+    err, plain_ms = 0, None
+    for i, (name, kw, prows, wcap, mcap, kind, n,
+            epoch) in enumerate(SHARD_CASES):
+        lanes = LANES if len(prows) > 1 else 1
+        spec = ks.StepSpec(**kw, streams=lanes)
+        lo, hi = lanes_on_card(lane_keys(kind, n) if lanes > 1
+                               else hazard_keys(kind, n, seed=i))
+        starts = range(0, n, epoch)
+        counts = [lane_n_valid(epoch, c, n - s) if lanes > 1
+                  else min(epoch, n - s) for c, s in enumerate(starts)]
+        outs = []
+        for fn in (ks.step, ks.step_ref):
+            params = case_params(prows, spec)
+            state = ks.init_step_state(spec, wcap, mcap, device="cuda")
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            hits = []
+            for s, nv in zip(starts, counts):
+                hits.append(fn(spec, params, state, lo[..., s:s + epoch],
+                               hi[..., s:s + epoch], nv)[1])
+                merge_halve(spec, params, state)
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / len(counts)
+            outs.append((state, torch.cat(hits, dim=-1)))
+        (k_state, k_hits), (p_state, p_hits) = outs
+        d = max([int((k_hits - p_hits).abs().max())]
+                + [int((k_state[k].long() - p_state[k].long()).abs().max())
+                   for k in p_state])
+        check(d == 0, f"sharded {name}: kernel and plain differ")
+        steps = (np.sum(counts, axis=0).tolist() if lanes > 1
+                 else sum(counts))
+        check(p_state["regs"][..., ks.R_T].tolist() == steps,
+              f"sharded {name}: the plain run did not take every access")
+        err = max(err, d)
+        if i == len(SHARD_CASES) - 1:                 # F4's geometry
+            plain_ms = ms
+            err = max(err, flip_fold(spec, params, k_state))
+        print(f"phase 19 sharded {name}: kernel == plain, {lanes} lane(s) x "
+              f"{n} accesses (epoch {epoch}, {len(counts)} folds, shards "
+              f"{spec.shards}, {spec.assoc or 'flat'} ways, "
+              f"{spec.counter_bits}-bit, dk_bits {spec.dk_bits}, integrity "
+              f"{spec.integrity})")
+    print(f"phase 19 sharded fold: the card's merge_halve == the CPU's on "
+          f"F4's geometry with a flipped global word (shard 1 quarantined); "
+          f"plain {plain_ms:.1f} ms per F4 epoch")
+    return err, plain_ms
+
+
+def f4_phase20(f_trace, zipf, card, f_ns):
+    """Phase 20: run F4, the sharded sketch at F's geometry (shards=4, merge
+    epoch 4,096), through simulate_trace with the launch and fold counts set
+    to 0 just before and read just after: hits, registers and digest must
+    equal the JAX pins; then with integrity=True (its own digest, no shard
+    quarantined); G1's trace at 2 and 4 shards against the JAX hits; then
+    the run with CUDA events around each launch and fold, and the bound.
+    Returns (launches, ms per launch, bound ms per launch)."""
+    import torch
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  simulate_trace)
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.phase_timing import RT_HIT, RT_MISS, \
+        l2_round_trip_ns
+    from repro_torch.kernels.sketch_merge import merge_halve
+    kw = dict(warmup=F_WARMUP, assoc=F_ASSOC, shards=SHARDS,
+              trace_name="zipf-1.2M", return_state=True)
+    n = len(f_trace)
+    nep, nfold = -(-n // F4_EPOCH), n // F4_EPOCH
+    torch.cuda.synchronize()
+    set_launches(0)
+    merge_halve.folds = 0
+    t0 = time.perf_counter()
+    res, state, flags = simulate_trace(f_trace, F_CAPACITY, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, folds = read_launches(), merge_halve.folds
+    check(launches["sketch_step"] == nep and sum(launches.values()) == nep
+          and folds == nfold, f"F4: launches {launches}, folds {folds}; "
+          f"expected {nep} step launches and {nfold} folds")
+    regs = state["regs"].cpu().tolist()
+    check(res.hits == F4_HITS and regs == F4_REGS
+          and digest(state) == F4_DIGEST
+          and int(flags[F_WARMUP:].sum()) == F4_HITS,
+          f"F4: hits {res.hits} regs {regs} digest {digest(state)} != JAX "
+          f"{F4_HITS} {F4_REGS} {F4_DIGEST}")
+    check(res.extra["shards"] == SHARDS
+          and res.extra["merge_every"] == F4_EPOCH, f"F4: extra {res.extra}")
+    print(f"phase 20 F4: C={F_CAPACITY} assoc={F_ASSOC} shards={SHARDS} "
+          f"hits {res.hits}/{res.accesses} ratio {res.hit_ratio:.6f}, regs "
+          f"and digest == JAX; wall {wall:.3f} s, {n / wall:,.0f} acc/s "
+          f"(host clock around simulate_trace); {launches['sketch_step']} "
+          f"launches, {folds} folds; card {card}")
+    res_i, st_i, fl_i = simulate_trace(f_trace, F_CAPACITY, integrity=True,
+                                       **kw)
+    check(res_i.hits == F4_HITS and st_i["regs"].cpu().tolist() == F4_REGS
+          and digest(st_i) == F4I_DIGEST and int(st_i["csum"][-1]) == 0
+          and bool(torch.equal(fl_i, flags)) and res_i.extra["integrity"],
+          f"F4 integrity: hits {res_i.hits} digest {digest(st_i)} csum "
+          f"{int(st_i['csum'][-1])} != JAX {F4I_DIGEST}")
+    print(f"phase 20 F4 integrity=True: hits, regs, hit flags == F4, digest "
+          f"== JAX {F4I_DIGEST}, no shard quarantined")
+    del st_i, fl_i
+    for S, hits in G1_SHARDED_HITS.items():
+        r = simulate_trace(zipf, 200, warmup=10_000, shards=S)
+        check(r.hits == hits, f"G1 shards={S}: hits {r.hits} != JAX {hits}")
+    print(f"phase 20 G1 sharded: hits at shards 2 and 4 == JAX "
+          f"{G1_SHARDED_HITS}")
+
+    cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, shards=SHARDS)
+    t_state, t_hits, step_ms, stream_ms, fold_ms = timed_launches(
+        f_trace, cfg, None, F_WARMUP)
+    check(digest(t_state) == F4_DIGEST and bool(torch.equal(t_hits, flags)),
+          "F4: the timed run differs from the main run")
+    ms = sum(step_ms) / len(step_ms)
+    fold = sum(fold_ms) / len(fold_ms)
+    idle = 1.0 - (sum(step_ms) + sum(fold_ms)) / stream_ms
+    ns = ms * 1e6 / F4_EPOCH
+    print(f"phase 20 F4: kernel {ms:.4f} ms per launch (CUDA events around "
+          f"each of {len(step_ms)}; min {min(step_ms):.4f}, max "
+          f"{max(step_ms):.4f}), {ns:.0f} ns per access ({ns / f_ns:.3f}x "
+          f"F's {f_ns:.0f}); fold {fold:.4f} ms per epoch ({len(fold_ms)} "
+          f"folds, min {min(fold_ms):.4f}, max {max(fold_ms):.4f}), "
+          f"{sum(fold_ms) / stream_ms:.4f} of the runner's stream "
+          f"{stream_ms:.1f} ms; device idle share {idle:.6f}")
+    spec = cfg.spec()
+    total, _, _ = bound_bytes(spec, f_trace, F4_EPOCH, cfg.sample_size)
+    bound_ms = total / nep / HBM_BYTES_PER_S * 1e3
+    fold_bytes = 4 * 4 * (spec.counter_words + spec.dk_words)
+    h = float(flags.float().mean())
+    rt = l2_round_trip_ns(load_library("l2_chase"))
+    trips = RT_HIT * h + RT_MISS * (1 - h)
+    print(f"phase 20 F4 bound: {total} bytes over the run = {total / nep:.0f}"
+          f" bytes per launch over 3.35 TB/s = {bound_ms:.6f} ms (the kernel "
+          f"is {ms / bound_ms:.0f}x above it); latency floor {trips:.2f} "
+          f"dependent L2 round trips per access x {rt:.1f} ns = "
+          f"{trips * rt:.0f} ns per access ({ns / (trips * rt):.1f}x); the "
+          f"fold reads and writes both halves, {fold_bytes} bytes = "
+          f"{fold_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({fold / (fold_bytes / HBM_BYTES_PER_S * 1e3):.0f}x)")
+    return launches["sketch_step"], ms, bound_ms
+
+
+def t4_phase21(tr, card):
+    """Phase 21: run T4, run T's 64 lanes with shards=4, through
+    simulate_trace (launch and fold counts set to 0 just before and read
+    just after: one launch per epoch for all lanes, a fold after every full
+    epoch); lane 0 must equal F4's JAX pins and lanes T_SOLO their solo
+    sharded runs; then the run with CUDA events around each launch and
+    fold."""
+    import torch
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  simulate_trace)
+    from repro_torch.kernels.sketch_merge import merge_halve
+    kw = dict(warmup=F_WARMUP, assoc=F_ASSOC, shards=SHARDS,
+              return_state=True)
+    nep, nfold = -(-T_ACCESSES // F4_EPOCH), T_ACCESSES // F4_EPOCH
+    torch.cuda.synchronize()
+    set_launches(0)
+    merge_halve.folds = 0
+    t0 = time.perf_counter()
+    res, state, flags = simulate_trace(tr, F_CAPACITY, streams=T_LANES,
+                                       trace_name="tenants-64", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, folds = read_launches(), merge_halve.folds
+    check(launches["sketch_step"] == nep and sum(launches.values()) == nep
+          and folds == nfold, f"T4: launches {launches}, folds {folds}")
+    lane_hits = res.extra["lane_hits"]
+
+    def lane(b):
+        return {k: v[b] for k, v in state.items()}
+
+    check(lane_hits[0] == F4_HITS
+          and state["regs"][0].cpu().tolist() == F4_REGS
+          and digest(lane(0)) == F4_DIGEST
+          and int(flags[0, F_WARMUP:].sum()) == F4_HITS,
+          f"T4: lane 0 hits {lane_hits[0]} digest {digest(lane(0))} != F4's "
+          f"JAX pins")
+    check(res.hits == sum(lane_hits) and flags.shape == tr.shape,
+          "T4: aggregate result disagrees")
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    print(f"phase 21 T4: {T_LANES} lanes x {T_ACCESSES} accesses, shards "
+          f"{SHARDS}; lane 0 hits, regs and digest == F4's JAX pins; hits "
+          f"{res.hits}/{res.accesses} ratio {res.hit_ratio:.6f}; wall "
+          f"{wall:.3f} s, {tr.size / wall:,.0f} acc/s aggregate (host clock "
+          f"around simulate_trace); {launches['sketch_step']} launches, "
+          f"{folds} folds; state {nbytes} bytes ({nbytes / 2**20:.1f} MiB); "
+          f"card {card}")
+    for b in T_SOLO:
+        r, s, h = simulate_trace(tr[b], F_CAPACITY, **kw)
+        check(r.hits == lane_hits[b] and bool(torch.equal(h, flags[b]))
+              and digest(s) == digest(lane(b)),
+              f"T4: lane {b} differs from its solo run")
+    print(f"phase 21 T4: lanes {T_SOLO} == their solo sharded runs (hit "
+          f"flags, state digest)")
+    del state
+    cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, shards=SHARDS,
+                         streams=T_LANES)
+    t_state, t_hits, step_ms, stream_ms, fold_ms = timed_launches(
+        tr, cfg, None, F_WARMUP)
+    check(bool(torch.equal(t_hits, flags)),
+          "T4: the timed run differs from the main run")
+    del t_state, t_hits, flags
+    ms = sum(step_ms) / len(step_ms)
+    print(f"phase 21 T4: kernel {ms:.4f} ms per launch for all lanes ("
+          f"{len(step_ms)} launches), {ms * 1e6 / F4_EPOCH:.0f} ns per access "
+          f"per lane, {T_LANES * F4_EPOCH / ms * 1e3:,.0f} acc/s aggregate of "
+          f"kernel time; fold {sum(fold_ms) / len(fold_ms):.4f} ms per epoch "
+          f"for all lanes, {sum(fold_ms) / stream_ms:.4f} of the runner's "
+          f"stream {stream_ms:.1f} ms; device idle share "
+          f"{1 - (sum(step_ms) + sum(fold_ms)) / stream_ms:.6f}")
+
+
+def w4_phase22(f_trace, card):
+    """Phase 22: run W4, simulate_sweep over F's trace at W_CAPS with
+    shards=4 on the card: mode="auto" resolves to "sequential", the 65,536
+    row equals F4 and mode="vmap" raises the reference's ValueError."""
+    from repro_torch.core.device_simulate import simulate_sweep
+    kw = dict(window_fracs=(0.01,), assoc=F_ASSOC, shards=SHARDS,
+              warmup=F_WARMUP, chunk=F_CHUNK, trace_name="zipf-1.2M")
+    rows = simulate_sweep(f_trace, W_CAPS, **kw)
+    check(all(r.extra["backend"] == "cuda+sequential"
+              and r.extra["shards"] == SHARDS for r in rows),
+          f"W4: rows {[r.extra for r in rows]}")
+    row = rows[W_CAPS.index(65_536)]
+    check(row.hits == F4_HITS, f"W4: the 65536 row {row.hits} != F4")
+    try:
+        simulate_sweep(f_trace, W_CAPS, mode="vmap", **kw)
+        check(False, "W4: mode='vmap' did not raise")
+    except ValueError as e:
+        check(str(e) == "sharded sweeps run per-config epoch-chunked "
+              "programs: use mode='sequential'", f"W4: vmap raised {e}")
+    wall = rows[0].extra["grid_wall_s"]
+    print(f"phase 22 W4: " + ", ".join(
+        f"C={r.cache_size} hits {r.hits} (ratio {r.hit_ratio:.6f})"
+        for r in rows) + f"; auto -> sequential, the 65536 row == F4, vmap "
+          f"raises the reference's ValueError; grid wall {wall:.3f} s, "
+          f"{len(rows) * len(f_trace) / wall:,.0f} acc/s; card {card}")
 
 
 def main() -> int:
@@ -1619,7 +1943,7 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated()} bytes; card {card}")
 
     # -- phase 5: kernel time per launch, device idle share ---------------
-    t_state, t_hits, step_launch_ms, stream_ms = timed_launches(
+    t_state, t_hits, step_launch_ms, stream_ms, _ = timed_launches(
         f_trace, f_cfg, F_CHUNK, F_WARMUP)
     check(t_state["regs"].cpu().tolist() == F_REGS
           and digest(t_state) == F_DIGEST
@@ -1730,12 +2054,28 @@ def main() -> int:
     del tr
     sweep_phase17(f_trace, card)
     host_phase18(card, p_rates)
-    kernels[0].update(max_abs_err=max(max_err, lane_err),
-                      matches_plain=max(max_err, lane_err) == 0,
-                      lane_launches=t_launches, lane_max_abs_err=lane_err,
-                      lane_ms=t_ms, lane_bound_ms=t_bound_ms)
 
-    # -- phase 19: the kernels line ----------------------------------------
+    # -- phases 19-22: the sharded sketch (kernel mode 1b) -----------------
+    shard_err, shard_plain_ms = sharded_phase19()
+    f4_launches, f4_ms, f4_bound_ms = f4_phase20(
+        f_trace, zipf, card, ms_chunk * 1e6 / F_CHUNK)
+    tr = t_trace(f_trace)
+    t4_phase21(tr, card)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    w4_phase22(f_trace, card)
+    err = max(max_err, lane_err, shard_err)
+    kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded"],
+                      max_abs_err=err, matches_plain=err == 0,
+                      lane_launches=t_launches, lane_max_abs_err=lane_err,
+                      lane_ms=t_ms, lane_bound_ms=t_bound_ms,
+                      sharded_launches=f4_launches,
+                      sharded_max_abs_err=shard_err, sharded_ms=f4_ms,
+                      sharded_plain_ms=shard_plain_ms,
+                      sharded_bound_ms=f4_bound_ms)
+
+    # -- phase 23: the kernels line ----------------------------------------
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

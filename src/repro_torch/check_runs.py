@@ -7,9 +7,10 @@ holds them to the pins below; ``tests/test_torch_sketch_ops.py``,
 ``tests/test_torch_serving.py`` and ``tests/test_torch_models.py`` run the
 same procedures at a small size against the JAX package, and, run as
 scripts, print the JAX results that are pinned here.  The tenant-lane and
-sweep runs T and W, the hazard cases of the step and add kernels (the step
-kernel's lane grid too) and a numpy model of the add kernel's schedule live
-here as well.  Imports numpy only.
+sweep runs T and W, their sharded counterparts F4, T4 and W4 with their
+JAX pins, the hazard cases of the step and add kernels (the step kernel's
+lane grid and sharded instances too) and a numpy model of the add kernel's
+schedule live here as well.  Imports numpy only.
 """
 from __future__ import annotations
 
@@ -88,6 +89,28 @@ T_SCALING_ACCESSES = 131_072
 # (mode="sequential", whose (65,536, 0.01) row is run F).
 W_CAPS = (32_768, 65_536, 131_072)
 W_FRACS = (0.01, 0.05, 0.2)
+
+# Runs F4, T4 and W4: the sharded sketch (shards=SHARDS, kernel mode 1b) at
+# run F's geometry, the reference's sharded benchmark point (assoc=8,
+# shards=4: benchmarks/bench_device.py:347-370, docs/BENCHMARKS.md:40-42) at
+# F's capacity and trace.  F4 is DeviceWTinyLFU(65_536, assoc=8, shards=4)
+# over F's trace (warmup 480,000; auto merge epoch min(4096, W) = 4,096: 293
+# step launches, 292 folds); F4I the same with integrity=True.  T4 is run T
+# with shards=4 (lane 0 must give F4's pins, lanes T_SOLO their solo
+# sharded runs).  W4 is simulate_sweep(F's trace, W_CAPS, window_fracs=
+# (0.01,), assoc=8, shards=4, warmup=480,000), whose 65,536 row is F4.  The
+# pins are the JAX engine's (backend="jit", bit-equal to its Pallas kernel):
+# hits, registers, state digest (``python tests/test_torch_sharded.py``
+# prints them).
+SHARDS = 4
+F4_EPOCH = 4096
+F4_HITS = 455_655
+F4_REGS = [413568, 0, 1200000, 455655, 0, 0, 0, 0]
+F4_DIGEST = "0021147aefa66749"
+F4I_DIGEST = "508ba2d17973ca92"
+# G1's trace (zipf_trace(60_000, n_items=50_000, alpha=0.9, seed=7), C=200,
+# warmup 10,000, flat tables, merge epoch 1,600) with shards=S: JAX hits
+G1_SHARDED_HITS = {2: 17_709, 4: 17_695}
 
 # Run P1-host: P1's admitting policies through default-constructed caches
 # (PrefixCache(cap, policy=...): the host sketch, as bench_serving.py builds
@@ -372,6 +395,42 @@ def hazard_keys(kind: str, n: int, seed: int = 0) -> np.ndarray:
     else:
         raise ValueError(f"unknown hazard trace {kind!r}")
     return keys[:n].astype(np.uint64)
+
+
+# The step kernel's sharded instances (kernel mode 1b): chip_smoke.py phase
+# 19 holds them to step_ref on the card, with merge_halve after every epoch,
+# every state leaf and hit flag.  Each case is (name, StepSpec kwargs, the
+# make_step_params args of every lane (one row: shared params, LANES rows:
+# per lane, with streams=LANES and lane_n_valid's counts), window_cap,
+# main_cap, hazard trace kind, accesses per lane, merge epoch).  W below the
+# epoch makes a fold owe several halvings.
+_S4 = dict(shards=SHARDS)
+_FLAT = dict(width=256, rows=4, dk_bits=1024, window_slots=3, main_slots=60)
+SHARD_CASES = [
+    ("flat cb4 dk", dict(_FLAT, **_S4), [(3, 60, 48, 300, 7, 0)], 3, 60,
+     "skewed", 600, 128),
+    ("flat cb8 no-dk", dict(width=512, rows=3, dk_bits=0, window_slots=3,
+                            main_slots=40, counter_bits=8, **_S4),
+     [(3, 40, 30, 100, 30, 0)], 3, 40, "runs", 600, 256),
+    ("ways 4 cb4 dk, integrity", dict(_TINY4, integrity=True, **_S4),
+     [(3, 8, 6, 50, 7, 0)], 3, 8, "runs", 600, 128),
+    ("ways 8 cb8 dk, W below the epoch", dict(_TINY8, **_S4),
+     [(6, 16, 12, 64, 30, 0)], 6, 16, "skewed", 600, 256),
+    ("ways 16 cb4 no-dk", dict(_TINY16, dk_bits=0, **_S4),
+     [(12, 32, 25, 500, 15, 0)], 12, 32, "alternating", 600, 200),
+    ("flat lanes, per-lane params", dict(_FLAT, **_S4),
+     [(3, 60, 48, 300, 7, 0), (3, 60, 30, 200, 7, 50),
+      (3, 60, 48, 500, 3, 0), (3, 60, 10, 100, 7, 10)], 3, 60, "skewed",
+     400, 128),
+    ("ways 8 lanes, per-lane params, integrity",
+     dict(_TINY8, integrity=True, **_S4),
+     [(6, 16, 12, 400, 30, 0), (6, 16, 4, 64, 30, 0),
+      (6, 16, 12, 250, 200, 100), (6, 16, 8, 50, 15, 0)], 6, 16, "runs",
+     400, 128),
+    ("F4 geometry, one epoch, integrity",
+     dict(_F_SPEC, integrity=True, **_S4), [_F_LANE], 655, 64_881, "wide",
+     F4_EPOCH, F4_EPOCH),
+]
 
 
 # The flash kernel's cases on the card (chip_smoke.py phase 11 and

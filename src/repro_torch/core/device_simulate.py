@@ -9,10 +9,12 @@ Sizing mirrors the reference exactly (window 1%, SLRU 80/20, W =
 sample_factor*C, cap = W/C with the doorkeeper absorbing one count), so the
 port's state and hit counts equal the JAX engine's bit for bit.
 
-This slice runs ``policy="wtinylfu"`` with a static window and an unsharded
-sketch, in both table layouts, for one stream or ``streams=B`` tenant lanes
-(one launch per chunk for all lanes), and ``simulate_sweep``'s grids of such
-configurations, either one run per configuration or as lanes of one run.
+This slice runs ``policy="wtinylfu"`` with a static window, in both table
+layouts, for one stream or ``streams=B`` tenant lanes (one launch per chunk
+for all lanes), with an unsharded sketch or ``shards=S`` (one launch per
+merge epoch, then the ``merge_halve`` fold, with ``integrity`` if asked),
+and ``simulate_sweep``'s grids of such configurations: one run per
+configuration, or (unsharded) as lanes of one run.
 Entry points run on the card unless the caller passes ``device="cpu"`` (the
 plain version); without a card they raise.
 """
@@ -29,6 +31,7 @@ from repro_torch.kernels.sketch_step import (
     StepSpec, make_step_params, init_step_state, precompute_probes, step,
     resolve_device, R_HITS)
 from repro_torch.kernels.sketch_common import keys_to_lanes, POLICIES
+from repro_torch.kernels.sketch_merge import merge_halve
 from .hashing import assoc_geometry, slots_for, _pow2ceil
 from .simulate import SimResult
 
@@ -47,10 +50,10 @@ class DeviceWTinyLFU:
 
     Same fields, sizing and eager validation as the reference class.
     ``assoc=None`` uses the exact flat tables, ``assoc=W`` the W-way
-    set-associative tables; ``streams=B`` batches B tenant lanes.
-    ``adaptive``, ``shards > 1``, ``mesh``, ``integrity`` and ``policy !=
-    "wtinylfu"`` are accepted for sizing and refused by :meth:`run` until
-    the port carries them.
+    set-associative tables; ``streams=B`` batches B tenant lanes; ``shards=S``
+    splits the sketch into S shards folded every ``merge_epoch`` accesses.
+    ``adaptive``, ``mesh`` and ``policy != "wtinylfu"`` are accepted for
+    sizing and refused by :meth:`run` until the port carries them.
     """
     capacity: int
     window_frac: float = 0.01
@@ -335,7 +338,7 @@ def _row_extra(cfg: DeviceWTinyLFU, climb, adaptive: bool) -> dict:
 
 
 def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
-               fn=step):
+               fn=step, fold=None):
     """Chunked runner (counterpart of the reference's ``_run_pallas``): pad
     the access axis to whole chunks, hash every key once, then advance the
     state in place one chunk per ``fn`` call (``step``, or ``step_ref`` to
@@ -344,10 +347,17 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     chunking: each call takes a ``(B, chunk)`` slice of every lane (laid
     out chunk-major, so each slice is contiguous).  ``step`` picks the
     kernel or the plain version by the tensors' device; on the card nothing
-    here waits for it."""
+    here waits for it.
+
+    ``fold(spec, params, state)`` (the sharded runs' ``merge_halve``) runs
+    after every full chunk, never after a partial tail: the host knows which
+    chunks are full, so it reads nothing from the card to decide."""
     n = lo.shape[-1]
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be >= 1")
+    if n == 0:
+        return state, torch.zeros(lo.shape, dtype=torch.int32,
+                                  device=lo.device)
     pad = (-n) % chunk
     if pad:
         z = torch.zeros(lo.shape[:-1] + (pad,), dtype=lo.dtype,
@@ -365,10 +375,25 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     probes = precompute_probes(spec, lo, hi)
     hits = []
     for c in range(nc):
-        _, h = fn(spec, params, state, lo[c], hi[c], min(chunk, n - c * chunk),
+        n_valid = min(chunk, n - c * chunk)
+        _, h = fn(spec, params, state, lo[c], hi[c], n_valid,
                   tuple(p[c] for p in probes))
         hits.append(h)
+        if fold is not None and n_valid == chunk:
+            fold(spec, params, state)
     return state, torch.cat(hits, dim=-1)[..., :n]
+
+
+def _run(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict, lo, hi,
+         chunk: int):
+    """One configuration's run: ``chunk`` accesses per launch, or with
+    ``shards > 1`` (the reference's ``_run_sharded``) one launch per merge
+    epoch of ``cfg.merge_epoch`` accesses and the ``merge_halve`` fold after
+    every full epoch (``chunk`` does not apply)."""
+    if cfg.shards > 1:
+        return run_chunks(spec, params, state, lo, hi, cfg.merge_epoch,
+                          fold=merge_halve)
+    return run_chunks(spec, params, state, lo, hi, chunk)
 
 
 def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
@@ -384,7 +409,7 @@ def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
     lo, hi = _trace_lanes(trace, dev)
 
     t0 = time.perf_counter()
-    state, hits = run_chunks(spec, params, state, lo, hi, chunk)
+    state, hits = _run(cfg, spec, params, state, lo, hi, chunk)
     regs = state["regs"].cpu()                   # waits for the device
     wall = time.perf_counter() - t0
 
@@ -424,8 +449,11 @@ def simulate_trace(trace: np.ndarray, capacity: int, *,
     accesses; ``device="cpu"`` runs the plain version instead.  ``warmup``
     accesses update state but are not counted.  ``assoc=W`` (via cfg_kw)
     selects the W-way set-associative tables; ``counter_bits=8`` enables
-    sample factors above 16.  With ``return_state`` the result comes with
-    the final state dict and the per-access hit flags.
+    sample factors above 16.  ``shards=S`` runs the sharded sketch, folded
+    every ``merge_every`` accesses (0: ``min(4096, sample_size)``), with
+    per-shard checksums and quarantine if ``integrity=True``.  With
+    ``return_state`` the result comes with the final state dict and the
+    per-access hit flags.
     """
     cfg = DeviceWTinyLFU(capacity, window_frac=window_frac,
                          sample_factor=sample_factor, adaptive=adaptive,
@@ -442,8 +470,8 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
                    policies=("wtinylfu",), device=None, chunk: int = 512,
                    **cfg_kw) -> list[SimResult]:
     """Cartesian (capacity x window_frac) sweep (counterpart of the
-    reference's ``simulate_sweep`` for static, unsharded, unmeshed,
-    single-policy grids).
+    reference's ``simulate_sweep`` for static, unmeshed, single-policy
+    grids).
 
     ``mode="sequential"`` runs one configuration after another, each with
     its own tight geometry (sketch sized like the host's, bit-identical to
@@ -452,12 +480,14 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
     largest one's geometry (table slots padded up, excess slots marked as
     padding by a per-configuration ``init_step_state``) with its own params
     as a per-lane row.  ``"auto"`` picks ``"vmap"`` on the card, as the
-    reference does on its accelerator, and ``"sequential"`` on the CPU.
+    reference does on its accelerator, and ``"sequential"`` on the CPU; a
+    sharded grid runs ``"sequential"`` only (each configuration's merge
+    epochs), so ``"auto"`` resolves to it and ``"vmap"`` raises.
 
     ``trace`` may be ``(N,)`` (shared by all configurations) or ``(G, N)``
     (one trace per grid point).  Rows carry the reference's schema
-    (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Adaptive, sharded,
-    meshed and multi-policy grids are not ported yet and raise.
+    (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Adaptive, meshed
+    and multi-policy grids are not ported yet and raise.
     """
     del climb                       # ignored: the window is static
     if adaptive:
@@ -473,18 +503,20 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
             for C in capacities for wf in window_fracs for pol in policies]
     gridlab = [(C, wf) for C in capacities for wf in window_fracs
                for pol in policies]
-    if any(c.shards > 1 or c.integrity for c in grid):
-        raise NotImplementedError(
-            "sharded sweeps are ROADMAP queue 1 item 6")
     if any(c.mesh is not None for c in grid):
         raise NotImplementedError("mesh sweeps are ROADMAP queue 1 item 12")
     for c in grid:
         ks._require_ported(c.spec())
     dev = resolve_device(device)
+    sharded = any(c.shards > 1 for c in grid)
     if mode == "auto":
-        mode = "vmap" if dev.type == "cuda" else "sequential"
+        mode = ("vmap" if dev.type == "cuda" and not sharded
+                else "sequential")
     if mode not in ("vmap", "sequential"):
         raise ValueError(f"unknown mode {mode!r}")
+    if sharded and mode == "vmap":
+        raise ValueError("sharded sweeps run per-config epoch-chunked "
+                         "programs: use mode='sequential'")
 
     trace = np.asarray(trace)
     shared_trace = trace.ndim == 1
@@ -516,8 +548,8 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
             spec = c.spec()
             st = init_step_state(spec, c.window_cap, c.main_cap, device=dev)
             lo, hi = _trace_lanes(trace if shared_trace else trace[gi], dev)
-            st, _ = run_chunks(spec, c.params(warmup=warmup, device=dev), st,
-                               lo, hi, chunk)
+            st, _ = _run(c, spec, c.params(warmup=warmup, device=dev), st,
+                         lo, hi, chunk)
             outs.append(st["regs"])
         regs = torch.stack(outs).cpu()
     wall = time.perf_counter() - t0

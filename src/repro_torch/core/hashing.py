@@ -18,6 +18,7 @@ WSET_SALT = 0x1B873593          # window table set hash
 MSET_SALT = 0xCC9E2D51          # main (SLRU) table: first-choice set hash
 MSET2_SALT = 0x38495AB5         # main table: second-choice set hash
 SHARD_SALT = 0x52DCE729         # sketch shard hash
+SHARD_SEED64 = 0xA24BAED4963EE407   # host splitmix64 shard hash seed
 
 
 def shard_geometry(width: int, dk_bits: int, shards: int) -> tuple[int, int]:

@@ -62,6 +62,18 @@
 // its thread 0.  Nothing is shared between CTAs.  A single-stream launch
 // (lanes == 0) runs the kernel instance without the offsets, one CTA.
 //
+// The sharded sketch (shards > 1, the reference's [global || delta] halves
+// in one buffer: halves == 2) is the kShard instance.  Each row and
+// doorkeeper lane loads its global and its delta word, two independent
+// loads in one round trip; a counter is the sum of the two fields and a
+// doorkeeper bit their OR; the bump writes delta + 1 into the delta word and
+// atomicOr sets the bit in the delta half.  The per-access reset is compiled
+// out (the epoch fold, kernels/sketch_merge.py, ages the sketch), and with
+// lanes every lane's sketch is two halves long.  The probes arrive confined
+// to the key's shard, so nothing else changes.  The sharded sketch has its
+// own overloads of the word functions, so kShard = false compiles the code
+// of the unsharded kernel.
+//
 // Timing probes (python -m repro_torch.kernels.phase_timing) build this file
 // with -DSKETCH_STEP_SKIP_ADD or -DSKETCH_STEP_SKIP_ACCESS to compile one
 // phase out of the loop; the engine's build defines neither.
@@ -106,6 +118,7 @@ struct StepArgs {
       counter_words, dk_words, window_slots, main_slots, assoc, wcols, mcols;
   int lanes;            // 0: one stream; B >= 1: the lane grid of B CTAs
   int params_stride;    // lane grid: 0 (shared params) or NPARAMS
+  int halves;           // 1: one sketch; 2: [global || delta] (sharded)
 };
 
 namespace {
@@ -200,6 +213,79 @@ __device__ __forceinline__ void add_words(const StepArgs& a, const Sketch& s,
         int>(w + (1u << ((k.pr & s.cpw_mask) * a.counter_bits)));
 }
 
+// The sharded sketch's words of this lane's probe: g in the global half, d
+// in the delta half.
+struct Words {
+  uint32_t g, d;
+};
+
+// Both halves' words of this lane's probe: two independent loads.
+__device__ __forceinline__ Words load_words(const StepArgs& a,
+                                            const Sketch& s, const Lanes& ln,
+                                            int pr) {
+  const int* p = ln.row ? a.counters + ln.lane * a.words_per_row
+                              + (pr >> s.shift)
+                        : a.dk + (pr >> 5);
+  if (!ln.row && !ln.dk_on) return Words{0u, 0u};
+  return Words{static_cast<uint32_t>(*p), static_cast<uint32_t>(
+                   p[ln.row ? a.counter_words : a.dk_words])};
+}
+
+// The word(s) an instance loads for a probe: one word, or both halves'.
+template <bool kShard>
+__device__ __forceinline__ auto load_probe(const StepArgs& a, const Sketch& s,
+                                           const Lanes& ln, int pr) {
+  if constexpr (kShard) return load_words(a, s, ln, pr);
+  else return load_word(a, s, ln, pr);
+}
+
+// This lane's counter, global + delta (row lanes; the maximum in the
+// others).
+__device__ __forceinline__ uint32_t counter_of(const StepArgs& a,
+                                               const Sketch& s,
+                                               const Lanes& ln, Words w,
+                                               int pr) {
+  return ln.row ? counter_of(a, s, ln, w.g, pr) + counter_of(a, s, ln, w.d, pr)
+                : 0xffffffffu;
+}
+
+// The sharded estimate: counters global + delta, doorkeeper bits
+// global | delta.
+__device__ __forceinline__ int estimate_of(const StepArgs& a, const Sketch& s,
+                                           const Lanes& ln, Words w, int pr) {
+  int est = static_cast<int>(
+      __reduce_min_sync(kFull, counter_of(a, s, ln, w, pr)));
+  if (a.dk_bits)
+    est += __ballot_sync(kFull, ln.dk_on
+                                    && !(((w.g | w.d) >> (pr & 31)) & 1u))
+           == 0;
+  return est;
+}
+
+// The sharded add: the gate tests global | delta bits and the minimum is
+// over global + delta counters; the bits and the bump go to the delta half.
+__device__ __forceinline__ void add_words(const StepArgs& a, const Sketch& s,
+                                          const Lanes& ln, int cap,
+                                          const Entry& k, Words w) {
+  bool gate = true;
+  if (a.dk_bits) {
+    const unsigned same = __match_any_sync(kFull, ln.dk_on ? k.pr
+                                                           : -1 - ln.lane);
+    const bool eff = (((w.g | w.d) >> (k.pr & 31)) & 1u)
+                     || (same & ((1u << ln.lane) - 1u));
+    gate = __ballot_sync(kFull, ln.dk_on && !eff) == 0;
+  }
+  const uint32_t v = counter_of(a, s, ln, w, k.pr);
+  const uint32_t m = __reduce_min_sync(kFull, v);
+  if (ln.dk_on)
+    atomicOr(reinterpret_cast<unsigned*>(a.dk) + a.dk_words + (k.pr >> 5),
+             1u << (k.pr & 31));
+  if (gate && static_cast<int>(m) < cap && ln.row && v == m)
+    a.counters[a.counter_words + ln.lane * a.words_per_row
+               + (k.pr >> s.shift)] = static_cast<int>(
+        w.d + (1u << ((k.pr & s.cpw_mask) * a.counter_bits)));
+}
+
 // Warp-wide minimum of (value, index) pairs: ties go to the smaller index,
 // and every lane ends with the same pair.
 __device__ __forceinline__ void warp_argmin(int& v, int& i) {
@@ -261,7 +347,40 @@ __device__ __forceinline__ int estimate(const StepArgs& a, const Sketch& s,
   return static_cast<int>(est);
 }
 
+// The flat path's sharded estimate: counters global + delta, doorkeeper
+// bits global | delta.
+__device__ __forceinline__ int estimate_sharded(const StepArgs& a,
+                                                const Sketch& s,
+                                                const int (&idx)[kMaxRows],
+                                                const int (&dkb)[kMaxDkp]) {
+  uint32_t est = 0xffffffffu;
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    if (r < a.rows) {
+      const int* p = a.counters + r * a.words_per_row + (idx[r] >> s.shift);
+      const int sh = (idx[r] & s.cpw_mask) * a.counter_bits;
+      const uint32_t v = ((static_cast<uint32_t>(p[0]) >> sh) & s.capmax)
+          + ((static_cast<uint32_t>(p[a.counter_words]) >> sh) & s.capmax);
+      est = v < est ? v : est;
+    }
+  }
+  if (a.dk_bits) {
+    bool ok = true;
+#pragma unroll
+    for (int p = 0; p < kMaxDkp; ++p) {
+      if (p < a.dkp) {
+        const int* w = a.dk + (dkb[p] >> 5);
+        ok &= ((static_cast<uint32_t>(w[0] | w[a.dk_words]))
+               >> (dkb[p] & 31)) & 1u;
+      }
+    }
+    est += ok ? 1u : 0u;
+  }
+  return static_cast<int>(est);
+}
+
 // One access against the exact flat tables; returns the hit flag.
+template <bool kShard>
 __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
                            int i, int t, int& pcount, int lane) {
   const int klo = __ldg(a.lo + i), khi = __ldg(a.hi + i);
@@ -332,7 +451,11 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
 #pragma unroll
     for (int p = 0; p < kMaxDkp; ++p)
       if (p < a.dkp) vdkb[p] = a.mdkb[tslot * a.dkp + p];
-    do_ins = estimate(a, s, cidx, cdkb) > estimate(a, s, vidx, vdkb);
+    if constexpr (kShard)
+      do_ins = estimate_sharded(a, s, cidx, cdkb)
+               > estimate_sharded(a, s, vidx, vdkb);
+    else
+      do_ins = estimate(a, s, cidx, cdkb) > estimate(a, s, vidx, vdkb);
   }
   if (do_ins) {
     __syncwarp();
@@ -529,7 +652,7 @@ __device__ void hit_update(const StepArgs& a, const int* prot_cap,
 
 // One access against the set-associative tables, from the registers
 // load_sets filled (the pre-access records); returns the hit flag.
-template <int RM>
+template <int RM, bool kShard>
 __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
                           const int* prot_cap, int t, const Entry& k,
                           SetRegs<RM>& g) {
@@ -603,7 +726,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
         if (q < a.dkp) cdkb[r][q] = p[3 + a.rows + q];
     }
   }
-  const uint32_t cw = load_word(a, s, ln, c.pr);
+  const auto cw = load_probe<kShard>(a, s, ln, c.pr);
 
   // weakest of the 2A records; ties pick the first set, then the lower way
   int loc = cmeta[0];
@@ -628,7 +751,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
   if (!do_ins) {
     const int vpr = probes_from(a, ln, cidx, cdkb, 16 * vh + (vj & 15),
                                 vj >> 4);
-    const uint32_t vw = load_word(a, s, ln, vpr);
+    const auto vw = load_probe<kShard>(a, s, ln, vpr);
     do_ins = estimate_of(a, s, ln, cw, c.pr) > estimate_of(a, s, ln, vw, vpr);
   }
   if (do_ins) {                   // the candidate takes the victim's way
@@ -640,7 +763,9 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
 }
 
 // Point a at lane l of the lane-axis operands (every leaf is (lanes, ...)
-// with the single-stream shape behind the lane axis).
+// with the single-stream shape behind the lane axis; a sharded lane's
+// sketch is two halves long).
+template <bool kShard>
 __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
   const long long b = a.b;
   a.lo += l * b;
@@ -653,6 +778,10 @@ __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
   a.params += l * a.params_stride;
   a.counters += l * a.counter_words;
   a.dk += l * a.dk_words;
+  if constexpr (kShard) {
+    a.counters += l * a.counter_words;
+    a.dk += l * a.dk_words;
+  }
   a.regs += l * kNRegs;
   if (a.assoc == 0) {
     const long long w = a.window_slots, m = a.main_slots;
@@ -669,10 +798,10 @@ __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
 
 // The chunk loop.  RM = 0: the flat tables; else the set-associative path
 // with RM records per lane of a pair of main sets.  kLanes: CTA l runs
-// lane l of the lane grid.
-template <int RM, bool kLanes>
+// lane l of the lane grid.  kShard: the sharded sketch.
+template <int RM, bool kLanes, bool kShard>
 __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
-  if constexpr (kLanes) to_lane(a, blockIdx.x);
+  if constexpr (kLanes) to_lane<kShard>(a, blockIdx.x);
   __shared__ int prot_cap[kMaxWays + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = a.n_valid + tid; j < a.b; j += blockDim.x) a.hits[j] = 0;
@@ -712,13 +841,14 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
       if constexpr (RM != 0) load_sets(a, k, g, lane);
 #endif
 #ifndef SKETCH_STEP_SKIP_ADD
-      add_words(a, s, ln, P[P_CAP], k, load_word(a, s, ln, k.pr));
+      add_words(a, s, ln, P[P_CAP], k, load_probe<kShard>(a, s, ln, k.pr));
       __syncwarp();
 #endif
     }
     // size is data-independent, so every thread agrees on when to reset
+    // (never, sharded: the epoch fold ages the sketch)
     size += 1;
-    if (P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
+    if (!kShard && P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
       __syncthreads();
       for (int w = tid; w < a.counter_words; w += blockDim.x)
         a.counters[w] = static_cast<int>(
@@ -733,9 +863,9 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
 #else
       int hit;
       if constexpr (RM == 0)
-        hit = access_flat(a, s, P, i, t, pcount, lane);
+        hit = access_flat<kShard>(a, s, P, i, t, pcount, lane);
       else
-        hit = access_set(a, s, ln, prot_cap, t, k, g);
+        hit = access_set<RM, kShard>(a, s, ln, prot_cap, t, k, g);
 #endif
       if (lane == 0) a.hits[i] = hit;
       nhits += (hit && t >= P[P_WARMUP]) ? 1 : 0;
@@ -753,23 +883,29 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   }
 }
 
-template <bool kLanes>
+template <bool kLanes, bool kShard>
 int launch_rm(const StepArgs& a, int threads, cudaStream_t st) {
   const dim3 grid(kLanes ? a.lanes : 1);
   const int rm = (a.assoc + 15) / 16;
   if (a.assoc == 0)
-    sketch_step_kernel<0, kLanes><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<0, kLanes, kShard><<<grid, threads, 0, st>>>(a);
   else if (rm <= 1)
-    sketch_step_kernel<1, kLanes><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<1, kLanes, kShard><<<grid, threads, 0, st>>>(a);
   else if (rm <= 2)
-    sketch_step_kernel<2, kLanes><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<2, kLanes, kShard><<<grid, threads, 0, st>>>(a);
   else if (rm <= 4)
-    sketch_step_kernel<4, kLanes><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<4, kLanes, kShard><<<grid, threads, 0, st>>>(a);
   else if (rm <= 8)
-    sketch_step_kernel<8, kLanes><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<8, kLanes, kShard><<<grid, threads, 0, st>>>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kShard>
+int launch_lanes(const StepArgs& a, int threads, cudaStream_t st) {
+  return a.lanes ? launch_rm<true, kShard>(a, threads, st)
+                 : launch_rm<false, kShard>(a, threads, st);
 }
 
 }  // namespace
@@ -778,9 +914,10 @@ extern "C" int sketch_step_launch(const StepArgs* args, int threads,
                                   void* stream) {
   const StepArgs& a = *args;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.lanes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return a.lanes ? launch_rm<true>(a, threads, st)
-                 : launch_rm<false>(a, threads, st);
+  if (a.lanes < 0 || a.halves < 1 || a.halves > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return a.halves == 2 ? launch_lanes<true>(a, threads, st)
+                       : launch_lanes<false>(a, threads, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

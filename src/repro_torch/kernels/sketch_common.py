@@ -241,6 +241,54 @@ def halve_words(words: torch.Tensor, counter_bits: int = 4) -> torch.Tensor:
     return (words >> 1) & mask
 
 
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) -> int32 with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def merge_words(a: torch.Tensor, b: torch.Tensor,
+                counter_bits: int = 4) -> torch.Tensor:
+    """Per-field saturating add of packed counter words (the CM-sketch
+    merge).  A word-wise ``a + b`` would carry an overflowing field into its
+    neighbour, so even and odd fields are summed apart, each in a lane with
+    a spare high bit, and a field that overflowed is pinned at the counter
+    maximum.  The reference's int32 arithmetic, op for op."""
+    _check(counter_bits in (4, 8), f"counter_bits {counter_bits} must be 4 "
+           "or 8")
+    if counter_bits == 4:
+        lane_mask, flag_shift, flag_mask, fmax = 0x0F0F0F0F, 4, 0x01010101, 0xF
+    else:
+        lane_mask, flag_shift, flag_mask, fmax = 0x00FF00FF, 8, 0x00010001, 0xFF
+
+    def lane_sum(x, y):
+        s = (x & lane_mask) + (y & lane_mask)
+        over = (s >> flag_shift) & flag_mask        # 1 per overflowed field
+        return (s | over * fmax) & lane_mask
+
+    even = lane_sum(a, b)
+    odd = lane_sum(a >> counter_bits, b >> counter_bits)
+    return even | (odd << counter_bits)
+
+
+def checksum_words(words: torch.Tensor) -> torch.Tensor:
+    """Position-weighted wrap-around checksum over the last axis:
+    ``sum(x[i] * w[i]) mod 2^32`` with odd weights ``w[i] = (i *
+    2654435761) | 1``, as int32.  A flipped bit or two swapped unequal words
+    change it.  Computed on int64 masked to 32 bits: the product is split at
+    the weight's 16-bit halves so that nothing overflows."""
+    i = torch.arange(words.shape[-1], dtype=torch.int64, device=words.device)
+    w = ((i * 2654435761) & _M32) | 1
+    x = _u32(words)
+    prod = (x * (w & 0xFFFF) + (((x * (w >> 16)) & 0xFFFF) << 16)) & _M32
+    return _i32(prod.sum(dim=-1) & _M32)
+
+
+def bit_get(words: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
+    """Bit ``bit`` of a packed int32 bitset (flat indexing)."""
+    word = words.reshape(-1)[(bit >> 5).long()]
+    return (word >> (bit & 31)) & 1
+
+
 def keys_to_lanes(keys) -> tuple[np.ndarray, np.ndarray]:
     """uint64 keys -> (lo, hi) int32 bit-pattern numpy lanes."""
     keys = np.asarray(keys).astype(np.uint64)

@@ -1,7 +1,7 @@
 """Fused per-access W-TinyLFU step: plain PyTorch version and CUDA wrapper.
 
-Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``,
-``adaptive=False`` and ``shards=1``, in both table layouts:
+Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``
+and ``adaptive=False``, in both table layouts:
 
 * flat (``assoc=None``): exact global LRU window and SLRU main, one packed
   int32 ``meta`` per slot (-1 empty, ``t`` probation, ``2^30|t`` protected,
@@ -14,6 +14,13 @@ Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``,
 ``_step_lanes``): every state leaf carries a leading lane axis, keys come as
 ``(B, T)`` lanes, ``params`` is shared ``(NPARAMS,)`` or per-lane ``(B,
 NPARAMS)`` and ``n_valid`` an int or per-lane ``(B,)``.
+
+``shards=S > 1`` runs the sharded sketch: every probe is confined to the
+key's owning shard, ``counters``/``doorkeeper`` hold ``[global || delta]``
+halves, an access reads global plus delta (doorkeeper bits: global or delta)
+and writes only the delta half, and there is no per-access reset: the §3.3
+aging moves to the epoch fold (``kernels/sketch_merge.py``).  ``integrity``
+adds a ``csum`` leaf of ``S + 1`` int32 words that only the fold touches.
 
 The state is a dict of int32 tensors with the reference's keys and shapes
 (``_state_keys``), so ``state_from_numpy``/``state_to_numpy`` carry state
@@ -36,8 +43,10 @@ import torch
 
 from repro_torch.core.hashing import (WSET_SALT, MSET_SALT, MSET2_SALT,
                                       set_ways, shard_geometry)
-from .sketch_common import (POLICIES, _check, _pow2, halve_words, key_probes,
-                            resolve_device, set_index)
+from .sketch_common import (POLICIES, _check, _pow2, dk_probe_salts,
+                            halve_words, key_probes, probe_matrix,
+                            probe_salts, resolve_device, set_index,
+                            shard_index)
 from .sketch_update import add_one
 
 _I32_MAX = 2**31 - 1          # padding-slot meta: never free, never a victim
@@ -79,10 +88,10 @@ class StepSpec:
     """Static geometry of one simulated W-TinyLFU instance.
 
     Same fields, properties and validation as the reference ``StepSpec``
-    (see its docstring for each field).  The port runs the fields at their
-    defaults except ``width``, ``rows``, ``dk_bits``, ``dk_probes``, the
-    slot counts, ``assoc`` and ``counter_bits``; the others are accepted
-    here and refused by the entry points that do not port them yet.
+    (see its docstring for each field).  The port runs every field but
+    ``adaptive``, ``mesh_devices``/``mesh_exchange`` and ``policy``, which
+    are accepted here and refused by the entry points that do not port them
+    yet.
     """
     width: int
     rows: int = 4
@@ -220,9 +229,6 @@ def _require_ported(spec: StepSpec):
             "adaptive window is ROADMAP queue 1 item 7")
     if spec.mesh_devices:
         raise NotImplementedError("mesh execution is ROADMAP queue 1 item 12")
-    if spec.shards > 1 or spec.integrity:
-        raise NotImplementedError(
-            "sharded sketches / integrity are ROADMAP queue 1 item 6")
     if spec.policy != "wtinylfu":
         raise NotImplementedError(
             f"policy {spec.policy!r} is ROADMAP queue 1 item 9")
@@ -241,10 +247,11 @@ def make_step_params(window_cap: int, main_cap: int, prot_cap: int,
 
 
 def _state_keys(spec: StepSpec) -> tuple[str, ...]:
+    csum = ("csum",) if spec.integrity else ()
     if spec.assoc is None:
         return ("counters", "doorkeeper", "wlo", "whi", "wmeta", "widx",
-                "wdkb", "mlo", "mhi", "mmeta", "midx", "mdkb", "regs")
-    return ("counters", "doorkeeper", "wtab", "mtab", "regs")
+                "wdkb", "mlo", "mhi", "mmeta", "midx", "mdkb", "regs") + csum
+    return ("counters", "doorkeeper", "wtab", "mtab", "regs") + csum
 
 
 def _state_shapes(spec: StepSpec) -> dict:
@@ -257,8 +264,11 @@ def _state_shapes(spec: StepSpec) -> dict:
     else:
         tables = {"wtab": (spec.window_slots, spec.wcols),
                   "mtab": (spec.main_slots, spec.mcols)}
-    shapes = {"counters": (spec.counter_words,),
-              "doorkeeper": (spec.dk_words,), **tables, "regs": (NREGS,)}
+    shapes = {"counters": (spec.sketch_halves * spec.counter_words,),
+              "doorkeeper": (spec.sketch_halves * spec.dk_words,), **tables,
+              "regs": (NREGS,)}
+    if spec.integrity:
+        shapes["csum"] = (spec.shards + 1,)
     if spec.streams > 1:
         return {k: (spec.streams,) + v for k, v in shapes.items()}
     return shapes
@@ -286,9 +296,8 @@ def init_step_state(spec: StepSpec, window_cap: int | None = None,
     _check(1 <= wcap <= spec.window_slots and 1 <= mcap <= spec.main_slots,
            f"capacities ({wcap}, {mcap}) must fit the static slots "
            f"({spec.window_slots}, {spec.main_slots})")
-    arrays = {"counters": np.zeros((spec.counter_words,), np.int32),
-              "doorkeeper": np.zeros((spec.dk_words,), np.int32),
-              "regs": np.zeros((NREGS,), np.int32)}
+    arrays = {k: np.zeros(v, np.int32) for k, v in _state_shapes(spec).items()
+              if k in ("counters", "doorkeeper", "regs", "csum")}
     if spec.assoc is None:
         for p, slots, cap in (("w", spec.window_slots, wcap),
                               ("m", spec.main_slots, mcap)):
@@ -348,9 +357,23 @@ def state_to_numpy(state: dict) -> dict:
 def precompute_probes(spec: StepSpec, lo: torch.Tensor, hi: torch.Tensor):
     """Key lanes of any shape S ((b,) or (B, T)) -> (S + (rows,) probes,
     S + (dkp,) doorkeeper bits, S window set, S + (2,) main set choices),
-    all int32 on lo's device.  Set indices are zeros in flat mode."""
-    idx, dkb = key_probes(lo, hi, spec.rows, spec.width, spec.dk_bits,
-                          spec.dk_probes)
+    all int32 on lo's device.  Set indices are zeros in flat mode.  With
+    ``shards > 1`` a probe is ``shard * width_shard + (hash & (width_shard -
+    1))``, and likewise a doorkeeper bit, for the key's owning shard."""
+    if spec.shards > 1:
+        ks = shard_index(lo, hi, spec.shards)[..., None]
+        idx = ks * spec.width_shard + probe_matrix(
+            lo, hi, probe_salts(spec.rows), spec.width_shard - 1)
+        if spec.dk_bits:
+            dkb = ks * spec.dk_bits_shard + probe_matrix(
+                lo, hi, dk_probe_salts(spec.dk_probes),
+                spec.dk_bits_shard - 1)
+        else:
+            dkb = torch.zeros(lo.shape + (1,), dtype=torch.int32,
+                              device=lo.device)
+    else:
+        idx, dkb = key_probes(lo, hi, spec.rows, spec.width, spec.dk_bits,
+                              spec.dk_probes)
     if spec.assoc is not None:
         wset = set_index(lo, hi, spec.window_sets, WSET_SALT)
         mset = torch.stack([set_index(lo, hi, spec.main_sets, MSET_SALT),
@@ -411,15 +434,66 @@ def _sketch_add(spec: StepSpec, params, counters, dk, size, kidx, kdkb):
     return torch.where(do_reset, size // 2, size)
 
 
+def _sketch_add_sharded(spec: StepSpec, params, counters, dk, size, kidx,
+                        kdkb):
+    """The sharded add on ``[global || delta]`` buffers, in place: the
+    doorkeeper gate tests global | delta bits (a later probe of the access
+    also sees an earlier probe's bit) and sets its bits in the delta half;
+    the conservative minimum is over global + delta fields and the bump
+    lands in the delta field.  No reset (the epoch fold ages the sketch);
+    returns size + 1."""
+    H, HD = spec.counter_words, spec.dk_words
+    if spec.dk_bits:
+        w_idx = (kdkb >> 5).long()
+        bpos = kdkb & 31
+        words = dk[HD + w_idx]
+        pre = ((words | dk[w_idx]) >> bpos) & 1
+        earlier = torch.tril(kdkb[:, None] == kdkb[None, :], diagonal=-1)
+        gate = ((pre == 1) | earlier.any(dim=1)).all()
+        bitm = torch.ones_like(bpos) << bpos
+        same = w_idx[:, None] == w_idx[None, :]
+        merged = words.clone()
+        for j in range(kdkb.shape[0]):
+            merged = merged | torch.where(same[:, j], bitm[j], 0)
+        dk[HD + w_idx] = merged            # duplicate words carry one value
+    else:
+        gate = torch.ones((), dtype=torch.bool, device=counters.device)
+    rows = torch.arange(spec.rows, device=counters.device)
+    flat = (rows * spec.words_per_row + _word_of(spec, kidx)).long()
+    words = counters[H + flat]
+    vals = (_counter_vals(spec, words, kidx)
+            + _counter_vals(spec, counters[flat], kidx))
+    m = vals.min()
+    bump = gate & (m < params[P_CAP])
+    sub = (kidx & (spec.counters_per_word - 1)) * spec.counter_bits
+    inc = torch.ones_like(sub) << sub
+    counters[H + flat] = torch.where(bump & (vals == m), words + inc, words)
+    return size + 1
+
+
+def _add(spec: StepSpec, params, st: dict, kidx, kdkb):
+    """The access's sketch add (sharded or not); returns the new size."""
+    fn = _sketch_add_sharded if spec.shards > 1 else _sketch_add
+    return fn(spec, params, st["counters"], st["doorkeeper"],
+              st["regs"][R_SIZE].clone(), kidx, kdkb)
+
+
 def _estimate_pair(spec: StepSpec, counters, dk, idx2, dkb2):
     """TinyLFU estimates of two entries from their stored probes:
-    (2, rows) probes, (2, dkp) doorkeeper bits -> (2,) int32."""
+    (2, rows) probes, (2, dkp) doorkeeper bits -> (2,) int32.  Sharded:
+    counters are global + delta fields, doorkeeper bits global | delta."""
     rows = torch.arange(spec.rows, device=counters.device)
     flat2 = (rows[None, :] * spec.words_per_row
              + _word_of(spec, idx2)).long()
-    est = _counter_vals(spec, counters[flat2], idx2).min(dim=-1).values
+    vals = _counter_vals(spec, counters[flat2], idx2)
+    if spec.shards > 1:
+        vals = vals + _counter_vals(spec, counters[spec.counter_words
+                                                   + flat2], idx2)
+    est = vals.min(dim=-1).values
     if spec.dk_bits:
         w2 = dk[(dkb2 >> 5).long()]
+        if spec.shards > 1:
+            w2 = w2 | dk[spec.dk_words + (dkb2 >> 5).long()]
         ok = (((w2 >> (dkb2 & 31)) & 1) == 1).all(dim=-1)
         est = est + ok.to(torch.int32)
     return est
@@ -429,8 +503,7 @@ def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
     """One access against the exact flat tables, in place; returns hit."""
     regs = st["regs"]
     t = regs[R_T].clone()
-    size = _sketch_add(spec, params, st["counters"], st["doorkeeper"],
-                       regs[R_SIZE].clone(), kidx, kdkb)
+    size = _add(spec, params, st, kidx, kdkb)
     wlo, whi, wmeta = st["wlo"], st["whi"], st["wmeta"]
     widx, wdkb = st["widx"], st["wdkb"]
     mlo, mhi, mmeta = st["mlo"], st["mhi"], st["mmeta"]
@@ -500,8 +573,7 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     rows, dkp = spec.rows, spec.dkp
     regs = st["regs"]
     t = regs[R_T].clone()
-    size = _sketch_add(spec, params, st["counters"], st["doorkeeper"],
-                       regs[R_SIZE].clone(), kidx, kdkb)
+    size = _add(spec, params, st, kidx, kdkb)
     wtab, mtab = st["wtab"], st["mtab"]
     ways = torch.arange(A, device=wtab.device)
 
@@ -704,7 +776,7 @@ class _Args(ctypes.Structure):
             "n_valid", "b", "rows", "dkp", "dk_bits", "counter_bits",
             "words_per_row", "counter_words", "dk_words", "window_slots",
             "main_slots", "assoc", "wcols", "mcols", "lanes",
-            "params_stride")]
+            "params_stride", "halves")]
 
 
 def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
@@ -718,7 +790,8 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     one CTA per lane of ``(B, b)`` keys, lane-axis state, shared or per-lane
     params; ``n_valid`` is then an int or a (B,) int32 CUDA tensor.  With
     ``lane_grid=True`` and unbatched inputs it runs one lane, the same work
-    as the single-stream launch."""
+    as the single-stream launch.  ``spec.shards > 1`` launches the sharded
+    instances (``[global || delta]`` sketch, no per-access reset)."""
     from ._build import check_error, load_library
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
@@ -756,7 +829,8 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
                  wcols=spec.wcols if spec.assoc else 0,
                  mcols=spec.mcols if spec.assoc else 0,
                  lanes=lanes if lane_grid else 0,
-                 params_stride=NPARAMS if params.dim() == 2 else 0)
+                 params_stride=NPARAMS if params.dim() == 2 else 0,
+                 halves=spec.sketch_halves)
     lib = lib or load_library()
     stream = torch.cuda.current_stream(lo.device).cuda_stream
     check_error("sketch_step", lib, lib.sketch_step_launch(

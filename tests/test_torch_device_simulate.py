@@ -85,7 +85,8 @@ def test_simulate_trace_equals_jax_engine(trace, assoc):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(adaptive=True), "item 7"),
-    (dict(shards=2), "item 6"), (dict(shards=2, integrity=True), "item 6"),
+    (dict(shards=2, adaptive=True), "item 7"),
+    (dict(assoc=4, policy="arc"), "item 9"),
     (dict(assoc=4, policy="s3fifo"), "item 9"),
 ])
 def test_unported_options_raise(kw, what):

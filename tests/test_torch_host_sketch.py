@@ -4,7 +4,9 @@
 ``FrequencySketch`` is fed the same keys with the same seeds and
 configurations in both packages (CM and CBF layouts, with and without the
 doorkeeper, conservative and plain updates, through resets): every estimate
-and every counter, doorkeeper bit and register must be equal.  A
+and every counter, doorkeeper bit and register must be equal; so must
+``ShardedFrequencySketch`` through several merges, with fresh and stale
+estimates, and ``default_sketch(..., shards=S)``'s sizing.  A
 default-constructed port ``PrefixCache`` (the host sketch, nothing swapped)
 must replay run P1's stream stat for stat like the default JAX one, and the
 driver's default ``serve()`` must report what the reference's reports.
@@ -96,13 +98,76 @@ def test_default_sketch_sizing_matches(cache_size, kw):
 
 
 def test_default_sketch_refusals():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        psk.default_sketch(100, shards=4)
+    port, ref = psk.default_sketch(100, shards=4), jsk.default_sketch(
+        100, shards=4)
+    assert isinstance(port, psk.ShardedFrequencySketch)
+    assert dataclasses.asdict(port.cfg) == dataclasses.asdict(ref.cfg)
+    assert (port.shards, port.stale_estimates) == (ref.shards,
+                                                   ref.stale_estimates)
     with pytest.raises(ValueError) as pe:
         psk.default_sketch(100, stale_estimates=True)
     with pytest.raises(ValueError) as je:
         jsk.default_sketch(100, stale_estimates=True)
     assert str(pe.value) == str(je.value)
+
+
+# (SketchConfig kwargs, shards): doorkeeper on and off, CM and CBF layouts,
+# a sample size crossed several times between merges
+SHARDED_CFGS = [
+    (dict(sample_size=400, counters=1024, rows=4, cap=7,
+          doorkeeper_bits=4096, seed=3), 4),
+    (dict(sample_size=250, counters=512, rows=2, cap=15, seed=1), 2),
+    (dict(sample_size=100, counters=1024, rows=1, probes_per_row=4, cap=15,
+          doorkeeper_bits=1024, doorkeeper_probes=2), 8),
+]
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("case", range(len(SHARDED_CFGS)))
+def test_sharded_sketch_matches_reference(case, stale):
+    """ShardedFrequencySketch: the same keys and merges in both packages
+    give equal estimates for every key, equal tables and registers."""
+    kw, shards = SHARDED_CFGS[case]
+    port = psk.ShardedFrequencySketch(psk.SketchConfig(**kw), shards,
+                                      stale_estimates=stale)
+    ref = jsk.ShardedFrequencySketch(jsk.SketchConfig(**kw), shards,
+                                     stale_estimates=stale)
+    keys = keys_for(20 + case, 2000)
+    for i, k in enumerate(keys):
+        port.add(k)
+        ref.add(k)
+        if i % 97 == 0:
+            assert port.estimate(k) == ref.estimate(k)
+        if i % 300 == 299:
+            port.merge_halve()
+            ref.merge_halve()
+            np.testing.assert_array_equal(port.table_array(),
+                                          ref.table_array())
+    assert (port.size, port.resets, port.merges) == (ref.size, ref.resets,
+                                                     ref.merges)
+    assert port.resets > 0
+    for k in set(keys) | set(range(200)):
+        assert port.estimate(k) == ref.estimate(k), k
+    assert port.gtable == ref.gtable and port.dtable == ref.dtable
+    assert port.gdk == ref.gdk and port.ddk == ref.ddk
+
+
+@pytest.mark.parametrize("shards", [2, 4, 16])
+@pytest.mark.parametrize("cache_size", [1, 200, 65_536])
+def test_default_sketch_sharded_sizing_matches(cache_size, shards):
+    for stale in (False, True):
+        port = psk.default_sketch(cache_size, shards=shards,
+                                  stale_estimates=stale)
+        ref = jsk.default_sketch(cache_size, shards=shards,
+                                 stale_estimates=stale)
+        assert isinstance(port, psk.ShardedFrequencySketch)
+        assert dataclasses.asdict(port.cfg) == dataclasses.asdict(ref.cfg)
+        assert (port.shards, port.width_shard, port.dk_bits_shard,
+                port.stale_estimates) == (ref.shards, ref.width_shard,
+                                          ref.dk_bits_shard,
+                                          ref.stale_estimates)
+    assert psk._splitmix64_py(psk.SHARD_SEED64) == jsk._splitmix64_py(
+        0xA24BAED4963EE407)
 
 
 def test_host_admission_matches_reference():

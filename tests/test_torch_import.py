@@ -13,7 +13,8 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.core.sketch",
            "repro_torch.core.policies",
            "repro_torch.kernels.sketch_common",
-           "repro_torch.kernels.sketch_step", "repro_torch.kernels._build",
+           "repro_torch.kernels.sketch_step",
+           "repro_torch.kernels.sketch_merge", "repro_torch.kernels._build",
            "repro_torch.kernels.phase_timing",
            "repro_torch.kernels.sketch_update",
            "repro_torch.kernels.sketch_estimate",

@@ -1,5 +1,6 @@
 """The CUDA kernels against the port's plain versions, on the card: the step
-kernel (one stream and its lane grid), the four batched sketch kernels (add, estimate, admit, reset; both
+kernel (one stream, its lane grid and its sharded instances with the fold
+between epochs), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
 batches) and the flash-attention kernel.
 
@@ -14,15 +15,17 @@ import torch
 from repro_torch.check_runs import (ADD_HAZARD_CASES, ADMIT_SIZES,
                                     FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
-                                    LANES, lane_keys, lane_n_valid,
+                                    LANES, SHARD_CASES, lane_keys,
+                                    lane_n_valid,
                                     SKETCH_CFGS as CFGS, add_hazard_batches,
                                     cache_tails, hazard_keys, mixed_keys)
-from repro_torch.core.device_simulate import run_chunks
+from repro_torch.core.device_simulate import run_chunks, simulate_trace
 from repro_torch.kernels import (admission, flash_attention, sketch_estimate,
                                  sketch_reset, sketch_update)
 from repro_torch.kernels import sketch_common as sc
 from repro_torch.kernels import sketch_step as port
 from repro_torch.kernels.sketch_common import keys_to_lanes
+from repro_torch.kernels.sketch_merge import merge_halve
 
 # (StepSpec kwargs, make_step_params args, window_cap, main_cap)
 CASES = [
@@ -162,6 +165,72 @@ def test_lane_grid_at_one_lane_equals_single_launch(case):
         np.testing.assert_array_equal(lane[k], single[k],
                                       err_msg=f"state[{k}]")
     np.testing.assert_array_equal(lh, sh, err_msg="hit flags")
+
+
+def run_shard_case(case, fn, device):
+    """SHARD_CASES[case] through ``fn`` (step or step_ref) one epoch at a
+    time, merge_halve after each (per-lane counts with lanes); returns
+    (numpy state, hit flags)."""
+    _, kw, prows, wcap, mcap, kind, n, epoch = SHARD_CASES[case]
+    lanes = LANES if len(prows) > 1 else 1
+    spec = port.StepSpec(**kw, streams=lanes)
+    params = torch.stack([port.make_step_params(
+        *p, counter_bits=spec.counter_bits, device=device) for p in prows])
+    params = params[0] if lanes == 1 else params
+    state = port.init_step_state(spec, wcap, mcap, device=device)
+    keys = lane_keys(kind, n) if lanes > 1 else hazard_keys(kind, n,
+                                                            seed=case)
+    lo, hi = (torch.from_numpy(x).to(device) for x in keys_to_lanes(keys))
+    hits = []
+    for c, s in enumerate(range(0, n, epoch)):
+        nv = lane_n_valid(epoch, c, n - s) if lanes > 1 else min(epoch,
+                                                                 n - s)
+        _, h = fn(spec, params, state, lo[..., s:s + epoch],
+                  hi[..., s:s + epoch], nv)
+        merge_halve(spec, params, state)
+        hits.append(h.cpu())
+    return port.state_to_numpy(state), torch.cat(hits, dim=-1).numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(SHARD_CASES) - 1),
+                         ids=[c[0] for c in SHARD_CASES[:-1]])
+def test_sharded_kernel_matches_plain_on_card(case):
+    """The sharded instances (kernel mode 1b) == step_ref on every state
+    leaf and hit flag, with the fold after every epoch: flat and set, 4- and
+    8-bit counters, doorkeeper on and off, lanes, integrity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = port.step.launches
+    got = run_shard_case(case, port.step, "cuda")
+    n, epoch = SHARD_CASES[case][6:8]
+    assert port.step.launches - before == -(-n // epoch)
+    ref = run_shard_case(case, port.step_ref, "cuda")
+    for k in ref[0]:
+        np.testing.assert_array_equal(got[0][k], ref[0][k],
+                                      err_msg=f"state[{k}]")
+    np.testing.assert_array_equal(got[1], ref[1], err_msg="hit flags")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assoc", [None, 8], ids=["flat", "ways 8"])
+def test_sharded_engine_on_card_equals_cpu(assoc):
+    """simulate_trace(shards=4, integrity=True) on the card launches the
+    step kernel once per epoch and equals the CPU run leaf for leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys = hazard_keys("skewed", 900, seed=3)
+    kw = dict(shards=4, integrity=True, merge_every=256, assoc=assoc,
+              sample_factor=2, return_state=True)
+    before = port.step.launches
+    r, st, h = simulate_trace(keys, 40, device="cuda", **kw)
+    assert port.step.launches - before == 4
+    rc, sc_, hc = simulate_trace(keys, 40, device="cpu", **kw)
+    assert r.hits == rc.hits and r.extra["backend"] == "cuda"
+    np.testing.assert_array_equal(h.cpu().numpy(), hc.numpy())
+    for k in sc_:
+        np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),
+                                      err_msg=f"state[{k}]")
 
 
 def test_launch_refuses_cpu_tensors():

@@ -157,11 +157,16 @@ def test_lookup_snapshots_matches_jax():
 
 
 def test_host_sketch_is_not_ported():
-    """Only the sharded host sketch is still to port (item 10); the cache
-    refuses a policy the reference does not have."""
-    from repro_torch.core.sketch import default_sketch
-    with pytest.raises(NotImplementedError, match="item 10"):
-        default_sketch(64, shards=2)
+    """The host sketch is ported, sharded twin included:
+    default_sketch(shards=2) gives the ShardedFrequencySketch with the
+    reference's configuration; the cache refuses a policy the reference
+    does not have."""
+    from repro.core.sketch import default_sketch as jax_default_sketch
+    from repro_torch.core.sketch import ShardedFrequencySketch, default_sketch
+    port, ref = default_sketch(64, shards=2), jax_default_sketch(64, shards=2)
+    assert isinstance(port, ShardedFrequencySketch)
+    assert dataclasses.asdict(port.cfg) == dataclasses.asdict(ref.cfg)
+    assert port.shards == ref.shards == 2
     with pytest.raises(ValueError, match="policy"):
         ppc.PrefixCache(64, policy="arc", device="cpu")
 

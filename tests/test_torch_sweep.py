@@ -116,7 +116,7 @@ def test_sweep_vmap_rejects_main_below_the_shared_sets():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(adaptive=True), "item 7"), (dict(shards=2), "item 6"),
+    (dict(adaptive=True), "item 7"), (dict(shards=2, adaptive=True), "item 7"),
     (dict(policies=("wtinylfu", "lfu"), assoc=4), "item 9"),
     (dict(policies=("s3fifo",), assoc=4), "item 9"),
 ])
