@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
-trace engine (one stream, tenant lanes, sweeps, the sharded sketch), the
-serving-admission path (device and host sketch) and the LLM serving path.
+trace engine (one stream, tenant lanes, sweeps, the sharded sketch, the
+adaptive window), the serving-admission path (device and host sketch) and
+the LLM serving path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -9,10 +10,13 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
-1. print the card's name and power limit, build the six kernels and the
-   empty-launch probe (``l2_chase.cu``) from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all at once) and print their ptxas register/spill
-   lines;
+1. print the card's name and power limit, build the six kernels, the step
+   kernel's adaptive instances (a second build of ``sketch_step.cu`` with
+   ``-DSKETCH_STEP_ADAPTIVE``) and the empty-launch probe (``l2_chase.cu``)
+   from ``src/repro_torch/kernels/csrc`` (one nvcc per build, all at once)
+   and print each build's nvcc wall time and ptxas register/spill lines
+   (nvcc takes ~11 s for each of the step kernel's two builds of 20
+   instances, side by side: ~12 s for phase 1 in all on an H100 host);
 2. hold the kernel (``step``) against its plain PyTorch version
    (``step_ref``) on the card: flat and set-associative tables, 4- and 8-bit
    counters, doorkeeper on and off, resets inside and across chunk
@@ -120,9 +124,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 22. run W4, ``simulate_sweep`` over F's trace at 32,768 / 65,536 / 131,072
    with shards=4: ``auto`` resolves to sequential, the 65,536 row equals
    F4, ``mode="vmap"`` raises the reference's ``ValueError``;
-23. print the ``kernels`` JSON line (six kernels; the step kernel's entry
-   with the modes it runs, its lane-grid and sharded launches and checks),
-   the card line and the result line.
+23. hold the step kernel's adaptive instances (kernel mode 1c) against
+   ``step_ref`` on the card over ``check_runs.ADAPT_CASES``, ``rebalance``
+   between epochs (after ``merge_halve`` when sharded) to quotas that go up
+   and down and cross the window set count (flat, 8 and 16 ways, 4- and
+   8-bit counters, doorkeeper on and off, 4 lanes with per-lane params and
+   quotas and shorter lanes, shards=4, hazard keys, two epochs at FA's
+   geometry); every state leaf and hit flag must be equal; then one climb
+   and rebalance on the card against the CPU's from the same state and
+   carry (one lane and four);
+24. run FA, F's trace and geometry with ``adaptive=True`` and the default
+   ``ClimbSpec`` (epoch 4,096), through ``simulate_trace`` (counts set to 0
+   just before, read just after: 293 launches, 292 climbs and rebalances);
+   hits, registers, digest, final quota and the whole trajectory must equal
+   the JAX pins; then the run with CUDA events around each launch and climb
+   (ns per access beside F's, the climb and rebalance's ms per epoch and
+   share of the stream, device idle share) and its bound;
+25. run FA4, FA with shards=4 (the fold rides the climb epochs), the same
+   way, with the fold's share;
+26. run WA, ``simulate_sweep`` over F's trace at 65,536 with window 0.01 /
+   0.05 / 0.2, assoc=8, adaptive: as three lanes (``mode="vmap"``, counts
+   set to 0 around it) and one run after another; the rows' hits and final
+   quotas must be equal between the modes and to the JAX pins, and the 0.01
+   row FA's;
+27. run GA, the adaptivity goldens at C=800 (fickle churn, phase shift):
+   the five static rows and the adaptive run must equal the JAX hits (the
+   adaptive run its quota and digest too), and the adaptive run must come
+   within 0.01 of the best static row;
+28. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+   with the modes it runs, its lane-grid, sharded and adaptive launches and
+   checks), the card line and the result line.  Lines ``elapsed ...`` mark
+   the time taken after each group of phases.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -141,9 +173,15 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.check_runs import (ADD_HAZARD_CASES,  # noqa: E402
+from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
+                                    ADAPT_EPOCH, ADD_HAZARD_CASES,
                                     ADD_TILE, ADMIT_SIZES, F4_DIGEST,
                                     F4_EPOCH, F4_HITS, F4_REGS, F4I_DIGEST,
+                                    FA_DIGEST, FA_HITS, FA_QUOTA, FA_REGS,
+                                    FA_TRAJ, FA4_DIGEST, FA4_HITS, FA4_QUOTA,
+                                    FA4_REGS, FA4_TRAJ, GA_ACCESSES,
+                                    GA_CAPACITY, GA_FRACS, GA_GAP, GA_PINS,
+                                    GA_SEED, GA_TRACES,
                                     FLASH_CASES, FLASH_TAIL, FLASH_TAIL_LENS,
                                     G1_SHARDED_HITS, HAZARD_CASES,
                                     LANE_CASES, LANES,
@@ -153,11 +191,12 @@ from repro_torch.check_runs import (ADD_HAZARD_CASES,  # noqa: E402
                                     SHARD_CASES, SHARDS,
                                     SKETCH_CFGS, T_ACCESSES, T_LANES,
                                     T_SCALING, T_SCALING_ACCESSES, T_SOLO,
-                                    T_TENANTS, W_CAPS, W_FRACS,
+                                    T_TENANTS, W_CAPS, W_FRACS, WA_FRACS,
+                                    WA_PINS,
                                     add_hazard_batches, add_schedule,
                                     cache_tails, digest, hazard_keys,
                                     lane_keys, lane_n_valid, mixed_keys,
-                                    replay)
+                                    replay, trajectory_digest)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 
@@ -294,9 +333,10 @@ def bound_bytes(spec, trace, chunk, sample):
     and the whole sketch read and written once at each section 3.3 reset.
     With the sharded sketch each counter and doorkeeper word is read in both
     halves and written in the delta half, and the kernel does no reset (the
-    fold ages the sketch).  The candidates' sets and the victims' estimate
-    words depend on the run's decisions and are left out, so this is a lower
-    bound.  Returns (bytes, number of resets, the size register's model)."""
+    fold ages the sketch).  With the adaptive window each window set's
+    ``wuw`` word is read and its ``wsl`` word read and written.  The
+    candidates' sets and the victims' estimate words depend on the run's
+    decisions and are left out, so this is a lower bound.  Returns (bytes, number of resets, the size register's model)."""
     import torch
     from repro_torch.core.device_simulate import _trace_lanes
     from repro_torch.kernels import sketch_step as ks
@@ -313,6 +353,8 @@ def bound_bytes(spec, trace, chunk, sample):
     rows = torch.arange(spec.rows, device=lo.device) * spec.words_per_row
     words = (distinct(kwset, spec.window_sets) * spec.assoc * spec.wcols
              + distinct(kmset, spec.main_sets) * spec.assoc * spec.mcols)
+    # adaptive: a window set's wuw word read, its wsl word read and written
+    load = 3 * distinct(kwset, spec.window_sets) if spec.adaptive else 0
     sketch = distinct(rows + (kidx >> word_shift), spec.counter_words)
     if spec.dk_bits:
         sketch += distinct(kdkb >> 5, spec.dk_words)
@@ -326,7 +368,7 @@ def bound_bytes(spec, trace, chunk, sample):
             size, resets = sample // 2, resets + 1
         size += left
     moves = 3 if spec.shards > 1 else 2    # sharded: global, delta; delta
-    total = (2 * 4 * words + moves * 4 * sketch + n * per_access
+    total = (2 * 4 * words + 4 * load + moves * 4 * sketch + n * per_access
              + nchunks * 4 * (ks.NPARAMS + 2 * ks.NREGS)
              + resets * 2 * 4 * (spec.counter_words + spec.dk_words))
     return total, resets, size
@@ -1826,6 +1868,399 @@ def w4_phase22(f_trace, card):
           f"{len(rows) * len(f_trace) / wall:,.0f} acc/s; card {card}")
 
 
+def adapt_case(case, fn, device, times=None):
+    """ADAPT_CASES[case] through ``fn`` (step or step_ref) on ``device`` one
+    epoch at a time (per-lane counts with lanes), then merge_halve when
+    sharded and rebalance to the case's next quota.  Returns (spec, params,
+    state, hit flags); ``times`` (a list) receives the ms of each ``fn``
+    call by CUDA events."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    from repro_torch.kernels.sketch_common import keys_to_lanes
+    from repro_torch.kernels.sketch_merge import merge_halve
+    _, kw, prows, wcap, mcap, kind, n, epoch, quotas = ADAPT_CASES[case]
+    lanes = LANES if len(prows) > 1 else 1
+    spec = ks.StepSpec(**kw, adaptive=True, streams=lanes)
+    params = torch.stack([ks.make_step_params(
+        *p, counter_bits=spec.counter_bits, device=device) for p in prows])
+    params = params[0] if lanes == 1 else params
+    state = ks.init_step_state(spec, wcap, mcap, device=device)
+    keys = lane_keys(kind, n) if lanes > 1 else hazard_keys(kind, n,
+                                                            seed=case)
+    lo, hi = (torch.from_numpy(x).to(device) for x in keys_to_lanes(keys))
+    hits = []
+    for c, s in enumerate(range(0, n, epoch)):
+        nv = (lane_n_valid(epoch, c, n - s) if lanes > 1
+              else min(epoch, n - s))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        hits.append(fn(spec, params, state, lo[..., s:s + epoch],
+                       hi[..., s:s + epoch], nv)[1])
+        e1.record()
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        if spec.shards > 1:
+            merge_halve(spec, params, state)
+        ks.rebalance(spec, params, state, torch.tensor(
+            quotas[c % len(quotas)], dtype=torch.int32, device=device))
+    return spec, params, state, torch.cat(hits, dim=-1)
+
+
+def climb_card_vs_cpu(spec, params, state, name):
+    """One climb and rebalance on the card against the same on the CPU, from
+    one state and one carry built to move the quota far (not warm, a
+    disruption, an improving move): every leaf and the new carry must be
+    equal.  Returns the max abs difference and the quotas before and
+    after."""
+    import torch
+    from repro_torch.core.device_simulate import _climb_step
+    from repro_torch.kernels import sketch_step as ks
+    B = spec.streams
+    eh = 100 + state["regs"][..., ks.R_HITS] % 50      # an epoch's hits
+    wmax = spec.window_slots
+    cv = torch.tensor([max(1, wmax // 16), 1, wmax, 2, 8, 3],
+                      dtype=torch.int32)
+    carry = torch.stack([eh.cpu() - 5, -torch.ones_like(eh.cpu()),
+                         torch.full_like(eh.cpu(), 3),
+                         eh.cpu() - 40, torch.zeros_like(eh.cpu()),
+                         torch.full_like(eh.cpu(), 4)])
+    if B > 1:          # per-lane climb vectors: lane b's tol b + 1
+        cv = cv.repeat(B, 1)
+        cv[:, 3] = torch.arange(1, B + 1, dtype=torch.int32)
+    before = state["regs"][..., ks.R_WQUOTA].cpu().tolist()
+    cpu = {k: v.cpu().clone() for k, v in state.items()}
+    card = {k: v.clone() for k, v in state.items()}
+    c_card = _climb_step(params, spec, card, carry.cuda(), eh, cv.cuda())
+    c_cpu = _climb_step(params.cpu(), spec, cpu, carry, eh.cpu(), cv)
+    d = max([int((c_card.cpu().long() - c_cpu.long()).abs().max())]
+            + [int((card[k].cpu().long() - cpu[k].long()).abs().max())
+               for k in cpu])
+    check(d == 0, f"adaptive {name}: the card's climb and rebalance differ "
+          f"from the CPU's")
+    return d, before, card["regs"][..., ks.R_WQUOTA].cpu().tolist()
+
+
+def adaptive_phase23():
+    """Phase 23: the step kernel's adaptive instances (kernel mode 1c)
+    against step_ref on the card over check_runs.ADAPT_CASES, rebalance
+    (after merge_halve when sharded) between epochs to quotas that go up and
+    down and cross the window set count: flat and 8 and 16 ways, 4- and
+    8-bit counters, doorkeeper on and off, 4 lanes with per-lane params and
+    quotas and shorter lanes, shards=4, hazard keys, FA's geometry; every
+    state leaf and hit flag must be equal.  Then one climb and rebalance on
+    the card against the CPU's from the same state and carry.  Returns (max
+    abs difference, the plain version's ms per 4,096 accesses at FA's
+    geometry)."""
+    from repro_torch.kernels import sketch_step as ks
+    err, plain_ms = 0, None
+    for case, (name, *_, n, epoch, quotas) in enumerate(ADAPT_CASES):
+        plain_times = []
+        outs = [adapt_case(case, ks.step, "cuda"),
+                adapt_case(case, ks.step_ref, "cuda", plain_times)]
+        (spec, params, k_state, k_hits), (_, _, p_state, p_hits) = outs
+        d = max([int((k_hits - p_hits).abs().max())]
+                + [int((k_state[k].long() - p_state[k].long()).abs().max())
+                   for k in p_state])
+        check(d == 0, f"adaptive {name}: kernel and plain differ")
+        check(int(p_hits.sum()) > 0, f"adaptive {name}: no hit at all")
+        err = max(err, d)
+        quota = k_state["regs"][..., ks.R_WQUOTA].tolist()
+        print(f"phase 23 adaptive {name}: kernel == plain, {spec.streams} "
+              f"lane(s) x {n} accesses (epoch {epoch}, rebalances to "
+              f"{quotas}, final quota {quota}; {spec.assoc or 'flat'} ways, "
+              f"window sets {spec.window_sets if spec.assoc else '-'}, "
+              f"{spec.counter_bits}-bit, dk_bits {spec.dk_bits}, shards "
+              f"{spec.shards})")
+        if spec.streams > 1 or case == len(ADAPT_CASES) - 1:
+            d, q0, q1 = climb_card_vs_cpu(spec, params, k_state, name)
+            err = max(err, d)
+            print(f"phase 23 adaptive {name}: climb + rebalance on the card "
+                  f"== on the CPU (quota {q0} -> {q1})")
+        if case == len(ADAPT_CASES) - 1:              # FA's geometry
+            plain_ms = sum(plain_times) * ADAPT_EPOCH / n
+    print(f"phase 23 adaptive: plain step_ref {plain_ms:.1f} ms per "
+          f"{ADAPT_EPOCH} accesses at FA's geometry (CUDA events)")
+    return err, plain_ms
+
+
+def timed_adaptive(trace, cfg, warmup, climb):
+    """The adaptive runner (device_simulate._run_adaptive's order: step,
+    fold when sharded, climb and rebalance) with CUDA events around each
+    launch, fold and climb.  Returns (state, hit flags, per-launch ms,
+    per-fold ms, per-climb ms, the runner's stream ms, the host's ms per
+    climb to enqueue it)."""
+    import torch
+    from repro_torch.core.device_simulate import (_climb_carry0,
+                                                  _climb_step, _trace_lanes,
+                                                  run_chunks)
+    from repro_torch.kernels import sketch_step as ks
+    from repro_torch.kernels.sketch_merge import merge_halve
+    spec = cfg.spec()
+    params = cfg.params(warmup=warmup, device="cuda")
+    state = ks.init_step_state(spec, cfg.window_cap, cfg.main_cap,
+                               device="cuda")
+    lo, hi = _trace_lanes(trace, "cuda")
+    cvec = torch.as_tensor(climb.resolve(cfg), device="cuda")
+    carry = [_climb_carry0(cvec)]
+    steps, folds, climbs, marks, host = [], [], [], [], []
+
+    def timed(f, out):
+        def call(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = f(*args)
+            e1.record()
+            out.append((e0, e1))
+            marks.append((e0, e1))
+            return r
+        return call
+
+    def fold(spec, params, state):
+        ehits = state["regs"][..., ks.R_EHITS].clone()
+        if spec.shards > 1:
+            timed(merge_halve, folds)(spec, params, state)
+        t0 = time.perf_counter()
+        carry[0] = timed(_climb_step, climbs)(params, spec, state, carry[0],
+                                              ehits, cvec)
+        host.append(time.perf_counter() - t0)
+
+    state, hits = run_chunks(spec, params, state, lo, hi,
+                             int(climb.epoch_len),
+                             fn=timed(ks.step, steps), fold=fold)
+    torch.cuda.synchronize()
+
+    def ms(pairs):
+        return [a.elapsed_time(b) for a, b in pairs]
+
+    return (state, hits, ms(steps), ms(folds), ms(climbs),
+            marks[0][0].elapsed_time(marks[-1][1]),
+            sum(host) * 1e3 / max(1, len(host)))
+
+
+def adaptive_run(name, f_trace, card, f_ns, pins, shards=1):
+    """Phases 24 and 25: run FA (or FA4, ``shards=4``), F's trace and
+    geometry with adaptive=True and the default ClimbSpec, through
+    simulate_trace with the launch counts set to 0 just before and read
+    just after (293 launches); hits, registers, digest, final quota and the
+    whole trajectory must equal the JAX pins; then the run with CUDA events
+    around each launch, fold and climb, and the bound.  Returns (launches,
+    ms per launch, bound ms per launch, the climb's ms per epoch)."""
+    import torch
+    from repro_torch.core.device_simulate import (ClimbSpec, DeviceWTinyLFU,
+                                                  simulate_trace)
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.phase_timing import RT_HIT, RT_MISS, \
+        l2_round_trip_ns
+    from repro_torch.kernels.sketch_merge import merge_halve
+    hits_pin, regs_pin, digest_pin, quota_pin, (nep_pin, traj_pin) = pins
+    kw = dict(shards=shards) if shards > 1 else {}
+    n = len(f_trace)
+    nep, nclimb = -(-n // ADAPT_EPOCH), n // ADAPT_EPOCH
+    torch.cuda.synchronize()
+    set_launches(0)
+    merge_halve.folds = 0
+    t0 = time.perf_counter()
+    res, state, flags = simulate_trace(
+        f_trace, F_CAPACITY, warmup=F_WARMUP, assoc=F_ASSOC, adaptive=True,
+        climb=ClimbSpec(), trace_name="zipf-1.2M", return_state=True, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, folds = read_launches(), merge_halve.folds
+    check(launches["sketch_step"] == nep and sum(launches.values()) == nep
+          and folds == (nclimb if shards > 1 else 0),
+          f"{name}: launches {launches}, folds {folds}; expected {nep} step "
+          f"launches")
+    regs = state["regs"].cpu().tolist()
+    traj = res.extra["trajectory"]
+    check(res.hits == hits_pin and regs == regs_pin
+          and digest(state) == digest_pin
+          and res.extra["final_quota"] == quota_pin
+          and int(flags[F_WARMUP:].sum()) == hits_pin,
+          f"{name}: hits {res.hits} regs {regs} digest {digest(state)} "
+          f"quota {res.extra['final_quota']} != JAX {hits_pin} {regs_pin} "
+          f"{digest_pin} {quota_pin}")
+    check(len(traj["quota"]) == nep_pin == nclimb
+          and trajectory_digest(traj) == traj_pin,
+          f"{name}: trajectory of {len(traj['quota'])} epochs, digest "
+          f"{trajectory_digest(traj)} != JAX {nep_pin} {traj_pin}")
+    q = traj["quota"]
+    nws = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, adaptive=True).spec() \
+        .window_sets
+    print(f"phase {24 if shards == 1 else 25} {name}: C={F_CAPACITY} "
+          f"assoc={F_ASSOC} adaptive shards={shards} hits {res.hits}/"
+          f"{res.accesses} ratio {res.hit_ratio:.6f}; regs, digest, final "
+          f"quota {res.extra['final_quota']} and the {len(q)}-epoch "
+          f"trajectory == JAX (quota {min(q)}..{max(q)} against {nws} window "
+          f"sets; {sum(x < nws for x in q)} epochs below them); wall "
+          f"{wall:.3f} s, {n / wall:,.0f} acc/s (host clock around "
+          f"simulate_trace); {launches['sketch_step']} launches, {len(q)} "
+          f"climbs, {folds} folds; card {card}")
+    cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, adaptive=True, **kw)
+    (t_state, t_hits, step_ms, fold_ms, climb_ms, stream_ms,
+     host_ms) = timed_adaptive(f_trace, cfg, F_WARMUP, ClimbSpec())
+    check(digest(t_state) == digest_pin and bool(torch.equal(t_hits, flags)),
+          f"{name}: the timed run differs from the main run")
+    ms = sum(step_ms) / len(step_ms)
+    climb = sum(climb_ms) / len(climb_ms)
+    fold = sum(fold_ms) / len(fold_ms) if fold_ms else 0.0
+    idle = 1.0 - (sum(step_ms) + sum(fold_ms) + sum(climb_ms)) / stream_ms
+    ns = ms * 1e6 / ADAPT_EPOCH
+    fold_txt = (f"; fold {fold:.4f} ms per epoch, "
+                f"{sum(fold_ms) / stream_ms:.4f} of the stream"
+                if fold_ms else "")
+    print(f"phase {24 if shards == 1 else 25} {name}: kernel {ms:.4f} ms per "
+          f"launch (CUDA events around each of {len(step_ms)}; min "
+          f"{min(step_ms):.4f}, max {max(step_ms):.4f}), {ns:.0f} ns per "
+          f"access ({ns / f_ns:.3f}x F's {f_ns:.0f}); climb + rebalance "
+          f"{climb:.4f} ms per epoch ({len(climb_ms)}; min "
+          f"{min(climb_ms):.4f}, max {max(climb_ms):.4f}; the host enqueues "
+          f"it in {host_ms:.4f} ms), {sum(climb_ms) / stream_ms:.4f} of the "
+          f"runner's stream {stream_ms:.1f} ms{fold_txt}; device idle share "
+          f"{idle:.6f}")
+    profiled_adaptive(name, f_trace, shards, card)
+    spec = cfg.spec()
+    total, _, _ = bound_bytes(spec, f_trace, ADAPT_EPOCH, cfg.sample_size)
+    bound_ms = total / nep / HBM_BYTES_PER_S * 1e3
+    h = float(flags.float().mean())
+    rt = l2_round_trip_ns(load_library("l2_chase"))
+    trips = RT_HIT * h + RT_MISS * (1 - h)
+    tables = 4 * (spec.window_slots * spec.wcols
+                  + spec.main_slots * spec.mcols + 2 * spec.window_sets)
+    print(f"phase {24 if shards == 1 else 25} {name} bound: {total} bytes "
+          f"over the run = {total / nep:.0f} bytes per launch over 3.35 TB/s"
+          f" = {bound_ms:.6f} ms (the kernel is {ms / bound_ms:.0f}x above "
+          f"it); latency floor {trips:.2f} dependent L2 round trips per "
+          f"access x {rt:.1f} ns = {trips * rt:.0f} ns per access "
+          f"({ns / (trips * rt):.1f}x); the rebalance reads and writes the "
+          f"tables, {2 * tables} bytes = "
+          f"{2 * tables / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"({climb / (2 * tables / HBM_BYTES_PER_S * 1e3):.0f}x)")
+    return launches["sketch_step"], ms, bound_ms, climb
+
+
+PROFILED_EPOCHS = 24
+
+
+def profiled_adaptive(name, f_trace, shards, card):
+    """FA's (or FA4's) first PROFILED_EPOCHS epochs through simulate_trace
+    under torch.profiler: the device time of the step kernel and of
+    everything else (the climb, rebalance and fold's small kernels) per
+    epoch, and the share of the run's wall in which the card ran nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.device_simulate import ClimbSpec, simulate_trace
+    kw = dict(shards=shards) if shards > 1 else {}
+    tr = f_trace[:PROFILED_EPOCHS * ADAPT_EPOCH]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        simulate_trace(tr, F_CAPACITY, assoc=F_ASSOC, adaptive=True,
+                       climb=ClimbSpec(), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    step_us = other_us = 0.0
+    n_other = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        if "sketch_step_kernel" in e.name:
+            step_us += us
+        else:
+            other_us += us
+            n_other += 1
+    if not step_us:
+        print(f"phase {24 if shards == 1 else 25} {name} profiled: the "
+              f"profiler saw no device activity; not measured")
+        return
+    ep = PROFILED_EPOCHS - 1           # climbs: every epoch but the last
+    busy = (step_us + other_us) / 1e6
+    print(f"phase {24 if shards == 1 else 25} {name} profiled "
+          f"(torch.profiler, first {PROFILED_EPOCHS} epochs): wall "
+          f"{wall:.3f} s with the profiler on; step kernel "
+          f"{step_us / 1e3 / PROFILED_EPOCHS:.4f} ms per epoch; the climb, "
+          f"rebalance{' and fold' if shards > 1 else ''}'s "
+          f"{n_other / ep:.0f} device activities "
+          f"{other_us / 1e3 / ep:.4f} ms per epoch of device time; device "
+          f"idle share {1 - busy / wall:.4f} of the profiled wall; card "
+          f"{card}")
+
+
+def wa_phase26(f_trace, card):
+    """Phase 26: run WA, simulate_sweep over F's trace at 65,536 with
+    window_fracs WA_FRACS, assoc=8, adaptive=True: as three lanes of one run
+    (mode="vmap", counts set to 0 around it: one launch per epoch for all
+    lanes) and one run after another; the rows' hits and final quotas must
+    be equal between the modes and to the JAX pins, the 0.01 row FA's."""
+    import torch
+    from repro_torch.core.device_simulate import simulate_sweep
+    kw = dict(window_fracs=WA_FRACS, assoc=F_ASSOC, adaptive=True,
+              warmup=F_WARMUP, trace_name="zipf-1.2M")
+    torch.cuda.synchronize()
+    set_launches(0)
+    lanes = simulate_sweep(f_trace, [F_CAPACITY], mode="vmap", **kw)
+    launches = read_launches()
+    nep = -(-len(f_trace) // ADAPT_EPOCH)
+    check(launches["sketch_step"] == nep and sum(launches.values()) == nep,
+          f"WA: launches {launches}, expected {nep}")
+    seq = simulate_sweep(f_trace, [F_CAPACITY], mode="sequential", **kw)
+    got = {r.extra["window_frac"]: (r.hits, r.extra["final_quota"])
+           for r in lanes}
+    check(got == {r.extra["window_frac"]: (r.hits, r.extra["final_quota"])
+                  for r in seq}, "WA: lanes differ from the sequential rows")
+    check(got == WA_PINS, f"WA: rows {got} != JAX {WA_PINS}")
+    check(got[0.01] == (FA_HITS, FA_QUOTA), "WA: the 0.01 row is not FA")
+    check(all(r.extra["backend"] == "cuda+vmap" for r in lanes)
+          and all(r.extra["backend"] == "cuda+sequential" for r in seq),
+          "WA: backends")
+    wl, ws = lanes[0].extra["grid_wall_s"], seq[0].extra["grid_wall_s"]
+    print(f"phase 26 WA: " + ", ".join(
+        f"wf={wf} hits {h} quota {q}" for wf, (h, q) in got.items())
+        + f" == JAX, lanes == sequential, the 0.01 row == FA; three lanes "
+          f"{wl:.3f} s of wall ({launches['sketch_step']} launches), three "
+          f"runs one after another {ws:.3f} s ({ws / wl:.2f}x); card {card}")
+    return wl, ws
+
+
+def ga_phase27(card):
+    """Phase 27: run GA, the adaptivity goldens at C=800 (fickle churn and
+    phase shift, 120,000 accesses, seed 3): the five static rows and the
+    adaptive run must equal the JAX hits (and the adaptive run its final
+    quota and digest), and the adaptive run must come within 0.01 of the
+    best static row."""
+    from repro_torch.core.device_simulate import (ClimbSpec, simulate_sweep,
+                                                  simulate_trace)
+    from repro_torch.traces import synthetic
+    for gen in GA_TRACES:
+        tr = getattr(synthetic, gen)(GA_ACCESSES, seed=GA_SEED)
+        static_pin, hits_pin, quota_pin, digest_pin = GA_PINS[gen]
+        rows = simulate_sweep(tr, [GA_CAPACITY], window_fracs=GA_FRACS,
+                              mode="sequential", assoc=8)
+        check(tuple(r.hits for r in rows) == static_pin,
+              f"GA {gen}: static rows {[r.hits for r in rows]} != JAX "
+              f"{static_pin}")
+        a, st, _ = simulate_trace(tr, GA_CAPACITY, adaptive=True, assoc=8,
+                                  climb=ClimbSpec(), return_state=True)
+        check(a.hits == hits_pin and a.extra["final_quota"] == quota_pin
+              and digest(st) == digest_pin,
+              f"GA {gen}: adaptive hits {a.hits} quota "
+              f"{a.extra['final_quota']} digest {digest(st)} != JAX "
+              f"{hits_pin} {quota_pin} {digest_pin}")
+        best = max(r.hit_ratio for r in rows)
+        check(a.hit_ratio > best - GA_GAP,
+              f"GA {gen}: adaptive {a.hit_ratio} not within {GA_GAP} of the "
+              f"best static {best}")
+        print(f"phase 27 GA {gen}: static hits {static_pin} at windows "
+              f"{GA_FRACS}, adaptive {a.hits} (ratio {a.hit_ratio:.6f}, best "
+              f"static {best:.6f}), final quota {a.extra['final_quota']}, "
+              f"digest == JAX; card {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1840,20 +2275,28 @@ def main() -> int:
     # -- phase 1: card, build --------------------------------------------
     card = card_line()
     print(card)
-    t0 = time.perf_counter()
-    builds = SOURCES + PROBES
-    with ThreadPoolExecutor(len(builds)) as ex:      # one nvcc per source
-        list(ex.map(_build.load_library, builds))
+    t_start = t0 = time.perf_counter()
+    # one nvcc per source, all at once; the step kernel's adaptive instances
+    # (kernel mode 1c) are a second build of its source
+    builds = [(name, ()) for name in SOURCES + PROBES] + [
+        ("sketch_step", ks.ADAPTIVE_DEFINES)]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda job: _build.load_library(*job), builds))
     print(f"phase 1  build of {len(builds)} sources in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
-    for name in builds:
-        info = _build.build_info[(name, ())]
+    for name, defines in builds:
+        info = _build.build_info[(name, defines)]
+        label = name + (" adaptive" if defines else "")
         nvcc = (f"nvcc {info['seconds']:.1f} s" if info["seconds"]
                 else "built before; its ptxas log was kept")
-        print(f"phase 1  {name}: {nvcc}")
+        print(f"phase 1  {label}: {nvcc}")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
-                print(f"phase 1  {name} ptxas:", line.strip())
+                print(f"phase 1  {label} ptxas:", line.strip())
+
+    def elapsed(what):
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s after {what}",
+              flush=True)
 
     # -- phase 2: kernel vs plain on the card ------------------------------
     zipf = zipf_trace(60_000, n_items=50_000, alpha=0.9, seed=7)
@@ -2018,6 +2461,7 @@ def main() -> int:
                       f"({s_ms[k] * 1e3 / floor:.1f}x)"
                       for k in SKETCH_KERNELS) + f"; card {card}")
     path_sweep(f_trace, s_cfg, card)
+    elapsed("phases 1-10")
 
     kernels = [{
         "name": "sketch_step", "route": "cuda",
@@ -2045,6 +2489,7 @@ def main() -> int:
     llm_phase13(card)
     gc.collect()
     torch.cuda.empty_cache()
+    elapsed("phases 11-13")
 
     # -- phases 14-18: tenant lanes, sweeps, the host sketch ---------------
     lane_err = lanes_phase14()
@@ -2054,6 +2499,7 @@ def main() -> int:
     del tr
     sweep_phase17(f_trace, card)
     host_phase18(card, p_rates)
+    elapsed("phases 14-18")
 
     # -- phases 19-22: the sharded sketch (kernel mode 1b) -----------------
     shard_err, shard_plain_ms = sharded_phase19()
@@ -2065,17 +2511,37 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     w4_phase22(f_trace, card)
-    err = max(max_err, lane_err, shard_err)
-    kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded"],
+    elapsed("phases 19-22")
+
+    # -- phases 23-27: the adaptive window (kernel mode 1c) ----------------
+    adapt_err, adapt_plain_ms = adaptive_phase23()
+    f_ns = ms_chunk * 1e6 / F_CHUNK
+    fa_launches, fa_ms, fa_bound_ms, fa_climb_ms = adaptive_run(
+        "FA", f_trace, card, f_ns,
+        (FA_HITS, FA_REGS, FA_DIGEST, FA_QUOTA, FA_TRAJ))
+    adaptive_run("FA4", f_trace, card, f_ns,
+                 (FA4_HITS, FA4_REGS, FA4_DIGEST, FA4_QUOTA, FA4_TRAJ),
+                 shards=SHARDS)
+    wa_phase26(f_trace, card)
+    ga_phase27(card)
+    elapsed("phases 23-27")
+    err = max(max_err, lane_err, shard_err, adapt_err)
+    kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
+                             "1c adaptive"],
                       max_abs_err=err, matches_plain=err == 0,
                       lane_launches=t_launches, lane_max_abs_err=lane_err,
                       lane_ms=t_ms, lane_bound_ms=t_bound_ms,
                       sharded_launches=f4_launches,
                       sharded_max_abs_err=shard_err, sharded_ms=f4_ms,
                       sharded_plain_ms=shard_plain_ms,
-                      sharded_bound_ms=f4_bound_ms)
+                      sharded_bound_ms=f4_bound_ms,
+                      adaptive_launches=fa_launches,
+                      adaptive_max_abs_err=adapt_err, adaptive_ms=fa_ms,
+                      adaptive_plain_ms=adapt_plain_ms,
+                      adaptive_bound_ms=fa_bound_ms,
+                      adaptive_climb_ms=fa_climb_ms)
 
-    # -- phase 23: the kernels line ----------------------------------------
+    # -- phase 28: the kernels line ----------------------------------------
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

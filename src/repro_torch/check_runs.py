@@ -7,14 +7,16 @@ holds them to the pins below; ``tests/test_torch_sketch_ops.py``,
 ``tests/test_torch_serving.py`` and ``tests/test_torch_models.py`` run the
 same procedures at a small size against the JAX package, and, run as
 scripts, print the JAX results that are pinned here.  The tenant-lane and
-sweep runs T and W, their sharded counterparts F4, T4 and W4 with their
-JAX pins, the hazard cases of the step and add kernels (the step kernel's
-lane grid and sharded instances too) and a numpy model of the add kernel's
-schedule live here as well.  Imports numpy only.
+sweep runs T and W, their sharded counterparts F4, T4 and W4, the
+adaptive-window runs FA, FA4, WA and GA with their JAX pins, the hazard
+cases of the step and add kernels (the step kernel's lane grid, sharded and
+adaptive instances too) and a numpy model of the add kernel's schedule live
+here as well.  Imports numpy only.
 """
 from __future__ import annotations
 
 import hashlib
+import json
 
 import numpy as np
 
@@ -111,6 +113,104 @@ F4I_DIGEST = "508ba2d17973ca92"
 # G1's trace (zipf_trace(60_000, n_items=50_000, alpha=0.9, seed=7), C=200,
 # warmup 10,000, flat tables, merge epoch 1,600) with shards=S: JAX hits
 G1_SHARDED_HITS = {2: 17_709, 4: 17_695}
+
+# Runs FA, FA4, WA and GA: the adaptive window (kernel mode 1c, the epoch
+# hill climb and rebalance).  FA is run F's trace and geometry with
+# adaptive=True and the default ClimbSpec (epoch 4,096: 293 step launches,
+# 292 climbs and rebalances), the reference's adaptive benchmark point
+# (assoc=8, adaptive=True: benchmarks/bench_device.py:327-344,
+# docs/BENCHMARKS.md:38-39) at F's capacity and trace; FA4 the same with
+# shards=4 (the fold rides the climb epochs).  WA is simulate_sweep(F's
+# trace, [65,536], window_fracs=WA_FRACS, assoc=8, adaptive=True,
+# warmup=480,000) as three lanes and one run after another; its 0.01 row is
+# FA.  GA is the reference's adaptivity goldens (tests/test_adaptive.py:
+# 383-396): GA_TRACES(120,000, seed=3) at C=800, assoc=8, the static rows
+# at GA_FRACS and the default-ClimbSpec adaptive run, which must come within
+# 0.01 of the best static row.  The pins are the JAX engine's (backend="jit",
+# bit-equal to its Pallas kernel): hits, registers, state digest, final
+# quota and the trajectory's digest (``python tests/test_torch_adaptive.py``
+# prints them).
+ADAPT_EPOCH = 4096
+FA_HITS = 455_772
+FA_REGS = [413568, 0, 1200000, 455772, 23, 0, 0, 2463]
+FA_DIGEST = "2b8cc1ec1f0677d7"
+FA_QUOTA = 23
+FA_TRAJ = (292, "3b8bc07cb8c56922")
+FA4_HITS = 455_816
+FA4_REGS = [413568, 0, 1200000, 455816, 21, 0, 0, 2465]
+FA4_DIGEST = "aa35e1096999966c"
+FA4_QUOTA = 21
+FA4_TRAJ = (292, "1b60785ea3e29449")
+WA_FRACS = (0.01, 0.05, 0.2)
+# window_frac -> (hits, final quota)
+WA_PINS = {0.01: (455_772, 23), 0.05: (455_219, 2566),
+           0.2: (453_776, 12397)}
+GA_CAPACITY, GA_ACCESSES, GA_SEED = 800, 120_000, 3
+GA_TRACES = ("fickle_churn_trace", "phase_shift_trace")
+GA_FRACS = (0.01, 0.05, 0.10, 0.20, 0.40)
+GA_GAP = 0.01
+# trace -> (static hits at GA_FRACS, adaptive hits, final quota, digest)
+GA_PINS = {
+    "fickle_churn_trace": ((69_709, 69_339, 68_957, 68_778, 67_515), 69_841,
+                           1, "7ce10e2949027991"),
+    "phase_shift_trace": ((63_349, 64_721, 65_502, 65_256, 68_483), 69_224,
+                          399, "4e95d713a7b19ce4"),
+}
+
+
+def trajectory_digest(traj: dict) -> str:
+    """sha256 of a run's ``extra["trajectory"]`` (epoch length, per-epoch
+    hits and quotas as JSON lists); 16 hex chars."""
+    body = [int(traj["epoch_len"]), traj["epoch_hits"], traj["quota"]]
+    return hashlib.sha256(json.dumps(body).encode()).hexdigest()[:16]
+
+
+# The step kernel's adaptive instances (kernel mode 1c): chip_smoke.py phase
+# 23 and tests/test_torch_kernel_gpu.py hold them to step_ref on the card,
+# tests/test_torch_adaptive.py holds step_ref to the JAX step_ref on the
+# CPU, with rebalance (and merge_halve when sharded) between epochs; every
+# state leaf and hit flag.  Each case is (name, StepSpec kwargs without
+# adaptive, the make_step_params args of every lane (one row: shared; LANES
+# rows: per lane, with lane_n_valid's counts), window_cap, main_cap, hazard
+# trace kind, accesses per lane, epoch, the quotas of the rebalances in turn
+# (an int, or one per lane)).  The quotas go up and down, cross the window
+# set count (uniform against load-aware window ways) and run into both
+# clamps.
+_AFLAT = dict(width=256, rows=4, dk_bits=1024, window_slots=30,
+              main_slots=60)
+_A8 = dict(width=512, rows=3, dk_bits=2048, window_slots=64, main_slots=64,
+           assoc=8)
+_A16 = dict(width=256, rows=4, dk_bits=0, window_slots=64, main_slots=64,
+            assoc=16, counter_bits=8)
+# DeviceWTinyLFU(65_536, assoc=8, adaptive=True).spec(): run FA's geometry
+_FA_SPEC = dict(width=131_072, rows=4, dk_bits=2_097_152,
+                window_slots=32_768, main_slots=65_536, assoc=16)
+ADAPT_CASES = [
+    ("flat cb4 dk", _AFLAT, [(3, 57, 45, 300, 7, 0)], 3, 57, "skewed", 900,
+     128, [10, 2, 25, 1, 29, 40]),
+    ("flat cb8 no-dk", dict(_AFLAT, dk_bits=0, counter_bits=8),
+     [(6, 54, 43, 200, 30, 0)], 6, 54, "runs", 900, 150, [20, 3, 1, 12, 6]),
+    ("ways 8 cb4 dk", _A8, [(20, 44, 35, 200, 7, 0)], 20, 44, "skewed",
+     900, 128, [30, 3, 60, 1, 12, 5]),
+    ("ways 16 cb8 no-dk", _A16, [(5, 59, 47, 300, 30, 0)], 5, 59,
+     "alternating", 900, 128, [2, 9, 40, 3, 63, 1]),
+    ("hazard runs, ways 8", _A8, [(8, 56, 44, 64, 7, 0)], 8, 56, "runs", 800,
+     100, [1, 5, 30, 2, 16, 60, 4]),
+    ("ways 8 lanes, per-lane params and quotas", _A8,
+     [(20, 44, 35, 200, 7, 0), (6, 58, 40, 64, 7, 0),
+      (30, 34, 27, 250, 7, 100), (2, 62, 10, 50, 7, 0)], 20, 44, "skewed",
+     400, 100, [[3, 30, 1, 60], [12, 2, 40, 7], [60, 5, 9, 2]]),
+    ("flat lanes, per-lane params and quotas", _AFLAT,
+     [(3, 57, 45, 300, 7, 0), (10, 50, 30, 200, 7, 50),
+      (3, 57, 45, 500, 3, 0), (20, 40, 10, 100, 7, 10)], 3, 57, "skewed",
+     400, 100, [[10, 2, 25, 1], [1, 29, 5, 40], [7, 7, 7, 7]]),
+    ("ways 8 cb4 dk, shards 4", dict(_A8, shards=SHARDS),
+     [(20, 44, 35, 64, 7, 0)], 20, 44, "skewed", 800, 128,
+     [30, 3, 60, 1, 12, 5]),
+    ("FA geometry", _FA_SPEC, [(655, 64_881, 51_904, 524_288, 7, 0)], 655,
+     64_881, "wide", ADAPT_EPOCH, ADAPT_EPOCH // 2, [1_000, 3_000]),
+]
+
 
 # Run P1-host: P1's admitting policies through default-constructed caches
 # (PrefixCache(cap, policy=...): the host sketch, as bench_serving.py builds

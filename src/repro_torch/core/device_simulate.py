@@ -9,11 +9,13 @@ Sizing mirrors the reference exactly (window 1%, SLRU 80/20, W =
 sample_factor*C, cap = W/C with the doorkeeper absorbing one count), so the
 port's state and hit counts equal the JAX engine's bit for bit.
 
-This slice runs ``policy="wtinylfu"`` with a static window, in both table
-layouts, for one stream or ``streams=B`` tenant lanes (one launch per chunk
-for all lanes), with an unsharded sketch or ``shards=S`` (one launch per
-merge epoch, then the ``merge_halve`` fold, with ``integrity`` if asked),
-and ``simulate_sweep``'s grids of such configurations: one run per
+This slice runs ``policy="wtinylfu"`` in both table layouts, for one
+stream or ``streams=B`` tenant lanes (one launch per chunk for all lanes),
+with an unsharded sketch or ``shards=S`` (one launch per merge epoch, then
+the ``merge_halve`` fold, with ``integrity`` if asked), with a static window
+or ``adaptive=True`` (one launch per climb epoch, then the fold when
+sharded, the hill climb and ``rebalance``, all on the card), and
+``simulate_sweep``'s grids of such configurations: one run per
 configuration, or (unsharded) as lanes of one run.
 Entry points run on the card unless the caller passes ``device="cpu"`` (the
 plain version); without a card they raise.
@@ -29,19 +31,12 @@ import torch
 from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels.sketch_step import (
     StepSpec, make_step_params, init_step_state, precompute_probes, step,
-    resolve_device, R_HITS)
+    rebalance, resolve_device, R_EHITS, R_HITS, R_WQUOTA)
 from repro_torch.kernels.sketch_common import keys_to_lanes, POLICIES
 from repro_torch.kernels.sketch_merge import merge_halve
+from .adaptive import resolve_climb, window_cap_max
 from .hashing import assoc_geometry, slots_for, _pow2ceil
 from .simulate import SimResult
-
-
-def _window_cap_max(capacity: int, window_cap: int,
-                    window_max_frac: float) -> int:
-    """Largest window quota the adaptive tables are sized for (copy of
-    ``repro.core.adaptive.window_cap_max``)."""
-    return max(window_cap,
-               min(capacity - 1, int(round(capacity * window_max_frac))))
 
 
 @dataclass(frozen=True)
@@ -52,8 +47,9 @@ class DeviceWTinyLFU:
     ``assoc=None`` uses the exact flat tables, ``assoc=W`` the W-way
     set-associative tables; ``streams=B`` batches B tenant lanes; ``shards=S``
     splits the sketch into S shards folded every ``merge_epoch`` accesses.
-    ``adaptive``, ``mesh`` and ``policy != "wtinylfu"`` are accepted for
-    sizing and refused by :meth:`run` until the port carries them.
+    ``adaptive=True`` hill-climbs the window quota between epochs.
+    ``mesh`` and ``policy != "wtinylfu"`` are accepted for sizing and
+    refused by :meth:`run` until the port carries them.
     """
     capacity: int
     window_frac: float = 0.01
@@ -165,8 +161,8 @@ class DeviceWTinyLFU:
         """Largest quota the adaptive tables can host (static headroom)."""
         if not self.adaptive:
             return self.window_cap
-        return _window_cap_max(self.capacity, self.window_cap,
-                               self.window_max_frac)
+        return window_cap_max(self.capacity, self.window_cap,
+                              self.window_max_frac)
 
     @property
     def main_cap_max(self) -> int:
@@ -271,8 +267,9 @@ class DeviceWTinyLFU:
             checkpoint_every: int = 0, return_state: bool = False,
             on_checkpoint=None, fault_hook=None):
         """Simulate ``trace`` (``(B, T)`` with ``streams=B``) on ``device``
-        (the card unless ``"cpu"``).  ``climb`` is ignored unless
-        ``adaptive``, as in the reference.
+        (the card unless ``"cpu"``).  ``climb`` (default
+        :class:`ClimbSpec`) is ignored unless ``adaptive``, as in the
+        reference.
 
         Checkpointing and fault injection (``checkpoint_dir``,
         ``checkpoint_every``, ``on_checkpoint``, ``fault_hook``) are not
@@ -349,9 +346,10 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     kernel or the plain version by the tensors' device; on the card nothing
     here waits for it.
 
-    ``fold(spec, params, state)`` (the sharded runs' ``merge_halve``) runs
-    after every full chunk, never after a partial tail: the host knows which
-    chunks are full, so it reads nothing from the card to decide."""
+    ``fold(spec, params, state)`` (the sharded runs' ``merge_halve``, the
+    adaptive runs' climb and rebalance) runs after every full chunk, never
+    after a partial tail: the host knows which chunks are full, so it reads
+    nothing from the card to decide."""
     n = lo.shape[-1]
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be >= 1")
@@ -396,9 +394,124 @@ def _run(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict, lo, hi,
     return run_chunks(spec, params, state, lo, hi, chunk)
 
 
+@dataclass(frozen=True)
+class ClimbSpec:
+    """Hill-climber hyperparameters (resolved against a configuration).
+
+    Same fields, defaults and ``resolve`` as the reference ``ClimbSpec``
+    (see its docstring for each rule).  Every ``epoch_len`` accesses the
+    climb compares the epoch's hits with the previous epoch's and moves the
+    window quota; zero fields auto-size (``core/adaptive.resolve_climb``):
+    ``delta0`` = wmax/16, ``wmax`` = the adaptive table headroom, ``tol`` =
+    epoch_len/256, ``restart`` = epoch_len/16.
+    """
+    epoch_len: int = 4096
+    delta0: int = 0
+    wmin: int = 1
+    wmax: int = 0
+    tol: int = 0
+    restart: int = 0
+    warm_epochs: int = 3
+
+    def resolve(self, cfg: DeviceWTinyLFU) -> np.ndarray:
+        return np.asarray(
+            resolve_climb(self.epoch_len, self.delta0, self.wmin, self.wmax,
+                          self.tol, self.restart, self.warm_epochs,
+                          cfg.window_cap_max),
+            np.int32)
+
+
+def _climb_carry0(cvec: torch.Tensor) -> torch.Tensor:
+    """Fresh-run climber registers [prev=-1, dirn=1, delta=delta0, ewma=-1,
+    trend=0, k=0]: (6,) for one climb vector, (6, B) for (B, 6)."""
+    if cvec.dim() == 2:
+        return torch.stack([_climb_carry0(cv) for cv in cvec], dim=1)
+    one = torch.ones((), dtype=torch.int32, device=cvec.device)
+    return torch.stack([-one, one, cvec[0].to(torch.int32), -one, one - 1,
+                        one - 1])
+
+
+def _climb_step(params, spec: StepSpec, state: dict, carry: torch.Tensor,
+                ehits: torch.Tensor, climb: torch.Tensor) -> torch.Tensor:
+    """One hill-climb update and ``rebalance`` between epochs, as tensor ops
+    on the state's device (the reference's ``_climb_step``; the same rules
+    as ``core/adaptive.climb_update``); returns the new carry.
+
+    ``carry`` is the climber registers [prev, dirn, delta, ewma, trend, k]:
+    (6,), or (6, B) with lanes, each register then a row of per-lane values;
+    ``ehits`` the epoch's hits, () or (B,); ``climb`` the resolved vector,
+    (6,) shared or (B, 6) per lane.  Every ``//`` rounds to the floor, as
+    ``jnp.int32 //`` does (``diff``, ``trend`` and ``ehits - ewma`` go
+    negative).  Nothing is read back to the host.
+    """
+    fd = ks._floordiv
+    prev, dirn, delta, ewma, trend, k = carry.unbind(0)
+    d0, wmin, wmax, tol, restart, warm_epochs = climb.unbind(-1)
+    quota = state["regs"][..., R_WQUOTA]
+    diff = ehits - prev
+    adiff = diff - trend
+    improved = adiff > tol
+    regressed = adiff < -tol
+    trend_n = torch.where(prev < 0, 0, trend + fd(diff - trend, 4))
+    dirn_n = torch.where(regressed, -dirn, dirn)
+    delta_n = torch.where(regressed, torch.clamp(fd(delta, 2), min=1),
+                          torch.where(improved, delta,
+                                      torch.clamp(fd(delta * 3, 4), min=1)))
+    shift = (ehits - ewma).abs() > restart
+    span4 = torch.maximum(d0, fd(wmax - wmin, 4))
+    delta_n = torch.where(
+        shift, torch.where(improved, torch.minimum(
+            torch.maximum(delta_n, d0) * 2, span4), d0), delta_n)
+    warm = k < warm_epochs
+    ewma = torch.where(warm | (prev < 0), ehits, ewma + fd(ehits - ewma, 4))
+    dirn = torch.where(warm, dirn, dirn_n)
+    delta = torch.where(warm, delta, delta_n)
+    trend = torch.where(warm, torch.where(prev < 0, 0, diff), trend_n)
+    move = improved | regressed | shift
+    step_q = torch.where(warm | ~move, 0, dirn * delta)
+    nq = torch.minimum(torch.maximum(quota + step_q, wmin), wmax)
+    dirn = torch.where(nq <= wmin, 1, torch.where(nq >= wmax, -1, dirn))
+    rebalance(spec, params, state, nq)
+    return torch.stack([ehits, dirn, delta, ewma, trend, k + 1])
+
+
+def _run_adaptive(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict,
+                  lo, hi, climb: ClimbSpec, cvec: torch.Tensor | None = None):
+    """The adaptive run (the reference's ``_run_adaptive``): one step launch
+    per epoch of ``climb.epoch_len`` accesses; after each full epoch, in
+    this order, the ``merge_halve`` fold (sharded), the climb and
+    ``rebalance``; a partial tail epoch steps but never folds or climbs.
+
+    ``cvec`` is the resolved climb vector ((6,), or (B, 6) per lane;
+    default ``climb.resolve(cfg)``).  Returns (state, hit flags, the
+    per-epoch (ehits, quota) rows as one device tensor of shape (epochs, 2)
+    or (epochs, 2, B), read from the registers before each climb, or None
+    with no full epoch).  The host knows which epochs are full, so nothing
+    here waits on the card.
+    """
+    if cvec is None:
+        cvec = torch.as_tensor(climb.resolve(cfg), device=lo.device)
+    carry = _climb_carry0(cvec)
+    if spec.streams > 1 and carry.dim() == 1:
+        carry = carry[:, None].repeat(1, spec.streams)
+    rows = []
+
+    def fold(spec, params, state):
+        nonlocal carry
+        regs = state["regs"]
+        ehits = regs[..., R_EHITS].clone()
+        rows.append(torch.stack([ehits, regs[..., R_WQUOTA].clone()]))
+        if spec.shards > 1:
+            merge_halve(spec, params, state)
+        carry = _climb_step(params, spec, state, carry, ehits, cvec)
+
+    state, hits = run_chunks(spec, params, state, lo, hi,
+                             int(climb.epoch_len), fold=fold)
+    return state, hits, (torch.stack(rows) if rows else None)
+
+
 def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
               trace_name: str, climb, return_state: bool):
-    del climb                       # ignored: the window is static
     ks._require_ported(cfg.spec())
     dev = resolve_device(device)
     trace = np.asarray(trace)
@@ -407,23 +520,40 @@ def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
     params = cfg.params(warmup=warmup, device=dev)
     state = init_step_state(spec, cfg.window_cap, cfg.main_cap, device=dev)
     lo, hi = _trace_lanes(trace, dev)
+    climb = climb or ClimbSpec()
 
     t0 = time.perf_counter()
-    state, hits = _run(cfg, spec, params, state, lo, hi, chunk)
+    traj = None
+    if cfg.adaptive:
+        state, hits, traj = _run_adaptive(cfg, spec, params, state, lo, hi,
+                                          climb)
+    else:
+        state, hits = _run(cfg, spec, params, state, lo, hi, chunk)
     regs = state["regs"].cpu()                   # waits for the device
+    if traj is not None:
+        traj = traj.cpu()
     wall = time.perf_counter() - t0
 
     # warmup applies per lane (each lane's own R_T register counts it)
     counted = (trace.shape[-1] - warmup) * cfg.streams
     extra = {"backend": "cuda" if dev.type == "cuda" else "plain",
              "window_frac": cfg.window_frac, "assoc": cfg.assoc,
-             "device": _device_name(dev), **_row_extra(cfg, None, False)}
+             "device": _device_name(dev),
+             **_row_extra(cfg, climb, cfg.adaptive)}
+    if cfg.adaptive:
+        extra["adaptive"] = True
+        extra["final_quota"] = ([int(q) for q in regs[:, R_WQUOTA]]
+                                if cfg.streams > 1 else int(regs[R_WQUOTA]))
+        if traj is not None:
+            extra["trajectory"] = {"epoch_len": climb.epoch_len,
+                                   "epoch_hits": traj[:, 0].tolist(),
+                                   "quota": traj[:, 1].tolist()}
     if cfg.streams > 1:
         extra["lane_hits"] = [int(h) for h in regs[:, R_HITS]]
         n_hits = sum(extra["lane_hits"])
     else:
         n_hits = int(regs[R_HITS])
-    res = SimResult(policy=_policy_label(cfg, False),
+    res = SimResult(policy=_policy_label(cfg, cfg.adaptive),
                     cache_size=cfg.capacity, trace=trace_name,
                     accesses=counted, hits=n_hits,
                     hit_ratio=n_hits / max(1, counted), wall_s=wall,
@@ -451,9 +581,12 @@ def simulate_trace(trace: np.ndarray, capacity: int, *,
     selects the W-way set-associative tables; ``counter_bits=8`` enables
     sample factors above 16.  ``shards=S`` runs the sharded sketch, folded
     every ``merge_every`` accesses (0: ``min(4096, sample_size)``), with
-    per-shard checksums and quarantine if ``integrity=True``.  With
-    ``return_state`` the result comes with the final state dict and the
-    per-access hit flags.
+    per-shard checksums and quarantine if ``integrity=True``.
+    ``adaptive=True`` hill-climbs the window quota (``climb``, default
+    :class:`ClimbSpec`) between epochs, on the card: ``extra`` carries
+    ``final_quota`` and the per-epoch ``trajectory``; with ``shards`` the
+    fold rides the climb epochs.  With ``return_state`` the result comes
+    with the final state dict and the per-access hit flags.
     """
     cfg = DeviceWTinyLFU(capacity, window_frac=window_frac,
                          sample_factor=sample_factor, adaptive=adaptive,
@@ -470,8 +603,7 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
                    policies=("wtinylfu",), device=None, chunk: int = 512,
                    **cfg_kw) -> list[SimResult]:
     """Cartesian (capacity x window_frac) sweep (counterpart of the
-    reference's ``simulate_sweep`` for static, unmeshed, single-policy
-    grids).
+    reference's ``simulate_sweep`` for unmeshed, single-policy grids).
 
     ``mode="sequential"`` runs one configuration after another, each with
     its own tight geometry (sketch sized like the host's, bit-identical to
@@ -484,22 +616,25 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
     sharded grid runs ``"sequential"`` only (each configuration's merge
     epochs), so ``"auto"`` resolves to it and ``"vmap"`` raises.
 
+    ``adaptive=True`` hill-climbs every configuration's window
+    (``window_fracs`` seed the quotas; ``climb`` is one :class:`ClimbSpec`
+    or one per grid point).  ``"auto"`` resolves to ``"sequential"``;
+    ``"vmap"`` runs the grid as lanes of one run with per-lane params,
+    state, climb vector and climber registers, which needs one shared
+    geometry (sweep ``window_fracs`` or climb hyperparameters) and one
+    ``epoch_len``.
+
     ``trace`` may be ``(N,)`` (shared by all configurations) or ``(G, N)``
     (one trace per grid point).  Rows carry the reference's schema
-    (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Adaptive, meshed
-    and multi-policy grids are not ported yet and raise.
+    (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Meshed and
+    multi-policy grids are not ported yet and raise.
     """
-    del climb                       # ignored: the window is static
-    if adaptive:
-        raise NotImplementedError(
-            "adaptive sweeps (the hill-climbed window) are ROADMAP queue 1 "
-            "item 7")
     policies = tuple(policies)
     if len(set(policies)) > 1:
         raise NotImplementedError(
             "policy grids (the policy panel) are ROADMAP queue 1 item 9")
     grid = [DeviceWTinyLFU(C, window_frac=wf, sample_factor=sample_factor,
-                           policy=pol, **cfg_kw)
+                           adaptive=adaptive, policy=pol, **cfg_kw)
             for C in capacities for wf in window_fracs for pol in policies]
     gridlab = [(C, wf) for C in capacities for wf in window_fracs
                for pol in policies]
@@ -510,10 +645,17 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
     dev = resolve_device(device)
     sharded = any(c.shards > 1 for c in grid)
     if mode == "auto":
-        mode = ("vmap" if dev.type == "cuda" and not sharded
+        mode = ("vmap" if dev.type == "cuda" and not (sharded or adaptive)
                 else "sequential")
     if mode not in ("vmap", "sequential"):
         raise ValueError(f"unknown mode {mode!r}")
+    if adaptive:
+        climb = climb or ClimbSpec()
+        climbs = (list(climb) if isinstance(climb, (list, tuple))
+                  else [climb] * len(grid))
+        if len(climbs) != len(grid):
+            raise ValueError(f"climb sequence length {len(climbs)} != "
+                             f"{len(grid)} grid configurations")
     if sharded and mode == "vmap":
         raise ValueError("sharded sweeps run per-config epoch-chunked "
                          "programs: use mode='sequential'")
@@ -527,7 +669,9 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
     G = len(grid)
 
     t0 = time.perf_counter()
-    if mode == "vmap":
+    if mode == "vmap" and adaptive:
+        regs = _adaptive_lanes(grid, climbs, trace, warmup, dev)
+    elif mode == "vmap":
         spec, states = _padded_grid(grid, dev)
         pstack = torch.stack([c.params(warmup=warmup, device=dev)
                               for c in grid])
@@ -548,8 +692,12 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
             spec = c.spec()
             st = init_step_state(spec, c.window_cap, c.main_cap, device=dev)
             lo, hi = _trace_lanes(trace if shared_trace else trace[gi], dev)
-            st, _ = _run(c, spec, c.params(warmup=warmup, device=dev), st,
-                         lo, hi, chunk)
+            params = c.params(warmup=warmup, device=dev)
+            if adaptive:
+                st = _run_adaptive(c, spec, params, st, lo, hi,
+                                   climbs[gi])[0]
+            else:
+                st = _run(c, spec, params, st, lo, hi, chunk)[0]
             outs.append(st["regs"])
         regs = torch.stack(outs).cpu()
     wall = time.perf_counter() - t0
@@ -562,9 +710,13 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
         extra = {"backend": f"{backend}+{mode}", "window_frac": wf,
                  "grid": G, "grid_wall_s": wall, "assoc": grid[g].assoc,
                  "device": _device_name(dev),
-                 **_row_extra(grid[g], None, False)}
+                 **_row_extra(grid[g], climbs[g] if adaptive else None,
+                              adaptive)}
+        if adaptive:
+            extra["adaptive"] = True
+            extra["final_quota"] = int(regs[g, R_WQUOTA])
         out.append(SimResult(
-            policy=_policy_label(grid[g], False), cache_size=C,
+            policy=_policy_label(grid[g], adaptive), cache_size=C,
             trace=trace_name, accesses=counted, hits=hits,
             hit_ratio=hits / max(1, counted),
             # per-row amortized wall; the grid's total is in grid_wall_s
@@ -574,6 +726,47 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
                   f"hit={out[-1].hit_ratio:.4f}  (grid of {G}, "
                   f"{wall:.1f}s total)", flush=True)
     return out
+
+
+def _adaptive_lanes(grid: list, climbs: list, trace: np.ndarray,
+                    warmup: int, device) -> torch.Tensor:
+    """An adaptive grid as lanes of one run: one shared geometry, per-lane
+    params, state, climb vector and climber registers; returns the final
+    (G, NREGS) registers on the host."""
+    specs = {c.spec() for c in grid}
+    if len(specs) != 1:
+        raise ValueError(
+            "adaptive vmap sweeps run the grid as lanes of ONE "
+            "compiled program, which needs one shared static geometry; "
+            f"this grid has {len(specs)} distinct geometries "
+            "(capacities or sizing differ) — sweep window_fracs or "
+            "climb hyperparameters, or use mode='sequential'")
+    G = len(grid)
+    lspec = specs.pop()
+    epochs = {int(cl.epoch_len) for cl in climbs}
+    if len(epochs) != 1:
+        raise ValueError(
+            "adaptive vmap sweeps climb in lockstep, so climb.epoch_len "
+            f"must be uniform across the grid (got {sorted(epochs)}) — "
+            "use mode='sequential' for mixed epoch lengths")
+    pstack = torch.stack([c.params(warmup=warmup, device=device)
+                          for c in grid])
+    states = [init_step_state(lspec, c.window_cap, c.main_cap, device=device)
+              for c in grid]
+    cstack = torch.as_tensor(np.stack([cl.resolve(c)
+                                       for cl, c in zip(climbs, grid)]),
+                             device=device)
+    lo, hi = _trace_lanes(trace, device)
+    if trace.ndim == 1:
+        lo, hi = lo.expand(G, -1), hi.expand(G, -1)
+    if G == 1:
+        st = _run_adaptive(grid[0], lspec, pstack[0], states[0], lo[0],
+                           hi[0], climbs[0], cstack[0])[0]
+        return st["regs"][None].cpu()
+    state = {k: torch.stack([s[k] for s in states]) for k in states[0]}
+    st = _run_adaptive(grid[0], replace(lspec, streams=G), pstack, state, lo,
+                       hi, climbs[0], cstack)[0]
+    return st["regs"].cpu()
 
 
 def _padded_grid(grid: list, device) -> tuple[StepSpec, list]:

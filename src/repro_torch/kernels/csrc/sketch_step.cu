@@ -74,6 +74,23 @@
 // own overloads of the word functions, so kShard = false compiles the code
 // of the unsharded kernel.
 //
+// The adaptive window (adaptive = 1, the reference's runtime window quota)
+// is the kAdapt instance, compiled in a second build of this file with
+// -DSKETCH_STEP_ADAPTIVE (built in parallel with the first; each library
+// holds one of the two sets of instances, so the static instances compile
+// exactly as without it).  The quota and the flat tables' resident counts
+// and the epoch's hits stay in registers for the chunk beside size and t;
+// stamps are 2t in the window and 2t + 1 in main.  Flat tables: the
+// protected budget follows main's runtime capacity (total - quota), the
+// drain waits for a main hit, and at quota the argmins read EMPTY slots as
+// padding.  Set tables: a set's ways at or past its usable count read as
+// padding in registers only (the window set's count is one wuw load issued
+// with its records; main's is arithmetic on the quota), so every decision
+// skips them; the kernel writes only chosen records, so a masked way is
+// never written and stays EMPTY in storage.  Lane 0 adds each access to its
+// window set's wsl count with a fire-and-forget atomic.  The epoch's
+// rebalance (kernels/sketch_step.py) moves the quota between launches.
+//
 // Timing probes (python -m repro_torch.kernels.phase_timing) build this file
 // with -DSKETCH_STEP_SKIP_ADD or -DSKETCH_STEP_SKIP_ACCESS to compile one
 // phase out of the loop; the engine's build defines neither.
@@ -91,7 +108,13 @@ constexpr int kMaxWays = 128;    // the wrapper's _MAX_WAYS
 constexpr int kNRegs = 8;        // NREGS
 
 enum { P_WINDOW_CAP, P_MAIN_CAP, P_PROT_CAP, P_SAMPLE, P_CAP, P_WARMUP };
-enum { R_SIZE, R_PCOUNT, R_T, R_HITS };
+enum { R_SIZE, R_PCOUNT, R_T, R_HITS, R_WQUOTA, R_WCOUNT, R_MCOUNT,
+       R_EHITS };
+#ifdef SKETCH_STEP_ADAPTIVE
+constexpr bool kAdaptBuild = true;
+#else
+constexpr bool kAdaptBuild = false;
+#endif
 enum { WT_LO, WT_HI, WT_META, WT_MSET, WT_MSET2 };
 enum { MT_LO, MT_HI, MT_META };
 
@@ -114,11 +137,14 @@ struct StepArgs {
   int* regs;
   int* hits;            // (b,)
   const int* nvalid;    // lane grid: (lanes,) per-lane n_valid, or NULL
+  int* wsl;             // adaptive set layout: (window sets,) traffic
+  const int* wuw;       // adaptive set layout: (window sets,) usable ways
   int n_valid, b, rows, dkp, dk_bits, counter_bits, words_per_row,
       counter_words, dk_words, window_slots, main_slots, assoc, wcols, mcols;
   int lanes;            // 0: one stream; B >= 1: the lane grid of B CTAs
   int params_stride;    // lane grid: 0 (shared params) or NPARAMS
   int halves;           // 1: one sketch; 2: [global || delta] (sharded)
+  int adaptive;         // 1: the runtime window quota (the kAdapt build)
 };
 
 namespace {
@@ -142,6 +168,42 @@ struct Lanes {
 struct Entry {
   int lo, hi, w, m1, m2, pr;
 };
+
+// The adaptive window's registers for a chunk: the quota, the flat tables'
+// resident counts, main's runtime capacity and protected budget, and its
+// usable ways per set (mbase, one more below set mrem).
+struct Adapt {
+  int wquota, wcount, mcount, mcap_rt, prot_rt, mbase, mrem;
+};
+
+// Floor division and modulo by d > 0 (jnp.int32 // and %).
+__device__ __forceinline__ int floordiv(int x, int d) {
+  const int q = x / d;
+  return (x % d != 0 && x < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floormod(int x, int d) {
+  return x - floordiv(x, d) * d;
+}
+
+// An int32 product or sum that wraps, as jnp's int32 arithmetic does.
+__device__ __forceinline__ int wrap_mul(int x, int y) {
+  return static_cast<int>(static_cast<unsigned>(x) * static_cast<unsigned>(y));
+}
+
+// The window and main stamps of access t: t and t (static), 2t and 2t + 1
+// (adaptive: unique across the tables, so a record the rebalance moves from
+// the window into main never ties a main stamp).
+template <bool kAdapt>
+__device__ __forceinline__ int wstamp(int t) {
+  return kAdapt ? wrap_mul(t, 2) : t;
+}
+
+template <bool kAdapt>
+__device__ __forceinline__ int mstamp(int t) {
+  return kAdapt ? static_cast<int>(static_cast<unsigned>(wrap_mul(t, 2)) + 1u)
+                : t;
+}
 
 __device__ __forceinline__ void load_key(const StepArgs& a, const Lanes& ln,
                                          int i, Entry& k) {
@@ -380,9 +442,10 @@ __device__ __forceinline__ int estimate_sharded(const StepArgs& a,
 }
 
 // One access against the exact flat tables; returns the hit flag.
-template <bool kShard>
+template <bool kShard, bool kAdapt>
 __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
-                           int i, int t, int& pcount, int lane) {
+                           int i, int t, int& pcount, int lane, Adapt& ad) {
+  const int wst = wstamp<kAdapt>(t), mst = mstamp<kAdapt>(t);
   const int klo = __ldg(a.lo + i), khi = __ldg(a.hi + i);
   const int* kidx = a.kidx + i * a.rows;
   const int* kdkb = a.kdkb + i * a.dkp;
@@ -398,27 +461,37 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
   const bool hit = hit_w || hit_m;
   __syncwarp();
   if (lane == 0) {
-    if (hit_w) a.wmeta[jw] = t;               // window hit: refresh
-    if (hit_m) a.mmeta[jm] = kProt | t;       // main hit: -> protected MRU
+    if (hit_w) a.wmeta[jw] = wst;             // window hit: refresh
+    if (hit_m) a.mmeta[jm] = kProt | mst;     // main hit: -> protected MRU
   }
   __syncwarp();
   pcount += (hit_m && mjm < kProt) ? 1 : 0;
   int v;
-  if (pcount > P[P_PROT_CAP]) {               // demote the protected LRU
+  // adaptive: the budget follows main's runtime capacity, and the drain
+  // waits for a main hit (a rebalance may leave the count above it)
+  const int prot_cap = kAdapt ? ad.prot_rt : P[P_PROT_CAP];
+  if ((!kAdapt || hit_m) && pcount > prot_cap) {  // demote the protected LRU
     const int kd = argmin_over(a.main_slots, [&](int j) {
       const int mm = a.mmeta[j]; return mm >= kProt ? mm : kI32Max; }, v);
     __syncwarp();
-    if (lane == 0) a.mmeta[kd] = t;
+    if (lane == 0) a.mmeta[kd] = mst;
     __syncwarp();
     pcount -= 1;
   }
   if (hit) return 1;
 
   // miss: insert into the window (argmin after the refresh); its LRU entry,
-  // read before the insert, is the admission candidate
+  // read before the insert, is the admission candidate.  Adaptive: at quota
+  // the empty slots read as padding
   int wsmeta;
+  const bool at_wcap = kAdapt && ad.wcount >= ad.wquota;
   const int ws = argmin_over(a.window_slots, [&](int j) {
-    return a.wmeta[j]; }, wsmeta);
+    const int wm = a.wmeta[j];
+    return at_wcap && wm == -1 ? kI32Max : wm; }, wsmeta);
+  if constexpr (kAdapt) {
+    wsmeta = a.wmeta[ws];
+    ad.wcount += wsmeta == -1 ? 1 : 0;
+  }
   const int cand_lo = a.wlo[ws], cand_hi = a.whi[ws];
   int cidx[kMaxRows], cdkb[kMaxDkp];
 #pragma unroll
@@ -431,7 +504,7 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
   if (lane == 0) {
     a.wlo[ws] = klo;
     a.whi[ws] = khi;
-    a.wmeta[ws] = t;
+    a.wmeta[ws] = wst;
     for (int r = 0; r < a.rows; ++r) a.widx[ws * a.rows + r] = __ldg(kidx + r);
     for (int p = 0; p < a.dkp; ++p) a.wdkb[ws * a.dkp + p] = __ldg(kdkb + p);
   }
@@ -440,8 +513,11 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
 
   // free slot < probation LRU < protected LRU, after promote/demote
   int vmeta;
+  const bool at_mcap = kAdapt && ad.mcount >= ad.mcap_rt;
   const int tslot = argmin_over(a.main_slots, [&](int j) {
-    return a.mmeta[j]; }, vmeta);
+    const int mm = a.mmeta[j];
+    return at_mcap && mm == -1 ? kI32Max : mm; }, vmeta);
+  if constexpr (kAdapt) vmeta = a.mmeta[tslot];
   bool do_ins = vmeta < 0;
   if (!do_ins) {
     int vidx[kMaxRows], vdkb[kMaxDkp];
@@ -462,7 +538,7 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
     if (lane == 0) {
       a.mlo[tslot] = cand_lo;
       a.mhi[tslot] = cand_hi;
-      a.mmeta[tslot] = t;
+      a.mmeta[tslot] = mst;
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r)
         if (r < a.rows) a.midx[tslot * a.rows + r] = cidx[r];
@@ -472,6 +548,7 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
     }
     __syncwarp();
     if (vmeta >= kProt) pcount -= 1;
+    if (kAdapt && vmeta < 0) ad.mcount += 1;
   }
   return 0;
 }
@@ -580,12 +657,23 @@ struct SetRegs {
   int mlo[RM], mhi[RM], mmeta[RM];        // the key's two main sets
 };
 
+// Main set s's usable ways under the adaptive window (all ways, static).
+template <bool kAdapt>
+__device__ __forceinline__ int main_usable(const StepArgs& a, const Adapt& ad,
+                                           int s) {
+  return kAdapt ? ad.mbase + (s < ad.mrem ? 1 : 0) : a.assoc;
+}
+
 // Load the key's window set (every column) and the lo/hi/meta columns of
-// its two main sets.  Loads only: nothing waits for them here.
-template <int RM>
+// its two main sets.  Loads only: nothing waits for them here.  Adaptive:
+// the ways past each set's usable count read as padding (kI32Max).
+template <int RM, bool kAdapt>
 __device__ __forceinline__ void load_sets(const StepArgs& a, const Entry& k,
-                                          SetRegs<RM>& g, int lane) {
+                                          SetRegs<RM>& g, int lane,
+                                          const Adapt& ad) {
   const int A = a.assoc;
+  int wu = A;
+  if constexpr (kAdapt) wu = a.wuw[k.w];
 #pragma unroll
   for (int r = 0; r < SetRegs<RM>::RW; ++r) {
     const int j = lane + 32 * r;
@@ -594,7 +682,8 @@ __device__ __forceinline__ void load_sets(const StepArgs& a, const Entry& k,
       const int* p = a.wtab + (k.w * A + j) * a.wcols;
       g.wlo[r] = p[WT_LO];
       g.whi[r] = p[WT_HI];
-      g.wmeta[r] = p[WT_META];
+      const int m = p[WT_META];
+      g.wmeta[r] = !kAdapt || j < wu ? m : kI32Max;
       g.wms1[r] = p[WT_MSET];
       g.wms2[r] = p[WT_MSET2];
 #pragma unroll
@@ -606,6 +695,7 @@ __device__ __forceinline__ void load_sets(const StepArgs& a, const Entry& k,
     }
   }
   const int set = lane < 16 ? k.m1 : k.m2;
+  const int mu = main_usable<kAdapt>(a, ad, set);
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     const int j = (lane & 15) + 16 * r;
@@ -614,15 +704,17 @@ __device__ __forceinline__ void load_sets(const StepArgs& a, const Entry& k,
       const int* p = a.mtab + (set * A + j) * a.mcols;
       g.mlo[r] = p[MT_LO];
       g.mhi[r] = p[MT_HI];
-      g.mmeta[r] = p[MT_META];
+      const int m = p[MT_META];
+      g.mmeta[r] = !kAdapt || j < mu ? m : kI32Max;
     }
   }
 }
 
 // SLRU promote-or-refresh of way j of main set h (in lanes 16 h ..), then
 // the set's protected budget check (prot_cap[usable], the reference's
-// max(1, usable * prot_cap // max(main_cap, 1))); writes the changed meta
-// words.
+// max(1, usable * prot_cap // max(main_cap, 1)), usable counting the ways
+// that do not read as padding); writes the changed meta words with main's
+// stamp t.
 template <int RM>
 __device__ void hit_update(const StepArgs& a, const int* prot_cap,
                            SetRegs<RM>& g, int h, int j, int set, int t,
@@ -652,12 +744,13 @@ __device__ void hit_update(const StepArgs& a, const int* prot_cap,
 
 // One access against the set-associative tables, from the registers
 // load_sets filled (the pre-access records); returns the hit flag.
-template <int RM, bool kShard>
+template <int RM, bool kShard, bool kAdapt>
 __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
                           const int* prot_cap, int t, const Entry& k,
-                          SetRegs<RM>& g) {
+                          SetRegs<RM>& g, const Adapt& ad) {
   constexpr int RW = SetRegs<RM>::RW;
   const int A = a.assoc, lane = ln.lane;
+  const int wst = wstamp<kAdapt>(t), mst = mstamp<kAdapt>(t);
   const bool same_km = k.m1 == k.m2;
   bool hit_w = false, hit1 = false, hit2 = false;
   int jw = 0, j1 = 0, j2 = 0;
@@ -680,9 +773,9 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
   hit2 = hit2 && !same_km;        // aliased choices: count set 1 only
   if (hit_w || hit1 || hit2) {
     if (hit_w && lane == 0)       // window hit: refresh
-      a.wtab[(k.w * A + jw) * a.wcols + WT_META] = t;
-    if (hit1) hit_update(a, prot_cap, g, 0, j1, k.m1, t, lane);
-    if (hit2) hit_update(a, prot_cap, g, 1, j2, k.m2, t, lane);
+      a.wtab[(k.w * A + jw) * a.wcols + WT_META] = wst;
+    if (hit1) hit_update(a, prot_cap, g, 0, j1, k.m1, mst, lane);
+    if (hit2) hit_update(a, prot_cap, g, 1, j2, k.m2, mst, lane);
     return 1;
   }
 
@@ -701,7 +794,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
     c.m2 = __shfl_sync(kFull, pick(g.wms2, rr), src);
     c.pr = probes_from(a, ln, g.widx, g.wdkb, src, rr);
     // the key takes the candidate's window row
-    const int head[5] = {k.lo, k.hi, t, k.m1, k.m2};
+    const int head[5] = {k.lo, k.hi, wst, k.m1, k.m2};
     write_row(a, ln, a.wtab + (k.w * A + ws) * a.wcols, 5, head, k.pr);
   }
   if (!push) return 0;            // the window had room
@@ -710,6 +803,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
   // main set changed, so the table holds the pre-access records) and its
   // sketch words, loaded together
   const int cset = lane < 16 ? c.m1 : c.m2;
+  const int cu = main_usable<kAdapt>(a, ad, cset);
   int cmeta[RM], cidx[RM][kMaxRows], cdkb[RM][kMaxDkp];
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
@@ -717,7 +811,8 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
     cmeta[r] = kI32Max;
     if (j < A) {
       const int* p = a.mtab + (cset * A + j) * a.mcols;
-      cmeta[r] = p[MT_META];
+      const int m = p[MT_META];
+      cmeta[r] = !kAdapt || j < cu ? m : kI32Max;
 #pragma unroll
       for (int q = 0; q < kMaxRows; ++q)
         if (q < a.rows) cidx[r][q] = p[3 + q];
@@ -755,7 +850,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
     do_ins = estimate_of(a, s, ln, cw, c.pr) > estimate_of(a, s, ln, vw, vpr);
   }
   if (do_ins) {                   // the candidate takes the victim's way
-    const int head[5] = {c.lo, c.hi, t, 0, 0};
+    const int head[5] = {c.lo, c.hi, mst, 0, 0};
     write_row(a, ln, a.mtab + ((vh ? c.m2 : c.m1) * A + vj) * a.mcols, 3,
               head, c.pr);
   }
@@ -765,7 +860,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
 // Point a at lane l of the lane-axis operands (every leaf is (lanes, ...)
 // with the single-stream shape behind the lane axis; a sharded lane's
 // sketch is two halves long).
-template <bool kShard>
+template <bool kShard, bool kAdapt>
 __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
   const long long b = a.b;
   a.lo += l * b;
@@ -792,16 +887,22 @@ __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
   } else {
     a.wtab += l * a.window_slots * static_cast<long long>(a.wcols);
     a.mtab += l * a.main_slots * static_cast<long long>(a.mcols);
+    if constexpr (kAdapt) {
+      const long long nws = a.window_slots / a.assoc;
+      a.wsl += l * nws;
+      a.wuw += l * nws;
+    }
   }
   if (a.nvalid) a.n_valid = a.nvalid[l];
 }
 
 // The chunk loop.  RM = 0: the flat tables; else the set-associative path
 // with RM records per lane of a pair of main sets.  kLanes: CTA l runs
-// lane l of the lane grid.  kShard: the sharded sketch.
-template <int RM, bool kLanes, bool kShard>
+// lane l of the lane grid.  kShard: the sharded sketch.  kAdapt: the
+// adaptive window.
+template <int RM, bool kLanes, bool kShard, bool kAdapt>
 __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
-  if constexpr (kLanes) to_lane<kShard>(a, blockIdx.x);
+  if constexpr (kLanes) to_lane<kShard, kAdapt>(a, blockIdx.x);
   __shared__ int prot_cap[kMaxWays + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = a.n_valid + tid; j < a.b; j += blockDim.x) a.hits[j] = 0;
@@ -820,6 +921,22 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   int pcount = a.regs[R_PCOUNT];
   int t = a.regs[R_T];
   int nhits = a.regs[R_HITS];
+  Adapt ad{};
+  int ehits = 0;
+  if constexpr (kAdapt) {
+    ad.wquota = a.regs[R_WQUOTA];
+    ad.wcount = a.regs[R_WCOUNT];
+    ad.mcount = a.regs[R_MCOUNT];
+    ehits = a.regs[R_EHITS];
+    ad.mcap_rt = P[P_WINDOW_CAP] + P[P_MAIN_CAP] - ad.wquota;
+    const int pr = floordiv(wrap_mul(ad.mcap_rt, P[P_PROT_CAP]), main_cap);
+    ad.prot_rt = pr < 1 ? 1 : pr;
+    if (RM != 0) {
+      const int nms = a.main_slots / a.assoc;
+      ad.mbase = floordiv(ad.mcap_rt, nms);
+      ad.mrem = floormod(ad.mcap_rt, nms);
+    }
+  }
   Sketch s;
   s.shift = a.counter_bits == 4 ? 3 : 2;
   s.cpw_mask = 32 / a.counter_bits - 1;
@@ -838,7 +955,9 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
     if (warp == 0) {
       if (i + 1 < a.n_valid) load_key(a, ln, i + 1, next);   // one ahead
 #ifndef SKETCH_STEP_SKIP_ACCESS
-      if constexpr (RM != 0) load_sets(a, k, g, lane);
+      if constexpr (RM != 0) load_sets<RM, kAdapt>(a, k, g, lane, ad);
+      if constexpr (kAdapt && RM != 0)      // the window set's traffic
+        if (lane == 0) atomicAdd(a.wsl + k.w, 1);
 #endif
 #ifndef SKETCH_STEP_SKIP_ADD
       add_words(a, s, ln, P[P_CAP], k, load_probe<kShard>(a, s, ln, k.pr));
@@ -863,12 +982,14 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
 #else
       int hit;
       if constexpr (RM == 0)
-        hit = access_flat<kShard>(a, s, P, i, t, pcount, lane);
+        hit = access_flat<kShard, kAdapt>(a, s, P, i, t, pcount, lane, ad);
       else
-        hit = access_set<RM, kShard>(a, s, ln, prot_cap, t, k, g);
+        hit = access_set<RM, kShard, kAdapt>(a, s, ln, prot_cap, t, k, g,
+                                             ad);
 #endif
       if (lane == 0) a.hits[i] = hit;
       nhits += (hit && t >= P[P_WARMUP]) ? 1 : 0;
+      if constexpr (kAdapt) ehits += hit;
       t += 1;
       k = next;
       __syncwarp();
@@ -880,23 +1001,28 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
     a.regs[R_PCOUNT] = pcount;
     a.regs[R_T] = t;
     a.regs[R_HITS] = nhits;
+    if constexpr (kAdapt) {
+      a.regs[R_WCOUNT] = ad.wcount;
+      a.regs[R_MCOUNT] = ad.mcount;
+      a.regs[R_EHITS] = ehits;
+    }
   }
 }
 
-template <bool kLanes, bool kShard>
+template <bool kLanes, bool kShard, bool kAdapt>
 int launch_rm(const StepArgs& a, int threads, cudaStream_t st) {
   const dim3 grid(kLanes ? a.lanes : 1);
   const int rm = (a.assoc + 15) / 16;
   if (a.assoc == 0)
-    sketch_step_kernel<0, kLanes, kShard><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<0, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
   else if (rm <= 1)
-    sketch_step_kernel<1, kLanes, kShard><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<1, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
   else if (rm <= 2)
-    sketch_step_kernel<2, kLanes, kShard><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<2, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
   else if (rm <= 4)
-    sketch_step_kernel<4, kLanes, kShard><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<4, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
   else if (rm <= 8)
-    sketch_step_kernel<8, kLanes, kShard><<<grid, threads, 0, st>>>(a);
+    sketch_step_kernel<8, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -904,17 +1030,19 @@ int launch_rm(const StepArgs& a, int threads, cudaStream_t st) {
 
 template <bool kShard>
 int launch_lanes(const StepArgs& a, int threads, cudaStream_t st) {
-  return a.lanes ? launch_rm<true, kShard>(a, threads, st)
-                 : launch_rm<false, kShard>(a, threads, st);
+  return a.lanes ? launch_rm<true, kShard, kAdaptBuild>(a, threads, st)
+                 : launch_rm<false, kShard, kAdaptBuild>(a, threads, st);
 }
 
 }  // namespace
 
+// This build's instances take adaptive == kAdaptBuild only.
 extern "C" int sketch_step_launch(const StepArgs* args, int threads,
                                   void* stream) {
   const StepArgs& a = *args;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.lanes < 0 || a.halves < 1 || a.halves > 2)
+  if (a.lanes < 0 || a.halves < 1 || a.halves > 2
+      || (a.adaptive != 0) != kAdaptBuild)
     return static_cast<int>(cudaErrorInvalidValue);
   return a.halves == 2 ? launch_lanes<true>(a, threads, st)
                        : launch_lanes<false>(a, threads, st);

@@ -1,7 +1,7 @@
 """Fused per-access W-TinyLFU step: plain PyTorch version and CUDA wrapper.
 
-Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``
-and ``adaptive=False``, in both table layouts:
+Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``,
+in both table layouts:
 
 * flat (``assoc=None``): exact global LRU window and SLRU main, one packed
   int32 ``meta`` per slot (-1 empty, ``t`` probation, ``2^30|t`` protected,
@@ -21,6 +21,15 @@ halves, an access reads global plus delta (doorkeeper bits: global or delta)
 and writes only the delta half, and there is no per-access reset: the §3.3
 aging moves to the epoch fold (``kernels/sketch_merge.py``).  ``integrity``
 adds a ``csum`` leaf of ``S + 1`` int32 words that only the fold touches.
+
+``adaptive=True`` moves the window/main split from init-time padding into
+registers: ``regs[R_WQUOTA]`` is the window quota, the flat tables gate
+inserts on the resident counts ``R_WCOUNT``/``R_MCOUNT``, and the set
+tables read each set's usable ways (``wuw`` for the window, arithmetic for
+main); ways past them read as padding and stay empty in storage.  Stamps
+are ``2t`` in the window and ``2t + 1`` in main, ``R_EHITS`` counts the
+epoch's hits and ``wsl`` each window set's accesses.  :func:`rebalance`
+moves the split between epochs (tensor ops, no host read).
 
 The state is a dict of int32 tensors with the reference's keys and shapes
 (``_state_keys``), so ``state_from_numpy``/``state_to_numpy`` carry state
@@ -89,9 +98,8 @@ class StepSpec:
 
     Same fields, properties and validation as the reference ``StepSpec``
     (see its docstring for each field).  The port runs every field but
-    ``adaptive``, ``mesh_devices``/``mesh_exchange`` and ``policy``, which
-    are accepted here and refused by the entry points that do not port them
-    yet.
+    ``mesh_devices``/``mesh_exchange`` and ``policy``, which are accepted
+    here and refused by the entry points that do not port them yet.
     """
     width: int
     rows: int = 4
@@ -224,9 +232,6 @@ class StepSpec:
 
 def _require_ported(spec: StepSpec):
     """Refuse the StepSpec modes this slice of the port does not run."""
-    if spec.adaptive:
-        raise NotImplementedError(
-            "adaptive window is ROADMAP queue 1 item 7")
     if spec.mesh_devices:
         raise NotImplementedError("mesh execution is ROADMAP queue 1 item 12")
     if spec.policy != "wtinylfu":
@@ -251,7 +256,8 @@ def _state_keys(spec: StepSpec) -> tuple[str, ...]:
     if spec.assoc is None:
         return ("counters", "doorkeeper", "wlo", "whi", "wmeta", "widx",
                 "wdkb", "mlo", "mhi", "mmeta", "midx", "mdkb", "regs") + csum
-    return ("counters", "doorkeeper", "wtab", "mtab", "regs") + csum
+    load = ("wsl", "wuw") if spec.adaptive else ()
+    return ("counters", "doorkeeper", "wtab", "mtab", "regs") + load + csum
 
 
 def _state_shapes(spec: StepSpec) -> dict:
@@ -264,6 +270,8 @@ def _state_shapes(spec: StepSpec) -> dict:
     else:
         tables = {"wtab": (spec.window_slots, spec.wcols),
                   "mtab": (spec.main_slots, spec.mcols)}
+        if spec.adaptive:
+            tables["wsl"] = tables["wuw"] = (spec.window_sets,)
     shapes = {"counters": (spec.sketch_halves * spec.counter_words,),
               "doorkeeper": (spec.sketch_halves * spec.dk_words,), **tables,
               "regs": (NREGS,)}
@@ -282,6 +290,9 @@ def init_step_state(spec: StepSpec, window_cap: int | None = None,
     ``window_cap``/``main_cap`` below the static slot counts mark the excess
     slots as permanent padding (set mode: spread over the sets by
     ``set_ways``), exactly as the reference's init does.  With
+    ``spec.adaptive`` nothing is padded: ``window_cap`` seeds the quota
+    register ``R_WQUOTA`` and (set mode) the window's usable ways ``wuw =
+    set_ways(window_cap, window_sets)``, ``wsl`` starts at 0.  With
     ``spec.streams = B > 1`` every leaf gains a leading lane axis and each
     lane is the same zeroed instance.
     """
@@ -297,7 +308,13 @@ def init_step_state(spec: StepSpec, window_cap: int | None = None,
            f"capacities ({wcap}, {mcap}) must fit the static slots "
            f"({spec.window_slots}, {spec.main_slots})")
     arrays = {k: np.zeros(v, np.int32) for k, v in _state_shapes(spec).items()
-              if k in ("counters", "doorkeeper", "regs", "csum")}
+              if k in ("counters", "doorkeeper", "regs", "csum", "wsl")}
+    if spec.adaptive:
+        arrays["regs"][R_WQUOTA] = wcap
+        if spec.assoc is not None:
+            arrays["wuw"] = np.asarray(set_ways(wcap, spec.window_sets),
+                                       np.int32)
+        wcap, mcap = spec.window_slots, spec.main_slots     # no padding
     if spec.assoc is None:
         for p, slots, cap in (("w", spec.window_slots, wcap),
                               ("m", spec.main_slots, mcap)):
@@ -499,8 +516,28 @@ def _estimate_pair(spec: StepSpec, counters, dk, idx2, dkb2):
     return est
 
 
+def _floordiv(a, b):
+    """``a // b`` with floor rounding, as ``jnp.int32 //`` (a or b may be
+    negative; int32 products wrap before it, as in the reference)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _runtime_caps(params, wquota):
+    """Adaptive: main's runtime capacity (what the quota leaves of the
+    total) and the protected budget at the static fraction of it."""
+    mcap_rt = params[P_WINDOW_CAP] + params[P_MAIN_CAP] - wquota
+    prot_rt = torch.clamp(_floordiv(
+        mcap_rt * params[P_PROT_CAP],
+        torch.clamp(params[P_MAIN_CAP], min=1)), min=1)
+    return mcap_rt, prot_rt
+
+
 def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
-    """One access against the exact flat tables, in place; returns hit."""
+    """One access against the exact flat tables, in place; returns hit.
+
+    Adaptive: the protected budget follows main's runtime capacity, the
+    drain is gated on a main hit, and at quota the argmins hide EMPTY slots
+    (the runtime equivalent of padding)."""
     regs = st["regs"]
     t = regs[R_T].clone()
     size = _add(spec, params, st, kidx, kdkb)
@@ -508,6 +545,14 @@ def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
     widx, wdkb = st["widx"], st["wdkb"]
     mlo, mhi, mmeta = st["mlo"], st["mhi"], st["mmeta"]
     midx, mdkb = st["midx"], st["mdkb"]
+    if spec.adaptive:
+        wquota, wcount, mcount = (regs[R_WQUOTA].clone(),
+                                  regs[R_WCOUNT].clone(),
+                                  regs[R_MCOUNT].clone())
+        mcap_rt, prot_rt = _runtime_caps(params, wquota)
+        wst, mst = t + t, t + t + 1
+    else:
+        prot_rt, wst, mst = params[P_PROT_CAP], t, t
 
     # lookups: argmax of an all-False mask is 0, whose slot the test reads
     jw = _argmax_mask((wlo == klo) & (whi == khi))
@@ -519,27 +564,37 @@ def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
     promote = hit_m & (_get(mmeta, jm) < _PROT)
     hit = hit_w | hit_m
 
-    _put(wmeta, jw, t, hit_w)                       # window hit: refresh
-    _put(mmeta, jm, _PROT | t, hit_m)               # main hit: -> protected
+    _put(wmeta, jw, wst, hit_w)                     # window hit: refresh
+    _put(mmeta, jm, _PROT | mst, hit_m)             # main hit: -> protected
     pcount = regs[R_PCOUNT] + promote.to(torch.int32)
-    over = pcount > params[P_PROT_CAP]              # demote protected LRU
+    over = pcount > prot_rt                         # demote protected LRU
+    if spec.adaptive:
+        over = over & hit_m
     kd = torch.argmin(torch.where(mmeta >= _PROT, mmeta, _I32_MAX))
-    _put(mmeta, kd, t, over)
+    _put(mmeta, kd, mst, over)
     pcount = pcount - over.to(torch.int32)
 
     miss = ~hit
-    ws = torch.argmin(wmeta)                        # after the hit refresh
+    if spec.adaptive:                               # after the hit refresh
+        ws = torch.argmin(torch.where((wcount >= wquota) & (wmeta == _EMPTY),
+                                      _I32_MAX, wmeta))
+    else:
+        ws = torch.argmin(wmeta)
     wsmeta = _get(wmeta, ws)
     push = miss & (wsmeta >= 0)
     cand_lo, cand_hi = _get(wlo, ws), _get(whi, ws)
     cand_idx, cand_dkb = _get(widx, ws), _get(wdkb, ws)
     _put(wlo, ws, klo, miss)
     _put(whi, ws, khi, miss)
-    _put(wmeta, ws, t, miss)
+    _put(wmeta, ws, wst, miss)
     _put(widx, ws, kidx, miss)
     _put(wdkb, ws, kdkb, miss)
 
-    tslot = torch.argmin(mmeta)                     # after promote/demote
+    if spec.adaptive:                               # after promote/demote
+        tslot = torch.argmin(torch.where(
+            (mcount >= mcap_rt) & (mmeta == _EMPTY), _I32_MAX, mmeta))
+    else:
+        tslot = torch.argmin(mmeta)
     vmeta = _get(mmeta, tslot)
     m_free = vmeta < 0
     est = _estimate_pair(spec, st["counters"], st["doorkeeper"],
@@ -548,7 +603,7 @@ def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
     do_ins = push & (m_free | (est[0] > est[1]))
     _put(mlo, tslot, cand_lo, do_ins)
     _put(mhi, tslot, cand_hi, do_ins)
-    _put(mmeta, tslot, t, do_ins)
+    _put(mmeta, tslot, mst, do_ins)
     _put(midx, tslot, cand_idx, do_ins)
     _put(mdkb, tslot, cand_dkb, do_ins)
     pcount = pcount - (do_ins & (vmeta >= _PROT)).to(torch.int32)
@@ -558,6 +613,10 @@ def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
     regs[R_PCOUNT] = pcount
     regs[R_T] = t + 1
     regs[R_HITS] = regs[R_HITS] + counted
+    if spec.adaptive:
+        regs[R_WCOUNT] = wcount + (miss & (wsmeta == _EMPTY)).to(torch.int32)
+        regs[R_MCOUNT] = mcount + (do_ins & m_free).to(torch.int32)
+        regs[R_EHITS] = regs[R_EHITS] + hit.to(torch.int32)
     return hit
 
 
@@ -568,6 +627,10 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     All decisions read the pre-access blocks; where the candidate's sets
     alias the key's sets the hit updates are replayed onto them; the block
     writes go last in the order km1, km2, c1, c2, window (later writes win).
+    Adaptive: a set's ways at or past its usable count (``wuw[set]`` in the
+    window; main's runtime capacity spread over its sets) read as padding
+    for every decision and are written back EMPTY; ``wsl`` counts the
+    access in its window set.
     """
     A = spec.assoc
     rows, dkp = spec.rows, spec.dkp
@@ -577,18 +640,45 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     wtab, mtab = st["wtab"], st["mtab"]
     ways = torch.arange(A, device=wtab.device)
 
-    def block(tab, s):
-        return tab[(s.long() * A + ways)]            # (A, cols) copy
+    if spec.adaptive:
+        mcap_rt, _ = _runtime_caps(params, regs[R_WQUOTA])
+        nms = spec.main_sets
+
+        def w_usable(s):
+            return _get(st["wuw"], s)
+
+        def m_usable(s):
+            return (_floordiv(mcap_rt, nms)
+                    + (s < torch.remainder(mcap_rt, nms)).to(torch.int32))
+
+        def masked(blk, u, col, fill):
+            blk[:, col] = torch.where(ways >= u, fill, blk[:, col])
+            return blk
+        wst, mst = t + t, t + t + 1
+    else:
+        def w_usable(s):
+            return None
+
+        m_usable = w_usable
+
+        def masked(blk, u, col, fill):
+            return blk
+        wst, mst = t, t
+
+    def block(tab, s, u, col):
+        return masked(tab[(s.long() * A + ways)], u, col,   # (A, cols) copy
+                      _I32_MAX)
 
     km1, km2 = kmset[0], kmset[1]
     same_km = km2 == km1
 
-    wblk = block(wtab, kwset)
+    wblk = block(wtab, kwset, w_usable(kwset), WT_META)
     wmeta = wblk[:, WT_META].clone()
     match_w = (wblk[:, WT_LO] == klo) & (wblk[:, WT_HI] == khi) & (wmeta >= 0)
     hit_w = match_w.any()
     jw = _argmax_mask(match_w)
-    mblk1, mblk2 = block(mtab, km1), block(mtab, km2)
+    mblk1 = block(mtab, km1, m_usable(km1), MT_META)
+    mblk2 = block(mtab, km2, m_usable(km2), MT_META)
 
     def match_in(blk):
         return ((blk[:, MT_LO] == klo) & (blk[:, MT_HI] == khi)
@@ -599,10 +689,10 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     hit1, hit2 = match1.any(), match2.any()
     hit = hit_w | hit1 | hit2
 
-    _put(wmeta, jw, t, hit_w)
+    _put(wmeta, jw, wst, hit_w)
     miss = ~hit
     ws = torch.argmin(wmeta)
-    newrow = torch.cat([torch.stack([klo, khi, t, km1, km2]), kidx, kdkb])
+    newrow = torch.cat([torch.stack([klo, khi, wst, km1, km2]), kidx, kdkb])
     wsm = _get(wmeta, ws)
     w_ok = wsm != _I32_MAX                    # zero-way set: bypass window
     push = miss & ((wsm >= 0) | ~w_ok)
@@ -613,14 +703,14 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     def hit_update(blk, match, hit_half):
         blk = blk.clone()
         meta = blk[:, MT_META].clone()
-        _put(meta, _argmax_mask(match), _PROT | t, hit_half)
+        _put(meta, _argmax_mask(match), _PROT | mst, hit_half)
         usable = (meta != _I32_MAX).sum()
         nprot = ((meta >= _PROT) & (meta != _I32_MAX)).sum()
         cap = torch.clamp(usable * params[P_PROT_CAP]
                           // torch.clamp(params[P_MAIN_CAP], min=1), min=1)
         over = hit_half & (nprot > cap)
         kd = torch.argmin(torch.where(meta >= _PROT, meta, _I32_MAX))
-        _put(meta, kd, t, over)
+        _put(meta, kd, mst, over)
         blk[:, MT_META] = meta
         return blk
 
@@ -634,8 +724,8 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     def fixup(cb, c):
         return torch.where(c == km2, m2eff, torch.where(c == km1, mblk1u, cb))
 
-    cb1 = fixup(block(mtab, c1), c1)
-    cb2 = fixup(block(mtab, c2), c2)
+    cb1 = fixup(block(mtab, c1, m_usable(c1), MT_META), c1)
+    cb2 = fixup(block(mtab, c2, m_usable(c2), MT_META), c2)
     cblk = torch.cat([cb1, cb2], dim=0)
     tslot = torch.argmin(cblk[:, MT_META])        # ties pick the first half
     vic = _get(cblk, tslot)
@@ -646,7 +736,7 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
         torch.stack([cand[5 + rows:5 + rows + dkp],
                      vic[3 + rows:3 + rows + dkp]]))
     do_ins = push & (vic[MT_META] != _I32_MAX) & (m_free | (est[0] > est[1]))
-    candrow = torch.cat([torch.stack([cand[WT_LO], cand[WT_HI], t]),
+    candrow = torch.cat([torch.stack([cand[WT_LO], cand[WT_HI], mst]),
                          cand[5:5 + rows], cand[5 + rows:5 + rows + dkp]])
     cb1u, cb2u = cb1.clone(), cb2.clone()
     _put(cb1u, torch.clamp(tslot, max=A - 1), candrow, do_ins & (tslot < A))
@@ -655,13 +745,17 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     cb2u = torch.where(same_c, cb1u, cb2u)
 
     for s, blk in ((km1, mblk1u), (km2, m2eff), (c1, cb1u), (c2, cb2u)):
-        mtab[s.long() * A + ways] = blk
-    wtab[kwset.long() * A + ways] = wblk
+        mtab[s.long() * A + ways] = masked(blk, m_usable(s), MT_META, _EMPTY)
+    wtab[kwset.long() * A + ways] = masked(wblk, w_usable(kwset), WT_META,
+                                           _EMPTY)
 
     counted = (hit & (t >= params[P_WARMUP])).to(torch.int32)
     regs[R_SIZE] = size
     regs[R_T] = t + 1
     regs[R_HITS] = regs[R_HITS] + counted
+    if spec.adaptive:
+        _put(st["wsl"], kwset, _get(st["wsl"], kwset) + 1)
+        regs[R_EHITS] = regs[R_EHITS] + hit.to(torch.int32)
     return hit
 
 
@@ -760,6 +854,193 @@ def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
 
 
 # ---------------------------------------------------------------------------
+# epoch-boundary rebalance: move the runtime window/main boundary
+# ---------------------------------------------------------------------------
+# Tensor ops on a leading lane axis (one lane when streams == 1), in place on
+# the state's device; nothing is read back to the host.  Every sort is
+# stable, as jnp.argsort is.
+
+def _argsort(x: torch.Tensor) -> torch.Tensor:
+    return torch.argsort(x, dim=-1, stable=True)
+
+
+def _ranks(x: torch.Tensor) -> torch.Tensor:
+    """Rank of each entry along the last axis (stable: ties by index)."""
+    return _argsort(_argsort(x))
+
+
+def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor):
+    """``dst[b, idx[b, i]] = src[b, i]`` along axis 1, in place, where an
+    index equal to ``dst.shape[1]`` is dropped (jnp's ``mode="drop"``): the
+    writes go to one spare slot that is then cut off.  Kept indices must be
+    distinct."""
+    n = dst.shape[1]
+    ext = torch.cat([dst, dst[:, :1]], dim=1)
+    ix = idx.long().reshape(idx.shape + (1,) * (src.dim() - 2)).expand(
+        src.shape)
+    ext.scatter_(1, ix, src)
+    dst.copy_(ext[:, :n])
+
+
+def _rebalance_flat(spec: StepSpec, total, state: dict, nq):
+    regs = state["regs"]
+    wlo, whi, wmeta = state["wlo"], state["whi"], state["wmeta"]
+    mlo, mhi, mmeta = state["mlo"], state["mhi"], state["mmeta"]
+    wcount, mcount = regs[:, R_WCOUNT], regs[:, R_MCOUNT]
+    pcount = regs[:, R_PCOUNT]
+    mcap_new = total - nq
+
+    # window shrink: the LRU residents past the new quota leave; the most
+    # recent of them move into main's free room (empty slots first, stamps
+    # kept), the rest are dropped
+    res_w = (wmeta >= 0) & (wmeta < _I32_MAX)
+    n_wev = torch.clamp(wcount - nq, min=0)
+    evict = res_w & (_ranks(torch.where(res_w, wmeta, _I32_MAX))
+                     < n_wev[:, None])
+    room = torch.clamp(mcap_new - mcount, min=0)
+    dranks = _ranks(torch.where(evict, -wmeta, _I32_MAX))
+    mig = evict & (dranks < room[:, None])
+    free_order = _argsort((mmeta != _EMPTY).to(torch.int32))
+    tgt = torch.where(mig, torch.gather(
+        free_order, 1, dranks.clamp(max=spec.main_slots - 1)),
+        spec.main_slots)
+    for m, w in ((mlo, wlo), (mhi, whi), (mmeta, wmeta),
+                 (state["midx"], state["widx"]),
+                 (state["mdkb"], state["wdkb"])):
+        _scatter_drop(m, tgt, w)
+    wlo.copy_(torch.where(evict, -1, wlo))
+    whi.copy_(torch.where(evict, -1, whi))
+    wmeta.copy_(torch.where(evict, _EMPTY, wmeta))
+    wcount = wcount - n_wev
+    mcount = mcount + mig.sum(dim=1).to(torch.int32)
+
+    # window grow: main's weakest past the new budget leave (only one side
+    # shrinks, so this and the migration above never both act)
+    res_m = (mmeta >= 0) & (mmeta < _I32_MAX)
+    n_mev = torch.clamp(mcount - mcap_new, min=0)
+    evict_m = res_m & (_ranks(torch.where(res_m, mmeta, _I32_MAX))
+                       < n_mev[:, None])
+    pcount = pcount - (evict_m & (mmeta >= _PROT)).sum(dim=1).to(torch.int32)
+    mlo.copy_(torch.where(evict_m, -1, mlo))
+    mhi.copy_(torch.where(evict_m, -1, mhi))
+    mmeta.copy_(torch.where(evict_m, _EMPTY, mmeta))
+    regs[:, R_PCOUNT] = pcount
+    regs[:, R_WCOUNT] = wcount
+    regs[:, R_MCOUNT] = mcount - n_mev
+
+
+def _compact(tab, n_sets: int, A: int, meta_col: int, usable):
+    """Per set: records strongest first (stable sort on -meta), the first
+    ``usable`` kept and the rest blanked.  Returns (new (B, sets, A, cols),
+    sorted (B, sets, A, cols), the evicted residents (B, sets, A))."""
+    B, _, ncols = tab.shape
+    t3 = tab.reshape(B, n_sets, A, ncols)
+    order = _argsort(-t3[..., meta_col])
+    t3s = torch.gather(t3, 2, order[..., None].expand(t3.shape))
+    keep = torch.arange(A, device=tab.device) < usable[..., None]
+    metas = t3s[..., meta_col]
+    evict = (metas >= 0) & (metas < _I32_MAX) & ~keep
+    blank = torch.zeros(ncols, dtype=tab.dtype, device=tab.device)
+    blank[0] = blank[1] = -1
+    blank[meta_col] = _EMPTY
+    return torch.where(keep[..., None], t3s, blank), t3s, evict
+
+
+def _spread(cap, n: int):
+    """(B, n) ways per set of ``cap`` (B,) over n sets: the first cap % n
+    sets one more (``core.hashing.set_ways``)."""
+    s = torch.arange(n, device=cap.device, dtype=torch.int32)
+    return (_floordiv(cap, n)[:, None]
+            + (s < torch.remainder(cap, n)[:, None]).to(torch.int32))
+
+
+def _rebalance_set(spec: StepSpec, total, state: dict, nq):
+    A, nws, nms = spec.assoc, spec.window_sets, spec.main_sets
+    wtab, mtab = state["wtab"], state["mtab"]
+    B = wtab.shape[0]
+    mcap_new = total - nq
+
+    # window ways (core.adaptive.window_set_ways): uniform while nq >= nws,
+    # else one way to each of the nq sets with the most traffic (wsl)
+    load = state["wsl"]
+    rank = torch.empty_like(load).scatter_(
+        1, _argsort(-load), torch.arange(nws, dtype=load.dtype,
+                                         device=load.device).expand(B, nws))
+    uw = torch.where((nq < nws)[:, None], (rank < nq[:, None]).to(
+        torch.int32), _spread(nq, nws))
+    um = _spread(mcap_new, nms)
+    w3n, w3s, w_evict = _compact(wtab, nws, A, WT_META, uw)
+    m3n, _, _ = _compact(mtab, nms, A, MT_META, um)
+
+    # the evicted window records move into a free usable way of their first
+    # choice main set, in set-then-way order; after compaction set s's free
+    # usable ways are [r_s, u_s) (r_s its kept residents), so the k-th
+    # migrant to s lands in way r_s + k, or is dropped past u_s: a stable
+    # sort by target set, a rank within each run of one target, one scatter
+    meta = m3n[..., MT_META]
+    kept = ((meta >= 0) & (meta < _I32_MAX)).sum(dim=2).to(torch.int32)
+    recs = w3s.reshape(B, -1, spec.wcols)
+    tset = torch.where(w_evict.reshape(B, -1), recs[..., WT_MSET], nms)
+    order = _argsort(tset)
+    st_ = torch.gather(tset, 1, order)
+    pos = torch.arange(st_.shape[1], device=st_.device).expand_as(st_)
+    start = torch.ones_like(st_, dtype=torch.bool)
+    start[:, 1:] = st_[:, 1:] != st_[:, :-1]
+    k = pos - torch.cummax(torch.where(start, pos, 0), dim=1).values
+    sc = st_.clamp(max=nms - 1).long()
+    way = torch.gather(kept, 1, sc) + k
+    ok = (st_ < nms) & (way < torch.gather(um, 1, sc))
+    dest = torch.where(ok, st_ * A + way, nms * A)
+    src = torch.gather(recs, 1, order[..., None].expand_as(recs))
+    mainrow = torch.cat([src[..., :WT_META + 1], src[..., WT_MSET2 + 1:]],
+                        dim=-1)
+    mnew = m3n.reshape(B, -1, spec.mcols)
+    _scatter_drop(mnew, dest, mainrow)
+    wtab.copy_(w3n.reshape(wtab.shape))
+    mtab.copy_(mnew)
+    state["wsl"].zero_()
+    state["wuw"].copy_(uw)
+
+
+def rebalance(spec: StepSpec, params: torch.Tensor, state: dict,
+              new_quota) -> dict:
+    """Move the runtime window/main boundary to ``new_quota`` (adaptive
+    mode), in place; returns ``state``.
+
+    The quota is clamped to ``[max(1, total - main_slots), min(window_slots,
+    total - 1)]`` (total = window_cap + main_cap).  Flat tables: the
+    window's LRU residents past the quota leave, the most recent of them
+    moving into main's free room (probation, stamps kept); on a grow main's
+    weakest past its new capacity leave.  Set tables: each set is compacted
+    strongest-first to its new usable ways (the window's by
+    ``window_set_ways`` over last epoch's ``wsl``), the window's evicted
+    records move into free usable ways of their first-choice main set, and
+    ``wsl`` restarts at 0.  ``R_WQUOTA`` takes the quota and ``R_EHITS``
+    restarts at 0.  With lanes (``streams > 1``) every lane rebalances to
+    its own quota (``new_quota`` of shape (B,)) with its own params row.
+    Tensor ops on the state's device; nothing is read back to the host.
+    """
+    _check(spec.adaptive, "rebalance requires StepSpec.adaptive")
+    lanes = spec.streams > 1
+    st = state if lanes else {k: v.unsqueeze(0) for k, v in state.items()}
+    dev = st["regs"].device
+    p = params.reshape(-1, NPARAMS)
+    total = p[:, P_WINDOW_CAP] + p[:, P_MAIN_CAP]
+    nq = torch.as_tensor(new_quota, dtype=torch.int32, device=dev)
+    nq = nq.reshape(-1).expand(st["regs"].shape[0])
+    nq = torch.minimum(torch.maximum(nq, torch.clamp(
+        total - spec.main_slots, min=1)), torch.clamp(total - 1,
+                                                      max=spec.window_slots))
+    if spec.assoc is None:
+        _rebalance_flat(spec, total, st, nq)
+    else:
+        _rebalance_set(spec, total, st, nq)
+    st["regs"][:, R_WQUOTA] = nq
+    st["regs"][:, R_EHITS] = 0
+    return state
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel's wrapper (replaces step_pallas)
 # ---------------------------------------------------------------------------
 
@@ -771,12 +1052,17 @@ class _Args(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "lo", "hi", "kidx", "kdkb", "kwset", "kmset", "params", "counters",
         "dk", "wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi", "mmeta",
-        "midx", "mdkb", "wtab", "mtab", "regs", "hits", "nvalid")] + [
+        "midx", "mdkb", "wtab", "mtab", "regs", "hits", "nvalid", "wsl",
+        "wuw")] + [
         (name, ctypes.c_int) for name in (
             "n_valid", "b", "rows", "dkp", "dk_bits", "counter_bits",
             "words_per_row", "counter_words", "dk_words", "window_slots",
             "main_slots", "assoc", "wcols", "mcols", "lanes",
-            "params_stride", "halves")]
+            "params_stride", "halves", "adaptive")]
+
+# the adaptive instances (kernel mode 1c) are a second build of the same
+# source, compiled in parallel with the first
+ADAPTIVE_DEFINES = ("SKETCH_STEP_ADAPTIVE",)
 
 
 def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
@@ -791,7 +1077,9 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     params; ``n_valid`` is then an int or a (B,) int32 CUDA tensor.  With
     ``lane_grid=True`` and unbatched inputs it runs one lane, the same work
     as the single-stream launch.  ``spec.shards > 1`` launches the sharded
-    instances (``[global || delta]`` sketch, no per-access reset)."""
+    instances (``[global || delta]`` sketch, no per-access reset);
+    ``spec.adaptive`` the adaptive ones (runtime quota registers, per-set
+    usable ways, ``wsl``), from the ``ADAPTIVE_DEFINES`` build."""
     from ._build import check_error, load_library
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
@@ -806,7 +1094,7 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
            "kmset": kmset, "params": params, "counters": state["counters"],
            "dk": state["doorkeeper"], "regs": state["regs"], "hits": hits}
     for k in ("wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi", "mmeta",
-              "midx", "mdkb", "wtab", "mtab"):
+              "midx", "mdkb", "wtab", "mtab", "wsl", "wuw"):
         if k in state:
             ptr[k] = state[k]
     per_lane = isinstance(n_valid, torch.Tensor)
@@ -830,8 +1118,9 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
                  mcols=spec.mcols if spec.assoc else 0,
                  lanes=lanes if lane_grid else 0,
                  params_stride=NPARAMS if params.dim() == 2 else 0,
-                 halves=spec.sketch_halves)
-    lib = lib or load_library()
+                 halves=spec.sketch_halves, adaptive=int(spec.adaptive))
+    lib = lib or load_library(
+        "sketch_step", ADAPTIVE_DEFINES if spec.adaptive else ())
     stream = torch.cuda.current_stream(lo.device).cuda_stream
     check_error("sketch_step", lib, lib.sketch_step_launch(
         ctypes.addressof(args), _THREADS, stream))

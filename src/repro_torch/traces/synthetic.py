@@ -54,6 +54,21 @@ def fickle_churn_trace(length: int, n_hot: int = 2000, alpha: float = 1.0,
     return out
 
 
+def phase_shift_trace(length: int, n_hot: int = 2000, alpha: float = 0.9,
+                      working_set: int = 1200, advance: float = 0.25,
+                      seed: int = 0) -> np.ndarray:
+    """A stationary Zipf first half, then a pure recency pattern: keys drawn
+    uniformly from a ``working_set`` that slides forward by ``advance`` keys
+    per access over fresh ids, so only a large window hits there (a static
+    window loses one half or the other; the adaptive window's golden)."""
+    rng = np.random.default_rng(seed)
+    h1 = length // 2
+    first = _sample_from_probs(zipf_probs(n_hot, alpha), h1, rng)
+    base = n_hot + (np.arange(length - h1) * advance).astype(np.int64)
+    second = base + rng.integers(0, working_set, size=length - h1)
+    return np.concatenate([first, second.astype(np.int64)])
+
+
 def tenant_lanes_trace(streams: int, length: int, n_items: int = 10_000,
                        alpha: float = 0.9, tenant_alpha: float = 1.0,
                        drift_every: int = 0, seed: int = 0) -> np.ndarray:

@@ -1,6 +1,7 @@
 """The port's trace engine against the JAX engine: sizing, validation, and
 hit counts and final state on short prefixes of both golden traces."""
 from dataclasses import fields
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -83,9 +84,13 @@ def test_simulate_trace_equals_jax_engine(trace, assoc):
                                       err_msg=f"state[{k}]")
 
 
+# a ("shard",) mesh of two devices, as DeviceWTinyLFU.mesh_devices reads it
+_MESH2 = SimpleNamespace(axis_names=("shard",), devices=np.zeros(2))
+
+
 @pytest.mark.parametrize("kw,what", [
-    (dict(adaptive=True), "item 7"),
-    (dict(shards=2, adaptive=True), "item 7"),
+    (dict(assoc=4, policy="lfu"), "item 9"),
+    (dict(shards=2, adaptive=True, mesh=_MESH2), "item 12"),
     (dict(assoc=4, policy="arc"), "item 9"),
     (dict(assoc=4, policy="s3fifo"), "item 9"),
 ])

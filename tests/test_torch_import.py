@@ -8,7 +8,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 MODULES = ["repro_torch", "repro_torch.check_runs",
-           "repro_torch.core.hashing",
+           "repro_torch.core.adaptive", "repro_torch.core.hashing",
            "repro_torch.core.simulate", "repro_torch.core.device_simulate",
            "repro_torch.core.sketch",
            "repro_torch.core.policies",

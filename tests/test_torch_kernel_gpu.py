@@ -1,6 +1,7 @@
 """The CUDA kernels against the port's plain versions, on the card: the step
-kernel (one stream, its lane grid and its sharded instances with the fold
-between epochs), the four batched sketch kernels (add, estimate, admit, reset; both
+kernel (one stream, its lane grid, its sharded instances with the fold
+between epochs and its adaptive instances with the rebalance between
+epochs), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
 batches) and the flash-attention kernel.
 
@@ -12,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.check_runs import (ADD_HAZARD_CASES, ADMIT_SIZES,
+from repro_torch.check_runs import (ADAPT_CASES, ADD_HAZARD_CASES,
+                                    ADMIT_SIZES,
                                     FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
                                     LANES, SHARD_CASES, lane_keys,
                                     lane_n_valid,
                                     SKETCH_CFGS as CFGS, add_hazard_batches,
                                     cache_tails, hazard_keys, mixed_keys)
-from repro_torch.core.device_simulate import run_chunks, simulate_trace
+from repro_torch.core.device_simulate import (ClimbSpec, run_chunks,
+                                              simulate_trace)
 from repro_torch.kernels import (admission, flash_attention, sketch_estimate,
                                  sketch_reset, sketch_update)
 from repro_torch.kernels import sketch_common as sc
@@ -227,6 +230,81 @@ def test_sharded_engine_on_card_equals_cpu(assoc):
     assert port.step.launches - before == 4
     rc, sc_, hc = simulate_trace(keys, 40, device="cpu", **kw)
     assert r.hits == rc.hits and r.extra["backend"] == "cuda"
+    np.testing.assert_array_equal(h.cpu().numpy(), hc.numpy())
+    for k in sc_:
+        np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),
+                                      err_msg=f"state[{k}]")
+
+
+def run_adapt_case(case, fn, device):
+    """ADAPT_CASES[case] through ``fn`` (step or step_ref) one epoch at a
+    time, then merge_halve when sharded and rebalance to the case's next
+    quota; returns (numpy state, hit flags)."""
+    _, kw, prows, wcap, mcap, kind, n, epoch, quotas = ADAPT_CASES[case]
+    lanes = LANES if len(prows) > 1 else 1
+    spec = port.StepSpec(**kw, adaptive=True, streams=lanes)
+    params = torch.stack([port.make_step_params(
+        *p, counter_bits=spec.counter_bits, device=device) for p in prows])
+    params = params[0] if lanes == 1 else params
+    state = port.init_step_state(spec, wcap, mcap, device=device)
+    keys = lane_keys(kind, n) if lanes > 1 else hazard_keys(kind, n,
+                                                            seed=case)
+    lo, hi = (torch.from_numpy(x).to(device) for x in keys_to_lanes(keys))
+    hits = []
+    for c, s in enumerate(range(0, n, epoch)):
+        nv = lane_n_valid(epoch, c, n - s) if lanes > 1 else min(epoch,
+                                                                 n - s)
+        _, h = fn(spec, params, state, lo[..., s:s + epoch],
+                  hi[..., s:s + epoch], nv)
+        if spec.shards > 1:
+            merge_halve(spec, params, state)
+        port.rebalance(spec, params, state, torch.tensor(
+            quotas[c % len(quotas)], dtype=torch.int32, device=device))
+        hits.append(h.cpu())
+    return port.state_to_numpy(state), torch.cat(hits, dim=-1).numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(ADAPT_CASES) - 1),
+                         ids=[c[0] for c in ADAPT_CASES[:-1]])
+def test_adaptive_kernel_matches_plain_on_card(case):
+    """The adaptive instances (kernel mode 1c) == step_ref on every state
+    leaf and hit flag, with the rebalance between epochs: flat and 8 and 16
+    ways, 4- and 8-bit counters, doorkeeper on and off, lanes with per-lane
+    quotas, shards=4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = port.step.launches
+    got = run_adapt_case(case, port.step, "cuda")
+    n, epoch = ADAPT_CASES[case][6:8]
+    assert port.step.launches - before == -(-n // epoch)
+    ref = run_adapt_case(case, port.step_ref, "cuda")
+    for k in ref[0]:
+        np.testing.assert_array_equal(got[0][k], ref[0][k],
+                                      err_msg=f"state[{k}]")
+    np.testing.assert_array_equal(got[1], ref[1], err_msg="hit flags")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(), dict(assoc=4),
+                                dict(assoc=8, shards=4)],
+                         ids=["flat", "ways 4", "ways 8 shards 4"])
+def test_adaptive_engine_on_card_equals_cpu(kw):
+    """simulate_trace(adaptive=True) on the card launches the adaptive
+    instances once per climb epoch, climbs and rebalances there, and equals
+    the CPU run leaf for leaf, with its trajectory and final quota."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys = hazard_keys("wide", 1100, seed=5)
+    args = dict(adaptive=True, climb=ClimbSpec(epoch_len=256),
+                return_state=True, **kw)
+    before = port.step.launches
+    r, st, h = simulate_trace(keys, 64, device="cuda", **args)
+    assert port.step.launches - before == 5
+    rc, sc_, hc = simulate_trace(keys, 64, device="cpu", **args)
+    assert r.hits == rc.hits and r.extra["backend"] == "cuda"
+    assert (r.extra["trajectory"], r.extra["final_quota"]) == (
+        rc.extra["trajectory"], rc.extra["final_quota"])
     np.testing.assert_array_equal(h.cpu().numpy(), hc.numpy())
     for k in sc_:
         np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),

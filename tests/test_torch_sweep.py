@@ -8,6 +8,7 @@ must equal the JAX vmap rows.  Every case requires the port's rows to equal
 the JAX rows: hits, accesses, the row's ``extra`` keys.
 """
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -116,7 +117,10 @@ def test_sweep_vmap_rejects_main_below_the_shared_sets():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(adaptive=True), "item 7"), (dict(shards=2, adaptive=True), "item 7"),
+    (dict(policies=("wtinylfu", "arc"), assoc=4), "item 9"),
+    (dict(shards=2, adaptive=True,
+          mesh=SimpleNamespace(axis_names=("shard",), devices=np.zeros(2))),
+     "item 12"),
     (dict(policies=("wtinylfu", "lfu"), assoc=4), "item 9"),
     (dict(policies=("s3fifo",), assoc=4), "item 9"),
 ])
