@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
 trace engine (one stream, tenant lanes, sweeps, the sharded sketch, the
-adaptive window), the serving-admission path (device and host sketch) and
-the LLM serving path.
+adaptive window, the policy panel), the serving-admission path (device and
+host sketch) and the LLM serving path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -12,11 +12,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. print the card's name and power limit, build the six kernels, the step
    kernel's adaptive instances (a second build of ``sketch_step.cu`` with
-   ``-DSKETCH_STEP_ADAPTIVE``) and the empty-launch probe (``l2_chase.cu``)
+   ``-DSKETCH_STEP_ADAPTIVE``), its policy panel's (a third, with
+   ``-DSKETCH_STEP_PANEL``) and the empty-launch probe (``l2_chase.cu``)
    from ``src/repro_torch/kernels/csrc`` (one nvcc per build, all at once)
    and print each build's nvcc wall time and ptxas register/spill lines
-   (nvcc takes ~11 s for each of the step kernel's two builds of 20
-   instances, side by side: ~12 s for phase 1 in all on an H100 host);
+   (nvcc takes ~10-14 s for each of the step kernel's two builds of 20
+   instances and ~9.4 s for the panel's 24, side by side: ~15 s for phase
+   1 in all on an H100 host);
 2. hold the kernel (``step``) against its plain PyTorch version
    (``step_ref``) on the card: flat and set-associative tables, 4- and 8-bit
    counters, doorkeeper on and off, resets inside and across chunk
@@ -151,10 +153,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the five static rows and the adaptive run must equal the JAX hits (the
    adaptive run its quota and digest too), and the adaptive run must come
    within 0.01 of the best static row;
-28. print the ``kernels`` JSON line (six kernels; the step kernel's entry
-   with the modes it runs, its lane-grid, sharded and adaptive launches and
-   checks), the card line and the result line.  Lines ``elapsed ...`` mark
-   the time taken after each group of phases.
+28. hold the step kernel's panel instances (kernel mode 1d: S3-FIFO, ARC,
+   LFU) against ``step_ref`` on the card over ``check_runs.PANEL_CASES``:
+   1, 4, 8, 16 and 32 ways, one and two main sets, 4- and 8-bit counters,
+   doorkeeper on and off, resets inside and across chunk boundaries,
+   zero-way window sets, ARC at 256 ghost bits with both halves cleared
+   inside a chunk, 4 lanes with per-lane params and shorter lanes, the
+   hazard traces' keys and one chunk at FP's geometry; every state leaf
+   (ARC's ghost too) and hit flag must be equal;
+29. run FP, the panel at real size: F's trace, capacity and warmup through
+   ``simulate_trace(..., assoc=8, policy=p)`` for S3-FIFO (window 0.1), ARC
+   and LFU (counts set to 0 just before, read just after: 2,344 launches
+   each); hits, registers, digest and hit flags must equal the JAX pins;
+   then each run with CUDA events around each launch (ms per launch, ns
+   per access beside F's, device idle share) and its bound, and the
+   slowest competitor against W-TinyLFU's F;
+30. run GP, the reference's golden panel: all four policies on the golden
+   Zipf (C=200), scan-then-hotspot (C=400) and the golden Zipf at C=1,000
+   with sample_factor=16 and 8-bit counters; hits must equal the JAX pins,
+   the hit ratios lie within 0.01 of the reference's goldens and at C=1,000
+   W-TinyLFU must be at least as good as every competitor; then the four
+   policies' rates at the reference benchmark's C=8,192;
+31. run WP, policy sweeps over F's trace: the four policies at 65,536
+   (window 0.1; ``auto`` resolves to sequential), the competitor rows FP's
+   and the W-TinyLFU row its JAX pin; ARC at 32,768 / 65,536 / 131,072 as
+   three lanes (counts set to 0 around it) and one after another, the
+   sequential 65,536 row FP's and two lane rows their padded solo runs; a
+   multi-policy ``mode="vmap"`` raises the reference's ``ValueError``;
+32. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+   with the modes it runs, its lane-grid, sharded, adaptive and panel
+   launches and checks), the card line and the result line.  Lines
+   ``elapsed ...`` mark the time taken after each group of phases.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -183,16 +212,19 @@ from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
                                     GA_CAPACITY, GA_FRACS, GA_GAP, GA_PINS,
                                     GA_SEED, GA_TRACES,
                                     FLASH_CASES, FLASH_TAIL, FLASH_TAIL_LENS,
-                                    G1_SHARDED_HITS, HAZARD_CASES,
+                                    FP_PINS, G1_SHARDED_HITS, GP_GOLDENS,
+                                    GP_PINS, GP_REF_CAPACITY, GP_RUNS,
+                                    GP_TOL, HAZARD_CASES,
                                     LANE_CASES, LANES,
                                     P1_CAPS, P1_HOST_PINS, P1_TRACE, P2_CAP,
-                                    P2_TRACE, P_PINS,
+                                    P2_TRACE, P_PINS, PANEL_CASES,
+                                    PANEL_FRACS, PANEL_POLICIES,
                                     S_BATCH, S_BLOCKS, S_DECISIONS, S_PINS,
                                     SHARD_CASES, SHARDS,
                                     SKETCH_CFGS, T_ACCESSES, T_LANES,
                                     T_SCALING, T_SCALING_ACCESSES, T_SOLO,
                                     T_TENANTS, W_CAPS, W_FRACS, WA_FRACS,
-                                    WA_PINS,
+                                    WA_PINS, WP_ARC_CAPS, WP_WTINYLFU_HITS,
                                     add_hazard_batches, add_schedule,
                                     cache_tails, digest, hazard_keys,
                                     lane_keys, lane_n_valid, mixed_keys,
@@ -334,9 +366,13 @@ def bound_bytes(spec, trace, chunk, sample):
     With the sharded sketch each counter and doorkeeper word is read in both
     halves and written in the delta half, and the kernel does no reset (the
     fold ages the sketch).  With the adaptive window each window set's
-    ``wuw`` word is read and its ``wsl`` word read and written.  The
-    candidates' sets and the victims' estimate words depend on the run's
-    decisions and are left out, so this is a lower bound.  Returns (bytes, number of resets, the size register's model)."""
+    ``wuw`` word is read and its ``wsl`` word read and written.  A
+    competitor policy reads the window set only under S3-FIFO; ARC reads no
+    sketch (and never resets) but both ghost halves' words of its keys'
+    doorkeeper probes.  The candidates' sets, the victims' estimate words
+    (LFU: every record's of the key's sets) and ARC's ghost inserts depend
+    on the run's decisions and are left out, so this is a lower bound.
+    Returns (bytes, number of resets, the size register's model)."""
     import torch
     from repro_torch.core.device_simulate import _trace_lanes
     from repro_torch.kernels import sketch_step as ks
@@ -351,24 +387,30 @@ def bound_bytes(spec, trace, chunk, sample):
 
     word_shift = 3 if spec.counter_bits == 4 else 2
     rows = torch.arange(spec.rows, device=lo.device) * spec.words_per_row
-    words = (distinct(kwset, spec.window_sets) * spec.assoc * spec.wcols
+    window = spec.policy in ("wtinylfu", "s3fifo")
+    words = (window * distinct(kwset, spec.window_sets) * spec.assoc
+             * spec.wcols
              + distinct(kmset, spec.main_sets) * spec.assoc * spec.mcols)
     # adaptive: a window set's wuw word read, its wsl word read and written
     load = 3 * distinct(kwset, spec.window_sets) if spec.adaptive else 0
-    sketch = distinct(rows + (kidx >> word_shift), spec.counter_words)
-    if spec.dk_bits:
+    arc = spec.policy == "arc"
+    sketch = 0 if arc else distinct(rows + (kidx >> word_shift),
+                                    spec.counter_words)
+    if spec.dk_bits and not arc:
         sketch += distinct(kdkb >> 5, spec.dk_words)
+    ghost = 2 * distinct(kdkb >> 5, spec.dk_words) if arc else 0
     per_access = 4 * (2 + spec.rows + spec.dkp + 1 + 2) + 4
     nchunks = -(-n // chunk)
     size, resets = 0, 0
     for s in range(0, n, chunk):
         left = min(chunk, n - s)
-        while spec.shards == 1 and size + left >= sample:
+        while spec.shards == 1 and not arc and size + left >= sample:
             left -= sample - size          # the reset fires at size == W
             size, resets = sample // 2, resets + 1
         size += left
     moves = 3 if spec.shards > 1 else 2    # sharded: global, delta; delta
-    total = (2 * 4 * words + 4 * load + moves * 4 * sketch + n * per_access
+    total = (2 * 4 * words + 4 * load + moves * 4 * sketch + 4 * ghost
+             + n * per_access
              + nchunks * 4 * (ks.NPARAMS + 2 * ks.NREGS)
              + resets * 2 * 4 * (spec.counter_words + spec.dk_words))
     return total, resets, size
@@ -2261,6 +2303,262 @@ def ga_phase27(card):
               f"digest == JAX; card {card}")
 
 
+def panel_phase28():
+    """Phase 28: the step kernel's panel instances (kernel mode 1d: S3-FIFO,
+    ARC, LFU; the third build) against step_ref on the card over
+    check_runs.PANEL_CASES, chunk by chunk: 1, 4, 8, 16 and 32 ways, one and
+    two main sets, 4- and 8-bit counters, the doorkeeper on and off, resets
+    inside and across chunk boundaries, zero-way window sets, ARC at 256 ghost
+    bits with both halves cleared inside a chunk, four lanes with per-lane
+    params and shorter lanes, the hazard traces' keys and one chunk at FP's
+    geometry; every state leaf (ARC's ghost too) and hit flag must be equal.
+    Returns (max abs difference, the plain version's ms per FP-geometry chunk
+    by policy)."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    err, plain_ms = 0, {}
+    for case, (name, kw, prows, wcap, mcap, kind, n,
+               chunk) in enumerate(PANEL_CASES):
+        lanes = LANES if len(prows) > 1 else 1
+        spec = ks.StepSpec(**kw, streams=lanes)
+        lo, hi = lanes_on_card(lane_keys(kind, n) if lanes > 1
+                               else hazard_keys(kind, n, seed=case))
+        starts = range(0, n, chunk)
+        counts = [lane_n_valid(chunk, c, n - s) if lanes > 1
+                  else min(chunk, n - s) for c, s in enumerate(starts)]
+        outs, times = [], []
+        for fn in (ks.step, ks.step_ref):
+            params = case_params(prows, spec)
+            state = ks.init_step_state(spec, wcap, mcap, device="cuda")
+            before = ks.step.launches
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            hits = [fn(spec, params, state, lo[..., s:s + chunk],
+                       hi[..., s:s + chunk], nv)[1]
+                    for s, nv in zip(starts, counts)]
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1) / len(counts))
+            if fn is ks.step:
+                check(ks.step.launches - before == len(counts),
+                      f"panel {name}: {ks.step.launches - before} launches")
+            outs.append((state, torch.cat(hits, dim=-1)))
+        (k_state, k_hits), (p_state, p_hits) = outs
+        d = max([int((k_hits - p_hits).abs().max())]
+                + [int((k_state[k].long() - p_state[k].long()).abs().max())
+                   for k in p_state])
+        check(d == 0, f"panel {name}: kernel and plain differ")
+        check(int(p_hits.sum()) > 0, f"panel {name}: no hit at all")
+        err = max(err, d)
+        regs = p_state["regs"].reshape(-1, ks.NREGS)[0].tolist()
+        if "FP geometry" in name:
+            plain_ms[spec.policy] = times[1]
+        print(f"phase 28 panel {name}: kernel == plain, {lanes} lane(s) x "
+              f"{n} accesses (chunk {chunk}, {spec.assoc} ways, "
+              f"{spec.main_sets} main sets, {spec.counter_bits}-bit, "
+              f"dk_bits {spec.dk_bits}; lane 0 regs {regs}); kernel "
+              f"{times[0]:.4f} ms, plain {times[1]:.1f} ms per chunk")
+    return err, plain_ms
+
+
+def fp_phase29(f_trace, card, f_wall, f_ns):
+    """Phase 29: run FP, the panel at real size: F's trace, capacity and
+    warmup through simulate_trace(..., assoc=8, policy=p) for each
+    competitor (S3-FIFO at window_frac 0.1), the launch counts set to 0
+    just before and read just after (2,344 launches each); hits, registers,
+    digest and hit flags must equal the JAX pins.  Then each run with CUDA
+    events around each launch (ms per launch, ns per access, device idle
+    share) and its bound; and the slowest competitor against W-TinyLFU's
+    F (the reference's arm 8).  Returns {policy: (launches, ms per launch,
+    bound ms per launch)}."""
+    import torch
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  simulate_trace)
+    n = len(f_trace)
+    nchunks = math.ceil(n / F_CHUNK)
+    out, rates = {}, {}
+    for pol in PANEL_POLICIES:
+        hits_pin, regs_pin, digest_pin = FP_PINS[pol]
+        kw = dict(assoc=F_ASSOC, policy=pol, window_frac=PANEL_FRACS[pol])
+        torch.cuda.synchronize()
+        set_launches(0)
+        t0 = time.perf_counter()
+        res, state, flags = simulate_trace(
+            f_trace, F_CAPACITY, warmup=F_WARMUP, chunk=F_CHUNK,
+            trace_name="zipf-1.2M", return_state=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(launches["sketch_step"] == nchunks
+              and sum(launches.values()) == nchunks,
+              f"FP {pol}: launches {launches}, expected {nchunks}")
+        regs = state["regs"].cpu().tolist()
+        check(res.hits == hits_pin and regs == regs_pin
+              and digest(state) == digest_pin
+              and int(flags[F_WARMUP:].sum()) == hits_pin,
+              f"FP {pol}: hits {res.hits} regs {regs} digest "
+              f"{digest(state)} != JAX {hits_pin} {regs_pin} {digest_pin}")
+        check(res.policy == f"{pol}(device)" and res.extra["policy"] == pol,
+              f"FP {pol}: label {res.policy} extra {res.extra}")
+        rates[pol] = n / wall
+        print(f"phase 29 FP {pol}: C={F_CAPACITY} assoc={F_ASSOC} window_frac"
+              f" {PANEL_FRACS[pol]} hits {res.hits}/{res.accesses} ratio "
+              f"{res.hit_ratio:.6f} (F {F_HITS / res.accesses:.6f}); regs, "
+              f"digest and hit flags == JAX; wall {wall:.3f} s, "
+              f"{n / wall:,.0f} acc/s (F {f_wall:.3f} s, {n / f_wall:,.0f}); "
+              f"{launches['sketch_step']} launches; card {card}")
+        cfg = DeviceWTinyLFU(F_CAPACITY, **kw)
+        t_state, t_hits, step_ms, stream_ms, _ = timed_launches(
+            f_trace, cfg, F_CHUNK, F_WARMUP)
+        check(digest(t_state) == digest_pin
+              and bool(torch.equal(t_hits, flags)),
+              f"FP {pol}: the timed run differs from the main run")
+        ms = sum(step_ms) / len(step_ms)
+        ns = ms * 1e6 / F_CHUNK
+        idle = 1.0 - sum(step_ms) / stream_ms
+        total, resets, _ = bound_bytes(cfg.spec(), f_trace, F_CHUNK,
+                                       cfg.sample_size)
+        bound_ms = total / nchunks / HBM_BYTES_PER_S * 1e3
+        print(f"phase 29 FP {pol}: kernel {ms:.4f} ms per launch (CUDA "
+              f"events around each of {len(step_ms)}; min {min(step_ms):.4f}"
+              f", max {max(step_ms):.4f}), {ns:.0f} ns per access "
+              f"({ns / f_ns:.3f}x F's {f_ns:.0f}); runner stream "
+              f"{stream_ms:.1f} ms, device idle share {idle:.6f}; bound "
+              f"{total} bytes over the run ({resets} resets) = "
+              f"{total / nchunks:.0f} bytes per launch over 3.35 TB/s = "
+              f"{bound_ms:.6f} ms (the kernel is {ms / bound_ms:.0f}x above "
+              f"it)")
+        out[pol] = (launches["sketch_step"], ms, bound_ms)
+        del state, flags, t_state, t_hits
+    worst = min(PANEL_POLICIES, key=lambda p: rates[p])
+    print(f"phase 29 FP: slowest competitor vs w-tinylfu (acc/s of wall, "
+          f"the reference's arm 8): {worst} "
+          f"{rates[worst] / (n / f_wall):.3f}x of F's; card {card}")
+    return out
+
+
+def gp_phase30(zipf, scanhot, card):
+    """Phase 30: run GP, the reference's golden panel: all four policies on
+    the golden Zipf (C=200), scan-then-hotspot (C=400) and the golden Zipf
+    at C=1,000 with sample_factor=16 and 8-bit counters; every run's hits
+    must equal the JAX pins, the first two runs' hit ratios lie within
+    GP_TOL of the reference's goldens, and at C=1,000 W-TinyLFU must be at
+    least as good as every competitor.  Then the reference benchmark's own
+    point: the four policies at C=8,192 on the golden Zipf (best of two
+    walls)."""
+    from repro_torch.core.device_simulate import simulate_trace
+    traces = {"zipf": zipf, "scanhot": scanhot}
+    for g, (tr, cap, warmup, kw) in enumerate(GP_RUNS):
+        got = {pol: simulate_trace(traces[tr], cap, assoc=8, policy=pol,
+                                   window_frac=PANEL_FRACS[pol],
+                                   warmup=warmup, **kw)
+               for pol in PANEL_FRACS}
+        hits = {pol: r.hits for pol, r in got.items()}
+        check(hits == GP_PINS[g], f"GP {tr} C={cap}: hits {hits} != JAX "
+              f"{GP_PINS[g]}")
+        ratios = {pol: r.hit_ratio for pol, r in got.items()}
+        if g < len(GP_GOLDENS):
+            check(all(abs(ratios[p] - v) < GP_TOL
+                      for p, v in GP_GOLDENS[g].items()),
+                  f"GP {tr} C={cap}: ratios {ratios} not within {GP_TOL} of "
+                  f"{GP_GOLDENS[g]}")
+        else:
+            check(all(ratios["wtinylfu"] >= ratios[p]
+                      for p in PANEL_POLICIES),
+                  f"GP {tr} C={cap}: W-TinyLFU {ratios} is beaten")
+        print(f"phase 30 GP {tr} C={cap} {kw or ''}: hits {hits} == JAX; "
+              "ratios " + ", ".join(f"{p} {v:.4f}" for p, v in ratios.items())
+              + ("; W-TinyLFU >= every competitor" if g == 2 else
+                 f" within {GP_TOL} of the goldens"))
+    rates = {}
+    for pol in PANEL_FRACS:
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            simulate_trace(zipf, GP_REF_CAPACITY, assoc=8, policy=pol,
+                           window_frac=PANEL_FRACS[pol])
+            walls.append(time.perf_counter() - t0)
+        rates[pol] = len(zipf) / min(walls)
+    print(f"phase 30 GP C={GP_REF_CAPACITY} (the reference benchmark's "
+          f"point, {len(zipf)} accesses, best of 2 walls): "
+          + ", ".join(f"{p} {v:,.0f} acc/s" for p, v in rates.items())
+          + f"; slowest competitor vs w-tinylfu "
+          f"{min(rates[p] for p in PANEL_POLICIES) / rates['wtinylfu']:.3f}x;"
+          f" card {card}")
+
+
+def wp_phase31(f_trace, card):
+    """Phase 31: run WP, policy sweeps over F's trace: all four policies at
+    65,536 (window_frac 0.1) with mode "auto", which must resolve to
+    sequential, its competitor rows FP's and its W-TinyLFU row the JAX pin;
+    ARC at WP_ARC_CAPS as three lanes (mode="vmap", counts set to 0 around
+    it: one launch per chunk) and one run after another, the sequential
+    65,536 row FP's ARC and two lane rows equal to solo runs of their padded
+    configuration; a multi-policy mode="vmap" raises the reference's
+    ValueError.  Returns (lane wall, sequential wall)."""
+    import torch
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  _padded_grid, _trace_lanes,
+                                                  run_chunks, simulate_sweep)
+    from repro_torch.kernels import sketch_step as ks
+    from repro_torch.kernels.sketch_common import POLICIES
+    kw = dict(assoc=F_ASSOC, warmup=F_WARMUP, chunk=F_CHUNK,
+              trace_name="zipf-1.2M")
+    rows = simulate_sweep(f_trace, [F_CAPACITY], policies=POLICIES,
+                          window_fracs=(0.1,), **kw)
+    got = {r.extra.get("policy", "wtinylfu"): r.hits for r in rows}
+    want = {p: FP_PINS[p][0] for p in PANEL_POLICIES}
+    check(got == {"wtinylfu": WP_WTINYLFU_HITS, **want}
+          and all(r.extra["backend"] == "cuda+sequential" for r in rows),
+          f"WP: rows {got} ({rows[0].extra['backend']}) != FP's and the "
+          f"W-TinyLFU pin {WP_WTINYLFU_HITS}")
+    print(f"phase 31 WP policies: rows {got} == FP's and the JAX W-TinyLFU "
+          f"pin (auto -> sequential, {rows[0].extra['grid_wall_s']:.3f} s "
+          f"for the grid)")
+    try:
+        simulate_sweep(f_trace[:10], [64], policies=("wtinylfu", "lfu"),
+                       assoc=8, mode="vmap")
+        check(False, "WP: a multi-policy vmap sweep did not raise")
+    except ValueError as e:
+        check("use mode='sequential'" in str(e), f"WP: raised {e}")
+    akw = dict(kw, policies=("arc",))
+    set_launches(0)
+    lanes = simulate_sweep(f_trace, WP_ARC_CAPS, mode="vmap", **akw)
+    launches = read_launches()
+    nchunks = math.ceil(len(f_trace) / F_CHUNK)
+    check(launches["sketch_step"] == nchunks
+          and sum(launches.values()) == nchunks,
+          f"WP arc lanes: launches {launches}, expected {nchunks}")
+    seq = simulate_sweep(f_trace, WP_ARC_CAPS, mode="sequential", **akw)
+    caps = [r.cache_size for r in seq]
+    check(seq[caps.index(F_CAPACITY)].hits == FP_PINS["arc"][0],
+          "WP: the sequential 65,536 ARC row differs from FP's")
+    grid = [DeviceWTinyLFU(C, assoc=F_ASSOC, policy="arc")
+            for C in WP_ARC_CAPS]
+    spec, states = _padded_grid(grid, "cuda")
+    lo, hi = _trace_lanes(f_trace, "cuda")
+    for g in (0, 2):
+        st, _ = run_chunks(spec, grid[g].params(warmup=F_WARMUP,
+                                                device="cuda"),
+                           states[g], lo, hi, F_CHUNK)
+        check(int(st["regs"][ks.R_HITS]) == lanes[g].hits,
+              f"WP: the lane row {WP_ARC_CAPS[g]} differs from its padded "
+              f"solo run")
+    wl, ws = lanes[0].extra["grid_wall_s"], seq[0].extra["grid_wall_s"]
+    print(f"phase 31 WP arc: " + ", ".join(
+        f"C={v.cache_size} lanes {v.hits} sequential {s_.hits}"
+        for v, s_ in zip(lanes, seq))
+        + f"; the sequential 65,536 row == FP's arc, lane rows "
+          f"{WP_ARC_CAPS[0]} and {WP_ARC_CAPS[2]} == their padded solo runs;"
+          f" three lanes {wl:.3f} s of wall ({launches['sketch_step']} "
+          f"launches), three runs one after another {ws:.3f} s "
+          f"({ws / wl:.2f}x); card {card}")
+    del states
+    torch.cuda.empty_cache()
+    return wl, ws
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2277,16 +2575,19 @@ def main() -> int:
     print(card)
     t_start = t0 = time.perf_counter()
     # one nvcc per source, all at once; the step kernel's adaptive instances
-    # (kernel mode 1c) are a second build of its source
+    # (kernel mode 1c) and its panel's (mode 1d) are a second and a third
+    # build of its source
     builds = [(name, ()) for name in SOURCES + PROBES] + [
-        ("sketch_step", ks.ADAPTIVE_DEFINES)]
+        ("sketch_step", ks.ADAPTIVE_DEFINES),
+        ("sketch_step", ks.PANEL_DEFINES)]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda job: _build.load_library(*job), builds))
     print(f"phase 1  build of {len(builds)} sources in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
     for name, defines in builds:
         info = _build.build_info[(name, defines)]
-        label = name + (" adaptive" if defines else "")
+        label = name + {(): "", ks.ADAPTIVE_DEFINES: " adaptive",
+                        ks.PANEL_DEFINES: " panel"}[defines]
         nvcc = (f"nvcc {info['seconds']:.1f} s" if info["seconds"]
                 else "built before; its ptxas log was kept")
         print(f"phase 1  {label}: {nvcc}")
@@ -2525,9 +2826,16 @@ def main() -> int:
     wa_phase26(f_trace, card)
     ga_phase27(card)
     elapsed("phases 23-27")
-    err = max(max_err, lane_err, shard_err, adapt_err)
+
+    # -- phases 28-31: the policy panel (kernel mode 1d) -------------------
+    panel_err, panel_plain_ms = panel_phase28()
+    fp = fp_phase29(f_trace, card, wall, f_ns)
+    gp_phase30(zipf, scanhot, card)
+    wp_phase31(f_trace, card)
+    elapsed("phases 28-31")
+    err = max(max_err, lane_err, shard_err, adapt_err, panel_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
-                             "1c adaptive"],
+                             "1c adaptive", "1d panel"],
                       max_abs_err=err, matches_plain=err == 0,
                       lane_launches=t_launches, lane_max_abs_err=lane_err,
                       lane_ms=t_ms, lane_bound_ms=t_bound_ms,
@@ -2539,9 +2847,14 @@ def main() -> int:
                       adaptive_max_abs_err=adapt_err, adaptive_ms=fa_ms,
                       adaptive_plain_ms=adapt_plain_ms,
                       adaptive_bound_ms=fa_bound_ms,
-                      adaptive_climb_ms=fa_climb_ms)
+                      adaptive_climb_ms=fa_climb_ms,
+                      panel_launches={p: v[0] for p, v in fp.items()},
+                      panel_max_abs_err=panel_err,
+                      panel_ms={p: v[1] for p, v in fp.items()},
+                      panel_plain_ms=panel_plain_ms,
+                      panel_bound_ms={p: v[2] for p, v in fp.items()})
 
-    # -- phase 28: the kernels line ----------------------------------------
+    # -- phase 32: the kernels line ----------------------------------------
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -8,10 +8,11 @@ holds them to the pins below; ``tests/test_torch_sketch_ops.py``,
 same procedures at a small size against the JAX package, and, run as
 scripts, print the JAX results that are pinned here.  The tenant-lane and
 sweep runs T and W, their sharded counterparts F4, T4 and W4, the
-adaptive-window runs FA, FA4, WA and GA with their JAX pins, the hazard
-cases of the step and add kernels (the step kernel's lane grid, sharded and
-adaptive instances too) and a numpy model of the add kernel's schedule live
-here as well.  Imports numpy only.
+adaptive-window runs FA, FA4, WA and GA, the policy panel's runs FP, GP and
+WP with their JAX pins, the hazard cases of the step and add kernels (the
+step kernel's lane grid, sharded, adaptive and panel instances too) and a
+numpy model of the add kernel's schedule live here as well.  Imports numpy
+only.
 """
 from __future__ import annotations
 
@@ -156,6 +157,54 @@ GA_PINS = {
     "phase_shift_trace": ((63_349, 64_721, 65_502, 65_256, 68_483), 69_224,
                           399, "4e95d713a7b19ce4"),
 }
+
+
+# Runs FP, GP and WP: the policy panel (kernel mode 1d).  FP is run F's
+# trace, capacity and warmup through simulate_trace(..., assoc=8, policy=p)
+# for each competitor, S3-FIFO at its documented small-queue share
+# (window_frac 0.1; ARC and LFU have no window): the reference's panel
+# benchmark (benchmarks/bench_device.py:463-495, docs/BENCHMARKS.md:58-61)
+# at F's capacity and trace.  GP is the reference's golden panel
+# (tests/test_policy_panel.py:175-202): all four policies on the golden Zipf
+# (C=200, warmup 10,000), scan-then-hotspot (C=400, warmup 5,000) and the
+# golden Zipf at C=1,000 with sample_factor=16 and 8-bit counters, where
+# W-TinyLFU must be at least as good as every competitor; every hit ratio
+# within GP_TOL of the reference's goldens.  WP is simulate_sweep(F's trace,
+# [65,536], policies=POLICIES, window_fracs=(0.1,), assoc=8,
+# warmup=480,000), sequential, whose competitor rows are FP's, and
+# simulate_sweep(F's trace, WP_ARC_CAPS, policies=("arc",), assoc=8,
+# warmup=480,000) as three lanes and one after another.  The pins are the
+# JAX engine's (backend="jit", bit-equal to its Pallas kernel): hits,
+# registers, state digest (``python tests/test_torch_policy_panel.py``
+# prints them).
+PANEL_POLICIES = ("s3fifo", "arc", "lfu")
+PANEL_FRACS = {"wtinylfu": 0.01, "s3fifo": 0.1, "arc": 0.01, "lfu": 0.01}
+FP_PINS = {
+    "s3fifo": (458_580, [413568, 0, 1200000, 458580, 0, 0, 0, 0],
+               "df4e7d26401c5a9c"),
+    "arc": (454_185, [0, 0, 1200000, 454185, 18223, 18223, 45506, 32008],
+            "68c9ad8c13b472e3"),
+    "lfu": (439_592, [413568, 0, 1200000, 439592, 0, 0, 0, 0],
+            "27a97d031433f2af"),
+}
+# (trace, capacity, warmup, DeviceWTinyLFU kwargs) -> hits per policy
+GP_RUNS = [("zipf", 200, 10_000, {}), ("scanhot", 400, 5_000, {}),
+           ("zipf", 1_000, 10_000, dict(sample_factor=16, counter_bits=8))]
+GP_PINS = [
+    {"wtinylfu": 17_035, "s3fifo": 17_349, "arc": 17_585, "lfu": 13_497},
+    {"wtinylfu": 26_402, "s3fifo": 26_345, "arc": 26_323, "lfu": 25_577},
+    {"wtinylfu": 24_501, "s3fifo": 24_358, "arc": 24_083, "lfu": 23_337},
+]
+# the reference's golden hit ratios (tests/test_policy_panel.py:52-57) of
+# the first two GP runs, and its band
+GP_GOLDENS = [{"wtinylfu": 0.3407, "s3fifo": 0.3470, "arc": 0.3517,
+               "lfu": 0.2699},
+              {"wtinylfu": 0.4800, "s3fifo": 0.4790, "arc": 0.4786,
+               "lfu": 0.4650}]
+GP_TOL = 0.01
+GP_REF_CAPACITY = 8_192         # the reference benchmark's own point
+WP_WTINYLFU_HITS = 454_639      # W-TinyLFU at window_frac 0.1
+WP_ARC_CAPS = (32_768, 65_536, 131_072)
 
 
 def trajectory_digest(traj: dict) -> str:
@@ -495,6 +544,89 @@ def hazard_keys(kind: str, n: int, seed: int = 0) -> np.ndarray:
     else:
         raise ValueError(f"unknown hazard trace {kind!r}")
     return keys[:n].astype(np.uint64)
+
+
+# The step kernel's competitor bodies (kernel mode 1d: S3-FIFO, ARC, LFU):
+# chip_smoke.py phase 28 and tests/test_torch_kernel_gpu.py hold them to
+# step_ref on the card, tests/test_torch_panel_hazards.py holds step_ref to
+# the JAX step_ref on the CPU; every state leaf (ARC's ghost Blooms too) and
+# hit flag.  Each case is (name, StepSpec kwargs, the make_step_params args
+# of every lane (one row: one stream; LANES rows: streams=LANES with per-lane
+# params and lane_n_valid's counts), window_cap, main_cap, hazard trace
+# kind, accesses per lane, chunk).  ARC's P_MAIN_CAP is p's cap and the
+# count of evictions after which a ghost half is cleared: a small one clears
+# both halves inside a chunk.  One-set tables alias both main choices (and
+# an S3-FIFO candidate's) on every access; two-set tables on half of them.
+# At 32 ways each lane holds two records of a pair of main sets.
+_P1 = dict(width=256, rows=4, dk_bits=1024, window_slots=2, main_slots=2,
+           assoc=1)
+_PONE8 = dict(width=512, rows=3, dk_bits=2048, window_slots=8, main_slots=8,
+              assoc=8, counter_bits=8)
+_P32 = dict(width=256, rows=4, dk_bits=1024, window_slots=32, main_slots=64,
+            assoc=32)
+# DeviceWTinyLFU(65_536, assoc=8, policy=p).spec() and params: run FP's
+# geometry (S3-FIFO at window_frac 0.1)
+_FP_S3 = dict(width=131_072, rows=4, dk_bits=2_097_152, window_slots=7_680,
+              main_slots=61_440, assoc=15, policy="s3fifo")
+_FP_ONE = dict(width=131_072, rows=4, dk_bits=2_097_152, window_slots=8,
+               main_slots=65_536, assoc=8)
+PANEL_CASES = [
+    ("s3fifo ways 4 cb4 dk, resets mid-chunk", dict(_TINY4, policy="s3fifo"),
+     [(3, 8, 6, 50, 7, 0)], 3, 8, "skewed", 600, 128),
+    ("s3fifo ways 1 cb4 dk", dict(_P1, policy="s3fifo"),
+     [(1, 2, 1, 64, 7, 0)], 1, 2, "runs", 500, 128),
+    ("s3fifo ways 8 cb8 no-dk, one main set, reset at chunk boundaries",
+     dict(_PONE8, dk_bits=0, policy="s3fifo"), [(6, 8, 6, 64, 30, 0)], 6, 8,
+     "skewed", 512, 64),
+    ("s3fifo ways 16 cb4 dk", dict(_TINY16, policy="s3fifo"),
+     [(12, 32, 25, 300, 15, 0)], 12, 32, "alternating", 600, 256),
+    ("s3fifo ways 4, zero-way window sets",
+     dict(_TINY4, window_slots=16, policy="s3fifo"), [(2, 8, 6, 200, 7, 0)],
+     2, 8, "skewed", 600, 128),
+    ("arc ways 4 dk 256, both halves clear in a chunk",
+     dict(_TINY4, dk_bits=256, policy="arc"), [(1, 8, 6, 64, 7, 0)], 1, 8,
+     "skewed", 600, 128),
+    ("arc ways 1", dict(_P1, policy="arc"), [(1, 2, 1, 64, 7, 0)], 1, 2,
+     "runs", 500, 128),
+    ("arc ways 8 cb8, one main set", dict(_PONE8, policy="arc"),
+     [(1, 8, 6, 64, 30, 0)], 1, 8, "alternating", 600, 256),
+    ("arc ways 16 dk 256", dict(_TINY16, dk_bits=256, policy="arc"),
+     [(1, 32, 25, 500, 15, 0)], 1, 32, "skewed", 600, 200),
+    ("lfu ways 4 cb4 dk, resets mid-chunk", dict(_TINY4, policy="lfu"),
+     [(1, 8, 6, 50, 7, 0)], 1, 8, "skewed", 600, 128),
+    ("lfu ways 1 cb8 no-dk", dict(_P1, dk_bits=0, counter_bits=8,
+                                  policy="lfu"),
+     [(1, 2, 1, 64, 30, 0)], 1, 2, "runs", 500, 128),
+    ("lfu ways 8 cb8 dk, one main set, reset at chunk boundaries",
+     dict(_PONE8, policy="lfu"), [(1, 8, 6, 64, 30, 0)], 1, 8, "skewed", 512,
+     64),
+    ("lfu ways 16 cb4 no-dk", dict(_TINY16, dk_bits=0, policy="lfu"),
+     [(1, 32, 25, 300, 15, 0)], 1, 32, "alternating", 600, 200),
+    ("s3fifo ways 32, two records a lane", dict(_P32, policy="s3fifo"),
+     [(32, 64, 51, 200, 7, 0)], 32, 64, "skewed", 400, 128),
+    ("arc ways 32, two records a lane", dict(_P32, dk_bits=256, policy="arc"),
+     [(1, 12, 51, 200, 7, 0)], 1, 64, "skewed", 400, 128),
+    ("lfu ways 32, two records a lane", dict(_P32, policy="lfu"),
+     [(1, 64, 51, 100, 7, 0)], 1, 64, "skewed", 400, 128),
+    ("s3fifo lanes, per-lane params", dict(_TINY8, policy="s3fifo"),
+     [(6, 16, 12, 400, 30, 0), (6, 16, 4, 64, 30, 0),
+      (6, 16, 12, 250, 200, 100), (6, 16, 8, 50, 15, 0)], 6, 16, "runs",
+     400, 128),
+    ("arc lanes, per-lane params", dict(_TINY8, dk_bits=256, policy="arc"),
+     [(1, 16, 12, 400, 30, 0), (1, 6, 4, 64, 30, 0),
+      (1, 16, 12, 250, 200, 100), (1, 3, 8, 50, 15, 0)], 1, 16, "skewed",
+     400, 128),
+    ("lfu lanes, per-lane params", dict(_TINY8, policy="lfu"),
+     [(1, 16, 12, 400, 30, 0), (1, 16, 4, 64, 30, 0),
+      (1, 16, 12, 250, 200, 100), (1, 16, 8, 50, 15, 0)], 1, 16, "skewed",
+     400, 128),
+    ("s3fifo FP geometry", _FP_S3, [(6_554, 58_982, 47_185, 524_288, 7, 0)],
+     6_554, 58_982, "wide", 512, 512),
+    ("arc FP geometry", dict(_FP_ONE, policy="arc"),
+     [(1, 65_536, 52_428, 524_288, 7, 0)], 1, 65_536, "wide", 512, 512),
+    ("lfu FP geometry", dict(_FP_ONE, policy="lfu"),
+     [(1, 65_536, 52_428, 524_288, 7, 0)], 1, 65_536, "wide", 512, 512),
+]
 
 
 # The step kernel's sharded instances (kernel mode 1b): chip_smoke.py phase

@@ -9,14 +9,16 @@ Sizing mirrors the reference exactly (window 1%, SLRU 80/20, W =
 sample_factor*C, cap = W/C with the doorkeeper absorbing one count), so the
 port's state and hit counts equal the JAX engine's bit for bit.
 
-This slice runs ``policy="wtinylfu"`` in both table layouts, for one
+The port runs ``policy="wtinylfu"`` in both table layouts, for one
 stream or ``streams=B`` tenant lanes (one launch per chunk for all lanes),
 with an unsharded sketch or ``shards=S`` (one launch per merge epoch, then
 the ``merge_halve`` fold, with ``integrity`` if asked), with a static window
 or ``adaptive=True`` (one launch per climb epoch, then the fold when
-sharded, the hill climb and ``rebalance``, all on the card), and
-``simulate_sweep``'s grids of such configurations: one run per
-configuration, or (unsharded) as lanes of one run.
+sharded, the hill climb and ``rebalance``, all on the card); the policy
+panel's competitors (``policy="s3fifo" | "arc" | "lfu"``) on the
+set-associative tables, one stream or lanes; and ``simulate_sweep``'s grids
+of such configurations (``policies=`` among them): one run per
+configuration, or (unsharded, one policy) as lanes of one run.
 Entry points run on the card unless the caller passes ``device="cpu"`` (the
 plain version); without a card they raise.
 """
@@ -48,8 +50,10 @@ class DeviceWTinyLFU:
     set-associative tables; ``streams=B`` batches B tenant lanes; ``shards=S``
     splits the sketch into S shards folded every ``merge_epoch`` accesses.
     ``adaptive=True`` hill-climbs the window quota between epochs.
-    ``mesh`` and ``policy != "wtinylfu"`` are accepted for sizing and
-    refused by :meth:`run` until the port carries them.
+    ``policy`` picks the W-TinyLFU rules or a competitor of the panel
+    (``"s3fifo"``, ``"arc"``, ``"lfu"``; set-associative tables only).
+    ``mesh`` is accepted for sizing and refused by :meth:`run` until the
+    port carries it.
     """
     capacity: int
     window_frac: float = 0.01
@@ -585,8 +589,11 @@ def simulate_trace(trace: np.ndarray, capacity: int, *,
     ``adaptive=True`` hill-climbs the window quota (``climb``, default
     :class:`ClimbSpec`) between epochs, on the card: ``extra`` carries
     ``final_quota`` and the per-epoch ``trajectory``; with ``shards`` the
-    fold rides the climb epochs.  With ``return_state`` the result comes
-    with the final state dict and the per-access hit flags.
+    fold rides the climb epochs.  ``policy="s3fifo" | "arc" | "lfu"`` (via
+    cfg_kw, with ``assoc``) runs a competitor of the policy panel; the
+    reference's label (``"<policy>(device)"``) and ``extra["policy"]``
+    come with it.  With ``return_state`` the result comes with the final
+    state dict and the per-access hit flags.
     """
     cfg = DeviceWTinyLFU(capacity, window_frac=window_frac,
                          sample_factor=sample_factor, adaptive=adaptive,
@@ -602,8 +609,8 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
                    mode: str = "auto", adaptive: bool = False, climb=None,
                    policies=("wtinylfu",), device=None, chunk: int = 512,
                    **cfg_kw) -> list[SimResult]:
-    """Cartesian (capacity x window_frac) sweep (counterpart of the
-    reference's ``simulate_sweep`` for unmeshed, single-policy grids).
+    """Cartesian (capacity x window_frac x policy) sweep (counterpart of
+    the reference's ``simulate_sweep`` for unmeshed grids).
 
     ``mode="sequential"`` runs one configuration after another, each with
     its own tight geometry (sketch sized like the host's, bit-identical to
@@ -624,20 +631,30 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
     geometry (sweep ``window_fracs`` or climb hyperparameters) and one
     ``epoch_len``.
 
+    ``policies=`` adds the policy panel's axis: each policy runs its own
+    step rules, so a grid of several policies runs ``"sequential"``
+    (``"auto"`` resolves to it, ``"vmap"`` raises); a grid of one
+    competitor may run as lanes like any other.
+
     ``trace`` may be ``(N,)`` (shared by all configurations) or ``(G, N)``
     (one trace per grid point).  Rows carry the reference's schema
-    (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Meshed and
-    multi-policy grids are not ported yet and raise.
+    (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Meshed grids are
+    not ported yet and raise.
     """
     policies = tuple(policies)
-    if len(set(policies)) > 1:
-        raise NotImplementedError(
-            "policy grids (the policy panel) are ROADMAP queue 1 item 9")
     grid = [DeviceWTinyLFU(C, window_frac=wf, sample_factor=sample_factor,
                            adaptive=adaptive, policy=pol, **cfg_kw)
             for C in capacities for wf in window_fracs for pol in policies]
     gridlab = [(C, wf) for C in capacities for wf in window_fracs
                for pol in policies]
+    if len(set(policies)) > 1:
+        if mode == "vmap":
+            raise ValueError(
+                "policy grids run one compiled step program per policy (the "
+                "dispatch is static, traced into the program): use "
+                "mode='sequential'")
+        if mode == "auto":
+            mode = "sequential"
     if any(c.mesh is not None for c in grid):
         raise NotImplementedError("mesh sweeps are ROADMAP queue 1 item 12")
     for c in grid:

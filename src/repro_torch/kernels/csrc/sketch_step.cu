@@ -1,4 +1,4 @@
-// Fused W-TinyLFU chunk step for Hopper (sm_90a).
+// Fused cache chunk step for Hopper (sm_90a): W-TinyLFU and the policy panel.
 //
 // Replaces the TPU kernel step_pallas / _step_kernel of
 // src/repro/kernels/sketch_step.py: one launch advances one chunk of
@@ -91,6 +91,19 @@
 // window set's wsl count with a fire-and-forget atomic.  The epoch's
 // rebalance (kernels/sketch_step.py) moves the quota between launches.
 //
+// The policy panel (policy = S3-FIFO, ARC or LFU, the reference's
+// _one_access_set_s3fifo / _arc / _lfu) is the kPol template parameter of
+// the set path, compiled in a third build with -DSKETCH_STEP_PANEL (24
+// instances: three policies x RM x kLanes, unsharded and static; no flat
+// one).  S3-FIFO reuses the window set's records as the small FIFO, marks
+// main hits, and admits the pushed candidate on est >= 2 alone.  ARC has no
+// sketch (the add and reset compile out), keeps p, |T1| and the ghost
+// counts in registers for the chunk and loads the key's B1/B2 words with
+// its main sets; on an eviction it loads the victim's stored probes, then
+// their ghost words, and (rarely) clears a saturated half with the warp.
+// LFU loads no window set; on a miss each lane estimates its own records of
+// the key's two sets and the warp takes the minimum (estimate, stamp).
+//
 // Timing probes (python -m repro_torch.kernels.phase_timing) build this file
 // with -DSKETCH_STEP_SKIP_ADD or -DSKETCH_STEP_SKIP_ACCESS to compile one
 // phase out of the loop; the engine's build defines neither.
@@ -115,12 +128,16 @@ constexpr bool kAdaptBuild = true;
 #else
 constexpr bool kAdaptBuild = false;
 #endif
+// the policy of a set-path instance (StepArgs.policy: the index in
+// sketch_common.POLICIES)
+enum { kWtinylfu, kS3fifo, kArc, kLfu };
 enum { WT_LO, WT_HI, WT_META, WT_MSET, WT_MSET2 };
 enum { MT_LO, MT_HI, MT_META };
 
 }  // namespace
 
-// Mirrored field for field by _Args in sketch_step.py (pointers first).
+// Mirrored field for field by _Args in sketch_step.py (the fields the
+// panel added last, so the others keep their offsets).
 struct StepArgs {
   const int* lo;
   const int* hi;
@@ -145,6 +162,8 @@ struct StepArgs {
   int params_stride;    // lane grid: 0 (shared params) or NPARAMS
   int halves;           // 1: one sketch; 2: [global || delta] (sharded)
   int adaptive;         // 1: the runtime window quota (the kAdapt build)
+  int policy;           // kWtinylfu, or a competitor (the panel build)
+  int* ghost;           // ARC: (2 dk_words,) B1 || B2 ghost Blooms
 };
 
 namespace {
@@ -664,10 +683,11 @@ __device__ __forceinline__ int main_usable(const StepArgs& a, const Adapt& ad,
   return kAdapt ? ad.mbase + (s < ad.mrem ? 1 : 0) : a.assoc;
 }
 
-// Load the key's window set (every column) and the lo/hi/meta columns of
-// its two main sets.  Loads only: nothing waits for them here.  Adaptive:
-// the ways past each set's usable count read as padding (kI32Max).
-template <int RM, bool kAdapt>
+// Load the key's window set (every column; not with kWindow = false) and
+// the lo/hi/meta columns of its two main sets.  Loads only: nothing waits
+// for them here.  Adaptive: the ways past each set's usable count read as
+// padding (kI32Max).
+template <int RM, bool kAdapt, bool kWindow = true>
 __device__ __forceinline__ void load_sets(const StepArgs& a, const Entry& k,
                                           SetRegs<RM>& g, int lane,
                                           const Adapt& ad) {
@@ -675,7 +695,7 @@ __device__ __forceinline__ void load_sets(const StepArgs& a, const Entry& k,
   int wu = A;
   if constexpr (kAdapt) wu = a.wuw[k.w];
 #pragma unroll
-  for (int r = 0; r < SetRegs<RM>::RW; ++r) {
+  for (int r = 0; r < (kWindow ? SetRegs<RM>::RW : 0); ++r) {
     const int j = lane + 32 * r;
     g.wmeta[r] = kI32Max;
     if (j < A) {
@@ -857,10 +877,245 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
   return 0;
 }
 
+// First index of the minimum of key over a pair of sets whose way j sits in
+// lane 16 h + (j & 15), record j >> 4: ties go to the first set, then the
+// lower way.  Returns the minimum; vh and vj receive the set and the way.
+// (access_set keeps its own inline copy of this scan, so the static and
+// adaptive builds compile exactly as before the panel.)
+template <int RM>
+__device__ __forceinline__ int pair_argmin(const int (&key)[RM], int& vh,
+                                           int& vj) {
+  int loc = key[0];
+#pragma unroll
+  for (int r = 1; r < RM; ++r) loc = min(loc, key[r]);
+  const int vm = __reduce_min_sync(kFull, loc);
+  unsigned eq[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) eq[r] = __ballot_sync(kFull, key[r] == vm);
+  vh = 1;
+  vj = 0;
+  bool found = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const unsigned b = (eq[r] >> (16 * h)) & 0xffffu;
+      if (!found && b) { found = true; vh = h; vj = 16 * r + __ffs(b) - 1; }
+    }
+  }
+  return vm;
+}
+
+// ARC's registers for a chunk: the target p, |T1|, and the inserts into the
+// B1 and B2 ghost halves since each was last cleared.
+struct Arc {
+  int p, t1, gb1, gb2;
+};
+
+// One access of a competitor policy (kPol: S3-FIFO, ARC or LFU) against the
+// set-associative tables, from the registers load_sets filled (the main
+// sets; S3-FIFO's window set); returns the hit flag.  A main hit writes the
+// meta word of each matching way: S3-FIFO ORs in its CLOCK mark, ARC moves
+// it to T2 (kProt | t), LFU refreshes the stamp; a window hit (S3-FIFO)
+// writes nothing.
+template <int RM, int kPol>
+__device__ int access_panel(const StepArgs& a, const Sketch& s,
+                            const Lanes& ln, const int* P, int t,
+                            const Entry& k, SetRegs<RM>& g, Arc& arc) {
+  constexpr int RW = SetRegs<RM>::RW;
+  const int A = a.assoc, lane = ln.lane;
+  const bool same_km = k.m1 == k.m2;
+  const int mset = lane < 16 ? k.m1 : k.m2;
+  uint32_t w1 = 0, w2 = 0;          // ARC: the key's words of B1 and B2
+  if (kPol == kArc && ln.dk) {
+    w1 = static_cast<uint32_t>(a.ghost[k.pr >> 5]);
+    w2 = static_cast<uint32_t>(a.ghost[a.dk_words + (k.pr >> 5)]);
+  }
+  bool match[RM], mine = false, mine_t1 = false;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    match[r] = (lane & 15) + 16 * r < A && g.mlo[r] == k.lo
+               && g.mhi[r] == k.hi && g.mmeta[r] >= 0
+               && !(same_km && lane >= 16);   // aliased: count set 1 only
+    mine |= match[r];
+    mine_t1 |= match[r] && g.mmeta[r] < kProt;
+  }
+  bool hit = __any_sync(kFull, mine);
+  if constexpr (kPol == kS3fifo) {
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+      hit |= __any_sync(kFull, lane + 32 * r < A && g.wlo[r] == k.lo
+                                   && g.whi[r] == k.hi && g.wmeta[r] >= 0);
+  }
+  if (hit) {
+    int* meta = a.mtab + mset * A * a.mcols + MT_META;
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+      if (match[r])
+        meta[((lane & 15) + 16 * r) * a.mcols] =
+            kPol == kS3fifo ? (g.mmeta[r] | kProt)
+                            : (kPol == kArc ? (kProt | t) : t);
+    if constexpr (kPol == kArc)
+      arc.t1 -= __any_sync(kFull, mine_t1) ? 1 : 0;
+    return 1;
+  }
+
+  if constexpr (kPol == kS3fifo) {
+    // miss: the small FIFO's oldest record is the candidate (the key itself
+    // when its window set has no way) and the key takes its row
+    int wsm;
+    const int ws = first_min32(g.wmeta, wsm);
+    const bool w_ok = wsm != kI32Max;
+    Entry c = k;
+    if (w_ok) {
+      const int src = ws & 31, rr = ws >> 5;
+      c.lo = __shfl_sync(kFull, pick(g.wlo, rr), src);
+      c.hi = __shfl_sync(kFull, pick(g.whi, rr), src);
+      c.m1 = __shfl_sync(kFull, pick(g.wms1, rr), src);
+      c.m2 = __shfl_sync(kFull, pick(g.wms2, rr), src);
+      c.pr = probes_from(a, ln, g.widx, g.wdkb, src, rr);
+      const int head[5] = {k.lo, k.hi, t, k.m1, k.m2};
+      write_row(a, ln, a.wtab + (k.w * A + ws) * a.wcols, 5, head, k.pr);
+    }
+    if (wsm < 0) return 0;          // the window had room
+    // the candidate's two main sets (unchanged on a miss) and its sketch
+    // words, loaded together; it takes the first free or oldest unmarked
+    // (else oldest marked) way if its estimate is at least 2
+    const int cset = lane < 16 ? c.m1 : c.m2;
+    int cmeta[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int j = (lane & 15) + 16 * r;
+      cmeta[r] = j < A ? a.mtab[(cset * A + j) * a.mcols + MT_META] : kI32Max;
+    }
+    const uint32_t cw = load_word(a, s, ln, c.pr);
+    int vh, vj;
+    const int vm = pair_argmin(cmeta, vh, vj);
+    if (estimate_of(a, s, ln, cw, c.pr) >= 2 && vm != kI32Max) {
+      const int head[5] = {c.lo, c.hi, t, 0, 0};
+      write_row(a, ln, a.mtab + ((vh ? c.m2 : c.m1) * A + vj) * a.mcols, 3,
+                head, c.pr);
+    }
+    return 0;
+  } else if constexpr (kPol == kArc) {
+    // miss: a ghost hit moves p (B1 up, capped at main_cap; B2 down, at
+    // 0); the victim is the T1 LRU while |T1| exceeds p (at |T1| == p on
+    // a B2 hit), else the T2 LRU: flipping kProt in the order key swaps
+    // which list the argmin prefers
+    const bool gb1 = __ballot_sync(kFull, ln.dk && !((w1 >> (k.pr & 31)) & 1u))
+                     == 0;
+    const bool gb2 = __ballot_sync(kFull, ln.dk && !((w2 >> (k.pr & 31)) & 1u))
+                     == 0;
+    const bool in_b2 = gb2 && !gb1;
+    const int p = gb1 ? min(P[P_MAIN_CAP], arc.p + 1)
+                      : (in_b2 ? max(0, arc.p - 1) : arc.p);
+    arc.p = p;
+    const int flip = arc.t1 > p || (in_b2 && arc.t1 == p) ? 0 : kProt;
+    int okey[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int m = g.mmeta[r];
+      okey[r] = m == kI32Max ? kI32Max : (m < 0 ? -1 : m ^ flip);
+    }
+    int vh, vj;
+    if (pair_argmin(okey, vh, vj) == kI32Max) return 0;   // padding only
+    const int vmeta = __shfl_sync(kFull, pick(g.mmeta, vj >> 4),
+                                  16 * vh + (vj & 15));
+    int* vrow = a.mtab + ((vh ? k.m2 : k.m1) * A + vj) * a.mcols;
+    const bool was_t1 = vmeta >= 0 && vmeta < kProt;
+    if (vmeta >= 0) {
+      // the victim's stored probes enter B1 (from T1) or B2; a half whose
+      // count reached main_cap is cleared first (by this warp alone, a
+      // loop over its dk_words words); probes sharing a word merge onto
+      // the word as read before the clear, or onto zero
+      const int goff = was_t1 ? 0 : a.dk_words;
+      const bool clr = (was_t1 ? arc.gb1 : arc.gb2) >= P[P_MAIN_CAP];
+      int vpos = -1;
+      uint32_t vbit = 0, merged = 0;
+      if (ln.dk) {
+        const int vp = vrow[3 + a.rows + lane - 8];
+        vpos = goff + (vp >> 5);
+        vbit = 1u << (vp & 31);
+        merged = clr ? 0u : static_cast<uint32_t>(a.ghost[vpos]);
+      }
+#pragma unroll
+      for (int q = 0; q < kMaxDkp; ++q) {
+        if (q < a.dkp) {
+          const int op = __shfl_sync(kFull, vpos, 8 + q);
+          const uint32_t ob = __shfl_sync(kFull, vbit, 8 + q);
+          if (ln.dk && op == vpos) merged |= ob;
+        }
+      }
+      if (clr) {
+        __syncwarp();
+        for (int w = lane; w < a.dk_words; w += 32) a.ghost[goff + w] = 0;
+        __syncwarp();
+      }
+      if (ln.dk) a.ghost[vpos] = static_cast<int>(merged);
+      if (was_t1) arc.gb1 = (clr ? 0 : arc.gb1) + 1;
+      else arc.gb2 = (clr ? 0 : arc.gb2) + 1;
+    }
+    // a key either ghost remembers enters T2, a fresh key T1
+    const bool t2 = gb1 || gb2;
+    const int head[5] = {k.lo, k.hi, t2 ? (kProt | t) : t, 0, 0};
+    write_row(a, ln, vrow, 3, head, k.pr);
+    arc.t1 += (t2 ? 0 : 1) - (was_t1 ? 1 : 0);
+    return 0;
+  } else {
+    // LFU miss: the key takes the way of the record with the smallest
+    // estimate (after this access's add; empty as -1), the oldest stamp
+    // among ties, the first set before the second (masked when aliased).
+    // Each lane estimates its own records: their probe columns, then their
+    // sketch words
+    int cidx[RM][kMaxRows], cdkb[RM][kMaxDkp], okey[RM];
+    bool occ[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int m = g.mmeta[r];
+      const bool pad = m == kI32Max || (same_km && lane >= 16);
+      occ[r] = !pad && m >= 0;
+      okey[r] = pad ? kI32Max : -1;
+      if (occ[r]) {
+        const int* p = a.mtab + (mset * A + (lane & 15) + 16 * r) * a.mcols;
+#pragma unroll
+        for (int q = 0; q < kMaxRows; ++q)
+          if (q < a.rows) cidx[r][q] = p[3 + q];
+#pragma unroll
+        for (int q = 0; q < kMaxDkp; ++q)
+          if (q < a.dkp) cdkb[r][q] = p[3 + a.rows + q];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+      if (occ[r]) okey[r] = estimate(a, s, cidx[r], cdkb[r]);
+    int loc = okey[0];
+#pragma unroll
+    for (int r = 1; r < RM; ++r) loc = min(loc, okey[r]);
+    const int emin = __reduce_min_sync(kFull, loc);
+    if (emin == kI32Max) return 0;  // padding only
+    int bv = kI32Max, bi = kI32Max;
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int j = (lane >> 4) * A + (lane & 15) + 16 * r;
+      if (okey[r] == emin && (g.mmeta[r] < bv
+                              || (g.mmeta[r] == bv && j < bi))) {
+        bv = g.mmeta[r];
+        bi = j;
+      }
+    }
+    warp_argmin(bv, bi);
+    const int vh = bi >= A ? 1 : 0, vj = bi - vh * A;
+    const int head[5] = {k.lo, k.hi, t, 0, 0};
+    write_row(a, ln, a.mtab + ((vh ? k.m2 : k.m1) * A + vj) * a.mcols, 3,
+              head, k.pr);
+    return 0;
+  }
+}
+
 // Point a at lane l of the lane-axis operands (every leaf is (lanes, ...)
 // with the single-stream shape behind the lane axis; a sharded lane's
 // sketch is two halves long).
-template <bool kShard, bool kAdapt>
+template <bool kShard, bool kAdapt, int kPol>
 __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
   const long long b = a.b;
   a.lo += l * b;
@@ -893,16 +1148,19 @@ __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
       a.wuw += l * nws;
     }
   }
+  if constexpr (kPol == kArc) a.ghost += l * 2 * a.dk_words;
   if (a.nvalid) a.n_valid = a.nvalid[l];
 }
 
 // The chunk loop.  RM = 0: the flat tables; else the set-associative path
 // with RM records per lane of a pair of main sets.  kLanes: CTA l runs
 // lane l of the lane grid.  kShard: the sharded sketch.  kAdapt: the
-// adaptive window.
-template <int RM, bool kLanes, bool kShard, bool kAdapt>
+// adaptive window.  kPol: W-TinyLFU, or a competitor of the panel (set
+// path only; ARC compiles out the sketch add and reset, and keeps its p,
+// |T1| and ghost counts in registers for the chunk).
+template <int RM, bool kLanes, bool kShard, bool kAdapt, int kPol = kWtinylfu>
 __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
-  if constexpr (kLanes) to_lane<kShard, kAdapt>(a, blockIdx.x);
+  if constexpr (kLanes) to_lane<kShard, kAdapt, kPol>(a, blockIdx.x);
   __shared__ int prot_cap[kMaxWays + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = a.n_valid + tid; j < a.b; j += blockDim.x) a.hits[j] = 0;
@@ -922,6 +1180,10 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   int t = a.regs[R_T];
   int nhits = a.regs[R_HITS];
   Adapt ad{};
+  Arc arc{};
+  if constexpr (kPol == kArc)
+    arc = Arc{a.regs[R_WQUOTA], a.regs[R_WCOUNT], a.regs[R_MCOUNT],
+              a.regs[R_EHITS]};
   int ehits = 0;
   if constexpr (kAdapt) {
     ad.wquota = a.regs[R_WQUOTA];
@@ -955,26 +1217,32 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
     if (warp == 0) {
       if (i + 1 < a.n_valid) load_key(a, ln, i + 1, next);   // one ahead
 #ifndef SKETCH_STEP_SKIP_ACCESS
-      if constexpr (RM != 0) load_sets<RM, kAdapt>(a, k, g, lane, ad);
+      if constexpr (RM != 0)        // ARC and LFU never read the window
+        load_sets<RM, kAdapt, kPol == kWtinylfu || kPol == kS3fifo>(
+            a, k, g, lane, ad);
       if constexpr (kAdapt && RM != 0)      // the window set's traffic
         if (lane == 0) atomicAdd(a.wsl + k.w, 1);
 #endif
 #ifndef SKETCH_STEP_SKIP_ADD
-      add_words(a, s, ln, P[P_CAP], k, load_probe<kShard>(a, s, ln, k.pr));
-      __syncwarp();
+      if constexpr (kPol != kArc) {
+        add_words(a, s, ln, P[P_CAP], k, load_probe<kShard>(a, s, ln, k.pr));
+        __syncwarp();
+      }
 #endif
     }
     // size is data-independent, so every thread agrees on when to reset
-    // (never, sharded: the epoch fold ages the sketch)
-    size += 1;
-    if (!kShard && P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
-      __syncthreads();
-      for (int w = tid; w < a.counter_words; w += blockDim.x)
-        a.counters[w] = static_cast<int>(
-            (static_cast<uint32_t>(a.counters[w]) >> 1) & halve_mask);
-      for (int w = tid; w < a.dk_words; w += blockDim.x) a.dk[w] = 0;
-      __syncthreads();
-      size /= 2;
+    // (never, sharded: the epoch fold ages the sketch; ARC has no sketch)
+    if constexpr (kPol != kArc) {
+      size += 1;
+      if (!kShard && P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
+        __syncthreads();
+        for (int w = tid; w < a.counter_words; w += blockDim.x)
+          a.counters[w] = static_cast<int>(
+              (static_cast<uint32_t>(a.counters[w]) >> 1) & halve_mask);
+        for (int w = tid; w < a.dk_words; w += blockDim.x) a.dk[w] = 0;
+        __syncthreads();
+        size /= 2;
+      }
     }
     if (warp == 0) {
 #ifdef SKETCH_STEP_SKIP_ACCESS
@@ -983,9 +1251,11 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
       int hit;
       if constexpr (RM == 0)
         hit = access_flat<kShard, kAdapt>(a, s, P, i, t, pcount, lane, ad);
-      else
+      else if constexpr (kPol == kWtinylfu)
         hit = access_set<RM, kShard, kAdapt>(a, s, ln, prot_cap, t, k, g,
                                              ad);
+      else
+        hit = access_panel<RM, kPol>(a, s, ln, P, t, k, g, arc);
 #endif
       if (lane == 0) a.hits[i] = hit;
       nhits += (hit && t >= P[P_WARMUP]) ? 1 : 0;
@@ -1006,37 +1276,62 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
       a.regs[R_MCOUNT] = ad.mcount;
       a.regs[R_EHITS] = ehits;
     }
+    if constexpr (kPol == kArc) {
+      a.regs[R_WQUOTA] = arc.p;
+      a.regs[R_WCOUNT] = arc.t1;
+      a.regs[R_MCOUNT] = arc.gb1;
+      a.regs[R_EHITS] = arc.gb2;
+    }
   }
 }
 
-template <bool kLanes, bool kShard, bool kAdapt>
+template <bool kLanes, bool kShard, bool kAdapt, int kPol = kWtinylfu>
 int launch_rm(const StepArgs& a, int threads, cudaStream_t st) {
   const dim3 grid(kLanes ? a.lanes : 1);
   const int rm = (a.assoc + 15) / 16;
-  if (a.assoc == 0)
-    sketch_step_kernel<0, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
-  else if (rm <= 1)
-    sketch_step_kernel<1, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
-  else if (rm <= 2)
-    sketch_step_kernel<2, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
-  else if (rm <= 4)
-    sketch_step_kernel<4, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
-  else if (rm <= 8)
-    sketch_step_kernel<8, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(a);
-  else
+  if (a.assoc == 0) {
+    if constexpr (kPol == kWtinylfu)
+      sketch_step_kernel<0, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(
+          a);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);   // no flat panel
+  } else if (rm <= 1) {
+    sketch_step_kernel<1, kLanes, kShard, kAdapt, kPol>
+        <<<grid, threads, 0, st>>>(a);
+  } else if (rm <= 2) {
+    sketch_step_kernel<2, kLanes, kShard, kAdapt, kPol>
+        <<<grid, threads, 0, st>>>(a);
+  } else if (rm <= 4) {
+    sketch_step_kernel<4, kLanes, kShard, kAdapt, kPol>
+        <<<grid, threads, 0, st>>>(a);
+  } else if (rm <= 8) {
+    sketch_step_kernel<8, kLanes, kShard, kAdapt, kPol>
+        <<<grid, threads, 0, st>>>(a);
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifdef SKETCH_STEP_PANEL
+template <int kPol>
+int launch_policy(const StepArgs& a, int threads, cudaStream_t st) {
+  return a.lanes ? launch_rm<true, false, false, kPol>(a, threads, st)
+                 : launch_rm<false, false, false, kPol>(a, threads, st);
+}
+#else
 template <bool kShard>
 int launch_lanes(const StepArgs& a, int threads, cudaStream_t st) {
   return a.lanes ? launch_rm<true, kShard, kAdaptBuild>(a, threads, st)
                  : launch_rm<false, kShard, kAdaptBuild>(a, threads, st);
 }
+#endif
 
 }  // namespace
 
-// This build's instances take adaptive == kAdaptBuild only.
+// The static and adaptive builds run W-TinyLFU and take adaptive ==
+// kAdaptBuild only; the panel build (-DSKETCH_STEP_PANEL) runs the
+// competitors only, unsharded and static, on the set-associative tables.
 extern "C" int sketch_step_launch(const StepArgs* args, int threads,
                                   void* stream) {
   const StepArgs& a = *args;
@@ -1044,8 +1339,20 @@ extern "C" int sketch_step_launch(const StepArgs* args, int threads,
   if (a.lanes < 0 || a.halves < 1 || a.halves > 2
       || (a.adaptive != 0) != kAdaptBuild)
     return static_cast<int>(cudaErrorInvalidValue);
+#ifdef SKETCH_STEP_PANEL
+  if (a.halves != 1 || a.assoc == 0 || (a.policy == kArc && !a.ghost))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.policy) {
+    case kS3fifo: return launch_policy<kS3fifo>(a, threads, st);
+    case kArc: return launch_policy<kArc>(a, threads, st);
+    case kLfu: return launch_policy<kLfu>(a, threads, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#else
+  if (a.policy != kWtinylfu) return static_cast<int>(cudaErrorInvalidValue);
   return a.halves == 2 ? launch_lanes<true>(a, threads, st)
                        : launch_lanes<false>(a, threads, st);
+#endif
 }
 
 extern "C" const char* cuda_error_string(int err) {

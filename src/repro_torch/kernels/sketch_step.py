@@ -1,7 +1,7 @@
-"""Fused per-access W-TinyLFU step: plain PyTorch version and CUDA wrapper.
+"""Fused per-access cache step: plain PyTorch version and CUDA wrapper.
 
-Counterpart of ``repro/kernels/sketch_step.py`` for ``policy="wtinylfu"``,
-in both table layouts:
+Counterpart of ``repro/kernels/sketch_step.py``.  ``policy="wtinylfu"``
+runs in both table layouts:
 
 * flat (``assoc=None``): exact global LRU window and SLRU main, one packed
   int32 ``meta`` per slot (-1 empty, ``t`` probation, ``2^30|t`` protected,
@@ -21,6 +21,14 @@ halves, an access reads global plus delta (doorkeeper bits: global or delta)
 and writes only the delta half, and there is no per-access reset: the §3.3
 aging moves to the epoch fold (``kernels/sketch_merge.py``).  ``integrity``
 adds a ``csum`` leaf of ``S + 1`` int32 words that only the fold touches.
+
+The policy panel's competitors run on the set-associative tables, one
+stream or lanes, unsharded and static (``_SET_BODIES``): ``"s3fifo"`` (the
+window is the small FIFO, main a CLOCK-marked FIFO, the sketch the
+one-hit-wonder filter), ``"arc"`` (T1/T2 in the main table, the target p
+and the list counts in registers, B1/B2 as the Bloom halves of a ``ghost``
+leaf; no sketch) and ``"lfu"`` (no window, the victim the smallest estimate
+of the key's two sets).
 
 ``adaptive=True`` moves the window/main split from init-time padding into
 registers: ``regs[R_WQUOTA]`` is the window quota, the flat tables gate
@@ -98,8 +106,8 @@ class StepSpec:
 
     Same fields, properties and validation as the reference ``StepSpec``
     (see its docstring for each field).  The port runs every field but
-    ``mesh_devices``/``mesh_exchange`` and ``policy``, which are accepted
-    here and refused by the entry points that do not port them yet.
+    ``mesh_devices``/``mesh_exchange``, which are accepted here and refused
+    by the entry points that do not port them yet.
     """
     width: int
     rows: int = 4
@@ -231,12 +239,9 @@ class StepSpec:
 
 
 def _require_ported(spec: StepSpec):
-    """Refuse the StepSpec modes this slice of the port does not run."""
+    """Refuse the StepSpec modes the port does not run yet."""
     if spec.mesh_devices:
         raise NotImplementedError("mesh execution is ROADMAP queue 1 item 12")
-    if spec.policy != "wtinylfu":
-        raise NotImplementedError(
-            f"policy {spec.policy!r} is ROADMAP queue 1 item 9")
 
 
 def make_step_params(window_cap: int, main_cap: int, prot_cap: int,
@@ -257,7 +262,9 @@ def _state_keys(spec: StepSpec) -> tuple[str, ...]:
         return ("counters", "doorkeeper", "wlo", "whi", "wmeta", "widx",
                 "wdkb", "mlo", "mhi", "mmeta", "midx", "mdkb", "regs") + csum
     load = ("wsl", "wuw") if spec.adaptive else ()
-    return ("counters", "doorkeeper", "wtab", "mtab", "regs") + load + csum
+    ghost = ("ghost",) if spec.policy == "arc" else ()
+    return (("counters", "doorkeeper", "wtab", "mtab") + ghost + ("regs",)
+            + load + csum)
 
 
 def _state_shapes(spec: StepSpec) -> dict:
@@ -272,6 +279,8 @@ def _state_shapes(spec: StepSpec) -> dict:
                   "mtab": (spec.main_slots, spec.mcols)}
         if spec.adaptive:
             tables["wsl"] = tables["wuw"] = (spec.window_sets,)
+        if spec.policy == "arc":      # B1 || B2 ghost Blooms
+            tables["ghost"] = (2 * spec.dk_words,)
     shapes = {"counters": (spec.sketch_halves * spec.counter_words,),
               "doorkeeper": (spec.sketch_halves * spec.dk_words,), **tables,
               "regs": (NREGS,)}
@@ -308,7 +317,8 @@ def init_step_state(spec: StepSpec, window_cap: int | None = None,
            f"capacities ({wcap}, {mcap}) must fit the static slots "
            f"({spec.window_slots}, {spec.main_slots})")
     arrays = {k: np.zeros(v, np.int32) for k, v in _state_shapes(spec).items()
-              if k in ("counters", "doorkeeper", "regs", "csum", "wsl")}
+              if k in ("counters", "doorkeeper", "regs", "csum", "wsl",
+                       "ghost")}
     if spec.adaptive:
         arrays["regs"][R_WQUOTA] = wcap
         if spec.assoc is not None:
@@ -495,10 +505,12 @@ def _add(spec: StepSpec, params, st: dict, kidx, kdkb):
               st["regs"][R_SIZE].clone(), kidx, kdkb)
 
 
-def _estimate_pair(spec: StepSpec, counters, dk, idx2, dkb2):
-    """TinyLFU estimates of two entries from their stored probes:
-    (2, rows) probes, (2, dkp) doorkeeper bits -> (2,) int32.  Sharded:
-    counters are global + delta fields, doorkeeper bits global | delta."""
+def _estimate_block(spec: StepSpec, counters, dk, idx2, dkb2):
+    """TinyLFU estimates of K entries from their stored probes: (K, rows)
+    probes, (K, dkp) doorkeeper bits -> (K,) int32 (the reference's
+    ``_estimate_pair`` at K = 2, its ``_estimate_block`` at any K).
+    Sharded: counters are global + delta fields, doorkeeper bits global |
+    delta."""
     rows = torch.arange(spec.rows, device=counters.device)
     flat2 = (rows[None, :] * spec.words_per_row
              + _word_of(spec, idx2)).long()
@@ -597,7 +609,7 @@ def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
         tslot = torch.argmin(mmeta)
     vmeta = _get(mmeta, tslot)
     m_free = vmeta < 0
-    est = _estimate_pair(spec, st["counters"], st["doorkeeper"],
+    est = _estimate_block(spec, st["counters"], st["doorkeeper"],
                          torch.stack([cand_idx, _get(midx, tslot)]),
                          torch.stack([cand_dkb, _get(mdkb, tslot)]))
     do_ins = push & (m_free | (est[0] > est[1]))
@@ -618,6 +630,41 @@ def _one_access_flat(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb):
         regs[R_MCOUNT] = mcount + (do_ins & m_free).to(torch.int32)
         regs[R_EHITS] = regs[R_EHITS] + hit.to(torch.int32)
     return hit
+
+
+def _insert(b1, b2, tslot, row, do_ins, same):
+    """Write ``row`` at ``tslot`` of the (2A,) pair of set blocks ``b1``,
+    ``b2`` (copies) where ``do_ins``; aliased sets (``same``) take the first
+    block's result.  Returns the updated (b1, b2)."""
+    A = b1.shape[0]
+    b1u, b2u = b1.clone(), b2.clone()
+    _put(b1u, torch.clamp(tslot, max=A - 1), row, do_ins & (tslot < A))
+    _put(b2u, torch.clamp(tslot - A, 0, A - 1), row, do_ins & (tslot >= A))
+    return b1u, torch.where(same, b1u, b2u)
+
+
+def _main_lookup(spec: StepSpec, mtab, klo, khi, kmset):
+    """The key's two main set blocks (copies) and their match masks; the
+    second is masked when the choices alias (a hit counts in set 1 only).
+    Returns (blk1, blk2, match1, match2, same_km)."""
+    A = spec.assoc
+    ways = torch.arange(A, device=mtab.device)
+    km1, km2 = kmset[0], kmset[1]
+    same_km = km2 == km1
+    blk1 = mtab[km1.long() * A + ways]
+    blk2 = mtab[km2.long() * A + ways]
+
+    def match_in(blk):
+        return ((blk[:, MT_LO] == klo) & (blk[:, MT_HI] == khi)
+                & (blk[:, MT_META] >= 0))
+    return blk1, blk2, match_in(blk1), match_in(blk2) & ~same_km, same_km
+
+
+def _with_meta(blk, match, meta):
+    """A copy of ``blk`` whose matching records take ``meta``."""
+    out = blk.clone()
+    out[:, MT_META] = torch.where(match, meta, blk[:, MT_META])
+    return out
 
 
 def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
@@ -730,7 +777,7 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     tslot = torch.argmin(cblk[:, MT_META])        # ties pick the first half
     vic = _get(cblk, tslot)
     m_free = vic[MT_META] < 0
-    est = _estimate_pair(
+    est = _estimate_block(
         spec, st["counters"], st["doorkeeper"],
         torch.stack([cand[5:5 + rows], vic[3:3 + rows]]),
         torch.stack([cand[5 + rows:5 + rows + dkp],
@@ -738,11 +785,7 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     do_ins = push & (vic[MT_META] != _I32_MAX) & (m_free | (est[0] > est[1]))
     candrow = torch.cat([torch.stack([cand[WT_LO], cand[WT_HI], mst]),
                          cand[5:5 + rows], cand[5 + rows:5 + rows + dkp]])
-    cb1u, cb2u = cb1.clone(), cb2.clone()
-    _put(cb1u, torch.clamp(tslot, max=A - 1), candrow, do_ins & (tslot < A))
-    _put(cb2u, torch.clamp(tslot - A, 0, A - 1), candrow,
-         do_ins & (tslot >= A))
-    cb2u = torch.where(same_c, cb1u, cb2u)
+    cb1u, cb2u = _insert(cb1, cb2, tslot, candrow, do_ins, same_c)
 
     for s, blk in ((km1, mblk1u), (km2, m2eff), (c1, cb1u), (c2, cb2u)):
         mtab[s.long() * A + ways] = masked(blk, m_usable(s), MT_META, _EMPTY)
@@ -757,6 +800,217 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
         _put(st["wsl"], kwset, _get(st["wsl"], kwset) + 1)
         regs[R_EHITS] = regs[R_EHITS] + hit.to(torch.int32)
     return hit
+
+
+def _one_access_set_s3fifo(spec: StepSpec, params, st: dict, klo, khi,
+                           kidx, kdkb, kwset, kmset):
+    """One access under S3-FIFO, in place; returns hit.
+
+    The window table is the small FIFO (insert order: a window hit writes
+    nothing), the main table the CLOCK-marked main FIFO (a hit ORs
+    ``_PROT`` into the meta and keeps the stamp, so the victim argmin orders
+    empty < unmarked oldest < marked oldest), and the sketch is the
+    one-hit-wonder filter: the candidate pushed out of the small FIFO enters
+    main only with an estimate (after this access's add) of at least 2, with
+    no free-slot override."""
+    A, rows, dkp = spec.assoc, spec.rows, spec.dkp
+    regs = st["regs"]
+    t = regs[R_T].clone()
+    size = _add(spec, params, st, kidx, kdkb)
+    wtab, mtab = st["wtab"], st["mtab"]
+    ways = torch.arange(A, device=wtab.device)
+    km1, km2 = kmset[0], kmset[1]
+
+    wblk = wtab[kwset.long() * A + ways]
+    wmeta = wblk[:, WT_META].clone()
+    hit_w = ((wblk[:, WT_LO] == klo) & (wblk[:, WT_HI] == khi)
+             & (wmeta >= 0)).any()
+    mblk1, mblk2, match1, match2, same_km = _main_lookup(spec, mtab, klo,
+                                                         khi, kmset)
+    hit = hit_w | match1.any() | match2.any()
+
+    miss = ~hit
+    ws = torch.argmin(wmeta)                  # oldest insert (or empty)
+    newrow = torch.cat([torch.stack([klo, khi, t, km1, km2]), kidx, kdkb])
+    wsm = _get(wmeta, ws)
+    w_ok = wsm != _I32_MAX                    # zero-way set: bypass window
+    push = miss & ((wsm >= 0) | ~w_ok)
+    cand = torch.where(w_ok, _get(wblk, ws), newrow)
+    _put(wblk, ws, newrow, miss & w_ok)
+
+    mblk1u = _with_meta(mblk1, match1, mblk1[:, MT_META] | _PROT)
+    mblk2u = _with_meta(mblk2, match2, mblk2[:, MT_META] | _PROT)
+    m2eff = torch.where(same_km, mblk1u, mblk2u)
+
+    c1, c2 = cand[WT_MSET], cand[WT_MSET2]
+
+    def fixup(c):
+        cb = mtab[c.long() * A + ways]
+        return torch.where(c == km2, m2eff, torch.where(c == km1, mblk1u, cb))
+
+    cb1, cb2 = fixup(c1), fixup(c2)
+    cblk = torch.cat([cb1, cb2], dim=0)
+    tslot = torch.argmin(cblk[:, MT_META])    # empty < unmarked < marked
+    vic = _get(cblk, tslot)
+    est = _estimate_block(spec, st["counters"], st["doorkeeper"],
+                          cand[5:5 + rows][None], cand[5 + rows:][None])
+    do_ins = push & (vic[MT_META] != _I32_MAX) & (est[0] >= 2)
+    candrow = torch.cat([torch.stack([cand[WT_LO], cand[WT_HI], t]),
+                         cand[5:5 + rows], cand[5 + rows:5 + rows + dkp]])
+    cb1u, cb2u = _insert(cb1, cb2, tslot, candrow, do_ins, c2 == c1)
+
+    for s, blk in ((km1, mblk1u), (km2, m2eff), (c1, cb1u), (c2, cb2u)):
+        mtab[s.long() * A + ways] = blk
+    wtab[kwset.long() * A + ways] = wblk
+
+    regs[R_SIZE] = size
+    regs[R_T] = t + 1
+    regs[R_HITS] = regs[R_HITS] + (hit & (t >= params[P_WARMUP])).to(
+        torch.int32)
+    return hit
+
+
+def _one_access_set_arc(spec: StepSpec, params, st: dict, klo, khi, kidx,
+                        kdkb, kwset, kmset):
+    """One access under ARC, in place; returns hit.
+
+    T1 (probation meta) and T2 (``_PROT`` meta) share the main table; the
+    target p is ``regs[R_WQUOTA]``, |T1| ``R_WCOUNT``, and the B1/B2 ghost
+    lists are the Bloom halves of the ``ghost`` leaf (``[0, dk_words)`` and
+    ``[dk_words, 2 dk_words)``), addressed by the stored doorkeeper probes,
+    with their insert counts in ``R_MCOUNT``/``R_EHITS``; a half is cleared
+    when its count has reached ``P_MAIN_CAP``.  No sketch add and no reset;
+    the window table is never read or written; every miss is admitted."""
+    A, rows, dkp, dkw = spec.assoc, spec.rows, spec.dkp, spec.dk_words
+    regs = st["regs"]
+    t = regs[R_T].clone()
+    p, t1count = regs[R_WQUOTA].clone(), regs[R_WCOUNT].clone()
+    gb1count, gb2count = regs[R_MCOUNT].clone(), regs[R_EHITS].clone()
+    ghost, mtab = st["ghost"], st["mtab"]
+    ways = torch.arange(A, device=mtab.device)
+    km1, km2 = kmset[0], kmset[1]
+
+    mblk1, mblk2, match1, match2, same_km = _main_lookup(spec, mtab, klo,
+                                                         khi, kmset)
+    hit = match1.any() | match2.any()
+    hit_t1 = ((match1 & (mblk1[:, MT_META] < _PROT)).any()
+              | (match2 & (mblk2[:, MT_META] < _PROT)).any())
+    gpos, gbit = (kdkb >> 5).long(), kdkb & 31
+    gb1 = (((ghost[gpos] >> gbit) & 1) == 1).all()
+    gb2 = (((ghost[dkw + gpos] >> gbit) & 1) == 1).all()
+
+    mblk1u = _with_meta(mblk1, match1, _PROT | t)   # hit: -> T2 MRU
+    mblk2u = _with_meta(mblk2, match2, _PROT | t)
+    m2eff = torch.where(same_km, mblk1u, mblk2u)
+
+    miss = ~hit
+    in_b1 = miss & gb1
+    in_b2 = miss & gb2 & ~gb1
+    p_new = torch.where(in_b1, torch.minimum(params[P_MAIN_CAP], p + 1),
+                        torch.where(in_b2, torch.clamp(p - 1, min=0), p))
+
+    # REPLACE: the T1 LRU while |T1| exceeds p (at |T1| == p on a B2 ghost
+    # hit), else the T2 LRU; flipping _PROT in the order key swaps which
+    # list the argmin prefers
+    cblk = torch.cat([mblk1u, m2eff], dim=0)
+    meta_c = cblk[:, MT_META]
+    prefer_t1 = (t1count > p_new) | (in_b2 & (t1count == p_new))
+    flip = torch.where(prefer_t1, 0, _PROT)
+    okey = torch.where(meta_c == _I32_MAX, _I32_MAX,
+                       torch.where(meta_c < 0, -1, meta_c ^ flip))
+    tslot = torch.argmin(okey)
+    vic = _get(cblk, tslot)
+    do_ins = miss & (_get(okey, tslot) != _I32_MAX)
+    evict = do_ins & (vic[MT_META] >= 0)
+    vic_was_t1 = evict & (vic[MT_META] < _PROT)
+
+    # the victim's stored probes enter B1 (from T1) or B2; a half whose
+    # count reached P_MAIN_CAP is cleared first; probes sharing a word merge
+    # onto the word as read before the clear (zero when cleared)
+    goff = torch.where(vic_was_t1, 0, dkw)
+    vdkb = vic[3 + rows:3 + rows + dkp]
+    vpos = (goff + (vdkb >> 5)).long()
+    vbit = torch.ones_like(vdkb) << (vdkb & 31)
+    gw = ghost[vpos]
+    clr1 = vic_was_t1 & (gb1count >= params[P_MAIN_CAP])
+    clr2 = evict & ~vic_was_t1 & (gb2count >= params[P_MAIN_CAP])
+    clr = clr1 | clr2
+    half = torch.arange(2 * dkw, device=ghost.device) // dkw == goff // dkw
+    ghost.copy_(torch.where(clr & half, 0, ghost))
+    merged = torch.where(clr, 0, gw)
+    same = vpos[:, None] == vpos[None, :]
+    for j in range(dkp):
+        merged = merged | torch.where(same[:, j], vbit[j], 0)
+    ghost[vpos] = torch.where(evict, merged, gw)     # duplicates agree
+
+    meta0 = torch.where(gb1 | gb2, _PROT | t, t)   # remembered keys -> T2
+    candrow = torch.cat([torch.stack([klo, khi, meta0]), kidx, kdkb])
+    mb1f, mb2f = _insert(mblk1u, m2eff, tslot, candrow, do_ins, same_km)
+    mtab[km1.long() * A + ways] = mb1f
+    mtab[km2.long() * A + ways] = mb2f
+
+    i32 = torch.int32
+    regs[R_T] = t + 1
+    regs[R_HITS] = regs[R_HITS] + (hit & (t >= params[P_WARMUP])).to(i32)
+    regs[R_WQUOTA] = p_new
+    regs[R_WCOUNT] = (t1count - hit_t1.to(i32) - vic_was_t1.to(i32)
+                      + (do_ins & (meta0 < _PROT)).to(i32))
+    regs[R_MCOUNT] = torch.where(clr1, 0, gb1count) + vic_was_t1.to(i32)
+    regs[R_EHITS] = (torch.where(clr2, 0, gb2count)
+                     + (evict & ~vic_was_t1).to(i32))
+    return hit
+
+
+def _one_access_set_lfu(spec: StepSpec, params, st: dict, klo, khi, kidx,
+                        kdkb, kwset, kmset):
+    """One access under the heap-free sketch LFU, in place; returns hit.
+
+    No window; a hit refreshes the stamp (probation meta, no ``_PROT``); a
+    miss always enters the key's own two sets, in place of the record with
+    the smallest estimate (after this access's add; empty as -1, padding
+    never), the oldest stamp among ties, set 1 before set 2 (its duplicate
+    masked when the choices alias)."""
+    A, rows = spec.assoc, spec.rows
+    regs = st["regs"]
+    t = regs[R_T].clone()
+    size = _add(spec, params, st, kidx, kdkb)
+    mtab = st["mtab"]
+    ways = torch.arange(A, device=mtab.device)
+    km1, km2 = kmset[0], kmset[1]
+
+    mblk1, mblk2, match1, match2, same_km = _main_lookup(spec, mtab, klo,
+                                                         khi, kmset)
+    hit = match1.any() | match2.any()
+    mblk1u = _with_meta(mblk1, match1, t)
+    mblk2u = _with_meta(mblk2, match2, t)
+    m2eff = torch.where(same_km, mblk1u, mblk2u)
+
+    cblk = torch.cat([mblk1u, m2eff], dim=0)
+    meta_c = cblk[:, MT_META]
+    est = _estimate_block(spec, st["counters"], st["doorkeeper"],
+                          cblk[:, 3:3 + rows], cblk[:, 3 + rows:])
+    pad = (meta_c == _I32_MAX) | (same_km & (torch.arange(
+        2 * A, device=mtab.device) >= A))
+    okey1 = torch.where(pad, _I32_MAX, torch.where(meta_c < 0, -1, est))
+    okey2 = torch.where(okey1 == okey1.min(), meta_c, _I32_MAX)
+    tslot = torch.argmin(okey2)               # LRU among frequency ties
+    do_ins = ~hit & (_get(okey1, tslot) != _I32_MAX)
+    candrow = torch.cat([torch.stack([klo, khi, t]), kidx, kdkb])
+    mb1f, mb2f = _insert(mblk1u, m2eff, tslot, candrow, do_ins, same_km)
+    mtab[km1.long() * A + ways] = mb1f
+    mtab[km2.long() * A + ways] = mb2f
+
+    regs[R_SIZE] = size
+    regs[R_T] = t + 1
+    regs[R_HITS] = regs[R_HITS] + (hit & (t >= params[P_WARMUP])).to(
+        torch.int32)
+    return hit
+
+
+# the set path's per-access body of each policy (the reference's
+# _one_access dispatch)
+_SET_BODIES = {"wtinylfu": _one_access_set, "s3fifo": _one_access_set_s3fifo,
+               "arc": _one_access_set_arc, "lfu": _one_access_set_lfu}
 
 
 def _lane_count(n_valid, b: int, lanes: int):
@@ -847,8 +1101,9 @@ def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
             hit = _one_access_flat(spec, params, state, lo[i], hi[i],
                                    kidx[i], kdkb[i])
         else:
-            hit = _one_access_set(spec, params, state, lo[i], hi[i],
-                                  kidx[i], kdkb[i], kwset[i], kmset[i])
+            hit = _SET_BODIES[spec.policy](spec, params, state, lo[i],
+                                           hi[i], kidx[i], kdkb[i], kwset[i],
+                                           kmset[i])
         hits[i] = hit.to(torch.int32)
     return state, hits
 
@@ -1048,7 +1303,8 @@ _THREADS = 256
 
 
 class _Args(ctypes.Structure):
-    """Mirror of ``StepArgs`` in csrc/sketch_step.cu (pointers first)."""
+    """Mirror of ``StepArgs`` in csrc/sketch_step.cu (pointers, then ints,
+    then the policy panel's two fields)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "lo", "hi", "kidx", "kdkb", "kwset", "kmset", "params", "counters",
         "dk", "wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi", "mmeta",
@@ -1058,11 +1314,21 @@ class _Args(ctypes.Structure):
             "n_valid", "b", "rows", "dkp", "dk_bits", "counter_bits",
             "words_per_row", "counter_words", "dk_words", "window_slots",
             "main_slots", "assoc", "wcols", "mcols", "lanes",
-            "params_stride", "halves", "adaptive")]
+            "params_stride", "halves", "adaptive", "policy")] + [
+        ("ghost", ctypes.c_void_p)]
 
-# the adaptive instances (kernel mode 1c) are a second build of the same
-# source, compiled in parallel with the first
+# the adaptive instances (kernel mode 1c) and the competitor policies'
+# (mode 1d) are a second and a third build of the same source, compiled in
+# parallel with the first
 ADAPTIVE_DEFINES = ("SKETCH_STEP_ADAPTIVE",)
+PANEL_DEFINES = ("SKETCH_STEP_PANEL",)
+
+
+def _defines(spec: StepSpec) -> tuple[str, ...]:
+    """The ``-D`` defines of the build that holds ``spec``'s instances."""
+    if spec.policy != "wtinylfu":
+        return PANEL_DEFINES
+    return ADAPTIVE_DEFINES if spec.adaptive else ()
 
 
 def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
@@ -1079,7 +1345,9 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     as the single-stream launch.  ``spec.shards > 1`` launches the sharded
     instances (``[global || delta]`` sketch, no per-access reset);
     ``spec.adaptive`` the adaptive ones (runtime quota registers, per-set
-    usable ways, ``wsl``), from the ``ADAPTIVE_DEFINES`` build."""
+    usable ways, ``wsl``), from the ``ADAPTIVE_DEFINES`` build; a
+    competitor ``spec.policy`` the panel's (ARC's ``ghost`` Blooms too),
+    from the ``PANEL_DEFINES`` build."""
     from ._build import check_error, load_library
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
@@ -1094,7 +1362,7 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
            "kmset": kmset, "params": params, "counters": state["counters"],
            "dk": state["doorkeeper"], "regs": state["regs"], "hits": hits}
     for k in ("wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi", "mmeta",
-              "midx", "mdkb", "wtab", "mtab", "wsl", "wuw"):
+              "midx", "mdkb", "wtab", "mtab", "wsl", "wuw", "ghost"):
         if k in state:
             ptr[k] = state[k]
     per_lane = isinstance(n_valid, torch.Tensor)
@@ -1118,9 +1386,9 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
                  mcols=spec.mcols if spec.assoc else 0,
                  lanes=lanes if lane_grid else 0,
                  params_stride=NPARAMS if params.dim() == 2 else 0,
-                 halves=spec.sketch_halves, adaptive=int(spec.adaptive))
-    lib = lib or load_library(
-        "sketch_step", ADAPTIVE_DEFINES if spec.adaptive else ())
+                 halves=spec.sketch_halves, adaptive=int(spec.adaptive),
+                 policy=POLICIES.index(spec.policy))
+    lib = lib or load_library("sketch_step", _defines(spec))
     stream = torch.cuda.current_stream(lo.device).cuda_stream
     check_error("sketch_step", lib, lib.sketch_step_launch(
         ctypes.addressof(args), _THREADS, stream))

@@ -69,6 +69,48 @@ def phase_shift_trace(length: int, n_hot: int = 2000, alpha: float = 0.9,
     return np.concatenate([first, second.astype(np.int64)])
 
 
+def glimpse_trace(length: int, loop_items: int = 5000, n_random: int = 50_000,
+                  alpha: float = 0.9, loop_frac: float = 0.65,
+                  seed: int = 0) -> np.ndarray:
+    """Glimpse: a loop over more items than the cache holds (LRU's
+    pathological case) mixed with Zipf accesses."""
+    rng = np.random.default_rng(seed)
+    probs = zipf_probs(n_random, alpha)
+    out = np.empty(length, dtype=np.int64)
+    pos = 0
+    lp = 0
+    while pos < length:
+        if rng.random() < loop_frac:
+            slen = min(int(rng.integers(200, 2000)), length - pos)
+            seq = (lp + np.arange(slen)) % loop_items
+            lp = (lp + slen) % loop_items
+            out[pos:pos + slen] = seq + n_random
+            pos += slen
+        else:
+            rlen = min(int(rng.integers(50, 500)), length - pos)
+            out[pos:pos + rlen] = _sample_from_probs(probs, rlen, rng)
+            pos += rlen
+    return out
+
+
+def panel_traces(length: int = 60_000, seed: int = 0) -> dict:
+    """The policy panel's trace families, each separating the policies
+    along one axis: ``"zipf"`` (stationary skew), ``"scan-hot"`` (a
+    one-pass scan, then a Zipf hotspot), ``"churn"`` (a hot set diluted by
+    one-hit wonders) and ``"loop"`` (a cyclic scan slightly larger than the
+    cache, plus noise).  Returns ``{name: (length,) int64 trace}``."""
+    half = length // 2
+    scan = np.arange(1 << 20, (1 << 20) + half, dtype=np.int64)
+    hot = _sample_from_probs(zipf_probs(2_000, 1.0), length - half,
+                             np.random.default_rng(seed + 1))
+    return {
+        "zipf": zipf_trace(length, n_items=length, alpha=0.9, seed=seed),
+        "scan-hot": np.concatenate([scan, hot]),
+        "churn": fickle_churn_trace(length, seed=seed),
+        "loop": glimpse_trace(length, seed=seed),
+    }
+
+
 def tenant_lanes_trace(streams: int, length: int, n_items: int = 10_000,
                        alpha: float = 0.9, tenant_alpha: float = 1.0,
                        drift_every: int = 0, seed: int = 0) -> np.ndarray:

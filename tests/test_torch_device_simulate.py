@@ -89,10 +89,10 @@ _MESH2 = SimpleNamespace(axis_names=("shard",), devices=np.zeros(2))
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(assoc=4, policy="lfu"), "item 9"),
+    (dict(shards=2, mesh=_MESH2), "item 12"),
     (dict(shards=2, adaptive=True, mesh=_MESH2), "item 12"),
-    (dict(assoc=4, policy="arc"), "item 9"),
-    (dict(assoc=4, policy="s3fifo"), "item 9"),
+    (dict(shards=4, assoc=4, mesh=_MESH2, mesh_exchange="stale"), "item 12"),
+    (dict(shards=4, integrity=True, mesh=_MESH2), "item 12"),
 ])
 def test_unported_options_raise(kw, what):
     tr = np.arange(10)

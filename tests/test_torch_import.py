@@ -20,7 +20,8 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.kernels.sketch_estimate",
            "repro_torch.kernels.admission",
            "repro_torch.kernels.sketch_reset", "repro_torch.kernels.ops",
-           "repro_torch.traces.synthetic", "repro_torch.serve",
+           "repro_torch.traces", "repro_torch.traces.synthetic",
+           "repro_torch.serve",
            "repro_torch.serve.prefix_cache",
            "repro_torch.kernels.flash_attention", "repro_torch.configs",
            "repro_torch.configs.qwen3_4b", "repro_torch.configs.chatglm3_6b",

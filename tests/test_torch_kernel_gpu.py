@@ -17,7 +17,8 @@ from repro_torch.check_runs import (ADAPT_CASES, ADD_HAZARD_CASES,
                                     ADMIT_SIZES,
                                     FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
-                                    LANES, SHARD_CASES, lane_keys,
+                                    LANES, PANEL_CASES, PANEL_FRACS,
+                                    SHARD_CASES, lane_keys,
                                     lane_n_valid,
                                     SKETCH_CFGS as CFGS, add_hazard_batches,
                                     cache_tails, hazard_keys, mixed_keys)
@@ -305,6 +306,75 @@ def test_adaptive_engine_on_card_equals_cpu(kw):
     assert r.hits == rc.hits and r.extra["backend"] == "cuda"
     assert (r.extra["trajectory"], r.extra["final_quota"]) == (
         rc.extra["trajectory"], rc.extra["final_quota"])
+    np.testing.assert_array_equal(h.cpu().numpy(), hc.numpy())
+    for k in sc_:
+        np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),
+                                      err_msg=f"state[{k}]")
+
+
+def run_panel_case(case, fn, device):
+    """PANEL_CASES[case] through ``fn`` (step or step_ref) chunk by chunk
+    (per-lane counts with lanes); returns (numpy state, hit flags)."""
+    _, kw, prows, wcap, mcap, kind, n, chunk = PANEL_CASES[case]
+    lanes = LANES if len(prows) > 1 else 1
+    spec = port.StepSpec(**kw, streams=lanes)
+    params = torch.stack([port.make_step_params(
+        *p, counter_bits=spec.counter_bits, device=device) for p in prows])
+    params = params[0] if lanes == 1 else params
+    state = port.init_step_state(spec, wcap, mcap, device=device)
+    keys = lane_keys(kind, n) if lanes > 1 else hazard_keys(kind, n,
+                                                            seed=case)
+    lo, hi = (torch.from_numpy(x).to(device) for x in keys_to_lanes(keys))
+    hits = []
+    for c, s in enumerate(range(0, n, chunk)):
+        nv = lane_n_valid(chunk, c, n - s) if lanes > 1 else min(chunk,
+                                                                 n - s)
+        hits.append(fn(spec, params, state, lo[..., s:s + chunk],
+                       hi[..., s:s + chunk], nv)[1].cpu())
+    return port.state_to_numpy(state), torch.cat(hits, dim=-1).numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(PANEL_CASES)),
+                         ids=[c[0] for c in PANEL_CASES])
+def test_panel_kernel_matches_plain_on_card(case):
+    """The panel instances (kernel mode 1d: S3-FIFO, ARC, LFU) == step_ref
+    on every state leaf (ARC's ghost too) and hit flag: 1 to 32 ways, one
+    and two main sets, 4- and 8-bit counters, doorkeeper on and off, resets,
+    ARC's ghost halves cleared inside a chunk, lanes with per-lane params,
+    FP's geometry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = port.step.launches
+    got = run_panel_case(case, port.step, "cuda")
+    n, chunk = PANEL_CASES[case][6:8]
+    assert port.step.launches - before == -(-n // chunk)
+    ref = run_panel_case(case, port.step_ref, "cuda")
+    for k in ref[0]:
+        np.testing.assert_array_equal(got[0][k], ref[0][k],
+                                      err_msg=f"state[{k}]")
+    np.testing.assert_array_equal(got[1], ref[1], err_msg="hit flags")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["s3fifo", "arc", "lfu"])
+@pytest.mark.parametrize("streams", [1, 3])
+def test_panel_engine_on_card_equals_cpu(policy, streams):
+    """simulate_trace(policy=p) on the card launches the panel instances
+    once per chunk (no fallback) and equals the CPU run leaf for leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys = hazard_keys("wide", 1100, seed=5)
+    if streams > 1:
+        keys = np.stack([hazard_keys("wide", 1100, seed=b)
+                         for b in range(streams)])
+    args = dict(assoc=8, policy=policy, window_frac=PANEL_FRACS[policy],
+                streams=streams, chunk=256, return_state=True)
+    before = port.step.launches
+    r, st, h = simulate_trace(keys, 64, device="cuda", **args)
+    assert port.step.launches - before == 5
+    rc, sc_, hc = simulate_trace(keys, 64, device="cpu", **args)
+    assert r.hits == rc.hits > 0 and r.extra["backend"] == "cuda"
     np.testing.assert_array_equal(h.cpu().numpy(), hc.numpy())
     for k in sc_:
         np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),

@@ -116,13 +116,14 @@ def test_sweep_vmap_rejects_main_below_the_shared_sets():
     assert str(pe.value) == str(je.value)
 
 
+_MESH2 = SimpleNamespace(axis_names=("shard",), devices=np.zeros(2))
+
+
 @pytest.mark.parametrize("kw,what", [
-    (dict(policies=("wtinylfu", "arc"), assoc=4), "item 9"),
-    (dict(shards=2, adaptive=True,
-          mesh=SimpleNamespace(axis_names=("shard",), devices=np.zeros(2))),
-     "item 12"),
-    (dict(policies=("wtinylfu", "lfu"), assoc=4), "item 9"),
-    (dict(policies=("s3fifo",), assoc=4), "item 9"),
+    (dict(shards=2, mesh=_MESH2, mode="sequential"), "item 12"),
+    (dict(shards=2, adaptive=True, mesh=_MESH2), "item 12"),
+    (dict(shards=4, assoc=4, mesh=_MESH2), "item 12"),
+    (dict(shards=2, mesh=_MESH2, mesh_exchange="stale"), "item 12"),
 ])
 def test_sweep_unported_grids_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):
