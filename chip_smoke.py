@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. print the card's name and power limit, build the six kernels, the step
    kernel's adaptive instances (a second build of ``sketch_step.cu`` with
    ``-DSKETCH_STEP_ADAPTIVE``), its policy panel's (a third, with
-   ``-DSKETCH_STEP_PANEL``) and the empty-launch probe (``l2_chase.cu``)
+   ``-DSKETCH_STEP_PANEL``), the reset and estimate in plain stream order
+   (``-DSKETCH_NO_PDL``), the empty-launch probe (``l2_chase.cu``) and the
+   first designs of the reset, estimate and admit (``sketch_baseline.cu``)
    from ``src/repro_torch/kernels/csrc`` (one nvcc per build, all at once)
    and print each build's nvcc wall time and ptxas register/spill lines
    (nvcc takes ~10-14 s for each of the step kernel's two builds of 20
@@ -45,8 +47,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    full-range words, and S's geometry; the add on every case of
    ``check_runs.ADD_HAZARD_CASES``; both paths of the admit (a warp per
    pair, a thread per pair) at ``check_runs.ADMIT_SIZES`` pairs, each size
-   with the candidates and fresh victims both ways round; every leaf and
-   output must be equal;
+   with the candidates and fresh victims both ways round; the edge
+   geometries of ``check_runs.SKETCH_EDGE_CFGS`` (rows 1-8, one- and
+   two-word rows, one-word doorkeepers, 0-20 doorkeeper probes): the
+   estimate and both paths of the admit at 1, 3, 8 and 50,000 keys and the
+   reset on random sketches, the add (at most 8 probes) from zero; every
+   leaf and output must be equal;
 8. run S, the batched sketch ops at F's capacity, through ``DeviceTinyLFU``
    (counts set to 0 just before, read just after): record F's trace in
    4,096-key batches, then estimate and admit 50,000 keys; the state
@@ -62,7 +68,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    equal S's pin) and print its longest sequential chain beside the bound;
    print the empty-launch floor beside the four sketch kernels; time the
    add and both paths of the admit over a range of batch sizes (where the
-   admit wrapper's threshold comes from);
+   admit wrapper's threshold comes from); time the reset, the estimate
+   and the admit (at S's 50,000 pairs and at one) against their first
+   designs in turns, by CUDA events around each call and in bursts of 200
+   launches between one pair of events, the empty launch both ways, and
+   S's (add, reset) and (add, estimate) pairs in bursts with the dependent
+   launched programmatically (PDL) and in plain stream order, against adds
+   alone;
 11. hold the flash-attention kernel against its plain version
    (``flash_attention_ref``) on the card, within max-abs 2e-2 in bf16:
    tests/test_flash_kernel.py's shapes causal and not, ragged lengths,
@@ -182,7 +194,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    multi-policy ``mode="vmap"`` raises the reference's ``ValueError``;
 32. print the ``kernels`` JSON line (six kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive and panel
-   launches and checks), the card line and the result line.  Lines
+   launches and checks; the reset's and the estimate's with their burst
+   times, the empty launch's in a burst, their in-stream pairs with and
+   without PDL and their first designs' times), the card line and the
+   result line.  Lines
    ``elapsed ...`` mark the time taken after each group of phases.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -192,6 +207,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -221,11 +237,13 @@ from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
                                     PANEL_FRACS, PANEL_POLICIES,
                                     S_BATCH, S_BLOCKS, S_DECISIONS, S_PINS,
                                     SHARD_CASES, SHARDS,
-                                    SKETCH_CFGS, T_ACCESSES, T_LANES,
+                                    SKETCH_CFGS, SKETCH_EDGE_CFGS,
+                                    T_ACCESSES, T_LANES,
                                     T_SCALING, T_SCALING_ACCESSES, T_SOLO,
                                     T_TENANTS, W_CAPS, W_FRACS, WA_FRACS,
                                     WA_PINS, WP_ARC_CAPS, WP_WTINYLFU_HITS,
                                     add_hazard_batches, add_schedule,
+                                    random_sketch,
                                     cache_tails, digest, hazard_keys,
                                     lane_keys, lane_n_valid, mixed_keys,
                                     replay, trajectory_digest)
@@ -418,7 +436,9 @@ def bound_bytes(spec, trace, chunk, sample):
 
 SOURCES = ("sketch_step", "sketch_update", "sketch_estimate", "admission",
            "sketch_reset", "flash_attention")
-PROBES = ("l2_chase",)          # built beside them: the empty-launch floor
+# built beside them: the empty-launch floor, and the first designs of the
+# reset, estimate and admit (phase 10 times the current kernels against them)
+PROBES = ("l2_chase", "sketch_baseline")
 SKETCH_KERNELS = ("sketch_update", "sketch_estimate", "admission",
                   "sketch_reset")
 REPLACES = {"sketch_update": "src/repro/kernels/sketch_update.py:80",
@@ -604,8 +624,74 @@ def sketch_phase7(f_trace):
                    plain_ms=plain_ms)
     add_hazards(errs)
     admit_sizes(s_cfg, f_trace, errs)
+    sketch_edges(errs)
     torch.cuda.synchronize()
     return errs, plain_ms
+
+
+EDGE_SIZES = (1, 3, 8, 50_000)
+
+
+def edge_sketch(cfg, seed):
+    """check_runs.random_sketch on the card."""
+    from repro_torch.kernels import sketch_common as sc
+    return sc.sketch_state_from_numpy(cfg, random_sketch(cfg, seed),
+                                      device="cuda")
+
+
+def sketch_edges(errs):
+    """The four sketch kernels against their plain versions at
+    SKETCH_EDGE_CFGS: the estimate and both paths of the admit on a random
+    sketch at EDGE_SIZES keys, the reset on it, and (at most 8 doorkeeper
+    probes, the add kernel's limit) two batches added to a zeroed one."""
+    import torch
+    from repro_torch.kernels import (admission, sketch_estimate,
+                                     sketch_reset, sketch_update)
+    from repro_torch.kernels import sketch_common as sc
+
+    def err(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+    adds = 0
+    for case, kw in enumerate(SKETCH_EDGE_CFGS):
+        cfg = sc.DeviceSketchConfig(**kw)
+        state = edge_sketch(cfg, case)
+        for n in EDGE_SIZES:
+            keys = np.random.default_rng(n).integers(0, 1 << 63, 2 * n,
+                                                     dtype=np.uint64)
+            lanes = [*lanes_on_card(keys[:n]), *lanes_on_card(keys[n:])]
+            e = err(sketch_estimate.estimate(cfg, state, *lanes[:2]),
+                    sketch_estimate.estimate_ref(cfg, state, *lanes[:2]))
+            errs["sketch_estimate"] = max(errs["sketch_estimate"], e)
+            want = admission.admission_ref(cfg, state, *lanes)
+            for per_thread in (False, True):
+                out = torch.empty(n, dtype=torch.bool, device="cuda")
+                admission._launch(cfg, state, *lanes, out,
+                                  per_thread=per_thread)
+                errs["admission"] = max(errs["admission"], err(out, want))
+        plain = {k: v.clone() for k, v in state.items()}
+        sketch_reset.reset(cfg, state)
+        sketch_reset.reset_ref(cfg, plain)
+        errs["sketch_reset"] = max(errs["sketch_reset"], max(
+            err(state[k], plain[k]) for k in ("counters", "doorkeeper")))
+        if kw.get("dk_probes", 0) <= 8:
+            kernel = sc.init_state(cfg, device="cuda")
+            plain = sc.init_state(cfg, device="cuda")
+            for seed in (case, case + 100):
+                lo, hi = lanes_on_card(mixed_keys(seed, 200))
+                sketch_update.add(cfg, kernel, lo, hi)
+                sketch_update.add_ref(cfg, plain, lo, hi)
+                errs["sketch_update"] = max(errs["sketch_update"], max(
+                    err(kernel[k], plain[k]) for k in ("counters",
+                                                       "doorkeeper")))
+            adds += 1
+        for k in SKETCH_KERNELS:
+            check(errs[k] == 0, f"edge geometry {kw}: {k} kernel and plain "
+                  "differ")
+    print(f"phase 7  edge geometries: {len(SKETCH_EDGE_CFGS)} (rows 1, 3, 8;"
+          f" widths 8, 16; doorkeeper probes 0-20 on 32 or 1,024 bits, and "
+          f"none): estimate, admit (both paths) at {EDGE_SIZES} keys and "
+          f"reset == plain on random sketches; the add == add_ref on the "
+          f"{adds} with at most 8 probes")
 
 
 def add_hazards(errs):
@@ -1006,6 +1092,230 @@ def path_sweep(f_trace, cfg, card):
               f"per launch; the wrapper takes the "
               f"{'warp' if n <= admission.WARP_MAX_PAIRS else 'thread'} path;"
               f" card {card}")
+
+
+BURST = 200                     # launches between one pair of events
+BURST_SPIN = 200_000_000        # ~0.1 s of spin: longer than queueing them
+NO_PDL = ("SKETCH_NO_PDL",)     # the reset and estimate in stream order
+
+
+def burst_ms(fn, n: int = BURST) -> float:
+    """Device ms per call of ``fn`` (one or two kernel launches, nothing
+    else) in a burst: ``n`` calls between one pair of CUDA events, queued
+    behind a spin kernel.  No event goes between the calls, so a
+    programmatic dependent launch can overlap the grid before it.  Checks
+    that the host finished queueing before the spin ended."""
+    import torch
+    torch.cuda.synchronize()
+    s0, s1, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(4))
+    s0.record()
+    torch.cuda._sleep(BURST_SPIN)
+    s1.record()
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = s0.elapsed_time(s1)
+    check(enqueue_ms < spin_ms, f"burst timing: the host took "
+          f"{enqueue_ms:.1f} ms to queue {n} calls, longer than the "
+          f"{spin_ms:.1f} ms spin")
+    return e0.elapsed_time(e1) / n
+
+
+def per_call_ms(fn, n: int = BURST) -> float:
+    """Mean device ms of ``fn`` over ``n`` calls with CUDA events around
+    each (kernel_ms)."""
+    timed, _ = kernel_ms([("call", fn)] * n)
+    return sum(v for _, v in timed) / n
+
+
+PROBE_GEOMETRIES = ((1, 0), (4, 0), (4, 3), (8, 6))     # rows, dk_probes
+
+
+def estimate_by_probes(qlo, qhi, out, base_lib, card):
+    """Device ms per call of the estimate and its first design at S's
+    50,000 keys and S's width on random sketches of 1 to 14 probes a key,
+    in turns: what the time follows."""
+    from repro_torch.kernels import _build, sketch_estimate
+    from repro_torch.kernels import sketch_common as sc
+    n = qlo.shape[0]
+    readings = []
+    for rows, dkp in PROBE_GEOMETRIES:
+        cfg = sc.DeviceSketchConfig(width=262_144, rows=rows, cap=7,
+                                    dk_bits=2_097_152 if dkp else 0,
+                                    dk_probes=dkp)
+        state = edge_sketch(cfg, rows + dkp)
+
+        def new():
+            sketch_estimate._launch(cfg, state, qlo, qhi, out)
+
+        def first():
+            _build.launch("sketch_baseline", "baseline_estimate_launch",
+                          state["counters"], state["doorkeeper"], qlo, qhi,
+                          out, n, cfg.rows, cfg.width, cfg.dk_bits,
+                          cfg.dk_probes, lib=base_lib)
+        ms = {"first": [], "new": []}
+        for which in ("first", "new", "new", "first"):
+            ms[which].append(per_call_ms({"first": first, "new": new}[which],
+                                         100))
+        readings.append(f"{rows + dkp} probes: new {sum(ms['new']) / 2:.4f}"
+                        f", first {sum(ms['first']) / 2:.4f}")
+    print(f"phase 10 estimate of {n} keys by probes a key (ms per call, "
+          f"events around each, in turns): " + "; ".join(readings)
+          + f"; card {card}")
+
+
+def redesign_phase10(f_trace, cfg, card):
+    """The redesigned reset and estimate (also in plain stream order) and
+    the admit, whose probe limit was lifted, against their first designs
+    (csrc/sketch_baseline.cu) at S's shapes on S's sketch after 100
+    batches, in turns, by per-call events and by bursts; the empty launch
+    by both methods; the estimate by probes a key; and S's in-stream
+    sequences as bursts: (add, reset) and (add, estimate) pairs, with the
+    dependent launched programmatically, in plain stream order (the
+    -DSKETCH_NO_PDL builds) and as its first design, against adds alone.
+    The pair's dependent works on a copy of the sketch, so the adds do the
+    same work in every burst.  Returns the kernels line's fields for the
+    reset and the estimate."""
+    import torch
+    from repro_torch.kernels import (_build, admission, ops, sketch_estimate,
+                                     sketch_reset, sketch_update)
+    base_lib = _build.load_library("sketch_baseline")
+    no_pdl = {k: _build.load_library(k, NO_PDL)
+              for k in ("sketch_reset", "sketch_estimate")}
+    t = ops.DeviceTinyLFU(S_BLOCKS)
+    for s in range(0, 100 * S_BATCH, S_BATCH):
+        t.record(f_trace[s:s + S_BATCH])
+    state = t.state
+    target = {k: v.clone() for k, v in state.items()}     # the resets' own
+    n = S_DECISIONS
+    qlo, qhi = lanes_on_card(f_trace[:n])
+    vlo, vhi = qlo.roll(1), qhi.roll(1)
+    geo = (cfg.rows, cfg.width, cfg.dk_bits, cfg.dk_probes)
+    outs = {k: torch.empty(n, dtype=dt, device="cuda")
+            for k, dt in (("est_new", torch.int32), ("est_old", torch.int32),
+                          ("adm_new", torch.bool), ("adm_old", torch.bool),
+                          ("one_new", torch.bool), ("one_old", torch.bool))}
+
+    def old(fn, *args):
+        return lambda: _build.launch("sketch_baseline", fn, *args,
+                                     lib=base_lib)
+
+    def reset_fns(st):
+        return {"first": old("baseline_reset_launch", st["counters"],
+                             st["counters"].numel(), st["doorkeeper"],
+                             st["doorkeeper"].numel()),
+                "new": lambda: sketch_reset._launch(cfg, st),
+                "no_pdl": lambda: sketch_reset._launch(
+                    cfg, st, lib=no_pdl["sketch_reset"])}
+
+    def estimate_fns(st):
+        return {"first": old("baseline_estimate_launch", st["counters"],
+                             st["doorkeeper"], qlo, qhi, outs["est_old"], n,
+                             *geo),
+                "new": lambda: sketch_estimate._launch(cfg, st, qlo, qhi,
+                                                       outs["est_new"]),
+                "no_pdl": lambda: sketch_estimate._launch(
+                    cfg, st, qlo, qhi, outs["est_new"],
+                    lib=no_pdl["sketch_estimate"])}
+
+    def admit_fns(m, old_out, new_out):
+        return {"first": old("baseline_admission_launch", state["counters"],
+                             state["doorkeeper"], qlo, qhi, vlo, vhi,
+                             old_out, m, *geo,
+                             int(m > admission.WARP_MAX_PAIRS)),
+                "new": lambda: admission._launch(
+                    cfg, state, qlo[:m], qhi[:m], vlo[:m], vhi[:m],
+                    new_out[:m])}
+
+    calls = {"sketch_reset": reset_fns(target),
+             "sketch_estimate": estimate_fns(state),
+             "admission": admit_fns(n, outs["adm_old"], outs["adm_new"]),
+             "admission at 1 pair": admit_fns(1, outs["one_old"],
+                                              outs["one_new"])}
+    for fns in calls.values():                  # load the modules
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    for a, b in (("est_old", "est_new"), ("adm_old", "adm_new")):
+        check(torch.equal(outs[a], outs[b]), f"phase 10: {a} != {b}")
+    check(torch.equal(outs["one_old"][:1], outs["one_new"][:1]),
+          "phase 10: the admit at one pair differs from its first design")
+    fields = {}
+    for name, fns in calls.items():
+        turns = [*fns, *reversed(fns)]
+        per = {w: [] for w in fns}
+        burst = {w: [] for w in fns}
+        readings = []
+        for which in turns:
+            per[which].append(per_call_ms(fns[which]))
+            burst[which].append(burst_ms(fns[which]))
+            readings.append((per[which][-1], burst[which][-1]))
+        fields[name] = {f"{method}_{w}": sum(times[w]) / 2 for method, times
+                        in (("per", per), ("burst", burst)) for w in fns}
+        print(f"phase 10 {name} at S's shapes in turns "
+              f"({', '.join(turns)}; first = the first design"
+              + (", no_pdl = the new in plain stream order" if "no_pdl" in fns
+                 else "") + "): per-call events "
+              + " / ".join(f"{p:.4f}" for p, _ in readings)
+              + f" ms; bursts of {BURST} "
+              + " / ".join(f"{b:.5f}" for _, b in readings)
+              + f" ms per launch; card {card}")
+    floor_call = launch_floor_us()
+    from repro_torch.kernels._build import launch
+    buf = torch.zeros(1, dtype=torch.int32, device="cuda")
+    floor_burst = burst_ms(lambda: launch("l2_chase", "l2_chase_launch", buf,
+                                          0, buf)) * 1e3
+    print(f"phase 10 empty launch: {floor_call:.2f} us per call (events "
+          f"around each), {floor_burst:.2f} us in a burst of {BURST}; above "
+          f"it, per call / in a burst: " + ", ".join(
+              f"{k} " + ", ".join(
+                  f"{w} {(fields[k]['per_' + w] * 1e3 - floor_call):.2f} / "
+                  f"{(fields[k]['burst_' + w] * 1e3 - floor_burst):.2f} us"
+                  for w in ("new", "no_pdl", "first"))
+              for k in ("sketch_reset", "sketch_estimate")) + f"; card {card}")
+    estimate_by_probes(qlo, qhi, outs["est_new"], base_lib, card)
+
+    batch = lanes_on_card(f_trace[100 * S_BATCH:101 * S_BATCH])
+    order = ("add_alone", "pdl", "no_pdl", "first", "first", "no_pdl", "pdl",
+             "add_alone") * 2
+    out = {}
+    for name, fns_on in (("sketch_reset", reset_fns),
+                         ("sketch_estimate", estimate_fns)):
+        runs = {w: [] for w in order}
+        readings = []
+        for which in order:
+            a = {k: v.clone() for k, v in state.items()}
+            b = {k: v.clone() for k, v in state.items()}
+            dep = fns_on(b).get("new" if which == "pdl" else which)
+
+            def call(a=a, dep=dep):
+                sketch_update._launch(cfg, a, *batch)
+                if dep is not None:
+                    dep()
+            runs[which].append(burst_ms(call))
+            readings.append(f"{runs[which][-1]:.5f}")
+        pair = {k: statistics.median(v) for k, v in runs.items()}
+        print(f"phase 10 in-stream (add, {name}) pairs, bursts of {BURST} at "
+              f"S's shapes ({' / '.join(order)}): " + " / ".join(readings)
+              + " ms per pair; by the medians the dependent adds " + ", ".join(
+                  f"{(pair[w] - pair['add_alone']) * 1e3:.2f} us {label}"
+                  for w, label in (("pdl", "with PDL"),
+                                   ("no_pdl", "without"),
+                                   ("first", "as the first design")))
+              + f"; card {card}")
+        m = fields[name]
+        out[name] = {"burst_ms": m["burst_new"],
+                     "floor_burst_us": floor_burst,
+                     "pdl_pair_ms": pair,
+                     "no_pdl_ms": m["per_no_pdl"],
+                     "no_pdl_burst_ms": m["burst_no_pdl"],
+                     "first_design_ms": m["per_first"],
+                     "first_design_burst_ms": m["burst_first"]}
+    return out
 
 
 FLASH_TOL = 2e-2    # max |kernel - plain| in bf16: the reference's bf16 bound
@@ -2579,7 +2889,8 @@ def main() -> int:
     # build of its source
     builds = [(name, ()) for name in SOURCES + PROBES] + [
         ("sketch_step", ks.ADAPTIVE_DEFINES),
-        ("sketch_step", ks.PANEL_DEFINES)]
+        ("sketch_step", ks.PANEL_DEFINES),
+        ("sketch_reset", NO_PDL), ("sketch_estimate", NO_PDL)]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda job: _build.load_library(*job), builds))
     print(f"phase 1  build of {len(builds)} sources in parallel: "
@@ -2587,7 +2898,8 @@ def main() -> int:
     for name, defines in builds:
         info = _build.build_info[(name, defines)]
         label = name + {(): "", ks.ADAPTIVE_DEFINES: " adaptive",
-                        ks.PANEL_DEFINES: " panel"}[defines]
+                        ks.PANEL_DEFINES: " panel",
+                        NO_PDL: " no-PDL"}[defines]
         nvcc = (f"nvcc {info['seconds']:.1f} s" if info["seconds"]
                 else "built before; its ptxas log was kept")
         print(f"phase 1  {label}: {nvcc}")
@@ -2762,6 +3074,7 @@ def main() -> int:
                       f"({s_ms[k] * 1e3 / floor:.1f}x)"
                       for k in SKETCH_KERNELS) + f"; card {card}")
     path_sweep(f_trace, s_cfg, card)
+    redesign = redesign_phase10(f_trace, s_cfg, card)
     elapsed("phases 1-10")
 
     kernels = [{
@@ -2780,7 +3093,7 @@ def main() -> int:
             "max_abs_err": errs[k], "matches_plain": errs[k] == 0,
             "ms": s_ms[k], "plain_ms": s_plain_ms[k],
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-            "library_ms": None})
+            "library_ms": None, **redesign.get(k, {})})
 
     # -- phases 11-13: the LLM serving path ------------------------------
     flash_err = flash_phase11()

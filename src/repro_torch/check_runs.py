@@ -27,6 +27,38 @@ SKETCH_CFGS = [dict(width=256, rows=4, cap=15, dk_bits=1024),
                dict(width=512, rows=2, cap=15, dk_bits=0),
                dict(width=2048, rows=1, cap=3, dk_bits=2048)]
 
+# The sketch kernels' edge geometries, beside SKETCH_CFGS: rows 1, 3 and 8
+# (the reference's limit) x widths 8 and 16 (one and two counter words a
+# row) x doorkeeper probes 0, 8, 9, 13 and 20 on a doorkeeper of one word
+# (32 bits) or 1,024 bits, and three without a doorkeeper.  The estimate,
+# admit and reset kernels take every one; the add kernel at most 8 probes.
+# tests/test_torch_sketch_edges.py holds the plain versions to the JAX
+# package here, chip_smoke.py phase 7 and tests/test_torch_kernel_gpu.py
+# the kernels to the plain versions.
+SKETCH_EDGE_CFGS = [
+    dict(width=w, rows=r, cap=15, dk_bits=32 if (r + p) % 2 else 1024,
+         dk_probes=p)
+    for r in (1, 3, 8) for w in (8, 16) for p in (0, 8, 9, 13, 20)] + [
+    dict(width=8, rows=r, cap=7, dk_bits=0) for r in (1, 3, 8)]
+
+
+def random_sketch(cfg, seed: int) -> dict:
+    """Reference-layout numpy leaves of a random sketch of ``cfg``'s
+    geometry (either package's DeviceSketchConfig): full-range counter
+    words and a dense doorkeeper (each bit set with probability 31/32), so
+    that keys of up to 20 probes pass it often enough to show."""
+    rng = np.random.default_rng(seed)
+
+    def words(*shape):
+        return rng.integers(-2**31, 2**31, shape,
+                            dtype=np.int64).astype(np.int32)
+    dk = words(1, cfg.dk_words)
+    for _ in range(4):
+        dk |= words(1, cfg.dk_words)
+    return {"counters": words(cfg.rows, cfg.words_per_row), "doorkeeper": dk,
+            "size": np.array(1001, np.int32)}
+
+
 # Run S: the batched sketch ops at the trace engine's real capacity.
 # DeviceTinyLFU(S_BLOCKS) records zipf_trace(1_200_000, n_items=1_000_000,
 # alpha=0.9, seed=11) in S_BATCH-key batches, then estimates its first

@@ -54,6 +54,11 @@ _C_API = {
              + [_F, _F, _P], _I), **_ERR},    # softcap, scale
     "l2_chase": {
         "l2_chase_launch": ([_P, _I, _P, _P], _I)},
+    "sketch_baseline": {    # first designs: as reset, estimate, admit
+        "baseline_reset_launch": ([_P, _I, _P, _I, _P], _I),
+        "baseline_estimate_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
+        "baseline_admission_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
+        **_ERR},
 }
 
 _lock = threading.Lock()

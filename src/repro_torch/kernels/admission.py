@@ -7,14 +7,15 @@ candidate ``i`` over victim ``i`` iff its estimate is strictly greater.
 
 ``admission_ref`` is the plain version (two plain estimates, any device);
 ``admit`` launches ``csrc/admission.cu`` on CUDA tensors (a warp per pair,
-one probe per lane, up to ``WARP_MAX_PAIRS`` pairs; a thread per pair above)
-and runs ``admission_ref`` on CPU tensors, with no fallback between them.
+one probe per lane, up to ``WARP_MAX_PAIRS`` pairs; a thread per pair above;
+any number of doorkeeper probes) and runs ``admission_ref`` on CPU tensors,
+with no fallback between them.
 """
 from __future__ import annotations
 
 import torch
 
-from .sketch_common import DeviceSketchConfig, _check, check_sketch_inputs
+from .sketch_common import DeviceSketchConfig, check_sketch_inputs
 from .sketch_estimate import estimate_ref
 
 
@@ -41,7 +42,6 @@ def _launch(cfg: DeviceSketchConfig, state: dict, cand_lo, cand_hi,
     verdicts, a thread per pair if ``per_thread`` (default: more than
     ``WARP_MAX_PAIRS`` pairs), else a warp per pair.  No host sync."""
     from ._build import launch
-    _check(cfg.dk_probes <= 8, "the kernel takes dk_probes <= 8")
     if per_thread is None:
         per_thread = cand_lo.shape[0] > WARP_MAX_PAIRS
     launch("admission", "admission_launch", state["counters"],

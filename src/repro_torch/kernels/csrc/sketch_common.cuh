@@ -1,5 +1,6 @@
-// Key hashing and the TinyLFU estimate shared by the batched sketch kernels
-// (sketch_update.cu, sketch_estimate.cu, admission.cu, sketch_reset.cu).
+// Key hashing, the TinyLFU estimate and the launch helpers shared by the
+// batched sketch kernels (sketch_update.cu, sketch_estimate.cu,
+// admission.cu, sketch_reset.cu, sketch_baseline.cu).
 //
 // The hash is the reference's 32-bit-lane family on uint32_t
 // (src/repro/kernels/sketch_common.py mix32 / probe_index / dk_probe_index):
@@ -16,7 +17,7 @@
 namespace sketch {
 
 constexpr int kMaxRows = 8;     // DeviceSketchConfig: rows <= 8
-constexpr int kMaxDkp = 8;      // the wrappers check dk_probes <= 8
+constexpr int kMaxDkp = 8;      // doorkeeper probes held in registers
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -66,8 +67,12 @@ struct Geometry {
 
 // The paper's estimate of one key: min over rows of its counters (from 15),
 // +1 iff every doorkeeper probe bit is set (only with a doorkeeper).  Every
-// load of the key is issued before any is used, so a key costs one round
-// trip to the L2, not rows + dk_probes of them.
+// load of the key's first kMaxDkp probes is issued before any is used, so a
+// key costs one round trip to the L2, not rows + dk_probes of them.  With
+// kMoreProbes, probes kMaxDkp and up follow in a loop (the reference has no
+// probe limit); without it they are not read, so the caller launches that
+// instance only for dk_probes <= kMaxDkp.
+template <bool kMoreProbes = false>
 __device__ __forceinline__ int estimate(const uint32_t* __restrict__ counters,
                                         const uint32_t* __restrict__ dk,
                                         uint32_t lo, uint32_t hi,
@@ -104,6 +109,12 @@ __device__ __forceinline__ int estimate(const uint32_t* __restrict__ counters,
 #pragma unroll
     for (int p = 0; p < kMaxDkp; ++p)
       if (p < g.dk_probes) ok &= dw[p] >> (db[p] & 31u);
+    if constexpr (kMoreProbes) {
+      for (int p = kMaxDkp; p < g.dk_probes; ++p) {
+        const uint32_t bit = dk_probe_index(lo, hi, p, g.dk_bits);
+        ok &= __ldg(dk + (bit >> 5)) >> (bit & 31u);
+      }
+    }
     est += ok & 1u;
   }
   return static_cast<int>(est);
@@ -114,6 +125,62 @@ __device__ __forceinline__ int estimate(const uint32_t* __restrict__ counters,
 inline int blocks_for(int n) {
   const int b = (n + 255) / 256;
   return b < 1 ? 1 : (b > 132 * 8 ? 132 * 8 : b);
+}
+
+// The current device's SM count, queried once per device.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static int count[kDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n = dev < kDevices ? count[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev < kDevices) count[dev] = n;
+  }
+  return n > 0 ? n : 1;
+}
+
+// Blocks of `threads` that `kernel` can hold resident on one SM (at least
+// 1); the caller keeps it in a static, so it is queried once per kernel.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
+  return n > 0 ? n : 1;
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched by
+// launch_dependent may be scheduled while the grid before it on the stream
+// drains, and must call wait_for_prior_grid() before its first access to
+// memory that grid may write.  Outside such a launch the wait returns at
+// once.  A build with -DSKETCH_NO_PDL launches in plain stream order, for
+// timing the two against each other (chip_smoke.py phase 10).
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), int blocks,
+                             int threads, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+#ifdef SKETCH_NO_PDL
+  attr[0].val.programmaticStreamSerializationAllowed = 0;
+#else
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+#endif
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();    // clears a refused launch
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace sketch

@@ -9,14 +9,17 @@ kernel gathers the counter words through one-hot fp32 matmuls on the MXU;
 on Hopper a gather is a plain indexed load, so nothing of that is ported.
 
 ``estimate_ref`` is the plain version (vectorised tensor ops, any device);
-``estimate`` launches ``csrc/sketch_estimate.cu`` on CUDA tensors and runs
-``estimate_ref`` on CPU tensors, with no fallback between them.
+``estimate`` launches ``csrc/sketch_estimate.cu`` on CUDA tensors (a group
+of lanes per key, two probes a lane, any number of doorkeeper probes; a
+programmatic dependent launch, so it is scheduled while the kernel before
+it on the stream drains) and runs ``estimate_ref`` on CPU tensors, with no
+fallback between them.
 """
 from __future__ import annotations
 
 import torch
 
-from .sketch_common import (DeviceSketchConfig, _check, check_sketch_inputs,
+from .sketch_common import (DeviceSketchConfig, check_sketch_inputs,
                             dk_probe_salts, nibble_get, probe_matrix,
                             probe_salts)
 
@@ -50,14 +53,14 @@ def estimate_ref(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
 
 
 def _launch(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
-            hi: torch.Tensor, out: torch.Tensor) -> None:
+            hi: torch.Tensor, out: torch.Tensor, lib=None) -> None:
     """One launch of ``csrc/sketch_estimate.cu``: ``out`` (B,) int32 gets
-    the estimates.  No host sync."""
+    the estimates.  No host sync.  ``lib`` is the loaded kernel library
+    (default: the build of ``csrc/sketch_estimate.cu``)."""
     from ._build import launch
-    _check(cfg.dk_probes <= 8, "the kernel takes dk_probes <= 8")
     launch("sketch_estimate", "sketch_estimate_launch",
            state["counters"], state["doorkeeper"], lo, hi, out, lo.shape[0],
-           cfg.rows, cfg.width, cfg.dk_bits, cfg.dk_probes)
+           cfg.rows, cfg.width, cfg.dk_bits, cfg.dk_probes, lib=lib)
     estimate.launches += 1
 
 

@@ -5,10 +5,12 @@ Counterpart of ``repro/kernels/sketch_reset.py`` (``reset_pallas``) and of
 (``(x >> 1) & 0x77777777`` per word), the doorkeeper zeroed, ``size //= 2``.
 
 ``reset_ref`` is the plain version (any device); ``reset`` launches
-``csrc/sketch_reset.cu`` on CUDA tensors and runs ``reset_ref`` on CPU
-tensors, with no fallback between them.  Both work in place and return the
-state.  ``size`` lives on the host (see ``sketch_common``), so the kernel
-never reads or writes it: the wrapper halves it exactly once per reset.
+``csrc/sketch_reset.cu`` on CUDA tensors (16-byte accesses, a grid of one
+wave; a programmatic dependent launch, so it is scheduled while the add
+before it drains) and runs ``reset_ref`` on CPU tensors, with no fallback
+between them.  Both work in place and return the state.  ``size`` lives on
+the host (see ``sketch_common``), so the kernel never reads or writes it:
+the wrapper halves it exactly once per reset.
 """
 from __future__ import annotations
 
@@ -25,13 +27,14 @@ def reset_ref(cfg: DeviceSketchConfig, state: dict) -> dict:
     return state
 
 
-def _launch(cfg: DeviceSketchConfig, state: dict) -> None:
+def _launch(cfg: DeviceSketchConfig, state: dict, lib=None) -> None:
     """One launch of ``csrc/sketch_reset.cu`` over the counter and
-    doorkeeper words, in place.  No host sync."""
+    doorkeeper words, in place.  No host sync.  ``lib`` is the loaded
+    kernel library (default: the build of ``csrc/sketch_reset.cu``)."""
     from ._build import launch
     launch("sketch_reset", "sketch_reset_launch", state["counters"],
            state["counters"].numel(), state["doorkeeper"],
-           state["doorkeeper"].numel())
+           state["doorkeeper"].numel(), lib=lib)
     reset.launches += 1
 
 

@@ -1351,10 +1351,12 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     from ._build import check_error, load_library
     _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
            f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
-           f"{_MAX_DKP}")
+           f"{_MAX_DKP}, not {spec.rows} and {spec.dkp}; the reference runs "
+           "more probes (a limit of the port's, listed in ROADMAP.md queue 3)")
     _check((spec.assoc or 0) <= _MAX_WAYS,
            f"the kernel holds at most {_MAX_WAYS} ways per set in registers, "
-           f"not {spec.assoc}")
+           f"not {spec.assoc}; the reference runs more ways (a limit of the "
+           "port's, listed in ROADMAP.md queue 3)")
     if lane_grid is None:
         lane_grid = spec.streams > 1
     kidx, kdkb, kwset, kmset = probes

@@ -90,7 +90,9 @@ def _launch(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
     ``lib`` is the loaded kernel library (default: the build of
     ``csrc/sketch_update.cu``)."""
     from ._build import launch
-    _check(cfg.dk_probes <= 8, "the kernel takes dk_probes <= 8")
+    _check(cfg.dk_probes <= 8, "the add kernel takes dk_probes <= 8, not "
+           f"{cfg.dk_probes}; the reference runs more probes (a limit of the "
+           "port's, listed in ROADMAP.md queue 3)")
     _check(1 <= cfg.rows <= 8 and cfg.rows * cfg.width < 2 ** 32,
            "the kernel takes 1 <= rows <= 8 and rows * width < 2^32")
     launch("sketch_update", "sketch_update_launch",

@@ -3,7 +3,9 @@ kernel (one stream, its lane grid, its sharded instances with the fold
 between epochs and its adaptive instances with the rebalance between
 epochs), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
-batches) and the flash-attention kernel.
+batches; the estimate, admit and reset at the edge geometries, past 8
+doorkeeper probes too, and one stream of programmatic dependent launches)
+and the flash-attention kernel.
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
@@ -18,10 +20,11 @@ from repro_torch.check_runs import (ADAPT_CASES, ADD_HAZARD_CASES,
                                     FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
                                     LANES, PANEL_CASES, PANEL_FRACS,
-                                    SHARD_CASES, lane_keys,
+                                    SHARD_CASES, SKETCH_EDGE_CFGS, lane_keys,
                                     lane_n_valid,
                                     SKETCH_CFGS as CFGS, add_hazard_batches,
-                                    cache_tails, hazard_keys, mixed_keys)
+                                    cache_tails, hazard_keys, mixed_keys,
+                                    random_sketch)
 from repro_torch.core.device_simulate import (ClimbSpec, run_chunks,
                                               simulate_trace)
 from repro_torch.kernels import (admission, flash_attention, sketch_estimate,
@@ -494,6 +497,106 @@ def test_admit_kernel_matches_plain_at_batch_sizes(n, per_thread):
     out = torch.empty(n, dtype=torch.bool, device="cuda")
     admission._launch(cfg, state, *lanes, out, per_thread=per_thread)
     assert torch.equal(out, admission.admission_ref(cfg, state, *lanes))
+
+
+EDGE_BATCHES = [0, 1, 3, 8, 50_000]
+
+
+def card_sketch(cfg, seed):
+    """check_runs.random_sketch on the card."""
+    return sc.sketch_state_from_numpy(cfg, random_sketch(cfg, seed),
+                                      device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", EDGE_BATCHES)
+@pytest.mark.parametrize("case", range(len(SKETCH_EDGE_CFGS)))
+def test_edge_estimate_admit_reset_match_plain_on_card(case, batch):
+    """The estimate, both paths of the admit and the reset == their plain
+    versions at the edge geometries (rows 1-8, one- and two-word rows,
+    one-word doorkeepers, 0-20 doorkeeper probes), on a random sketch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = sc.DeviceSketchConfig(**SKETCH_EDGE_CFGS[case])
+    state = card_sketch(cfg, case)
+    keys = np.random.default_rng(batch).integers(0, 1 << 63, 2 * batch,
+                                                 dtype=np.uint64)
+    lanes = [torch.from_numpy(x).cuda() for k in (keys[:batch], keys[batch:])
+             for x in keys_to_lanes(k)]
+    assert torch.equal(sketch_estimate.estimate(cfg, state, *lanes[:2]),
+                       sketch_estimate.estimate_ref(cfg, state, *lanes[:2]))
+    want = admission.admission_ref(cfg, state, *lanes)
+    assert torch.equal(admission.admit(cfg, state, *lanes), want)
+    if batch:
+        for per_thread in (False, True):
+            out = torch.empty(batch, dtype=torch.bool, device="cuda")
+            admission._launch(cfg, state, *lanes, out, per_thread=per_thread)
+            assert torch.equal(out, want), per_thread
+    plain = {k: v.clone() for k, v in state.items()}
+    sketch_reset.reset(cfg, state)
+    sketch_reset.reset_ref(cfg, plain)
+    for k in state:
+        assert torch.equal(state[k], plain[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c, kw in enumerate(SKETCH_EDGE_CFGS)
+                                  if kw.get("dk_probes", 0) <= 8])
+def test_edge_add_matches_plain_on_card(case):
+    """The add kernel == add_ref at the edge geometries it takes (at most 8
+    doorkeeper probes): two batches of mixed keys from a zeroed sketch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = sc.DeviceSketchConfig(**SKETCH_EDGE_CFGS[case])
+    kernel = sc.init_state(cfg, device="cuda")
+    plain = sc.init_state(cfg, device="cuda")
+    for seed in (case, case + 100):
+        keys = mixed_keys(seed, 200)
+        lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
+        sketch_update.add(cfg, kernel, lo, hi)
+        sketch_update.add_ref(cfg, plain, lo, hi)
+        for k in kernel:
+            assert torch.equal(kernel[k], plain[k]), k
+
+
+@pytest.mark.gpu
+def test_dependent_launches_in_one_stream_match_plain():
+    """(add, reset, estimate, admit) rounds queued on one stream with no
+    host sync between them (the reset and estimate are programmatic
+    dependents of the kernel before each) == the plain sequence, at S's
+    geometry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ops import make_config
+    cfg = make_config(65_536)
+    rng = np.random.default_rng(20)
+    keys = rng.integers(0, 1 << 40, (3, 4096), dtype=np.uint64)
+    queries = rng.integers(0, 1 << 40, 5000, dtype=np.uint64)
+    q = [torch.from_numpy(x).cuda() for x in keys_to_lanes(queries)]
+    v = [x.roll(1) for x in q]
+    outs = []
+    for add, reset, est, adm in (
+            (sketch_update.add, sketch_reset.reset, sketch_estimate.estimate,
+             admission.admit),
+            (sketch_update.add_ref, sketch_reset.reset_ref,
+             sketch_estimate.estimate_ref, admission.admission_ref)):
+        state = sc.init_state(cfg, device="cuda")
+        got = []
+        for batch in keys:
+            lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(batch))
+            add(cfg, state, lo, hi)
+            got.append(est(cfg, state, *q))
+            reset(cfg, state)
+            got.append(est(cfg, state, *q))
+            add(cfg, state, lo, hi)
+            got.append(adm(cfg, state, *q, *v))
+        torch.cuda.synchronize()
+        outs.append((got, state))
+    (got, k_state), (want, p_state) = outs
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for k in k_state:
+        assert torch.equal(k_state[k], p_state[k]), k
 
 
 @pytest.mark.parametrize("module,wrapper,args", [

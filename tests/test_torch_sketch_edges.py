@@ -1,0 +1,169 @@
+"""The port's plain estimate, admit and reset at the sketch kernels' edge
+geometries (``check_runs.SKETCH_EDGE_CFGS``: one-word rows and doorkeepers,
+rows 1 to 8, doorkeeper probes 0 to 20) against the JAX package, bitwise;
+and the add and step kernels' refusals of more than 8 doorkeeper probes.
+
+Both sides get the same state and keys (numpy, from a seed).  JAX runs on
+the CPU with its jnp oracles (``use_pallas=False``) and, for one small
+case, its Pallas kernels in interpret mode.  The reference's jnp hashing
+builds each probe salt as a ``jnp.uint32`` from a Python int, and for
+doorkeeper probes 11, 12 and 15 and up that int is 2^32 or more, so
+``jops.estimate`` and ``jops.admit`` raise ``OverflowError`` there; at
+those counts the port is held to the reference's numpy twins of its
+hashing (``repro.core.hashing.probe_indices32_np`` and
+``dk_probe_index_np``, which take the salt modulo 2^32, bit for bit with
+the device's uint32 arithmetic).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import hashing as jhash
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels import sketch_common as jsc
+from repro_torch.check_runs import (SKETCH_EDGE_CFGS, mixed_keys,
+                                    random_sketch)
+from repro_torch.kernels import sketch_common as psc
+from repro_torch.kernels import sketch_step, sketch_update
+from repro_torch.kernels.admission import admission_ref
+from repro_torch.kernels.sketch_estimate import estimate_ref
+from repro_torch.kernels.sketch_reset import reset_ref
+
+_M32 = 1 << 32
+
+
+def jax_takes(dk_probes: int) -> bool:
+    """Whether the reference's jnp ``dk_probe_index`` builds every salt of
+    probes 0..dk_probes-1 (each below 2^32)."""
+    salts = jhash.PROBE_SALTS
+    return all((salts[p % 8] ^ 0xDEADBEEF) + 0x9E3779B9 * (p // 8) < _M32
+               for p in range(dk_probes))
+
+
+def twin_estimate(kw: dict, arrays: dict, keys: np.ndarray) -> np.ndarray:
+    """The estimate from the reference's numpy hashing twins: min over rows
+    of the 4-bit counters (from 15), +1 iff every doorkeeper bit is set."""
+    lo, hi = jhash.key_to_lanes(keys)
+    idx = jhash.probe_indices32_np(lo, hi, kw["rows"], kw["width"])
+    rows = np.arange(kw["rows"])
+    words = arrays["counters"].view(np.uint32)[rows, idx >> 3]
+    nib = (words >> ((idx & 7) * 4).astype(np.uint32)) & 0xF
+    est = np.minimum(15, nib.min(axis=1)).astype(np.int32)
+    if kw["dk_bits"]:
+        dk = arrays["doorkeeper"].view(np.uint32).reshape(-1)
+        ok = np.ones(len(keys), bool)
+        for p in range(kw.get("dk_probes", 3)):
+            bit = jhash.dk_probe_index_np(lo, hi, p, kw["dk_bits"])
+            ok &= ((dk[bit >> 5] >> (bit & 31).astype(np.uint32)) & 1) == 1
+        est = est + ok
+    return est
+
+
+def port_lanes(keys):
+    return [torch.from_numpy(x.copy()) for x in psc.keys_to_lanes(keys)]
+
+
+@pytest.mark.parametrize("case", range(len(SKETCH_EDGE_CFGS)),
+                         ids=[f"rows{c['rows']}-w{c['width']}-dk{c['dk_bits']}"
+                              f"x{c.get('dk_probes', 0)}"
+                              for c in SKETCH_EDGE_CFGS])
+def test_estimate_and_admit_match_jax_at_edges(case):
+    """estimate_ref and admission_ref == JAX's (or, where JAX's salts
+    overflow, the reference's numpy twins), on a random state."""
+    kw = SKETCH_EDGE_CFGS[case]
+    jcfg, pcfg = jsc.DeviceSketchConfig(**kw), psc.DeviceSketchConfig(**kw)
+    arrays = random_sketch(pcfg, case)
+    ps = psc.sketch_state_from_numpy(pcfg, arrays, device="cpu")
+    keys = mixed_keys(case, 48)
+    victims = np.roll(keys, 5)
+    est = estimate_ref(pcfg, ps, *port_lanes(keys)).numpy()
+    adm = admission_ref(pcfg, ps, *port_lanes(keys),
+                        *port_lanes(victims)).numpy()
+    twin = twin_estimate(kw, arrays, keys)
+    assert np.array_equal(est, twin)
+    assert np.array_equal(adm, twin > twin_estimate(kw, arrays, victims))
+    assert 0 < int((est > est.min()).sum()) < len(keys)    # not constant
+    js = {k: np.asarray(v) for k, v in arrays.items()}
+    jl = [*jsc.keys_to_lanes(keys), *jsc.keys_to_lanes(victims)]
+    if kw["dk_bits"] == 0 or jax_takes(kw["dk_probes"]):
+        assert np.array_equal(
+            est, np.asarray(jops.estimate(jcfg, js, *jl[:2], False)))
+        assert np.array_equal(
+            adm, np.asarray(jops.admit(jcfg, js, *jl, False)))
+    else:
+        with pytest.raises(OverflowError):
+            jops.estimate(jcfg, js, *jl[:2], False)
+
+
+def test_estimate_and_admit_match_pallas_interpret_past_8_probes():
+    """The reference's Pallas estimate and admit kernels (interpret mode)
+    at 9 doorkeeper probes on a one-word doorkeeper and two-word rows."""
+    kw = dict(width=16, rows=3, cap=15, dk_bits=32, dk_probes=9)
+    jcfg, pcfg = jsc.DeviceSketchConfig(**kw), psc.DeviceSketchConfig(**kw)
+    arrays = random_sketch(pcfg, 99)
+    ps = psc.sketch_state_from_numpy(pcfg, arrays, device="cpu")
+    keys = mixed_keys(99, 40)
+    victims = np.roll(keys, 3)
+    js = {k: np.asarray(v) for k, v in arrays.items()}
+    jl = [*jsc.keys_to_lanes(keys), *jsc.keys_to_lanes(victims)]
+    assert np.array_equal(
+        estimate_ref(pcfg, ps, *port_lanes(keys)).numpy(),
+        np.asarray(jops.estimate(jcfg, js, *jl[:2], True)))
+    assert np.array_equal(
+        admission_ref(pcfg, ps, *port_lanes(keys),
+                      *port_lanes(victims)).numpy(),
+        np.asarray(jops.admit(jcfg, js, *jl, True)))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(width=8, rows=3, dk_bits=32),       # 3 counter words, 1 doorkeeper
+    dict(width=8, rows=1, dk_bits=0),        # 1 and 1
+    dict(width=16, rows=5, dk_bits=64),      # 10 and 2
+    dict(width=8, rows=7, dk_bits=128),      # 7 and 4
+], ids=["3x1", "1x1", "10x2", "7x4"])
+def test_reset_matches_jax_at_word_counts_off_16_bytes(kw):
+    """reset_ref == the reference's reset_ref on random full-range words
+    (sign bits included) at word counts that are not a multiple of 4."""
+    jcfg, pcfg = jsc.DeviceSketchConfig(**kw), psc.DeviceSketchConfig(**kw)
+    arrays = random_sketch(pcfg, kw["rows"])
+    ps = reset_ref(pcfg, psc.sketch_state_from_numpy(pcfg, arrays,
+                                                     device="cpu"))
+    js = jref.reset_ref(jcfg, {k: np.asarray(v) for k, v in arrays.items()})
+    for k in ("counters", "doorkeeper", "size"):
+        assert np.array_equal(ps[k].numpy(), np.asarray(js[k])), k
+
+
+def test_add_kernel_refuses_more_than_8_probes_naming_the_limit():
+    """The add kernel keeps its limit of 8 doorkeeper probes: more are
+    refused before anything is built, with a message that says the
+    reference runs more and where the limit is listed."""
+    cfg = psc.DeviceSketchConfig(width=256, dk_bits=1024, dk_probes=9)
+    state = psc.init_state(cfg, device="cpu")
+    x = torch.zeros(4, dtype=torch.int32)
+    before = sketch_update.add.launches
+    with pytest.raises(ValueError, match="reference runs more probes.*"
+                       "ROADMAP.md queue 3"):
+        sketch_update._launch(cfg, state, x, x)
+    assert sketch_update.add.launches == before
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(dk_probes=9), "dk_probes <= 8.*reference runs more probes.*"
+                        "ROADMAP.md queue 3"),
+    (dict(assoc=129, window_slots=129, main_slots=129),
+     "128 ways.*reference runs more ways.*ROADMAP.md queue 3"),
+], ids=["probes", "ways"])
+def test_step_kernel_refusals_name_the_limit(kw, match):
+    """The step kernel keeps its limits (8 doorkeeper probes, 128 ways),
+    refused before anything is built, naming where they are listed."""
+    spec = sketch_step.StepSpec(**{**dict(width=256, rows=4, dk_bits=1024,
+                                          window_slots=2, main_slots=60),
+                                   **kw})
+    state = sketch_step.init_step_state(spec, device="cpu")
+    lo = torch.zeros(4, dtype=torch.int32)
+    probes = sketch_step.precompute_probes(spec, lo, lo)
+    params = sketch_step.make_step_params(2, 120, 96, 500, 7, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        sketch_step._launch(spec, params, state, lo, lo, probes, 4,
+                            torch.zeros(4, dtype=torch.int32))
