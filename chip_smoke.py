@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
 trace engine (one stream, tenant lanes, sweeps, the sharded sketch, the
-adaptive window, the policy panel), the serving-admission path (device and
-host sketch) and the LLM serving path.
+adaptive window, the policy panel, checkpoint/resume and fault injection),
+the serving-admission path (device and host sketch) and the LLM serving
+path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -51,15 +52,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    geometries of ``check_runs.SKETCH_EDGE_CFGS`` (rows 1-8, one- and
    two-word rows, one-word doorkeepers, 0-20 doorkeeper probes): the
    estimate and both paths of the admit at 1, 3, 8 and 50,000 keys and the
-   reset on random sketches, the add (at most 8 probes) from zero; every
-   leaf and output must be equal;
+   reset on random sketches, the add from zero (past 8 probes by its loop
+   instance, also over several tiles at 9, 13 and 20 probes); every leaf
+   and output must be equal;
 8. run S, the batched sketch ops at F's capacity, through ``DeviceTinyLFU``
    (counts set to 0 just before, read just after): record F's trace in
    4,096-key batches, then estimate and admit 50,000 keys; the state
    digest, the resets, the estimates' digest and the admitted count must
    equal the JAX package's; then time each kernel with CUDA events;
-9. run P1 (benchmarks/bench_serving.py's grid) and P2 (its generator at
-   C=65,536) through ``PrefixCache``, counts set to 0 around each run; every
+9. run P1 (benchmarks/bench_serving.py's grid: lru at each capacity,
+   tinylfu and wtinylfu at 1,000; their host-bound replays at 2,000 and
+   4,000 are cut for time) and P2 (its generator at C=65,536) through
+   ``PrefixCache``, counts set to 0 around each run; every
    ``PrefixCacheStats`` field must equal the JAX cache's; then one
    decision's wall time beside the admit kernel at one pair, the add kernel
    at a 32-block lookup and an empty launch;
@@ -192,12 +196,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    three lanes (counts set to 0 around it) and one after another, the
    sequential 65,536 row FP's and two lane rows their padded solo runs; a
    multi-policy ``mode="vmap"`` raises the reference's ``ValueError``;
-32. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+32. run F, F4 and FA through ``DeviceWTinyLFU.run(...,
+   checkpoint_dir=)`` at the auto cadence (32,768 accesses, 37 saves),
+   between plain runs: hits, registers, digest (FA's quota and trajectory)
+   must equal the JAX pins, with as many step launches as plain; each then
+   resumes on the card from the earliest checkpoint pruning kept and holds
+   them again; prints the walls and their ratio (the reference's
+   ``checkpoint_overhead_vs_plain``), each save's time on the host and a
+   checkpoint's bytes (checkpoints go under ``build/`` and are removed);
+33. the SIGKILL drill: a child process that imports only ``repro_torch``
+   drives F4 on the card, checkpointing every 32,768 accesses, and is
+   killed after 3 checkpoint markers (rc must be -SIGKILL); the resume on
+   the card from ``latest_step`` must hold F4's pins;
+34. the reference's fault drills at their own sizes
+   (``check_runs.FD_DRILLS``): a cache-table flip (a stored doorkeeper
+   bit sent far out of range, which the step kernel clamps as the
+   reference's gathers do), every stored probe of both tables flipped, a
+   flip in a shard's global sketch slice caught by the checksums
+   (quarantined once) and a shard's global slice lost twice; hits and
+   digest must equal the JAX engine's under the same hook, and the
+   reference's bounds hold;
+35. a checkpoint written on the CPU resumes on the card and one written on
+   the card resumes on the CPU, both equal to the card's uninterrupted run;
+36. print the ``kernels`` JSON line (six kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive and panel
-   launches and checks; the reset's and the estimate's with their burst
-   times, the empty launch's in a burst, their in-stream pairs with and
-   without PDL and their first designs' times), the card line and the
-   result line.  Lines
+   launches and checks and its checkpointed runs; the add's with the
+   doorkeeper probe counts it was held at; the reset's and the estimate's
+   with their burst times, the empty launch's in a burst, their in-stream
+   pairs with and without PDL and their first designs' times), the card
+   line and the result line.  Lines
    ``elapsed ...`` mark the time taken after each group of phases.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -224,7 +251,9 @@ from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
                                     F4_EPOCH, F4_HITS, F4_REGS, F4I_DIGEST,
                                     FA_DIGEST, FA_HITS, FA_QUOTA, FA_REGS,
                                     FA_TRAJ, FA4_DIGEST, FA4_HITS, FA4_QUOTA,
-                                    FA4_REGS, FA4_TRAJ, GA_ACCESSES,
+                                    FA4_REGS, FA4_TRAJ, FD_DRILLS,
+                                    FD_FLIP_TOL, FD_GOLDEN, FD_PINS, FD_TAIL,
+                                    GA_ACCESSES,
                                     GA_CAPACITY, GA_FRACS, GA_GAP, GA_PINS,
                                     GA_SEED, GA_TRACES,
                                     FLASH_CASES, FLASH_TAIL, FLASH_TAIL_LENS,
@@ -244,7 +273,8 @@ from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
                                     WA_PINS, WP_ARC_CAPS, WP_WTINYLFU_HITS,
                                     add_hazard_batches, add_schedule,
                                     random_sketch,
-                                    cache_tails, digest, hazard_keys,
+                                    cache_tails, digest, fd_hook,
+                                    hazard_keys,
                                     lane_keys, lane_n_valid, mixed_keys,
                                     replay, trajectory_digest)
 
@@ -267,6 +297,7 @@ GOLDEN = [
     ("G6c", "scanhot", 400, 16, 5_000, 26488, None, None),
 ]
 F_CAPACITY, F_ASSOC, F_WARMUP, F_CHUNK = 65536, 8, 480_000, 512
+F_ACCESSES = 1_200_000
 F_HITS = 455639
 F_REGS = [413568, 0, 1200000, 455639, 0, 0, 0, 0]
 F_DIGEST = "822de2a898615740"
@@ -573,7 +604,7 @@ def compare_sketch(name, cfg, batches, queries, errs, *, auto_reset=False,
 def sketch_phase7(f_trace):
     """Phase 7: the four sketch kernels against their plain versions on the
     card.  Returns (max abs error per kernel, plain ms per kernel at S's
-    shapes)."""
+    shapes, the doorkeeper probe counts the add was held at)."""
     import torch
     from repro_torch.kernels import sketch_common as sc
     from repro_torch.kernels.ops import make_config
@@ -624,12 +655,39 @@ def sketch_phase7(f_trace):
                    plain_ms=plain_ms)
     add_hazards(errs)
     admit_sizes(s_cfg, f_trace, errs)
-    sketch_edges(errs)
+    add_probes = sketch_edges(errs)
+    add_loop_tiles(errs)
     torch.cuda.synchronize()
-    return errs, plain_ms
+    return errs, plain_ms, add_probes
 
 
 EDGE_SIZES = (1, 3, 8, 50_000)
+LOOP_PROBES = (9, 13, 20)       # the add's loop instance: 896, 608, 384 keys
+
+
+def add_loop_tiles(errs):
+    """The add's loop instance over several tiles: two batches of 2,000
+    keys (repeats among them) from zero at LOOP_PROBES doorkeeper probes,
+    kernel against add_ref."""
+    from repro_torch.kernels import sketch_update
+    from repro_torch.kernels import sketch_common as sc
+    for dkp in LOOP_PROBES:
+        cfg = sc.DeviceSketchConfig(width=1024, rows=4, cap=15,
+                                    dk_bits=4096, dk_probes=dkp)
+        kernel = sc.init_state(cfg, device="cuda")
+        plain = sc.init_state(cfg, device="cuda")
+        for seed in (dkp, dkp + 100):
+            lo, hi = lanes_on_card(mixed_keys(seed, 2_000))
+            sketch_update.add(cfg, kernel, lo, hi)
+            sketch_update.add_ref(cfg, plain, lo, hi)
+        e = max(int((kernel[k].long() - plain[k].long()).abs().max())
+                for k in ("counters", "doorkeeper"))
+        errs["sketch_update"] = max(errs["sketch_update"], e)
+        check(e == 0 and int(kernel["counters"].ne(0).sum()) > 0,
+              f"add at {dkp} probes over several tiles: kernel and plain "
+              "differ")
+    print(f"phase 7  add loop instance at {LOOP_PROBES} doorkeeper probes: "
+          "two 2,000-key batches (several tiles each) from zero == add_ref")
 
 
 def edge_sketch(cfg, seed):
@@ -642,8 +700,9 @@ def edge_sketch(cfg, seed):
 def sketch_edges(errs):
     """The four sketch kernels against their plain versions at
     SKETCH_EDGE_CFGS: the estimate and both paths of the admit on a random
-    sketch at EDGE_SIZES keys, the reset on it, and (at most 8 doorkeeper
-    probes, the add kernel's limit) two batches added to a zeroed one."""
+    sketch at EDGE_SIZES keys, the reset on it, and two batches added to a
+    zeroed one (past 8 doorkeeper probes by the add's loop instance).
+    Returns the doorkeeper probe counts the add was held at."""
     import torch
     from repro_torch.kernels import (admission, sketch_estimate,
                                      sketch_reset, sketch_update)
@@ -651,7 +710,7 @@ def sketch_edges(errs):
 
     def err(a, b):
         return int((a.long() - b.long()).abs().max()) if a.numel() else 0
-    adds = 0
+    add_probes = set()
     for case, kw in enumerate(SKETCH_EDGE_CFGS):
         cfg = sc.DeviceSketchConfig(**kw)
         state = edge_sketch(cfg, case)
@@ -673,25 +732,25 @@ def sketch_edges(errs):
         sketch_reset.reset_ref(cfg, plain)
         errs["sketch_reset"] = max(errs["sketch_reset"], max(
             err(state[k], plain[k]) for k in ("counters", "doorkeeper")))
-        if kw.get("dk_probes", 0) <= 8:
-            kernel = sc.init_state(cfg, device="cuda")
-            plain = sc.init_state(cfg, device="cuda")
-            for seed in (case, case + 100):
-                lo, hi = lanes_on_card(mixed_keys(seed, 200))
-                sketch_update.add(cfg, kernel, lo, hi)
-                sketch_update.add_ref(cfg, plain, lo, hi)
-                errs["sketch_update"] = max(errs["sketch_update"], max(
-                    err(kernel[k], plain[k]) for k in ("counters",
-                                                       "doorkeeper")))
-            adds += 1
+        kernel = sc.init_state(cfg, device="cuda")
+        plain = sc.init_state(cfg, device="cuda")
+        for seed in (case, case + 100):
+            lo, hi = lanes_on_card(mixed_keys(seed, 200))
+            sketch_update.add(cfg, kernel, lo, hi)
+            sketch_update.add_ref(cfg, plain, lo, hi)
+            errs["sketch_update"] = max(errs["sketch_update"], max(
+                err(kernel[k], plain[k]) for k in ("counters",
+                                                   "doorkeeper")))
+        add_probes.add(cfg.dk_probes if cfg.dk_bits else 0)
         for k in SKETCH_KERNELS:
             check(errs[k] == 0, f"edge geometry {kw}: {k} kernel and plain "
                   "differ")
     print(f"phase 7  edge geometries: {len(SKETCH_EDGE_CFGS)} (rows 1, 3, 8;"
           f" widths 8, 16; doorkeeper probes 0-20 on 32 or 1,024 bits, and "
           f"none): estimate, admit (both paths) at {EDGE_SIZES} keys and "
-          f"reset == plain on random sketches; the add == add_ref on the "
-          f"{adds} with at most 8 probes")
+          f"reset == plain on random sketches; the add == add_ref from zero "
+          f"on all of them, at doorkeeper probes {sorted(add_probes)}")
+    return sorted(add_probes)
 
 
 def add_hazards(errs):
@@ -920,10 +979,13 @@ def sketch_phase8(f_trace, card):
 
 
 def serving_phase9(card):
-    """Phase 9: P1 and P2 through PrefixCache on the card (the device
-    sketch), each run with the launch counts set to 0 just before and read
-    just after; every PrefixCacheStats field must equal the JAX cache's.
-    Returns each run's admission decisions per second of wall."""
+    """Phase 9: P1 through PrefixCache on the card (the device sketch),
+    each run with the launch counts set to 0 just before and read just
+    after; every PrefixCacheStats field must equal the JAX cache's.  The
+    replays are host-bound (a decision is ~0.97 host), so the admitting
+    policies run P1 at its smallest capacity only, and P2, the replay at
+    S's capacity, in full.  Returns each run's admission decisions per
+    second of wall."""
     import dataclasses
     import torch
     from repro_torch.serve import PrefixCache
@@ -931,7 +993,8 @@ def serving_phase9(card):
     p1 = multi_tenant_prompt_trace(**P1_TRACE)
     p2 = multi_tenant_prompt_trace(**P2_TRACE)
     runs = [("P1", p, c, p1) for p in ("lru", "tinylfu", "wtinylfu")
-            for c in P1_CAPS] + [("P2", "wtinylfu", P2_CAP, p2)]
+            for c in P1_CAPS if p == "lru" or c == P1_CAPS[0]] + [
+        ("P2", "wtinylfu", P2_CAP, p2)]
     totals, rates = {}, {}
     for name, policy, cap, stream in runs:
         pc = PrefixCache(cap, policy=policy, sample_factor=8,
@@ -1921,13 +1984,14 @@ def host_phase18(card, device_rates):
             check(sum(launches.values()) == 0,
                   f"P1-host {policy} C={cap}: launches {launches}")
             decisions = stats.admitted + stats.rejected
+            rate = device_rates.get(("P1", policy, cap))
+            rate = f"{rate:,.0f}" if rate else "not replayed"
             print(f"phase 18 P1-host {policy:8s} C={cap:<5d} stats == JAX "
                   f"(default PrefixCache, host sketch), hit ratio "
                   f"{stats.hit_ratio:.6f}; wall {wall:.3f} s, "
                   f"{len(p1) / wall:,.0f} block accesses/s, "
                   f"{decisions / wall:,.0f} decisions/s (device sketch, "
-                  f"phase 9: {device_rates[('P1', policy, cap)]:,.0f}); no "
-                  f"launch; {card}")
+                  f"phase 9: {rate}); no launch; {card}")
 
 
 def case_params(prows, spec):
@@ -2869,6 +2933,261 @@ def wp_phase31(f_trace, card):
     return wl, ws
 
 
+CKPT_WORKDIR = ROOT / "build"          # checkpoints go under build/
+KILL_SCRIPT = r"""
+import sys
+sys.path.insert(0, %(src)r)
+for m in ("jax", "jaxlib", "repro"):
+    sys.modules[m] = None
+from repro_torch.core.device_simulate import DeviceWTinyLFU
+from repro_torch.traces.synthetic import zipf_trace
+
+tr = zipf_trace(1_200_000, n_items=1_000_000, alpha=0.9, seed=11)
+cfg = DeviceWTinyLFU(%(cap)d, assoc=%(assoc)d, shards=%(shards)d)
+cfg.run(tr, warmup=%(warmup)d, checkpoint_dir=%(dir)r, checkpoint_every=%(every)d,
+        on_checkpoint=lambda c: print("CKPT", c, flush=True))
+print("DONE", flush=True)
+"""
+KILL_EVERY = 32_768             # 8 of F4's merge epochs
+KILL_AFTER = 3
+
+
+def hold_f_pins(name, res, state, flags, pins):
+    """Hits, registers, digest and hit flags (and, adaptive, the final
+    quota and trajectory) of a run at F's trace against its JAX pins."""
+    hits, regs_pin, dig, quota, traj = pins
+    regs = state["regs"].cpu().tolist()
+    check(res.hits == hits and regs == regs_pin and digest(state) == dig
+          and int(flags[F_WARMUP:].sum()) == hits
+          and flags.shape[0] == F_ACCESSES,
+          f"{name}: hits {res.hits} regs {regs} digest {digest(state)} != "
+          f"JAX {hits} {regs_pin} {dig}")
+    if quota is not None:
+        t = res.extra["trajectory"]
+        check(res.extra["final_quota"] == quota
+              and len(t["quota"]) == traj[0]
+              and trajectory_digest(t) == traj[1],
+              f"{name}: quota {res.extra['final_quota']}, trajectory "
+              f"{trajectory_digest(t)} != JAX {quota} {traj}")
+
+
+def prune_to_first(d: Path) -> int:
+    """Delete every checkpoint in ``d`` but the earliest; returns its
+    step."""
+    import shutil
+    kept = sorted(x for x in d.iterdir() if not x.name.endswith(".tmp"))
+    check(len(kept) >= 2, f"{d}: {len(kept)} checkpoints, expected >= 2")
+    for x in kept[1:]:
+        shutil.rmtree(x)
+    return int(kept[0].name[5:])
+
+
+def ckpt_phase32(f_trace, card, work):
+    """Phase 32: F, F4 and FA through ``cfg.run(..., checkpoint_dir=)`` at
+    the auto cadence (32,768 accesses: 37 saves) on the card, between plain
+    runs; every run holds its JAX pins and launches as many step kernels as
+    the plain run; then each resumes from the earliest checkpoint that
+    pruning kept and holds them again.  Prints the walls, their ratio (the
+    reference's checkpoint_overhead_vs_plain), each save's time on the
+    host (the join of the previous write and the copy to host memory) and
+    a checkpoint's bytes.  Returns {name: {saves, overhead_vs_plain,
+    save_ms, bytes}}."""
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core.device_simulate import (ClimbSpec, DeviceWTinyLFU,
+                                                  resume_trace)
+    from repro_torch.kernels import sketch_step as ks
+    runs = [("F", {}, (F_HITS, F_REGS, F_DIGEST, None, None)),
+            ("F4", dict(shards=SHARDS),
+             (F4_HITS, F4_REGS, F4_DIGEST, None, None)),
+            ("FA", dict(adaptive=True),
+             (FA_HITS, FA_REGS, FA_DIGEST, FA_QUOTA, FA_TRAJ))]
+    save = store.AsyncCheckpointer.save
+    out = {}
+    for name, kw, pins in runs:
+        cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, **kw)
+        walls = {"plain": [], "checkpointed": []}
+        launches, save_ms, saves = set(), [], []
+        for i, kind in enumerate(("plain", "checkpointed", "checkpointed",
+                                  "plain")):
+            d = work / f"{name}-{i}"
+            extra = ({"checkpoint_dir": str(d),
+                      "on_checkpoint": saves.append}
+                     if kind == "checkpointed" else {})
+            if i == 2:            # time each save on the host
+                def timed(self, *a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    save(self, *a, **k)
+                    save_ms.append((time.perf_counter() - t0) * 1e3)
+                store.AsyncCheckpointer.save = timed
+            torch.cuda.synchronize()
+            ks.step.launches = 0
+            t0 = time.perf_counter()
+            try:
+                res, state, flags = cfg.run(
+                    f_trace, warmup=F_WARMUP, chunk=F_CHUNK,
+                    climb=ClimbSpec(), trace_name="zipf-1.2M",
+                    return_state=True, **extra)
+                torch.cuda.synchronize()
+            finally:
+                store.AsyncCheckpointer.save = save
+            walls[kind].append(time.perf_counter() - t0)
+            launches.add(ks.step.launches)
+            hold_f_pins(f"{name} {kind}", res, state, flags, pins)
+            if kind == "checkpointed":
+                every, ckdir = res.extra["checkpoint_every"], d
+        check(len(launches) == 1, f"{name}: step launches {launches} differ "
+              "between the plain and checkpointed runs")
+        n_saves = len(saves) // 2
+        check(every == 32_768 and n_saves == -(-F_ACCESSES // every)
+              and saves[:n_saves] == saves[n_saves:],
+              f"{name}: cadence {every}, saves {saves}")
+        last = ckdir / f"step_{F_ACCESSES:010d}"
+        nbytes = sum(x.stat().st_size for x in last.iterdir())
+        state_bytes = sum(v.numel() * 4 for v in state.values())
+        cursor = prune_to_first(ckdir)
+        ks.step.launches = 0
+        res, state, flags = resume_trace(
+            f_trace, cfg, checkpoint_dir=str(ckdir), warmup=F_WARMUP,
+            chunk=F_CHUNK, climb=ClimbSpec(), return_state=True)
+        check(res.extra["resumed_at"] == cursor and ks.step.launches > 0,
+              f"{name}: resumed at {res.extra['resumed_at']} != {cursor}")
+        hold_f_pins(f"{name} resumed", res, state, flags, pins)
+        ratio = statistics.mean(walls["checkpointed"]) / statistics.mean(
+            walls["plain"])
+        print(f"phase 32 {name}: checkpointed every {every} accesses "
+              f"({n_saves} saves a run) and resumed from {cursor} "
+              f"({F_ACCESSES - cursor} accesses): hits, regs, digest"
+              f"{', quota, trajectory' if kw.get('adaptive') else ''} == "
+              f"JAX; step launches {launches.pop()} as plain")
+        print(f"phase 32 {name}: wall plain "
+              + ", ".join(f"{w:.3f}" for w in walls["plain"])
+              + " s, checkpointed " + ", ".join(
+                  f"{w:.3f}" for w in walls["checkpointed"])
+              + f" s (host clock, in turns): checkpoint_overhead_vs_plain "
+              f"{ratio:.4f}; save() on the host after a synchronize "
+              f"{statistics.mean(save_ms):.2f} ms mean, "
+              f"{max(save_ms):.2f} max over {len(save_ms)}; one checkpoint "
+              f"{nbytes} bytes on disk (state {state_bytes}, hit flags "
+              f"{F_ACCESSES * 4}); card {card}")
+        out[name] = {"saves": n_saves, "overhead_vs_plain": ratio,
+                     "save_ms": statistics.mean(save_ms), "bytes": nbytes}
+    return out
+
+
+def kill_phase33(f_trace, card, work):
+    """Phase 33: the SIGKILL drill.  A script that imports only repro_torch
+    drives F4 on the card with checkpoint_every=KILL_EVERY, printing a
+    marker per checkpoint; ``faults.run_to_kill`` kills it after KILL_AFTER
+    markers; the parent resumes on the card from the latest durable
+    checkpoint and must hold F4's pins."""
+    import signal
+    from repro_torch.checkpoint.store import latest_step
+    from repro_torch.core import faults
+    from repro_torch.core.device_simulate import DeviceWTinyLFU, resume_trace
+    d = work / "kill"
+    t0 = time.perf_counter()
+    seen, rc = faults.run_to_kill(
+        KILL_SCRIPT % dict(src=str(ROOT / "src"), cap=F_CAPACITY,
+                           assoc=F_ASSOC, shards=SHARDS, warmup=F_WARMUP,
+                           dir=str(d), every=KILL_EVERY),
+        kills=KILL_AFTER, timeout=300)
+    child = time.perf_counter() - t0
+    step = latest_step(str(d))
+    check(seen == KILL_AFTER and rc == -signal.SIGKILL,
+          f"kill drill: {seen} markers, rc {rc}")
+    check(step is not None and 0 < step < F_ACCESSES
+          and step % KILL_EVERY == 0, f"kill drill: latest step {step}")
+    cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, shards=SHARDS)
+    res, state, flags = resume_trace(
+        f_trace, cfg, checkpoint_dir=str(d), warmup=F_WARMUP,
+        checkpoint_every=KILL_EVERY, return_state=True)
+    check(res.extra["resumed_at"] == step,
+          f"kill drill: resumed at {res.extra['resumed_at']} != {step}")
+    hold_f_pins("F4 killed and resumed", res, state, flags,
+                (F4_HITS, F4_REGS, F4_DIGEST, None, None))
+    print(f"phase 33 kill drill: F4 in a child process killed after "
+          f"{seen} checkpoint markers (rc {rc}, {child:.1f} s with its start "
+          f"on the card); resumed on the card at latest_step {step}: hits, "
+          f"regs, digest == F4's JAX pins")
+    return True
+
+
+def fault_phase34(card):
+    """Phase 34: the reference's fault drills at their own sizes on the
+    card (check_runs.FD_DRILLS): each run under its hook must equal the JAX
+    engine's run under the same hook (hits, state digest), and the
+    reference's own bounds must hold."""
+    from repro_torch.core import faults
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  simulate_trace)
+    from repro_torch.kernels import sketch_step as ks
+    from repro_torch.traces.synthetic import zipf_trace
+    for name, (tkw, cap, kw, warmup, every) in FD_DRILLS.items():
+        tr = zipf_trace(**tkw)
+        cfg = DeviceWTinyLFU(cap, **kw)
+        ks.step.launches = 0
+        res, state, flags = cfg.run(
+            tr, warmup=warmup, checkpoint_every=every, return_state=True,
+            fault_hook=fd_hook(name, faults, cfg.spec()))
+        check(ks.step.launches > 0, f"drill {name}: no step launch")
+        clean, _, flags0 = simulate_trace(tr, cap, warmup=warmup,
+                                          return_state=True, **kw)
+        pin = FD_PINS[name]
+        check((res.hits, digest(state)) == pin,
+              f"drill {name}: hits {res.hits} digest {digest(state)} != JAX "
+              f"{pin}")
+        also = ""
+        if name in ("flip", "probes"):
+            check(abs(res.hit_ratio - clean.hit_ratio) < FD_FLIP_TOL,
+                  f"drill {name}: {res.hit_ratio} vs {clean.hit_ratio}")
+        else:
+            check(abs(res.hit_ratio - FD_GOLDEN) < GP_TOL,
+                  f"drill {name}: hit ratio {res.hit_ratio}")
+        if name == "quarantine":
+            csum = int(state["csum"][-1])
+            tails = [float(f[-FD_TAIL:].float().mean()) for f in (flags,
+                                                                 flags0)]
+            check(csum == 1 and abs(tails[0] - tails[1]) < GP_TOL,
+                  f"drill quarantine: csum {csum}, tails {tails}")
+            also = (f", csum count {csum}, last {FD_TAIL} accesses "
+                    f"{tails[0]:.6f} vs {tails[1]:.6f} without the flip")
+        print(f"phase 34 drill {name}: {len(tr)} accesses C={cap} {kw}: "
+              f"hits {res.hits}, digest == JAX under the same hook; hit "
+              f"ratio {res.hit_ratio:.6f} (without the fault "
+              f"{clean.hit_ratio:.6f}){also}")
+    return True
+
+
+def cross_phase35(card, work):
+    """Phase 35: a checkpoint written on the CPU (the plain version)
+    resumes on the card, and one written on the card resumes on the CPU;
+    both equal the card's uninterrupted run."""
+    import torch
+    from repro_torch.core.device_simulate import DeviceWTinyLFU, resume_trace
+    from repro_torch.traces.synthetic import zipf_trace
+    tr = zipf_trace(6_000, n_items=2_000, alpha=0.9, seed=4)
+    cfg = DeviceWTinyLFU(300, shards=4, merge_every=512)
+    kw = dict(warmup=1_000, checkpoint_every=2_048, return_state=True)
+    want = cfg.run(tr, warmup=1_000, return_state=True)
+    for writer, reader in (("cpu", "cuda"), ("cuda", "cpu")):
+        d = work / f"cross-{writer}"
+        cfg.run(tr, checkpoint_dir=str(d), device=writer, **kw)
+        cursor = prune_to_first(d)
+        res, state, flags = resume_trace(tr, cfg, checkpoint_dir=str(d),
+                                         device=reader, **kw)
+        check(res.extra["resumed_at"] == cursor and res.hits == want[0].hits
+              and torch.equal(flags.cpu(), want[2].cpu())
+              and all(torch.equal(state[k].cpu(), want[1][k].cpu())
+                      for k in state),
+              f"cross-device resume {writer} -> {reader} differs")
+        print(f"phase 35 written on {writer}, resumed on {reader} from "
+              f"{cursor}: hits {res.hits}, hit flags and every state leaf == "
+              "the card's uninterrupted run")
+    return True
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3026,7 +3345,7 @@ def main() -> int:
           f"above it (a dependent per-access chain: latency-bound)")
 
     # -- phase 7: the sketch kernels vs plain on the card ------------------
-    errs, s_plain_ms = sketch_phase7(f_trace)
+    errs, s_plain_ms, add_probes = sketch_phase7(f_trace)
 
     # -- phase 8: S, the batched sketch ops at real size ------------------
     s_launches, s_ms, s_batches = sketch_phase8(f_trace, card)
@@ -3146,6 +3465,20 @@ def main() -> int:
     gp_phase30(zipf, scanhot, card)
     wp_phase31(f_trace, card)
     elapsed("phases 28-31")
+
+    # -- phases 32-35: checkpoint/resume and faults on the step kernel -----
+    import shutil
+    import tempfile
+    CKPT_WORKDIR.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="checkpoints-", dir=CKPT_WORKDIR))
+    try:
+        ckpt = ckpt_phase32(f_trace, card, work)
+        kill_ok = kill_phase33(f_trace, card, work)
+        drills_ok = fault_phase34(card)
+        cross_ok = cross_phase35(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    elapsed("phases 32-35")
     err = max(max_err, lane_err, shard_err, adapt_err, panel_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
                              "1c adaptive", "1d panel"],
@@ -3165,9 +3498,22 @@ def main() -> int:
                       panel_max_abs_err=panel_err,
                       panel_ms={p: v[1] for p, v in fp.items()},
                       panel_plain_ms=panel_plain_ms,
-                      panel_bound_ms={p: v[2] for p, v in fp.items()})
+                      panel_bound_ms={p: v[2] for p, v in fp.items()},
+                      checkpoint={
+                          "saves": {k: v["saves"] for k, v in ckpt.items()},
+                          "overhead_vs_plain": {
+                              k: v["overhead_vs_plain"]
+                              for k, v in ckpt.items()},
+                          "save_ms": {k: v["save_ms"]
+                                      for k, v in ckpt.items()},
+                          "bytes": {k: v["bytes"] for k, v in ckpt.items()},
+                          "resume_ok": True, "kill_resume_ok": kill_ok,
+                          "fault_drills_ok": drills_ok,
+                          "cross_device_ok": cross_ok})
+    kernels[1].update(dk_probes_held=sorted(set(add_probes)
+                                            | set(LOOP_PROBES)))
 
-    # -- phase 32: the kernels line ----------------------------------------
+    # -- phase 36: the kernels line ----------------------------------------
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

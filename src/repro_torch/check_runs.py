@@ -30,8 +30,10 @@ SKETCH_CFGS = [dict(width=256, rows=4, cap=15, dk_bits=1024),
 # The sketch kernels' edge geometries, beside SKETCH_CFGS: rows 1, 3 and 8
 # (the reference's limit) x widths 8 and 16 (one and two counter words a
 # row) x doorkeeper probes 0, 8, 9, 13 and 20 on a doorkeeper of one word
-# (32 bits) or 1,024 bits, and three without a doorkeeper.  The estimate,
-# admit and reset kernels take every one; the add kernel at most 8 probes.
+# (32 bits) or 1,024 bits, and three without a doorkeeper.  Every sketch
+# kernel takes every one: the add past 8 probes through its loop instance
+# (csrc/sketch_update.cu), whose plain version the CPU tests hold to the
+# reference's numpy hashing twins at 9, 13 and 20 probes.
 # tests/test_torch_sketch_edges.py holds the plain versions to the JAX
 # package here, chip_smoke.py phase 7 and tests/test_torch_kernel_gpu.py
 # the kernels to the plain versions.
@@ -306,6 +308,91 @@ P1_HOST_PINS = {
     ("wtinylfu", 2000): (6779, 55621, 161282, 103320, 2336, 98984, 2336),
     ("wtinylfu", 4000): (6779, 63231, 153672, 87280, 2473, 80807, 2473),
 }
+
+# Runs FD: the reference's fault drills at their own sizes
+# (tests/test_faults.py:83-145), through DeviceWTinyLFU.run(...,
+# fault_hook=fd_hook(name, faults, cfg.spec()), checkpoint_every=...).
+# "flip" flips a window and a main cache-table word at 4,096 (the main word
+# is a record's stored doorkeeper bit, which the victim's estimate then
+# reads far out of range: the reference's gathers clamp such an index, and
+# so does the port); "probes" flips bit 30 or 31 of every stored probe of
+# both tables at 4,096 (not a reference drill: the clamp everywhere);
+# "quarantine"
+# flips a bit of shard 1's global sketch slice at 12,800 (integrity=True:
+# caught at the next fold, the shard quarantined once); "loss" zeroes shard
+# 0's global slice at 19,200 and 38,400.  Each is (zipf_trace kwargs,
+# capacity, DeviceWTinyLFU kwargs, warmup, checkpoint_every).  The pins are
+# the JAX engine's runs under the same hook (repro.core.faults; backend
+# "jit", bit-equal to its Pallas kernel): hits and state digest
+# (``PYTHONPATH=src python tests/test_torch_faults.py`` prints them).  The
+# reference's own bounds hold too: the flips' hit ratios within
+# FD_FLIP_TOL of the run without them, the golden drills' within GP_TOL of FD_GOLDEN,
+# and the quarantine's last 20,000 accesses within GP_TOL of the run
+# without the flip.
+_FD_GOLDEN_TRACE = dict(length=60_000, n_items=50_000, alpha=0.9, seed=7)
+FD_DRILLS = {
+    "flip": (dict(length=10_000, n_items=1_500, alpha=0.9, seed=6), 300,
+             dict(assoc=8), 1_000, 2_048),
+    "probes": (dict(length=10_000, n_items=1_500, alpha=0.9, seed=6), 300,
+               dict(assoc=8), 1_000, 2_048),
+    "quarantine": (_FD_GOLDEN_TRACE, 200,
+                   dict(shards=2, merge_every=1_600, integrity=True), 10_000,
+                   3_200),
+    "loss": (_FD_GOLDEN_TRACE, 200, dict(shards=2, merge_every=1_600),
+             10_000, 3_200),
+}
+FD_GOLDEN = 0.3498
+FD_FLIP_TOL = 0.02
+FD_TAIL = 20_000
+FD_PINS = {"flip": (6105, "b15ce7193ba01595"),
+           "probes": (6106, "bb23e1ba5135a613"),
+           "quarantine": (17729, "ca22b61a610bd4c0"),
+           "loss": (17705, "15c871b27f957b68")}
+
+
+def stored_probe_flips(spec, key: str) -> list:
+    """(flat index, bit) flips of bits 30 and 31, by turns, in every
+    stored probe of table ``key`` (the counter probes and doorkeeper bits a
+    record keeps: ``wtab``/``mtab`` columns, or the flat ``widx``, ``wdkb``,
+    ``midx``, ``mdkb`` leaves)."""
+    if spec.assoc is None:
+        n = spec.window_slots if key[0] == "w" else spec.main_slots
+        per = spec.rows if key.endswith("idx") else spec.dkp
+        return [(i, 30 + i % 2) for i in range(n * per)]
+    n, cols, c0 = ((spec.window_slots, spec.wcols, 5) if key == "wtab"
+                   else (spec.main_slots, spec.mcols, 3))
+    return [(r * cols + c, 30 + (r + c) % 2) for r in range(n)
+            for c in range(c0, c0 + spec.rows + spec.dkp)]
+
+
+def corrupt_stored_probes(faults, spec, state: dict) -> dict:
+    """``state`` with every stored probe of both tables flipped
+    (:func:`stored_probe_flips`), through ``faults.flip_words``."""
+    keys = (("widx", "wdkb", "midx", "mdkb") if spec.assoc is None
+            else ("wtab", "mtab"))
+    for k in keys:
+        state = faults.flip_words(state, k, stored_probe_flips(spec, k))
+    return state
+
+
+def fd_hook(name: str, faults, spec):
+    """The fault hook of drill ``name``, built on ``faults`` (the port's
+    ``repro_torch.core.faults`` or the reference's, for its pins) and the
+    run's StepSpec ``spec``."""
+    def hook(cursor, state):
+        if name == "flip" and cursor == 4_096:
+            state = faults.flip_words(state, "wtab", [(1, 4)])
+            return faults.flip_words(state, "mtab", [(7, 30)])
+        if name == "probes" and cursor == 4_096:
+            return corrupt_stored_probes(faults, spec, state)
+        if name == "quarantine" and cursor == 12_800:
+            return faults.flip_words(state, "counters",
+                                     [(spec.wps_shard, 2)])
+        if name == "loss" and cursor in (19_200, 38_400):
+            return faults.drop_shard_delta(spec, state, 0, half="global")
+        return None
+    return hook
+
 
 def digest(state: dict) -> str:
     """sha256 over the state leaves in sorted key order: the key's UTF-8

@@ -19,6 +19,11 @@ panel's competitors (``policy="s3fifo" | "arc" | "lfu"``) on the
 set-associative tables, one stream or lanes; and ``simulate_sweep``'s grids
 of such configurations (``policies=`` among them): one run per
 configuration, or (unsharded, one policy) as lanes of one run.
+``DeviceWTinyLFU.run(..., checkpoint_dir=, fault_hook=)`` runs one stream
+in segments that end on epoch boundaries, saving the state tree after each
+in the reference's checkpoint format and calling the fault hook between
+them; ``resume_trace`` continues from the latest checkpoint, written by
+either package on either device.
 Entry points run on the card unless the caller passes ``device="cpu"`` (the
 plain version); without a card they raise.
 """
@@ -33,7 +38,8 @@ import torch
 from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels.sketch_step import (
     StepSpec, make_step_params, init_step_state, precompute_probes, step,
-    rebalance, resolve_device, R_EHITS, R_HITS, R_WQUOTA)
+    rebalance, resolve_device, R_EHITS, R_HITS, R_WQUOTA, WT_MSET,
+    WT_MSET2)
 from repro_torch.kernels.sketch_common import keys_to_lanes, POLICIES
 from repro_torch.kernels.sketch_merge import merge_halve
 from .adaptive import resolve_climb, window_cap_max
@@ -275,18 +281,29 @@ class DeviceWTinyLFU:
         :class:`ClimbSpec`) is ignored unless ``adaptive``, as in the
         reference.
 
-        Checkpointing and fault injection (``checkpoint_dir``,
-        ``checkpoint_every``, ``on_checkpoint``, ``fault_hook``) are not
-        ported yet and raise.
+        With ``checkpoint_dir`` or ``fault_hook`` the trace runs in segments
+        of ``checkpoint_every`` accesses, each ending on an epoch boundary
+        (a clean state handoff), so the result equals the one-piece run bit
+        for bit.  After each segment the state tree (the state, the
+        climber's registers, the hit flags so far and, adaptive, the
+        trajectory) is saved to ``checkpoint_dir`` by
+        ``checkpoint.store.AsyncCheckpointer`` in the reference's format,
+        and :func:`resume_trace` continues from the latest one.
+        ``checkpoint_every`` must be a positive multiple of the run's epoch
+        (``climb.epoch_len`` adaptive, ``merge_epoch`` sharded; anything
+        for a static unsharded run); 0 picks about 32,768 accesses in whole
+        epochs.  ``on_checkpoint(cursor)`` is called after each save is
+        queued; ``fault_hook(cursor, state) -> state | None`` is called at
+        each boundary but the last, just after the checkpoint, with the
+        live state, and the run goes on from the state it returns (tensors
+        or numpy, placed on the run's device), if any (``core.faults``).
         """
-        if (checkpoint_dir is not None or fault_hook is not None
-                or checkpoint_every or on_checkpoint is not None):
-            raise NotImplementedError(
-                "checkpoint/resume and fault injection are ROADMAP queue 1 "
-                "item 11")
-        return _simulate(self, trace, warmup=warmup, device=device,
-                         chunk=chunk, trace_name=trace_name, climb=climb,
-                         return_state=return_state)
+        return _run_checkpointed(
+            self, trace, warmup=warmup, device=device, chunk=chunk,
+            trace_name=trace_name, climb=climb,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            return_state=return_state, on_checkpoint=on_checkpoint,
+            fault_hook=fault_hook)
 
 
 def _trace_lanes(trace: np.ndarray, device) -> tuple[torch.Tensor,
@@ -480,24 +497,28 @@ def _climb_step(params, spec: StepSpec, state: dict, carry: torch.Tensor,
 
 
 def _run_adaptive(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict,
-                  lo, hi, climb: ClimbSpec, cvec: torch.Tensor | None = None):
+                  lo, hi, climb: ClimbSpec, cvec: torch.Tensor | None = None,
+                  carry: torch.Tensor | None = None):
     """The adaptive run (the reference's ``_run_adaptive``): one step launch
     per epoch of ``climb.epoch_len`` accesses; after each full epoch, in
     this order, the ``merge_halve`` fold (sharded), the climb and
     ``rebalance``; a partial tail epoch steps but never folds or climbs.
 
     ``cvec`` is the resolved climb vector ((6,), or (B, 6) per lane;
-    default ``climb.resolve(cfg)``).  Returns (state, hit flags, the
-    per-epoch (ehits, quota) rows as one device tensor of shape (epochs, 2)
-    or (epochs, 2, B), read from the registers before each climb, or None
-    with no full epoch).  The host knows which epochs are full, so nothing
-    here waits on the card.
+    default ``climb.resolve(cfg)``).  ``carry`` is the climber registers
+    to start from (None: a fresh climb); a checkpointed run passes the
+    previous segment's.  Returns (state, hit flags, the per-epoch (ehits,
+    quota) rows as one device tensor of shape (epochs, 2) or (epochs, 2,
+    B), read from the registers before each climb, or None with no full
+    epoch, the climber registers after the last climb).  The host knows
+    which epochs are full, so nothing here waits on the card.
     """
     if cvec is None:
         cvec = torch.as_tensor(climb.resolve(cfg), device=lo.device)
-    carry = _climb_carry0(cvec)
-    if spec.streams > 1 and carry.dim() == 1:
-        carry = carry[:, None].repeat(1, spec.streams)
+    if carry is None:
+        carry = _climb_carry0(cvec)
+        if spec.streams > 1 and carry.dim() == 1:
+            carry = carry[:, None].repeat(1, spec.streams)
     rows = []
 
     def fold(spec, params, state):
@@ -511,60 +532,7 @@ def _run_adaptive(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict,
 
     state, hits = run_chunks(spec, params, state, lo, hi,
                              int(climb.epoch_len), fold=fold)
-    return state, hits, (torch.stack(rows) if rows else None)
-
-
-def _simulate(cfg: DeviceWTinyLFU, trace, *, warmup: int, device, chunk: int,
-              trace_name: str, climb, return_state: bool):
-    ks._require_ported(cfg.spec())
-    dev = resolve_device(device)
-    trace = np.asarray(trace)
-    _check_trace_streams(cfg, trace)
-    spec = cfg.spec()
-    params = cfg.params(warmup=warmup, device=dev)
-    state = init_step_state(spec, cfg.window_cap, cfg.main_cap, device=dev)
-    lo, hi = _trace_lanes(trace, dev)
-    climb = climb or ClimbSpec()
-
-    t0 = time.perf_counter()
-    traj = None
-    if cfg.adaptive:
-        state, hits, traj = _run_adaptive(cfg, spec, params, state, lo, hi,
-                                          climb)
-    else:
-        state, hits = _run(cfg, spec, params, state, lo, hi, chunk)
-    regs = state["regs"].cpu()                   # waits for the device
-    if traj is not None:
-        traj = traj.cpu()
-    wall = time.perf_counter() - t0
-
-    # warmup applies per lane (each lane's own R_T register counts it)
-    counted = (trace.shape[-1] - warmup) * cfg.streams
-    extra = {"backend": "cuda" if dev.type == "cuda" else "plain",
-             "window_frac": cfg.window_frac, "assoc": cfg.assoc,
-             "device": _device_name(dev),
-             **_row_extra(cfg, climb, cfg.adaptive)}
-    if cfg.adaptive:
-        extra["adaptive"] = True
-        extra["final_quota"] = ([int(q) for q in regs[:, R_WQUOTA]]
-                                if cfg.streams > 1 else int(regs[R_WQUOTA]))
-        if traj is not None:
-            extra["trajectory"] = {"epoch_len": climb.epoch_len,
-                                   "epoch_hits": traj[:, 0].tolist(),
-                                   "quota": traj[:, 1].tolist()}
-    if cfg.streams > 1:
-        extra["lane_hits"] = [int(h) for h in regs[:, R_HITS]]
-        n_hits = sum(extra["lane_hits"])
-    else:
-        n_hits = int(regs[R_HITS])
-    res = SimResult(policy=_policy_label(cfg, cfg.adaptive),
-                    cache_size=cfg.capacity, trace=trace_name,
-                    accesses=counted, hits=n_hits,
-                    hit_ratio=n_hits / max(1, counted), wall_s=wall,
-                    extra=extra)
-    if return_state:
-        return res, state, hits
-    return res
+    return state, hits, (torch.stack(rows) if rows else None), carry
 
 
 def _device_name(dev: torch.device) -> str:
@@ -598,9 +566,315 @@ def simulate_trace(trace: np.ndarray, capacity: int, *,
     cfg = DeviceWTinyLFU(capacity, window_frac=window_frac,
                          sample_factor=sample_factor, adaptive=adaptive,
                          **cfg_kw)
-    return _simulate(cfg, trace, warmup=warmup, device=device, chunk=chunk,
-                     trace_name=trace_name, climb=climb,
-                     return_state=return_state)
+    return _run_checkpointed(cfg, trace, warmup=warmup, device=device,
+                             chunk=chunk, trace_name=trace_name, climb=climb,
+                             return_state=return_state)
+
+
+# ---------------------------------------------------------------------------
+# fault-tolerant execution: epoch-boundary checkpoint / resume
+# ---------------------------------------------------------------------------
+
+def _ckpt_epoch(cfg: DeviceWTinyLFU, climb: ClimbSpec) -> int:
+    """The run's state-handoff granularity in accesses.
+
+    Adaptive runs climb (and, sharded, merge) every ``climb.epoch_len``;
+    sharded static runs merge every ``merge_epoch``; a static unsharded run
+    has no boundary constraint at all (any split is a clean handoff), so its
+    epoch only sets the auto checkpoint cadence."""
+    if cfg.adaptive:
+        return int(climb.epoch_len)
+    if cfg.shards > 1:
+        return int(cfg.merge_epoch)
+    return max(1, min(4096, cfg.sample_size))
+
+
+def _resolve_every(cfg: DeviceWTinyLFU, climb: ClimbSpec,
+                   checkpoint_every: int) -> int:
+    """Validated checkpoint cadence in accesses (0 = auto ~32k, rounded to
+    whole epochs).  Epoch-chunked runs (adaptive / sharded) may only hand
+    state off at epoch boundaries, so their cadence must be a multiple of
+    the epoch: anything else could not reproduce the uninterrupted run."""
+    E = _ckpt_epoch(cfg, climb)
+    if checkpoint_every == 0:
+        return E * max(1, 32768 // E)
+    ce = int(checkpoint_every)
+    chunked = cfg.adaptive or cfg.shards > 1
+    if ce < 1 or (chunked and ce % E):
+        kind = ("climb.epoch_len" if cfg.adaptive else
+                "the resolved merge_epoch")
+        raise ValueError(
+            f"checkpoint_every {checkpoint_every} must be a positive "
+            f"multiple of the run's epoch ({kind} = {E}): the engine "
+            "hands state off only at epoch boundaries, so any other "
+            "cadence cannot resume bit-identically")
+    return ce
+
+
+def _config_meta(cfg: DeviceWTinyLFU, climb: ClimbSpec, warmup: int,
+                 n: int) -> dict:
+    """JSON-safe fingerprint of the logical run configuration, stored in
+    every checkpoint's manifest and verified by :func:`resume_trace`; the
+    reference's keys and values, so checkpoints cross between the
+    packages.  The device is not part of it: a checkpoint written on the
+    card resumes on the CPU, and the reverse."""
+    meta = {f: getattr(cfg, f) for f in (
+        "capacity", "window_frac", "sample_factor", "protected_frac",
+        "counters_per_item", "rows", "doorkeeper", "dk_bits_per_item",
+        "assoc", "counter_bits", "adaptive", "window_max_frac", "shards",
+        "merge_every", "integrity")}
+    meta["mesh_exchange"] = (cfg.mesh_exchange if cfg.mesh is not None
+                             else "chunk")
+    if cfg.streams > 1:          # absent at 1, as in the reference
+        meta["streams"] = cfg.streams
+    if cfg.policy != "wtinylfu":  # absent at the default, as in the reference
+        meta["policy"] = cfg.policy
+    if cfg.adaptive:
+        meta["climb"] = [int(x) for x in climb.resolve(cfg)]
+    meta["warmup"] = int(warmup)
+    meta["trace_len"] = int(n)
+    return meta
+
+
+def _segment(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict, lo,
+             hi, climb: ClimbSpec, cvec, carry, chunk: int):
+    """One contiguous trace slice through the right runner; returns (state,
+    hits, the (epochs, 2) trajectory rows or None, carry)."""
+    if cfg.adaptive:
+        return _run_adaptive(cfg, spec, params, state, lo, hi, climb, cvec,
+                             carry)
+    state, hits = _run(cfg, spec, params, state, lo, hi, chunk)
+    return state, hits, None, carry
+
+
+def _check_table_indices(spec: StepSpec, arrays: dict):
+    """Refuse table words that the step kernel takes as addresses when
+    they are out of range: a window record's stored main sets
+    (``WT_MSET``, ``WT_MSET2``, read by the set bodies and ``rebalance``)
+    and, under ARC, a main record's stored doorkeeper bits (its ghost
+    positions).  The reference clamps or drops such indices; the port does
+    not yet (ROADMAP queue 3 fault 4), so a state that holds one raises
+    here instead of reading or writing out of range on the card."""
+    if spec.assoc is None:
+        return
+    ms = np.asarray(arrays["wtab"])[..., [WT_MSET, WT_MSET2]]
+    bad = [f"wtab main sets outside [0, {spec.main_sets})"
+           ] if ((ms < 0) | (ms >= spec.main_sets)).any() else []
+    if spec.policy == "arc" and spec.dk_bits:
+        c0 = 3 + spec.rows
+        gp = np.asarray(arrays["mtab"])[..., c0:c0 + spec.dkp]
+        if ((gp < 0) | (gp >= 32 * spec.dk_words)).any():
+            bad.append(f"mtab ghost positions outside "
+                       f"[0, {32 * spec.dk_words})")
+    if bad:
+        raise ValueError(
+            f"state holds {' and '.join(bad)}: the step kernel does not "
+            "clamp these indices yet (ROADMAP queue 3 fault 4)")
+
+
+def _hook_state(spec: StepSpec, state: dict, dev: torch.device) -> dict:
+    """A fault hook's state (tensors on any device, or numpy) on ``dev``,
+    its keys and shapes checked against ``spec`` and its table-held
+    addresses by :func:`_check_table_indices`."""
+    arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v)) for k, v in state.items()}
+    out = ks.state_from_numpy(spec, arrays, dev)
+    _check_table_indices(spec, arrays)
+    return out
+
+
+def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
+                      chunk=512, trace_name="?", climb=None,
+                      checkpoint_dir=None, checkpoint_every=0,
+                      return_state=False, on_checkpoint=None,
+                      fault_hook=None, _start=0, _state=None, _carry=None,
+                      _hits_prefix=None, _traj_prefix=None):
+    """The engine driver behind :meth:`DeviceWTinyLFU.run`,
+    :func:`simulate_trace` and :func:`resume_trace` (the leading-underscore
+    arguments are the resume handoff).  With no ``checkpoint_dir`` and no
+    ``fault_hook`` the trace is one segment.  Otherwise every segment
+    boundary is an epoch boundary, so the segments together reproduce the
+    one-piece run bit for bit: hit sequence, climb trajectory and final
+    state.  Each segment launches the step kernel on the card, or runs its
+    plain version on the CPU.
+
+    A save copies the state to host memory before it returns (which waits
+    for the card); the disk write runs on a background thread while the
+    next segment runs, and its error, if any, is raised here."""
+    climb = climb or ClimbSpec()
+    ks._require_ported(cfg.spec())
+    segmenting = checkpoint_dir is not None or fault_hook is not None
+    if segmenting and cfg.streams > 1:
+        raise ValueError(
+            f"streams {cfg.streams} does not combine with checkpoint_dir/"
+            "fault_hook: the checkpoint tree and fault surface are the "
+            "single-tenant state layout — run per-tenant streams=1 runs "
+            "for fault-tolerant execution")
+    dev = resolve_device(device)
+    trace = np.asarray(trace)
+    _check_trace_streams(cfg, trace)
+    every = (_resolve_every(cfg, climb, checkpoint_every) if segmenting
+             else None)
+    spec = cfg.spec()
+    params = cfg.params(warmup=warmup, device=dev)
+    lo, hi = _trace_lanes(trace, dev)
+    n = lo.shape[-1]
+    state = (_state if _state is not None else
+             init_step_state(spec, cfg.window_cap, cfg.main_cap, device=dev))
+    cvec = (torch.as_tensor(climb.resolve(cfg), device=dev) if cfg.adaptive
+            else None)
+    carry = _carry.to(dev) if _carry is not None else None
+    ck = None
+    if checkpoint_dir is not None:
+        from repro_torch.checkpoint.store import AsyncCheckpointer
+        ck = AsyncCheckpointer(checkpoint_dir)
+        meta = _config_meta(cfg, climb, warmup, n)
+    zeros = torch.zeros(lo.shape[:-1] + (0,), dtype=torch.int32, device=dev)
+
+    def joined(parts):
+        return (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+                ) if parts else zeros
+
+    t0 = time.perf_counter()
+    hits_parts = ([] if _hits_prefix is None
+                  else [torch.as_tensor(_hits_prefix).to(dev, torch.int32)])
+    traj_parts = []
+    if _traj_prefix is not None:
+        traj_parts.append(torch.stack([torch.as_tensor(x).to(dev, torch.int32)
+                                       for x in _traj_prefix], dim=1))
+    i = _start
+    while True:
+        j = n if every is None else min(n, i + every)
+        if j > i:
+            state, hits, traj, carry = _segment(
+                cfg, spec, params, state, lo[..., i:j], hi[..., i:j], climb,
+                cvec, carry, chunk)
+            hits_parts.append(hits)
+            if traj is not None:
+                traj_parts.append(traj)
+        i = j
+        if ck is not None:
+            tree = {"state": state,
+                    "carry": (carry if carry is not None else
+                              torch.zeros((6,), dtype=torch.int32)),
+                    "hits": joined(hits_parts)}
+            if cfg.adaptive:
+                traj = torch.cat(traj_parts) if traj_parts else None
+                tree["ehits"] = traj[:, 0] if traj is not None else zeros
+                tree["quotas"] = traj[:, 1] if traj is not None else zeros
+            ck.save(i, tree, extra_meta={**meta, "cursor": i})
+            if on_checkpoint is not None:
+                on_checkpoint(i)
+        if i >= n:
+            break
+        if fault_hook is not None:
+            # the checkpoint just written holds the state before the fault
+            mutated = fault_hook(i, state)
+            if mutated is not None:
+                state = _hook_state(spec, mutated, dev)
+    if ck is not None:
+        ck.wait()
+
+    hits = joined(hits_parts)
+    regs = state["regs"].cpu()                   # waits for the device
+    traj = torch.cat(traj_parts).cpu() if traj_parts else None
+    wall = time.perf_counter() - t0
+
+    # warmup applies per lane (each lane's own R_T register counts it)
+    counted = (n - warmup) * cfg.streams
+    extra = {"backend": "cuda" if dev.type == "cuda" else "plain",
+             "window_frac": cfg.window_frac, "assoc": cfg.assoc,
+             "device": _device_name(dev),
+             **_row_extra(cfg, climb, cfg.adaptive)}
+    if cfg.adaptive:
+        extra["adaptive"] = True
+        extra["final_quota"] = ([int(q) for q in regs[:, R_WQUOTA]]
+                                if cfg.streams > 1 else int(regs[R_WQUOTA]))
+        if traj is not None:
+            extra["trajectory"] = {"epoch_len": climb.epoch_len,
+                                   "epoch_hits": traj[:, 0].tolist(),
+                                   "quota": traj[:, 1].tolist()}
+    if cfg.streams > 1:
+        extra["lane_hits"] = [int(h) for h in regs[:, R_HITS]]
+        n_hits = sum(extra["lane_hits"])
+    else:
+        n_hits = int(regs[R_HITS])
+    if checkpoint_dir is not None:
+        extra["checkpoint_every"] = every
+    if _start:
+        extra["resumed_at"] = int(_start)
+    res = SimResult(policy=_policy_label(cfg, cfg.adaptive),
+                    cache_size=cfg.capacity, trace=trace_name,
+                    accesses=counted, hits=n_hits,
+                    hit_ratio=n_hits / max(1, counted), wall_s=wall,
+                    extra=extra)
+    if return_state:
+        return res, state, hits
+    return res
+
+
+def resume_trace(trace, cfg: DeviceWTinyLFU, *, checkpoint_dir: str,
+                 warmup: int = 0, device=None, chunk: int = 512,
+                 trace_name: str = "?", climb: ClimbSpec | None = None,
+                 checkpoint_every: int = 0, return_state: bool = False,
+                 on_checkpoint=None, fault_hook=None):
+    """Restore the latest complete checkpoint in ``checkpoint_dir`` and
+    finish the run on ``device`` (the card unless ``"cpu"``); bit-identical
+    to the uninterrupted ``cfg.run(trace, checkpoint_dir=...)`` (hit
+    sequence, trajectory, final state).
+
+    Checkpoints hold the reference's tree, leaf for leaf, so one written by
+    the JAX package resumes here and the reverse, and one written on the
+    card resumes on the CPU.  With no checkpoint yet (killed before the
+    first), the resume is a fresh run (``resumed_at`` 0).  A checkpoint
+    written under another logical configuration (any ``DeviceWTinyLFU``
+    field, climb vector, warmup or trace length) raises ``ValueError``.
+    """
+    from repro_torch.checkpoint.store import (latest_step, load_meta,
+                                              restore_checkpoint)
+    climb = climb or ClimbSpec()
+    common = dict(warmup=warmup, device=device, chunk=chunk,
+                  trace_name=trace_name, climb=climb,
+                  checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=checkpoint_every,
+                  return_state=return_state, on_checkpoint=on_checkpoint,
+                  fault_hook=fault_hook)
+    step = latest_step(checkpoint_dir)
+    if step is None:
+        out = _run_checkpointed(cfg, trace, **common)
+        (out[0] if return_state else out).extra["resumed_at"] = 0
+        return out
+    meta = dict(load_meta(checkpoint_dir, step))
+    cursor = int(meta.pop("cursor", step))
+    expect = _config_meta(cfg, climb, warmup, len(trace))
+    if meta != expect:
+        diffs = sorted(k for k in set(meta) | set(expect)
+                       if meta.get(k) != expect.get(k))
+        raise ValueError(
+            f"checkpoint {checkpoint_dir!r} step {step} was saved under a "
+            f"different configuration (differing fields: {diffs}) — resume "
+            "with the original DeviceWTinyLFU / climb / warmup / trace")
+    ks._require_ported(cfg.spec())
+    spec = cfg.spec()
+    template = {"state": {k: np.zeros(v, np.int32)
+                          for k, v in ks._state_shapes(spec).items()},
+                "carry": np.zeros((6,), np.int32),
+                "hits": np.zeros((cursor,), np.int32)}
+    if cfg.adaptive:
+        ne = cursor // int(climb.epoch_len)
+        template["ehits"] = np.zeros((ne,), np.int32)
+        template["quotas"] = np.zeros((ne,), np.int32)
+    tree = restore_checkpoint(checkpoint_dir, step, template, device="cpu")
+    arrays = {k: v.numpy() for k, v in tree["state"].items()}
+    state = ks.state_from_numpy(spec, arrays, resolve_device(device))
+    _check_table_indices(spec, arrays)
+    return _run_checkpointed(
+        cfg, trace, _start=cursor, _state=state,
+        _carry=(tree["carry"] if cfg.adaptive else None),
+        _hits_prefix=tree["hits"],
+        _traj_prefix=((tree["ehits"], tree["quotas"]) if cfg.adaptive
+                      else None),
+        **common)
 
 
 def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),

@@ -75,18 +75,27 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str = "sketch_step", defines: tuple[str, ...] = ()) -> Path:
+def _info_key(name: str, defines: tuple, csrc: Path | None) -> tuple:
+    return (name, defines) if csrc is None else (name, defines, str(csrc))
+
+
+def build(name: str = "sketch_step", defines: tuple[str, ...] = (),
+          csrc: Path | None = None) -> Path:
     """Compile ``csrc/<name>.cu`` (with ``-D`` each of ``defines``) into
-    ``build/`` unless already built; fills ``build_info[(name, defines)]``."""
-    src = _CSRC / f"{name}.cu"
+    ``build/`` unless already built; fills ``build_info[(name, defines)]``.
+    ``csrc`` names another directory of sources and headers (an A/B
+    comparison's other copy); its info key gains the directory."""
+    src_dir = _CSRC if csrc is None else Path(csrc)
+    info = _info_key(name, defines, csrc)
+    src = src_dir / f"{name}.cu"
     flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
-    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for h in sorted(src_dir.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     log = out.with_suffix(".log")
     if out.exists():
-        build_info[(name, defines)] = {
+        build_info[info] = {
             "seconds": 0.0,
             "log": log.read_text() if log.exists() else ""}
         return out
@@ -100,19 +109,20 @@ def build(name: str = "sketch_step", defines: tuple[str, ...] = ()) -> Path:
                            f"{proc.stdout}{proc.stderr}")
     log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)              # atomic: concurrent builders agree
-    build_info[(name, defines)] = {"seconds": time.perf_counter() - t0,
+    build_info[info] = {"seconds": time.perf_counter() - t0,
                                    "log": proc.stdout + proc.stderr}
     return out
 
 
-def load_library(name: str = "sketch_step",
-                 defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    key = (name, tuple(defines))
+def load_library(name: str = "sketch_step", defines: tuple[str, ...] = (),
+                 csrc: Path | None = None) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use (from ``csrc``, as
+    :func:`build` takes it)."""
+    key = _info_key(name, tuple(defines), csrc)
     with _lock:
         if key in _libs:
             return _libs[key]
-    lib = ctypes.CDLL(str(build(name, key[1])))
+    lib = ctypes.CDLL(str(build(name, key[1], csrc)))
     for fn, (argtypes, restype) in _C_API[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype

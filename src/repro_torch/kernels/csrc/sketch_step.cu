@@ -236,6 +236,16 @@ __device__ __forceinline__ void load_key(const StepArgs& a, const Lanes& ln,
   k.pr = ln.row || ln.dk ? __ldg(src) : 0;
 }
 
+// A word index as the reference's gathers take it: a negative one counts
+// from the end once, then it clamps into [0, n).  Only a stored probe (a
+// candidate's or a victim's, kept in the tables) goes through it: table
+// state, which a fault may corrupt (core/faults.py).  Branch-free: an
+// early return for in-range indices cost F 0.036 ms more a chunk (PERF.md).
+__device__ __forceinline__ int clip_index(int i, int n) {
+  const int j = i < 0 ? i + n : i;
+  return min(max(j, 0), n - 1);
+}
+
 // The sketch word this lane's probe addresses (loads only).
 __device__ __forceinline__ uint32_t load_word(const StepArgs& a,
                                               const Sketch& s, const Lanes& ln,
@@ -318,6 +328,28 @@ __device__ __forceinline__ auto load_probe(const StepArgs& a, const Sketch& s,
                                            const Lanes& ln, int pr) {
   if constexpr (kShard) return load_words(a, s, ln, pr);
   else return load_word(a, s, ln, pr);
+}
+
+// load_probe for a stored probe: each word index clamps (clip_index) into
+// the whole sketch array, global and delta indices each on its own, as the
+// reference's gathers do.  The key's own probes are hashed, always in
+// range, and keep load_probe's code.
+template <bool kShard>
+__device__ __forceinline__ auto load_stored(const StepArgs& a,
+                                            const Sketch& s, const Lanes& ln,
+                                            int pr) {
+  const int* base = ln.row ? a.counters : a.dk;
+  const int n = ln.row ? a.counter_words : a.dk_words;
+  const int i = ln.row ? ln.lane * a.words_per_row + (pr >> s.shift)
+                       : pr >> 5;
+  if constexpr (kShard) {
+    if (!ln.row && !ln.dk_on) return Words{0u, 0u};
+    return Words{static_cast<uint32_t>(base[clip_index(i, 2 * n)]),
+                 static_cast<uint32_t>(base[clip_index(n + i, 2 * n)])};
+  } else {
+    return ln.row || ln.dk_on ? static_cast<uint32_t>(base[clip_index(i, n)])
+                              : 0u;
+  }
 }
 
 // This lane's counter, global + delta (row lanes; the maximum in the
@@ -410,8 +442,8 @@ __device__ __forceinline__ int estimate(const StepArgs& a, const Sketch& s,
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
     if (r < a.rows) {
-      const uint32_t w = static_cast<uint32_t>(
-          a.counters[r * a.words_per_row + (idx[r] >> s.shift)]);
+      const uint32_t w = static_cast<uint32_t>(a.counters[clip_index(
+          r * a.words_per_row + (idx[r] >> s.shift), a.counter_words)]);
       const uint32_t v =
           (w >> ((idx[r] & s.cpw_mask) * a.counter_bits)) & s.capmax;
       est = v < est ? v : est;
@@ -422,7 +454,8 @@ __device__ __forceinline__ int estimate(const StepArgs& a, const Sketch& s,
 #pragma unroll
     for (int p = 0; p < kMaxDkp; ++p)
       if (p < a.dkp)
-        ok &= (static_cast<uint32_t>(a.dk[dkb[p] >> 5]) >> (dkb[p] & 31)) & 1u;
+        ok &= (static_cast<uint32_t>(a.dk[clip_index(dkb[p] >> 5, a.dk_words)])
+               >> (dkb[p] & 31)) & 1u;
     est += ok ? 1u : 0u;
   }
   return static_cast<int>(est);
@@ -438,10 +471,15 @@ __device__ __forceinline__ int estimate_sharded(const StepArgs& a,
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
     if (r < a.rows) {
-      const int* p = a.counters + r * a.words_per_row + (idx[r] >> s.shift);
+      const int i = r * a.words_per_row + (idx[r] >> s.shift);
+      const int n = 2 * a.counter_words;
       const int sh = (idx[r] & s.cpw_mask) * a.counter_bits;
-      const uint32_t v = ((static_cast<uint32_t>(p[0]) >> sh) & s.capmax)
-          + ((static_cast<uint32_t>(p[a.counter_words]) >> sh) & s.capmax);
+      const uint32_t v =
+          ((static_cast<uint32_t>(a.counters[clip_index(i, n)]) >> sh)
+           & s.capmax)
+          + ((static_cast<uint32_t>(
+                  a.counters[clip_index(a.counter_words + i, n)]) >> sh)
+             & s.capmax);
       est = v < est ? v : est;
     }
   }
@@ -450,8 +488,9 @@ __device__ __forceinline__ int estimate_sharded(const StepArgs& a,
 #pragma unroll
     for (int p = 0; p < kMaxDkp; ++p) {
       if (p < a.dkp) {
-        const int* w = a.dk + (dkb[p] >> 5);
-        ok &= ((static_cast<uint32_t>(w[0] | w[a.dk_words]))
+        const int b = dkb[p] >> 5, n = 2 * a.dk_words;
+        ok &= ((static_cast<uint32_t>(a.dk[clip_index(b, n)]
+                                      | a.dk[clip_index(a.dk_words + b, n)]))
                >> (dkb[p] & 31)) & 1u;
       }
     }
@@ -841,7 +880,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
         if (q < a.dkp) cdkb[r][q] = p[3 + a.rows + q];
     }
   }
-  const auto cw = load_probe<kShard>(a, s, ln, c.pr);
+  const auto cw = load_stored<kShard>(a, s, ln, c.pr);
 
   // weakest of the 2A records; ties pick the first set, then the lower way
   int loc = cmeta[0];
@@ -866,7 +905,7 @@ __device__ int access_set(const StepArgs& a, const Sketch& s, const Lanes& ln,
   if (!do_ins) {
     const int vpr = probes_from(a, ln, cidx, cdkb, 16 * vh + (vj & 15),
                                 vj >> 4);
-    const auto vw = load_probe<kShard>(a, s, ln, vpr);
+    const auto vw = load_stored<kShard>(a, s, ln, vpr);
     do_ins = estimate_of(a, s, ln, cw, c.pr) > estimate_of(a, s, ln, vw, vpr);
   }
   if (do_ins) {                   // the candidate takes the victim's way
@@ -988,7 +1027,7 @@ __device__ int access_panel(const StepArgs& a, const Sketch& s,
       const int j = (lane & 15) + 16 * r;
       cmeta[r] = j < A ? a.mtab[(cset * A + j) * a.mcols + MT_META] : kI32Max;
     }
-    const uint32_t cw = load_word(a, s, ln, c.pr);
+    const uint32_t cw = load_stored<false>(a, s, ln, c.pr);
     int vh, vj;
     const int vm = pair_argmin(cmeta, vh, vj);
     if (estimate_of(a, s, ln, cw, c.pr) >= 2 && vm != kI32Max) {

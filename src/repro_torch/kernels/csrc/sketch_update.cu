@@ -54,7 +54,19 @@
 // repro_torch.kernels.phase_timing; PERF.md).
 //
 // The doorkeeper probe count is a template parameter (loops unroll
-// exactly); rows stay a runtime count under unrolled predicates.
+// exactly); rows stay a runtime count under unrolled predicates.  More
+// than kMaxDkp = 8 probes (the reference has no limit) take one more
+// instance, D = kLoop, with the count a runtime argument; the 0-8-probe
+// instances' code is the same as before it.  It keeps no probe in
+// registers across phases: in phase 1 a key's probes go into the
+// doorkeeper table in groups of 8 (the group's loads first), each with
+// its order i * dk_probes + p in place of the key index i, and in phase 2
+// each probe is hashed again and looked up.  A bit's least order then
+// says both what the key index does (an earlier key probed it) and what
+// the comparison with the key's earlier probes does, so the gate and the
+// first touch's OR are the reference's.  Its tile is the largest multiple
+// of a warp whose Layout fits kSmemLimit (384 keys at 20 probes); past
+// 256 probes not even a warp's table fits, and the launch is refused.
 #include "sketch_common.cuh"
 
 namespace {
@@ -65,6 +77,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTile = 1024;               // keys per tile = most threads
 constexpr uint32_t kNone = 0xffffffffu;   // label of a key whose gate failed
 constexpr int kSmemLimit = 232448;        // bytes a block may use on sm_90
+constexpr int kLoop = -1;                 // D of the instance past kMaxDkp
 
 __host__ __device__ constexpr int log2_ceil(int x) {
   int l = 0;
@@ -149,6 +162,17 @@ __device__ __forceinline__ uint32_t insert_min(u64* tab, uint32_t id,
   }
 }
 
+// The slot of `id` in the table, or kNone if it is absent.
+__device__ __forceinline__ uint32_t find(const u64* tab, uint32_t id,
+                                         int log2cap) {
+  const uint32_t mask = (1u << log2cap) - 1u, k = id + 1u;
+  for (uint32_t s = slot_hash(id, log2cap);; s = (s + 1u) & mask) {
+    const u64 seen = tab[s];
+    if (seen == 0ull) return kNone;
+    if (static_cast<uint32_t>(seen >> 32) == k) return s;
+  }
+}
+
 // Zero `bytes` (a multiple of 16) of shared memory at `p`, all threads.
 __device__ __forceinline__ void zero_shared(void* p, int bytes) {
   uint4* q = static_cast<uint4*>(p);
@@ -156,14 +180,18 @@ __device__ __forceinline__ void zero_shared(void* p, int bytes) {
     q[j] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// D: doorkeeper probes per key, 0 without a doorkeeper.
-template <int D>
+// D: doorkeeper probes per key, 0 without a doorkeeper, or kLoop; the
+// kLoop instance takes the probe count as its one argument in `more`
+// (the other instances have none, so their signature is unchanged).
+template <int D, typename... More>
 __global__ void __launch_bounds__(kTile) sketch_update_kernel(
     uint32_t* counters, uint32_t* dk, const uint32_t* __restrict__ lo,
     const uint32_t* __restrict__ hi, int b, int rows, int width, int cap,
-    int dk_bits, int tile) {
+    int dk_bits, int tile, More... more) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(tile, rows, D);
+  int dkp = D;
+  if constexpr (D == kLoop) dkp = (more + ...);
+  const Layout L(tile, rows, dkp);
   // the union region: the doorkeeper table in phases 0-2, the nibble table
   // and its values and deltas from phase 3 on
   u64* dtab = reinterpret_cast<u64*>(smem);
@@ -208,7 +236,23 @@ __global__ void __launch_bounds__(kTile) sketch_update_kernel(
     //       set gets its first key in the tile ----------------------------
     uint32_t dbit[D > 0 ? D : 1], dslot[D > 0 ? D : 1];
     bool pre[D > 0 ? D : 1];
-    if (live) {
+    if constexpr (D == kLoop) {
+      const uint32_t order = ui * static_cast<uint32_t>(dkp);
+      for (int p0 = 0; live && p0 < dkp; p0 += kMaxDkp) {
+        uint32_t bit[kMaxDkp], word[kMaxDkp];
+#pragma unroll
+        for (int q = 0; q < kMaxDkp; ++q) {
+          if (p0 + q < dkp) {
+            bit[q] = sketch::dk_probe_index(klo, khi, p0 + q, dk_bits);
+            word[q] = __ldcg(dk + (bit[q] >> 5));
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kMaxDkp; ++q)
+          if (p0 + q < dkp && !((word[q] >> (bit[q] & 31u)) & 1u))
+            insert_min(dtab, bit[q], order + p0 + q, L.log2d);
+      }
+    } else if (live) {
       uint32_t dword[D > 0 ? D : 1];
 #pragma unroll
       for (int p = 0; p < D; ++p) {
@@ -226,6 +270,18 @@ __global__ void __launch_bounds__(kTile) sketch_update_kernel(
 
     // -- 2: the gate; the first key to probe a bit sets it ----------------
     bool gated = live;
+    if constexpr (D == kLoop) {
+      const uint32_t order = ui * static_cast<uint32_t>(dkp);
+      for (int p = 0; live && p < dkp; ++p) {
+        const uint32_t bit = sketch::dk_probe_index(klo, khi, p, dk_bits);
+        const uint32_t s = find(dtab, bit, L.log2d);
+        if (s == kNone) continue;                 // set before the tile
+        const uint32_t first = static_cast<uint32_t>(dtab[s]);
+        gated = gated && first < order + p;
+        if (first == order + p)
+          atomicOr(dk + (bit >> 5), 1u << (bit & 31u));
+      }
+    }
 #pragma unroll
     for (int p = 0; p < D; ++p) {
       if (live && !pre[p]) {
@@ -415,6 +471,30 @@ constexpr Launch kLaunch[kMaxDkp + 1] = {
     launch<0>, launch<1>, launch<2>, launch<3>, launch<4>,
     launch<5>, launch<6>, launch<7>, launch<8>};
 
+// The kLoop instance's tile: the largest multiple of a warp, at most kTile
+// and at most b rounded up to a warp, whose shared memory fits; 0 if not
+// even a warp's does.
+int loop_tile(int b, int rows, int dkp) {
+  int tile = b < kTile ? (b + 31) / 32 * 32 : kTile;
+  while (tile > 0 && Layout(tile, rows, dkp).bytes > kSmemLimit) tile -= 32;
+  return tile;
+}
+
+int launch_loop(uint32_t* counters, uint32_t* dk, const uint32_t* lo,
+                const uint32_t* hi, int b, int rows, int width, int cap,
+                int dk_bits, int dkp, cudaStream_t stream) {
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      sketch_update_kernel<kLoop, int>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int tile = loop_tile(b, rows, dkp);
+  if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L(tile, rows, dkp);
+  sketch_update_kernel<kLoop, int><<<1, tile, L.bytes, stream>>>(
+      counters, dk, lo, hi, b, rows, width, cap, dk_bits, tile, dkp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #ifdef SKETCH_UPDATE_CLOCKS
@@ -436,10 +516,16 @@ extern "C" int sketch_update_launch(int* counters, int* dk, const int* lo,
                                     int width, int cap, int dk_bits,
                                     int dk_probes, void* stream) {
   const int d = dk_bits ? dk_probes : 0;
-  if (d < 0 || d > kMaxDkp || rows < 1 || rows > kMaxRows || cap > 15 ||
+  if (d < 0 || rows < 1 || rows > kMaxRows || cap > 15 ||
       static_cast<uint64_t>(rows) * static_cast<uint64_t>(width) >=
           (1ull << 32))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (d > kMaxDkp)
+    return launch_loop(reinterpret_cast<uint32_t*>(counters),
+                       reinterpret_cast<uint32_t*>(dk),
+                       reinterpret_cast<const uint32_t*>(lo),
+                       reinterpret_cast<const uint32_t*>(hi), b, rows, width,
+                       cap, dk_bits, d, static_cast<cudaStream_t>(stream));
   return kLaunch[d](reinterpret_cast<uint32_t*>(counters),
                     reinterpret_cast<uint32_t*>(dk),
                     reinterpret_cast<const uint32_t*>(lo),

@@ -505,24 +505,32 @@ def _add(spec: StepSpec, params, st: dict, kidx, kdkb):
               st["regs"][R_SIZE].clone(), kidx, kdkb)
 
 
+def _clip_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Word indices as the reference's gathers take them: a negative one
+    counts from the end once, then each clamps into [0, n)."""
+    return torch.where(i < 0, i + n, i).clamp(0, n - 1).long()
+
+
 def _estimate_block(spec: StepSpec, counters, dk, idx2, dkb2):
     """TinyLFU estimates of K entries from their stored probes: (K, rows)
     probes, (K, dkp) doorkeeper bits -> (K,) int32 (the reference's
     ``_estimate_pair`` at K = 2, its ``_estimate_block`` at any K).
     Sharded: counters are global + delta fields, doorkeeper bits global |
-    delta."""
+    delta.  A stored probe is table state, which a fault may corrupt: its
+    word index clamps as the reference's gathers clamp it."""
     rows = torch.arange(spec.rows, device=counters.device)
-    flat2 = (rows[None, :] * spec.words_per_row
-             + _word_of(spec, idx2)).long()
-    vals = _counter_vals(spec, counters[flat2], idx2)
+    flat2 = rows[None, :] * spec.words_per_row + _word_of(spec, idx2)
+    n = counters.shape[-1]
+    vals = _counter_vals(spec, counters[_clip_index(flat2, n)], idx2)
     if spec.shards > 1:
-        vals = vals + _counter_vals(spec, counters[spec.counter_words
-                                                   + flat2], idx2)
+        vals = vals + _counter_vals(spec, counters[_clip_index(
+            spec.counter_words + flat2, n)], idx2)
     est = vals.min(dim=-1).values
     if spec.dk_bits:
-        w2 = dk[(dkb2 >> 5).long()]
+        b2, nd = dkb2 >> 5, dk.shape[-1]
+        w2 = dk[_clip_index(b2, nd)]
         if spec.shards > 1:
-            w2 = w2 | dk[spec.dk_words + (dkb2 >> 5).long()]
+            w2 = w2 | dk[_clip_index(spec.dk_words + b2, nd)]
         ok = (((w2 >> (dkb2 & 31)) & 1) == 1).all(dim=-1)
         est = est + ok.to(torch.int32)
     return est

@@ -83,6 +83,12 @@ def add_ref(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
     return state
 
 
+# Doorkeeper probes a key that the kernel takes: 0-8 in registers, more in
+# its loop instance, whose tile shrinks with the probe count (896 keys at 9
+# probes, 384 at 20, 32 at 256; csrc/sketch_update.cu).
+MAX_DK_PROBES = 256
+
+
 def _launch(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
             hi: torch.Tensor, lib=None) -> None:
     """One launch of ``csrc/sketch_update.cu`` on the current stream: the
@@ -90,9 +96,10 @@ def _launch(cfg: DeviceSketchConfig, state: dict, lo: torch.Tensor,
     ``lib`` is the loaded kernel library (default: the build of
     ``csrc/sketch_update.cu``)."""
     from ._build import launch
-    _check(cfg.dk_probes <= 8, "the add kernel takes dk_probes <= 8, not "
-           f"{cfg.dk_probes}; the reference runs more probes (a limit of the "
-           "port's, listed in ROADMAP.md queue 3)")
+    _check(not cfg.dk_bits or cfg.dk_probes <= MAX_DK_PROBES,
+           f"the add kernel takes dk_probes <= {MAX_DK_PROBES}, not "
+           f"{cfg.dk_probes}: past that not even a 32-key tile's doorkeeper "
+           "table fits in shared memory")
     _check(1 <= cfg.rows <= 8 and cfg.rows * cfg.width < 2 ** 32,
            "the kernel takes 1 <= rows <= 8 and rows * width < 2^32")
     launch("sketch_update", "sketch_update_launch",

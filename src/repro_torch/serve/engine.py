@@ -16,7 +16,9 @@ does the admission sketch with ``device_sketch=True``; by default admission
 runs on the host sketch (seeded by ``seed``), as in the reference.
 ``extend`` writes into the slot of the engine's KV cache in place, where
 the reference copies the slot out and back.  SSM families raise in
-``Model``.
+``Model`` (ROADMAP queue 1 item 14); ``snapshot_every`` (blocks per SSM
+prefix snapshot) is taken as in the reference and has no effect on the
+dense family.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ class ServeEngine:
                  max_len: int = 256, block_size: int = 16,
                  pool_slots: int = 64, prefix_policy: str = "wtinylfu",
                  sample_factor: int = 8, device_sketch: bool = False,
-                 seed: int = 0):
+                 snapshot_every: int = 2, seed: int = 0):
         self.model = model
         self.params = params
         self.cfg = cfg = model.cfg
@@ -53,6 +55,9 @@ class ServeEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.block_size = block_size
+        # blocks per SSM prefix snapshot, as in the reference; the dense
+        # family never reads it
+        self.snapshot_every = snapshot_every
         self.cache = model.init_cache(max_batch, max_len)
         self.prefix_cache = PrefixCache(pool_slots, policy=prefix_policy,
                                         sample_factor=sample_factor,

@@ -95,13 +95,23 @@ def test_short_adaptive_runs_equal_jax(n):
     assert_state_equal({k: v.numpy() for k, v in ps.items()}, js)
 
 
-def test_run_with_checkpoint_still_raises():
+def test_run_with_checkpoint_still_raises(tmp_path):
+    """(Named when checkpointing was not ported.)  An adaptive run with a
+    checkpoint directory runs in segments of whole climb epochs and equals
+    the plain run (hits, trajectory, final quota); a cadence off the climb
+    epoch still raises, the reference's ValueError."""
     cfg = pds.DeviceWTinyLFU(64, assoc=4, adaptive=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cfg.run(np.arange(10), device="cpu", checkpoint_dir="ckpt")
-    r = cfg.run(shift_trace()[:300], device="cpu",
-                climb=pds.ClimbSpec(epoch_len=128))
+    climb = pds.ClimbSpec(epoch_len=128)
+    with pytest.raises(ValueError, match="checkpoint_every 100"):
+        cfg.run(np.arange(10), device="cpu", climb=climb,
+                checkpoint_dir=str(tmp_path / "x"), checkpoint_every=100)
+    r = cfg.run(shift_trace()[:300], device="cpu", climb=climb)
     assert r.extra["adaptive"] and len(r.extra["trajectory"]["quota"]) == 2
+    c = cfg.run(shift_trace()[:300], device="cpu", climb=climb,
+                checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=128)
+    for k in ("trajectory", "final_quota"):
+        assert c.extra[k] == r.extra[k], k
+    assert c.hits == r.hits
 
 
 def test_adaptive_run_equals_jax_pallas_kernel():

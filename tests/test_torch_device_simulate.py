@@ -113,19 +113,29 @@ def test_climb_is_ignored_without_adaptive(assoc):
     assert a.hits == b.hits == j.hits and a.extra == b.extra
 
 
-def test_unported_run_options_raise():
+def test_unported_run_options_raise(tmp_path):
+    """The mesh (item 12) raises, with a checkpoint directory too.  The
+    checkpoint and fault-hook options (item 11) run, in segments, and a
+    hook that returns None changes nothing."""
     cfg = pds.DeviceWTinyLFU(16)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cfg.run(np.arange(10), device="cpu", checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cfg.run(np.arange(10), device="cpu", fault_hook=lambda c, s: None)
+    tr = np.arange(40) % 13
+    plain = cfg.run(tr, device="cpu")
+    ck = cfg.run(tr, device="cpu", checkpoint_dir=str(tmp_path / "ckpt"),
+                 checkpoint_every=16)
+    hooked = cfg.run(tr, device="cpu", fault_hook=lambda c, s: None,
+                     checkpoint_every=16)
+    assert plain.hits == ck.hits == hooked.hits > 0
+    assert ck.extra["checkpoint_every"] == 16
 
     class Mesh:
         axis_names = ("shard",)
         devices = np.zeros(2)
+    meshed = pds.DeviceWTinyLFU(16, shards=2, mesh=Mesh())
     with pytest.raises(NotImplementedError, match="item 12"):
-        pds.DeviceWTinyLFU(16, shards=2, mesh=Mesh()).run(np.arange(10),
-                                                          device="cpu")
+        meshed.run(np.arange(10), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        meshed.run(np.arange(10), device="cpu",
+                   checkpoint_dir=str(tmp_path / "mesh"))
 
 
 def test_run_equals_simulate_trace():

@@ -6,7 +6,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "ab_timing.py"]
 MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.core.adaptive", "repro_torch.core.hashing",
            "repro_torch.core.simulate", "repro_torch.core.device_simulate",
@@ -31,7 +31,8 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.models.layers", "repro_torch.models.transformer",
            "repro_torch.models.api", "repro_torch.models.convert",
            "repro_torch.serve.extend", "repro_torch.serve.engine",
-           "repro_torch.serve.driver"]
+           "repro_torch.serve.driver", "repro_torch.checkpoint",
+           "repro_torch.checkpoint.store", "repro_torch.core.faults"]
 
 
 def test_imports_with_jax_and_repro_blocked():

@@ -3,14 +3,16 @@ kernel (one stream, its lane grid, its sharded instances with the fold
 between epochs and its adaptive instances with the rebalance between
 epochs), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
-batches; the estimate, admit and reset at the edge geometries, past 8
-doorkeeper probes too, and one stream of programmatic dependent launches)
-and the flash-attention kernel.
+batches; all four at the edge geometries, past 8 doorkeeper probes too,
+and one stream of programmatic dependent launches), the flash-attention
+kernel, and checkpointed and resumed runs of the engine on the card.
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
 Without a card the kernel tests skip; the wrapper checks below run anywhere.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -540,11 +542,11 @@ def test_edge_estimate_admit_reset_match_plain_on_card(case, batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [c for c, kw in enumerate(SKETCH_EDGE_CFGS)
-                                  if kw.get("dk_probes", 0) <= 8])
+@pytest.mark.parametrize("case", range(len(SKETCH_EDGE_CFGS)))
 def test_edge_add_matches_plain_on_card(case):
-    """The add kernel == add_ref at the edge geometries it takes (at most 8
-    doorkeeper probes): two batches of mixed keys from a zeroed sketch."""
+    """The add kernel == add_ref at the edge geometries (0-20 doorkeeper
+    probes, past 8 by its loop instance): two batches of mixed keys from a
+    zeroed sketch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = sc.DeviceSketchConfig(**SKETCH_EDGE_CFGS[case])
@@ -557,6 +559,123 @@ def test_edge_add_matches_plain_on_card(case):
         sketch_update.add_ref(cfg, plain, lo, hi)
         for k in kernel:
             assert torch.equal(kernel[k], plain[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dk_probes", [9, 13, 20])
+def test_add_loop_instance_matches_plain_on_card(dk_probes):
+    """The add's loop instance (more than 8 doorkeeper probes) == add_ref
+    over batches of several tiles (its tile is 896, 608 and 384 keys at 9,
+    13 and 20 probes), repeated keys among them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = sc.DeviceSketchConfig(width=1024, rows=4, cap=15, dk_bits=4096,
+                                dk_probes=dk_probes)
+    kernel = sc.init_state(cfg, device="cuda")
+    plain = sc.init_state(cfg, device="cuda")
+    before = sketch_update.add.launches
+    for seed in (dk_probes, dk_probes + 100):
+        keys = mixed_keys(seed, 2_000)
+        lo, hi = (torch.from_numpy(x).cuda() for x in keys_to_lanes(keys))
+        sketch_update.add(cfg, kernel, lo, hi)
+        sketch_update.add_ref(cfg, plain, lo, hi)
+        for k in kernel:
+            assert torch.equal(kernel[k], plain[k]), k
+    assert sketch_update.add.launches - before == 2
+    assert int(kernel["counters"].ne(0).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,every", [
+    (dict(), 8_192), (dict(shards=4), 8_192),
+    (dict(adaptive=True), 8_192)], ids=["static", "sharded", "adaptive"])
+def test_checkpointed_engine_on_card_equals_plain_run(kw, every, tmp_path):
+    """At F's geometry (C=65,536, assoc=8) on 40,000 accesses: the
+    checkpointed run on the card and the resume from its earliest kept
+    checkpoint equal the plain run on the card (hit flags, every state
+    leaf, trajectory and final quota)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.device_simulate import DeviceWTinyLFU, resume_trace
+    from repro_torch.traces.synthetic import zipf_trace
+    tr = zipf_trace(40_000, n_items=200_000, alpha=0.9, seed=11)
+    climb = ClimbSpec(epoch_len=4_096)
+    cfg = DeviceWTinyLFU(65_536, assoc=8, **kw)
+    want = cfg.run(tr, warmup=8_000, climb=climb, return_state=True)
+    d = tmp_path / "ck"
+    got = cfg.run(tr, warmup=8_000, climb=climb, checkpoint_dir=str(d),
+                  checkpoint_every=every, return_state=True)
+    kept = sorted(d.iterdir())
+    first = int(kept[0].name[5:])
+    for x in kept[1:]:
+        shutil.rmtree(x)
+    res = resume_trace(tr, cfg, checkpoint_dir=str(d), warmup=8_000,
+                       climb=climb,
+                       checkpoint_every=every, return_state=True)
+    assert res[0].extra["resumed_at"] == first
+    for r, st, h in (got, res):
+        assert r.hits == want[0].hits and r.extra["backend"] == "cuda"
+        assert torch.equal(h, want[2])
+        for k in st:
+            assert torch.equal(st[k], want[1][k]), k
+        for k in ("trajectory", "final_quota"):
+            assert r.extra.get(k) == want[0].extra.get(k), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(assoc=8), dict(), dict(assoc=8, shards=2, merge_every=128),
+    dict(shards=2, merge_every=128), dict(assoc=8, adaptive=True)],
+    ids=["set", "flat", "set-sharded", "flat-sharded", "set-adaptive"])
+def test_corrupted_stored_probes_card_equals_cpu(kw):
+    """Every stored probe of both tables flipped (bit 30 or 31) at 512
+    accesses: the kernel clamps the far-out word indices as the plain
+    version (and the reference) does, so the card's run equals the CPU's
+    leaf for leaf, with no fault."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.check_runs import corrupt_stored_probes
+    from repro_torch.core import faults
+    from repro_torch.core.device_simulate import DeviceWTinyLFU
+    keys = hazard_keys("wide", 1_536, seed=5)
+    cfg = DeviceWTinyLFU(150, sample_factor=2, **kw)
+
+    def hook(cursor, state):
+        return (corrupt_stored_probes(faults, cfg.spec(), state)
+                if cursor == 512 else None)
+    out = [cfg.run(keys, warmup=200, climb=ClimbSpec(epoch_len=256),
+                   checkpoint_every=512, fault_hook=hook, return_state=True,
+                   device=dev) for dev in ("cuda", "cpu")]
+    (r, st, h), (rc, stc, hc) = out
+    assert r.hits == rc.hits and torch.equal(h.cpu(), hc)
+    for k in stc:
+        assert torch.equal(st[k].cpu(), stc[k]), k
+
+
+@pytest.mark.gpu
+def test_async_save_snapshots_card_tensors_in_page_locked_buffers(tmp_path):
+    """AsyncCheckpointer.save copies a card tensor into its key's
+    page-locked buffer before it returns: a write on the card right after
+    it does not reach the checkpoint, and a buffer grown or reused by the
+    next save leaves the first checkpoint as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint import store
+    d = str(tmp_path)
+    ck = store.AsyncCheckpointer(d, keep=5)
+    x = torch.arange(1_000, dtype=torch.int32, device="cuda")
+    ck.save(1, {"x": x})
+    x.add_(7)
+    ck.save(2, {"x": torch.cat([x, x])})
+    x.mul_(3)
+    ck.save(3, {"x": x})
+    ck.wait()
+    want = {1: torch.arange(1_000, dtype=torch.int32),
+            2: torch.cat([torch.arange(1_000, dtype=torch.int32) + 7] * 2),
+            3: (torch.arange(1_000, dtype=torch.int32) + 7) * 3}
+    for step, w in want.items():
+        got = store.restore_checkpoint(d, step, {"x": w}, device="cpu")
+        assert torch.equal(got["x"], w), step
 
 
 @pytest.mark.gpu

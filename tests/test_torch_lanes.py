@@ -129,7 +129,7 @@ def test_init_state_lane_axis(assoc):
                        "init")
 
 
-def test_validation_names_the_field():
+def test_validation_names_the_field(tmp_path):
     tr = lanes_trace(12, 100)
     with pytest.raises(ValueError, match="streams 0"):
         pds.DeviceWTinyLFU(C, streams=0)
@@ -141,9 +141,12 @@ def test_validation_names_the_field():
         pds.simulate_trace(tr, C, streams=2, device="cpu")
     with pytest.raises(ValueError, match="streams is 1"):
         pds.simulate_trace(tr, C, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pds.DeviceWTinyLFU(C, streams=B).run(tr, device="cpu",
-                                             checkpoint_dir="ckpt")
+    # checkpoints hold one stream's state: lanes refuse them, as the
+    # reference does
+    with pytest.raises(ValueError, match="streams 3 does not combine with "
+                       "checkpoint_dir"):
+        pds.DeviceWTinyLFU(C, streams=B).run(
+            tr, device="cpu", checkpoint_dir=str(tmp_path / "ckpt"))
     # the step level: lane shapes, per-lane params and n_valid
     spec = pds.DeviceWTinyLFU(C, streams=B).spec()
     state = pks.init_step_state(spec, device="cpu")

@@ -113,6 +113,26 @@ def test_engine_default_matches_jax_default():
     assert got == {r: [int(t) for t in v] for r, v in want.items()}
 
 
+def test_snapshot_every_is_taken_and_inert_on_dense():
+    """ServeEngine takes the reference's snapshot_every; on the dense model
+    it changes nothing: snapshot_every=2 (in both packages) and the port's
+    default give the JAX engine's stats and fp32 tokens.  The SSM families,
+    where the reference would snapshot, are refused by ``Model``
+    (test_torch_models)."""
+    kw = dict(max_batch=4, max_len=128, block_size=8, pool_slots=48)
+    jeng, peng = engines({**kw, "snapshot_every": 2}, fp32=True,
+                         device_sketch=False)
+    _, pdef = engines(kw, fp32=True, device_sketch=False)
+    assert peng.snapshot_every == 2 and pdef.snapshot_every == 2
+    prompts = pdriver.make_workload(peng.cfg, 16, seed=1)
+    want = replay(jeng, prompts, 3)
+    got = replay(peng, prompts, 3)
+    assert replay(pdef, prompts, 3) == got
+    assert peng.stats == pdef.stats == jeng.stats
+    assert peng.stats["block_hits"] > 0
+    assert got == {r: [int(t) for t in v] for r, v in want.items()}
+
+
 def test_full_pool_admits_nothing_like_jax():
     """The pool has as many slots as the cache; once it is full no payload
     is stored and no candidate reaches admission: run L's caveat, small."""

@@ -1,7 +1,8 @@
 """The port's plain estimate, admit and reset at the sketch kernels' edge
 geometries (``check_runs.SKETCH_EDGE_CFGS``: one-word rows and doorkeepers,
 rows 1 to 8, doorkeeper probes 0 to 20) against the JAX package, bitwise;
-and the add and step kernels' refusals of more than 8 doorkeeper probes.
+the add past 8 doorkeeper probes against the reference's numpy hashing
+twins; and the step kernel's refusals of more than 8 probes and 128 ways.
 
 Both sides get the same state and keys (numpy, from a seed).  JAX runs on
 the CPU with its jnp oracles (``use_pallas=False``) and, for one small
@@ -134,18 +135,60 @@ def test_reset_matches_jax_at_word_counts_off_16_bytes(kw):
         assert np.array_equal(ps[k].numpy(), np.asarray(js[k])), k
 
 
-def test_add_kernel_refuses_more_than_8_probes_naming_the_limit():
-    """The add kernel keeps its limit of 8 doorkeeper probes: more are
-    refused before anything is built, with a message that says the
-    reference runs more and where the limit is listed."""
-    cfg = psc.DeviceSketchConfig(width=256, dk_bits=1024, dk_probes=9)
-    state = psc.init_state(cfg, device="cpu")
-    x = torch.zeros(4, dtype=torch.int32)
-    before = sketch_update.add.launches
-    with pytest.raises(ValueError, match="reference runs more probes.*"
-                       "ROADMAP.md queue 3"):
-        sketch_update._launch(cfg, state, x, x)
-    assert sketch_update.add.launches == before
+def twin_add(kw: dict, arrays: dict, keys: np.ndarray) -> dict:
+    """The sequential add from the reference's numpy hashing twins: per
+    key in order, each doorkeeper probe tests its bit and sets it (a later
+    probe sees an earlier one's bit), then, iff every bit was set, +1 on
+    every row at the minimum nibble when that minimum is below ``cap``."""
+    lo, hi = jhash.key_to_lanes(keys)
+    idx = jhash.probe_indices32_np(lo, hi, kw["rows"], kw["width"])
+    counters = arrays["counters"].view(np.uint32).copy()
+    dk = arrays["doorkeeper"].view(np.uint32).reshape(-1).copy()
+    bits = [jhash.dk_probe_index_np(lo, hi, p, kw["dk_bits"])
+            for p in range(kw["dk_probes"])]
+    for i in range(len(keys)):
+        gate = True
+        for b in bits:
+            w, m = b[i] >> 5, np.uint32(1) << np.uint32(b[i] & 31)
+            gate = gate and bool(dk[w] & m)
+            dk[w] |= m
+        if not gate:
+            continue
+        w, sh = idx[i] >> 3, ((idx[i] & 7) * 4).astype(np.uint32)
+        rows = np.arange(kw["rows"])
+        vals = (counters[rows, w] >> sh) & 0xF
+        if vals.min() < kw["cap"]:
+            bump = rows[vals == vals.min()]
+            counters[bump, w[bump]] += np.uint32(1) << sh[bump]
+    return {"counters": counters.view(np.int32),
+            "doorkeeper": dk.view(np.int32).reshape(1, -1)}
+
+
+@pytest.mark.parametrize("dk_probes", [9, 13, 20])
+def test_add_past_8_probes_matches_numpy_twins(dk_probes):
+    """add_ref at 9, 13 and 20 doorkeeper probes (the add kernel's loop
+    instance) == the sequential add built on the reference's numpy hashing
+    twins (and JAX's add_ref at 9, where its salts fit), from a random sketch with a dense doorkeeper (some keys pass
+    it, some set bits) on a doorkeeper of 32 and of 1,024 bits."""
+    for dk_bits in (32, 1024):
+        kw = dict(width=16, rows=3, cap=15, dk_bits=dk_bits,
+                  dk_probes=dk_probes)
+        pcfg = psc.DeviceSketchConfig(**kw)
+        arrays = random_sketch(pcfg, dk_probes)
+        keys = mixed_keys(dk_probes, 64)
+        ps = psc.sketch_state_from_numpy(pcfg, arrays, device="cpu")
+        sketch_update.add_ref(pcfg, ps, *port_lanes(keys))
+        twin = twin_add(kw, arrays, keys)
+        for k in ("counters", "doorkeeper"):
+            assert np.array_equal(ps[k].numpy(), twin[k]), k
+        assert not np.array_equal(twin["counters"], arrays["counters"])
+        assert int(ps["size"]) == 1001 + len(keys)
+        if jax_takes(dk_probes):          # and JAX's add_ref where it runs
+            js = jref.add_ref(jsc.DeviceSketchConfig(**kw),
+                              {k: np.asarray(v) for k, v in arrays.items()},
+                              *jsc.keys_to_lanes(keys))
+            for k in ("counters", "doorkeeper"):
+                assert np.array_equal(ps[k].numpy(), np.asarray(js[k])), k
 
 
 @pytest.mark.parametrize("kw,match", [
