@@ -9,7 +9,12 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and carried on):
+Phases (any failure exits non-zero; nothing is caught and carried on).
+Where a phase holds the step kernel against its plain version over a list of
+cases, the plain version of each case runs on the host's CPU in a pool of
+six worker processes (started at phase 2, stopped at exit) while the card
+runs the kernel, and the plain version at the main run's geometry on the
+card, timed:
 
 1. print the card's name and power limit, build the six kernels, the step
    kernel's adaptive instances (a second build of ``sketch_step.cu`` with
@@ -23,7 +28,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    instances and ~9.4 s for the panel's 24, side by side: ~15 s for phase
    1 in all on an H100 host);
 2. hold the kernel (``step``) against its plain PyTorch version
-   (``step_ref``) on the card: flat and set-associative tables, 4- and 8-bit
+   (``step_ref``): flat and set-associative tables, 4- and 8-bit
    counters, doorkeeper on and off, resets inside and across chunk
    boundaries, padded tails, the hazard traces of ``check_runs.HAZARD_CASES``
    (runs of one key, one- and two-set tables, alternating keys, resets at
@@ -61,8 +66,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    digest, the resets, the estimates' digest and the admitted count must
    equal the JAX package's; then time each kernel with CUDA events;
 9. run P1 (benchmarks/bench_serving.py's grid: lru at each capacity,
-   tinylfu and wtinylfu at 1,000; their host-bound replays at 2,000 and
-   4,000 are cut for time) and P2 (its generator at C=65,536) through
+   tinylfu at 1,000; the other host-bound replays are cut for time, their
+   pins kept) and P2 (its generator at C=65,536, wtinylfu) through
    ``PrefixCache``, counts set to 0 around each run; every
    ``PrefixCacheStats`` field must equal the JAX cache's; then one
    decision's wall time beside the admit kernel at one pair, the add kernel
@@ -97,8 +102,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    prefill 1,280 tokens, decode 4; each step's logits at the JAX top-8
    ids within 0.05 of the largest (the reference's decode bound);
 14. hold the step kernel's lane grid (one CTA per lane, one launch per
-   chunk) against ``step_ref`` with lanes on the card over
-   ``check_runs.LANE_CASES`` (4 lanes; flat and set tables, shared and
+   chunk) against ``step_ref`` with lanes over ``check_runs.LANE_CASES`` (4 lanes; flat and set tables, shared and
    per-lane params, a lane with a shorter ``n_valid`` and one with none,
    F's geometry); every state leaf and hit flag must be equal;
 15. run T, 64 tenant caches at F's geometry (1.2M accesses per lane, lane 0
@@ -122,7 +126,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``PrefixCache``s (the host sketch, no launch); every stat must equal the
    default JAX cache's;
 19. hold the step kernel's sharded instances (kernel mode 1b: shards=4,
-   ``[global || delta]`` sketch) against ``step_ref`` on the card over
+   ``[global || delta]`` sketch) against ``step_ref`` over
    ``check_runs.SHARD_CASES``, ``merge_halve`` after every epoch (flat and
    set tables, 4- and 8-bit counters, doorkeeper on and off, W below the
    epoch, 4 lanes with per-lane params and shorter lanes, integrity, one
@@ -143,7 +147,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    with shards=4: ``auto`` resolves to sequential, the 65,536 row equals
    F4, ``mode="vmap"`` raises the reference's ``ValueError``;
 23. hold the step kernel's adaptive instances (kernel mode 1c) against
-   ``step_ref`` on the card over ``check_runs.ADAPT_CASES``, ``rebalance``
+   ``step_ref`` over ``check_runs.ADAPT_CASES``, ``rebalance``
    between epochs (after ``merge_halve`` when sharded) to quotas that go up
    and down and cross the window set count (flat, 8 and 16 ways, 4- and
    8-bit counters, doorkeeper on and off, 4 lanes with per-lane params and
@@ -170,7 +174,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    adaptive run its quota and digest too), and the adaptive run must come
    within 0.01 of the best static row;
 28. hold the step kernel's panel instances (kernel mode 1d: S3-FIFO, ARC,
-   LFU) against ``step_ref`` on the card over ``check_runs.PANEL_CASES``:
+   LFU) against ``step_ref`` over ``check_runs.PANEL_CASES``:
    1, 4, 8, 16 and 32 ways, one and two main sets, 4- and 8-bit counters,
    doorkeeper on and off, resets inside and across chunk boundaries,
    zero-way window sets, ARC at 256 ghost bits with both halves cleared
@@ -213,14 +217,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bit sent far out of range, which the step kernel clamps as the
    reference's gathers do), every stored probe of both tables flipped, a
    flip in a shard's global sketch slice caught by the checksums
-   (quarantined once) and a shard's global slice lost twice; hits and
-   digest must equal the JAX engine's under the same hook, and the
-   reference's bounds hold;
+   (quarantined once), a shard's global slice lost twice, and (queue 3
+   fault 4) every window record's stored main sets flipped out of range
+   (W-TinyLFU static and adaptive, S3-FIFO) and every ARC ghost position,
+   which the engine then steps on the kernel's exact path; hits and digest
+   must equal the JAX engine's under the same hook, and the reference's
+   bounds hold;
 35. a checkpoint written on the CPU resumes on the card and one written on
    the card resumes on the CPU, both equal to the card's uninterrupted run;
-36. print the ``kernels`` JSON line (six kernels; the step kernel's entry
-   with the modes it runs, its lane-grid, sharded, adaptive and panel
-   launches and checks and its checkpointed runs; the add's with the
+36. hold the step kernel's stale mesh instances (kernel mode 1e: a
+   rank's add into its delta blocks, global-only estimates), its wide
+   instances (11 and 16 doorkeeper probes, 256 ways; W-TinyLFU static,
+   adaptive, sharded and meshed, S3-FIFO, ARC and LFU) and its exact path
+   after out-of-range table addresses (which ``step`` finds by itself)
+   against ``step_ref`` over ``check_runs.STEP12_CASES``; every state leaf
+   and hit flag must be equal; the kernel's ms per access of each;
+37. the mesh on the card: a one-rank NCCL group (its start-up timed),
+   ``make_shard_mesh(4)``; F4 through ``simulate_trace(mesh=)`` in chunk
+   mode must equal F4's JAX pins, and in stale mode (kernel mode 1e and
+   ``merge_halve_mesh``, counts set to 0 just before, read just after)
+   the JAX pins of the reference's stale step under ``jax.vmap`` over the
+   mesh axis (``check_runs.F4S_PINS``); then the stale run with CUDA
+   events around each launch and gather-and-fold (ns per access beside
+   F4's) and its bound; then two ranks sharing the card over gloo with
+   CUDA tensors (F4's first 262,144 accesses, stale), equal to the
+   one-rank run of the same accesses;
+38. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+   with the modes it runs, its lane-grid, sharded, adaptive, panel, mesh
+   and wide instances' launches and checks and its checkpointed runs; the
+   add's with the
    doorkeeper probe counts it was held at; the reset's and the estimate's
    with their burst times, the empty launch's in a burst, their in-stream
    pairs with and without PDL and their first designs' times), the card
@@ -234,11 +259,12 @@ from __future__ import annotations
 import gc
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -252,7 +278,9 @@ from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
                                     FA_DIGEST, FA_HITS, FA_QUOTA, FA_REGS,
                                     FA_TRAJ, FA4_DIGEST, FA4_HITS, FA4_QUOTA,
                                     FA4_REGS, FA4_TRAJ, FD_DRILLS,
+                                    FD_FLIP_BOUNDED,
                                     FD_FLIP_TOL, FD_GOLDEN, FD_PINS, FD_TAIL,
+                                    F4S_PINS, STEP12_CASES, run_step_case,
                                     GA_ACCESSES,
                                     GA_CAPACITY, GA_FRACS, GA_GAP, GA_PINS,
                                     GA_SEED, GA_TRACES,
@@ -322,59 +350,122 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_case(name, cfg, trace, chunk, timed=False):
-    """Kernel vs plain on the card from the same initial state, both driven
-    by the engine's chunk runner; returns (max abs difference, plain ms per
-    chunk).  ``cfg`` is a DeviceWTinyLFU or a (StepSpec, params, window_cap,
-    main_cap) tuple."""
+# the plain version of most kernel-vs-plain cases runs on the host's CPU in
+# a pool of worker processes while the card runs the kernel: one op at a
+# time it is faster there than on the card, and the cases run side by side
+PLAIN_WORKERS = 6
+_POOL = []
+
+
+def submit_plain(runner, *args):
+    """``runner(*args, step_ref, "cpu")`` in the pool (started at the first
+    call): a future of :func:`cpu_plain`'s result."""
+    if not _POOL:
+        _POOL.append(ProcessPoolExecutor(
+            PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn")))
+    return _POOL[0].submit(cpu_plain, runner, *args)
+
+
+def cpu_plain(runner, *args):
+    """``runner(*args, step_ref, "cpu")`` (a case runner of this script or
+    of check_runs: the plain version) on one CPU thread of a pool worker:
+    (state leaves, hit flags) as numpy, and the seconds it took."""
     import torch
+    from repro_torch.kernels import sketch_step as ks
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    state, hits = runner(*args, ks.step_ref, "cpu")
+    return ({k: np.asarray(v) for k, v in state.items()}, np.asarray(hits),
+            time.perf_counter() - t0)
+
+
+def plain_diff(name, got, want) -> int:
+    """The kernel's (state, hits) against the plain version's (numpy, as
+    :func:`cpu_plain` returns it): every leaf and hit flag must be equal.
+    Returns the max abs difference."""
+    state, hits = got
+    pstate, phits = want[0], want[1]
+    err = 0
+    for k, v in pstate.items():
+        d = int(np.abs(state[k].cpu().numpy().astype(np.int64) - v).max())
+        check(d == 0, f"{name}: kernel and plain differ in state[{k!r}]")
+        err = max(err, d)
+    d = int(np.abs(hits.cpu().numpy().astype(np.int64) - phits).max())
+    check(d == 0, f"{name}: kernel and plain differ in the hit flags")
+    return max(err, d)
+
+
+def numpy_run(state, hits):
+    """A (state, hits) run on the card as :func:`cpu_plain` returns one."""
+    return ({k: v.cpu().numpy() for k, v in state.items()},
+            hits.cpu().numpy())
+
+
+def chunk_case(cfg, trace, chunk, fn, device):
+    """``cfg`` (a DeviceWTinyLFU, or a (StepSpec, make_step_params
+    arguments, window_cap, main_cap) tuple) through the engine's chunk
+    runner with ``fn`` from a fresh state on ``device``: (state, hits)."""
     from repro_torch.core.device_simulate import _trace_lanes, run_chunks
     from repro_torch.kernels import sketch_step as ks
     if isinstance(cfg, tuple):
-        spec, params, wcap, mcap = cfg
-        sample = int(params[ks.P_SAMPLE])
+        spec, pargs, wcap, mcap = cfg
+        params = ks.make_step_params(*pargs, counter_bits=spec.counter_bits,
+                                     device=device)
     else:
-        spec, params = cfg.spec(), cfg.params(device="cuda")
-        wcap, mcap, sample = cfg.window_cap, cfg.main_cap, cfg.sample_size
-    lo, hi = _trace_lanes(trace, "cuda")
-    outs, ms = [], []
-    for fn in (ks.step, ks.step_ref):
-        state = ks.init_step_state(spec, wcap, mcap, device="cuda")
+        spec, params = cfg.spec(), cfg.params(device=device)
+        wcap, mcap = cfg.window_cap, cfg.main_cap
+    lo, hi = _trace_lanes(trace, device)
+    state = ks.init_step_state(spec, wcap, mcap, device=device)
+    return run_chunks(spec, params, state, lo, hi, chunk, fn=fn)
+
+
+def compare_case(name, cfg, trace, chunk, job=None):
+    """Kernel vs plain from the same initial state, both driven by the
+    engine's chunk runner (:func:`chunk_case`): the plain version is
+    ``job``'s (a :func:`submit_plain` future), or without one runs on the
+    card, timed by CUDA events.  Returns (max abs difference, the card's
+    plain ms per chunk or None)."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    got = chunk_case(cfg, trace, chunk, ks.step, "cuda")
+    ms = None
+    if job is None:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         e0.record()
-        state, hits = run_chunks(spec, params, state, lo, hi, chunk, fn=fn)
+        want = numpy_run(*chunk_case(cfg, trace, chunk, ks.step_ref, "cuda"))
         e1.record()
         torch.cuda.synchronize()
-        ms.append(e0.elapsed_time(e1) / math.ceil(len(trace) / chunk))
-        outs.append((state, hits))
-    (ks_state, k_hits), (p_state, p_hits) = outs
-    err = int((k_hits - p_hits).abs().max())
-    for k in p_state:
-        d = int((ks_state[k].long() - p_state[k].long()).abs().max())
-        err = max(err, d)
-        check(d == 0, f"{name}: kernel and plain differ in state[{k!r}]")
-    check(err == 0, f"{name}: kernel and plain differ in the hit flags")
-    check(int(p_state["regs"][ks.R_T]) == len(trace),
+        ms = e0.elapsed_time(e1) / math.ceil(len(trace) / chunk)
+    else:
+        want = job.result()
+    err = plain_diff(name, got, want)
+    check(int(want[0]["regs"][ks.R_T]) == len(trace),
           f"{name}: the plain run did not advance over the trace")
-    timing = f"; plain {ms[1]:.1f} ms/chunk" if timed else ""
+    sample = cfg[1][3] if isinstance(cfg, tuple) else cfg.sample_size
+    spec = cfg[0] if isinstance(cfg, tuple) else cfg.spec()
+    where = (f"; plain {ms:.1f} ms/chunk on the card" if job is None
+             else "; plain on the CPU")
     print(f"phase 2  {name}: kernel == plain over {len(trace)} accesses "
           f"(chunk {chunk}, W={sample}, {spec.assoc or 'flat'} ways)"
-          f"{timing}")
-    return err, ms[1]
+          f"{where}")
+    return err, ms
 
 
 def timed_launches(trace, cfg, chunk, warmup, fn=None):
     """A run through the engine's chunk runner with CUDA events around each
     launch (of ``fn``, default the ``step`` wrapper); with ``cfg.shards >
-    1`` one launch per merge epoch and events around each fold too.
-    Returns (state, hit flags, per-launch kernel ms, the runner's stream ms
-    from its first launch to its last event, per-fold ms)."""
+    1`` one launch per merge epoch and events around each fold too (on a
+    stale mesh, ``cfg.mesh`` with ``mesh_exchange="stale"``: this rank's
+    step and ``merge_halve_mesh``).  Returns (state, hit flags, per-launch
+    kernel ms, the runner's stream ms from its first launch to its last
+    event, per-fold ms)."""
     import torch
+    from functools import partial
     from repro_torch.core.device_simulate import _trace_lanes, run_chunks
     from repro_torch.kernels import sketch_step as ks
-    from repro_torch.kernels.sketch_merge import merge_halve
+    from repro_torch.kernels.sketch_merge import merge_halve, merge_halve_mesh
     spec = cfg.spec()
     params = cfg.params(warmup=warmup, device="cuda")
     state = ks.init_step_state(spec, cfg.window_cap, cfg.main_cap,
@@ -397,6 +488,11 @@ def timed_launches(trace, cfg, chunk, warmup, fn=None):
     fold = None
     if cfg.shards > 1:
         chunk, fold = cfg.merge_epoch, timed(merge_halve, folds)
+    if spec.mesh_devices:
+        mesh = cfg.mesh
+        fn = fn or partial(ks.step, rank=mesh.rank)
+        fold = timed(lambda sp, p, st: merge_halve_mesh(sp, p, st, mesh),
+                     folds)
     state, hits = run_chunks(spec, params, state, lo, hi, chunk,
                              fn=timed(fn or ks.step, steps), fold=fold)
     torch.cuda.synchronize()
@@ -515,11 +611,11 @@ def read_launches() -> dict:
     return out
 
 
-def lanes_on_card(keys):
+def lanes_on_card(keys, device="cuda"):
     import torch
     from repro_torch.kernels.sketch_common import keys_to_lanes
     lo, hi = keys_to_lanes(np.asarray(keys, np.uint64))
-    return torch.from_numpy(lo).cuda(), torch.from_numpy(hi).cuda()
+    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
 
 
 def timed_ms(fn, reps: int = 1) -> float:
@@ -982,19 +1078,19 @@ def serving_phase9(card):
     """Phase 9: P1 through PrefixCache on the card (the device sketch),
     each run with the launch counts set to 0 just before and read just
     after; every PrefixCacheStats field must equal the JAX cache's.  The
-    replays are host-bound (a decision is ~0.97 host), so the admitting
-    policies run P1 at its smallest capacity only, and P2, the replay at
-    S's capacity, in full.  Returns each run's admission decisions per
-    second of wall."""
+    replays are host-bound (a decision is ~0.95 host), so lru replays P1
+    at each capacity, TinyLFU at its smallest only (W-TinyLFU's P1 replays
+    are cut for time, their pins kept), and P2, the replay at S's
+    capacity, runs W-TinyLFU in full.  Returns each run's admission
+    decisions per second of wall."""
     import dataclasses
     import torch
     from repro_torch.serve import PrefixCache
     from repro_torch.traces.synthetic import multi_tenant_prompt_trace
     p1 = multi_tenant_prompt_trace(**P1_TRACE)
     p2 = multi_tenant_prompt_trace(**P2_TRACE)
-    runs = [("P1", p, c, p1) for p in ("lru", "tinylfu", "wtinylfu")
-            for c in P1_CAPS if p == "lru" or c == P1_CAPS[0]] + [
-        ("P2", "wtinylfu", P2_CAP, p2)]
+    runs = [("P1", "lru", c, p1) for c in P1_CAPS] + [
+        ("P1", "tinylfu", P1_CAPS[0], p1), ("P2", "wtinylfu", P2_CAP, p2)]
     totals, rates = {}, {}
     for name, policy, cap, stream in runs:
         pc = PrefixCache(cap, policy=policy, sample_factor=8,
@@ -1705,38 +1801,44 @@ def llm_phase13(card):
           f"{worst:.5f}); card {card}")
 
 
-def lanes_phase14():
-    """Phase 14: the step kernel's lane grid (one CTA per lane, one launch
-    per chunk) against step_ref with lanes on the card, over
-    check_runs.LANE_CASES: flat and set tables, shared and per-lane params,
-    lane_n_valid's shorter and empty lanes, F's geometry; every state leaf
-    and hit flag must be equal.  Returns the max abs difference."""
+def lane_case(case, fn, device):
+    """LANE_CASES[case] through ``fn`` on ``device``, one call per chunk
+    for every lane (lane_n_valid's counts): (state, hits)."""
     import torch
     from repro_torch.kernels import sketch_step as ks
+    _, kw, prows, wcap, mcap, kind, n, chunk = LANE_CASES[case]
+    spec = ks.StepSpec(**kw, streams=LANES)
+    lo, hi = lanes_on_card(lane_keys(kind, n), device)
+    params = case_params(prows, spec, device)
+    state = ks.init_step_state(spec, wcap, mcap, device=device)
+    hits = [fn(spec, params, state, lo[:, s:s + chunk], hi[:, s:s + chunk],
+               lane_n_valid(chunk, c, n - s))[1]
+            for c, s in enumerate(range(0, n, chunk))]
+    return state, torch.cat(hits, dim=1)
+
+
+def lanes_phase14():
+    """Phase 14: the step kernel's lane grid (one CTA per lane, one launch
+    per chunk) against step_ref with lanes (on the host's CPU, in the
+    pool), over check_runs.LANE_CASES: flat and set tables, shared and
+    per-lane params, lane_n_valid's shorter and empty lanes, F's geometry;
+    every state leaf and hit flag must be equal.  Returns the max abs
+    difference."""
+    from repro_torch.kernels import sketch_step as ks
     err = 0
-    for name, kw, prows, wcap, mcap, kind, n, chunk in LANE_CASES:
+    jobs = [submit_plain(lane_case, i) for i in range(len(LANE_CASES))]
+    for i, (name, kw, prows, wcap, mcap, kind, n,
+            chunk) in enumerate(LANE_CASES):
         spec = ks.StepSpec(**kw, streams=LANES)
-        lo, hi = lanes_on_card(lane_keys(kind, n))
-        counts = [lane_n_valid(chunk, c, n - s)
-                  for c, s in enumerate(range(0, n, chunk))]
-        outs = []
-        for fn in (ks.step, ks.step_ref):
-            params = case_params(prows, spec)
-            state = ks.init_step_state(spec, wcap, mcap, device="cuda")
-            hits = [fn(spec, params, state, lo[:, s:s + chunk],
-                       hi[:, s:s + chunk], nv)[1]
-                    for s, nv in zip(range(0, n, chunk), counts)]
-            outs.append((state, torch.cat(hits, dim=1)))
-        (k_state, k_hits), (p_state, p_hits) = outs
-        d = max([int((k_hits - p_hits).abs().max())]
-                + [int((k_state[k].long() - p_state[k].long()).abs().max())
-                   for k in p_state])
-        check(d == 0, f"lanes {name}: kernel and plain differ")
-        steps = [int(x) for x in np.sum(counts, axis=0)]
-        check(p_state["regs"][:, ks.R_T].tolist() == steps,
+        got = lane_case(i, ks.step, "cuda")
+        want = jobs[i].result()
+        err = max(err, plain_diff(f"lanes {name}", got, want))
+        steps = [int(x) for x in np.sum(
+            [lane_n_valid(chunk, c, n - s)
+             for c, s in enumerate(range(0, n, chunk))], axis=0)]
+        check(want[0]["regs"][:, ks.R_T].tolist() == steps,
               f"lanes {name}: the plain run did not take each lane's "
               f"n_valid")
-        err = max(err, d)
         print(f"phase 14 lanes {name}: kernel == plain, {LANES} lanes x "
               f"{n} accesses (chunk {chunk}, accesses per lane {steps}, "
               f"{len(prows)} params row(s), {spec.assoc or 'flat'} ways)")
@@ -1994,13 +2096,13 @@ def host_phase18(card, device_rates):
                   f"phase 9: {rate}); no launch; {card}")
 
 
-def case_params(prows, spec):
-    """The params of a LANE_CASES / SHARD_CASES case on the card: one row
-    (shared) or one per lane."""
+def case_params(prows, spec, device="cuda"):
+    """The params of a LANE_CASES / SHARD_CASES case: one row (shared) or
+    one per lane."""
     import torch
     from repro_torch.kernels import sketch_step as ks
     params = torch.stack([ks.make_step_params(
-        *p, counter_bits=spec.counter_bits, device="cuda") for p in prows])
+        *p, counter_bits=spec.counter_bits, device=device) for p in prows])
     return params[0] if len(prows) == 1 else params
 
 
@@ -2031,63 +2133,77 @@ def flip_fold(spec, params, state):
     return d
 
 
-def sharded_phase19():
-    """Phase 19: the step kernel's sharded instances (kernel mode 1b)
-    against step_ref on the card over check_runs.SHARD_CASES, merge_halve
-    after every epoch: flat and set tables, 4- and 8-bit counters,
-    doorkeeper on and off, W below the epoch, 4 lanes with per-lane params
-    and shorter lanes, integrity, F4's geometry; every state leaf and hit
-    flag must be equal.  Then the fold on the card against the fold on the
-    CPU with a flipped global word.  Returns (max abs difference, the plain
-    version's ms per F4 epoch)."""
+def sharded_case(case, fn, device, times=None):
+    """SHARD_CASES[case] through ``fn`` on ``device``, one call per epoch
+    and merge_halve after each: (state, hits); ``times`` (a list) receives
+    the ms per epoch by CUDA events."""
     import torch
     from repro_torch.kernels import sketch_step as ks
     from repro_torch.kernels.sketch_merge import merge_halve
-    err, plain_ms = 0, None
+    _, kw, prows, wcap, mcap, kind, n, epoch = SHARD_CASES[case]
+    lanes = LANES if len(prows) > 1 else 1
+    spec = ks.StepSpec(**kw, streams=lanes)
+    lo, hi = lanes_on_card(lane_keys(kind, n) if lanes > 1
+                           else hazard_keys(kind, n, seed=case), device)
+    params = case_params(prows, spec, device)
+    state = ks.init_step_state(spec, wcap, mcap, device=device)
+    starts = range(0, n, epoch)
+    if times is not None:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+    hits = []
+    for c, s in enumerate(starts):
+        nv = (lane_n_valid(epoch, c, n - s) if lanes > 1
+              else min(epoch, n - s))
+        hits.append(fn(spec, params, state, lo[..., s:s + epoch],
+                       hi[..., s:s + epoch], nv)[1])
+        merge_halve(spec, params, state)
+    if times is not None:
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / len(starts))
+    return state, torch.cat(hits, dim=-1)
+
+
+def sharded_phase19():
+    """Phase 19: the step kernel's sharded instances (kernel mode 1b)
+    against step_ref over check_runs.SHARD_CASES (on the host's CPU, in the
+    pool; F4's geometry on the card, timed), merge_halve after every epoch:
+    flat and set tables, 4- and 8-bit counters, doorkeeper on and off, W
+    below the epoch, 4 lanes with per-lane params and shorter lanes,
+    integrity, F4's geometry; every state leaf and hit flag must be equal.
+    Then the fold on the card against the fold on the CPU with a flipped
+    global word.  Returns (max abs difference, the plain version's ms per
+    F4 epoch)."""
+    from repro_torch.kernels import sketch_step as ks
+    last = len(SHARD_CASES) - 1                       # F4's geometry
+    jobs = [submit_plain(sharded_case, i) for i in range(last)]
+    err, times = 0, []
     for i, (name, kw, prows, wcap, mcap, kind, n,
             epoch) in enumerate(SHARD_CASES):
         lanes = LANES if len(prows) > 1 else 1
         spec = ks.StepSpec(**kw, streams=lanes)
-        lo, hi = lanes_on_card(lane_keys(kind, n) if lanes > 1
-                               else hazard_keys(kind, n, seed=i))
-        starts = range(0, n, epoch)
+        got = sharded_case(i, ks.step, "cuda")
+        want = (jobs[i].result() if i < last else
+                numpy_run(*sharded_case(i, ks.step_ref, "cuda", times)))
+        err = max(err, plain_diff(f"sharded {name}", got, want))
         counts = [lane_n_valid(epoch, c, n - s) if lanes > 1
-                  else min(epoch, n - s) for c, s in enumerate(starts)]
-        outs = []
-        for fn in (ks.step, ks.step_ref):
-            params = case_params(prows, spec)
-            state = ks.init_step_state(spec, wcap, mcap, device="cuda")
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            e0.record()
-            hits = []
-            for s, nv in zip(starts, counts):
-                hits.append(fn(spec, params, state, lo[..., s:s + epoch],
-                               hi[..., s:s + epoch], nv)[1])
-                merge_halve(spec, params, state)
-            e1.record()
-            torch.cuda.synchronize()
-            ms = e0.elapsed_time(e1) / len(counts)
-            outs.append((state, torch.cat(hits, dim=-1)))
-        (k_state, k_hits), (p_state, p_hits) = outs
-        d = max([int((k_hits - p_hits).abs().max())]
-                + [int((k_state[k].long() - p_state[k].long()).abs().max())
-                   for k in p_state])
-        check(d == 0, f"sharded {name}: kernel and plain differ")
+                  else min(epoch, n - s)
+                  for c, s in enumerate(range(0, n, epoch))]
         steps = (np.sum(counts, axis=0).tolist() if lanes > 1
                  else sum(counts))
-        check(p_state["regs"][..., ks.R_T].tolist() == steps,
+        check(want[0]["regs"][..., ks.R_T].tolist() == steps,
               f"sharded {name}: the plain run did not take every access")
-        err = max(err, d)
-        if i == len(SHARD_CASES) - 1:                 # F4's geometry
-            plain_ms = ms
-            err = max(err, flip_fold(spec, params, k_state))
+        if i == last:
+            err = max(err, flip_fold(spec, case_params(prows, spec), got[0]))
         print(f"phase 19 sharded {name}: kernel == plain, {lanes} lane(s) x "
               f"{n} accesses (epoch {epoch}, {len(counts)} folds, shards "
               f"{spec.shards}, {spec.assoc or 'flat'} ways, "
               f"{spec.counter_bits}-bit, dk_bits {spec.dk_bits}, integrity "
               f"{spec.integrity})")
+    plain_ms = times[0]
     print(f"phase 19 sharded fold: the card's merge_halve == the CPU's on "
           f"F4's geometry with a flipped global word (shard 1 quarantined); "
           f"plain {plain_ms:.1f} ms per F4 epoch")
@@ -2308,13 +2424,14 @@ def adapt_case(case, fn, device, times=None):
     for c, s in enumerate(range(0, n, epoch)):
         nv = (lane_n_valid(epoch, c, n - s) if lanes > 1
               else min(epoch, n - s))
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
+        if times is not None:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
         hits.append(fn(spec, params, state, lo[..., s:s + epoch],
                        hi[..., s:s + epoch], nv)[1])
-        e1.record()
         if times is not None:
+            e1.record()
             torch.cuda.synchronize()
             times.append(e0.elapsed_time(e1))
         if spec.shards > 1:
@@ -2322,6 +2439,11 @@ def adapt_case(case, fn, device, times=None):
         ks.rebalance(spec, params, state, torch.tensor(
             quotas[c % len(quotas)], dtype=torch.int32, device=device))
     return spec, params, state, torch.cat(hits, dim=-1)
+
+
+def adapt_run(case, fn, device):
+    """:func:`adapt_case`'s (state, hits)."""
+    return adapt_case(case, fn, device)[2:]
 
 
 def climb_card_vs_cpu(spec, params, state, name):
@@ -2360,7 +2482,8 @@ def climb_card_vs_cpu(spec, params, state, name):
 
 def adaptive_phase23():
     """Phase 23: the step kernel's adaptive instances (kernel mode 1c)
-    against step_ref on the card over check_runs.ADAPT_CASES, rebalance
+    against step_ref over check_runs.ADAPT_CASES (on the host's CPU, in the
+    pool; FA's geometry on the card, timed), rebalance
     (after merge_halve when sharded) between epochs to quotas that go up and
     down and cross the window set count: flat and 8 and 16 ways, 4- and
     8-bit counters, doorkeeper on and off, 4 lanes with per-lane params and
@@ -2370,18 +2493,17 @@ def adaptive_phase23():
     abs difference, the plain version's ms per 4,096 accesses at FA's
     geometry)."""
     from repro_torch.kernels import sketch_step as ks
+    last = len(ADAPT_CASES) - 1                       # FA's geometry
+    jobs = [submit_plain(adapt_run, i) for i in range(last)]
     err, plain_ms = 0, None
     for case, (name, *_, n, epoch, quotas) in enumerate(ADAPT_CASES):
         plain_times = []
-        outs = [adapt_case(case, ks.step, "cuda"),
-                adapt_case(case, ks.step_ref, "cuda", plain_times)]
-        (spec, params, k_state, k_hits), (_, _, p_state, p_hits) = outs
-        d = max([int((k_hits - p_hits).abs().max())]
-                + [int((k_state[k].long() - p_state[k].long()).abs().max())
-                   for k in p_state])
-        check(d == 0, f"adaptive {name}: kernel and plain differ")
-        check(int(p_hits.sum()) > 0, f"adaptive {name}: no hit at all")
-        err = max(err, d)
+        spec, params, k_state, k_hits = adapt_case(case, ks.step, "cuda")
+        want = (jobs[case].result() if case < last else numpy_run(
+            *adapt_case(case, ks.step_ref, "cuda", plain_times)[2:]))
+        err = max(err, plain_diff(f"adaptive {name}", (k_state, k_hits),
+                                  want))
+        check(int(want[1].sum()) > 0, f"adaptive {name}: no hit at all")
         quota = k_state["regs"][..., ks.R_WQUOTA].tolist()
         print(f"phase 23 adaptive {name}: kernel == plain, {spec.streams} "
               f"lane(s) x {n} accesses (epoch {epoch}, rebalances to "
@@ -2394,7 +2516,7 @@ def adaptive_phase23():
             err = max(err, d)
             print(f"phase 23 adaptive {name}: climb + rebalance on the card "
                   f"== on the CPU (quota {q0} -> {q1})")
-        if case == len(ADAPT_CASES) - 1:              # FA's geometry
+        if case == last:
             plain_ms = sum(plain_times) * ADAPT_EPOCH / n
     print(f"phase 23 adaptive: plain step_ref {plain_ms:.1f} ms per "
           f"{ADAPT_EPOCH} accesses at FA's geometry (CUDA events)")
@@ -2677,10 +2799,40 @@ def ga_phase27(card):
               f"digest == JAX; card {card}")
 
 
+def panel_case(case, fn, device, times=None):
+    """PANEL_CASES[case] through ``fn`` on ``device``, chunk by chunk:
+    (state, hits); ``times`` (a list) receives the ms per chunk by CUDA
+    events."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    _, kw, prows, wcap, mcap, kind, n, chunk = PANEL_CASES[case]
+    lanes = LANES if len(prows) > 1 else 1
+    spec = ks.StepSpec(**kw, streams=lanes)
+    lo, hi = lanes_on_card(lane_keys(kind, n) if lanes > 1
+                           else hazard_keys(kind, n, seed=case), device)
+    starts = range(0, n, chunk)
+    params = case_params(prows, spec, device)
+    state = ks.init_step_state(spec, wcap, mcap, device=device)
+    if times is not None:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+    hits = [fn(spec, params, state, lo[..., s:s + chunk], hi[..., s:s + chunk],
+               lane_n_valid(chunk, c, n - s) if lanes > 1
+               else min(chunk, n - s))[1]
+            for c, s in enumerate(starts)]
+    if times is not None:
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / len(starts))
+    return state, torch.cat(hits, dim=-1)
+
+
 def panel_phase28():
     """Phase 28: the step kernel's panel instances (kernel mode 1d: S3-FIFO,
-    ARC, LFU; the third build) against step_ref on the card over
-    check_runs.PANEL_CASES, chunk by chunk: 1, 4, 8, 16 and 32 ways, one and
+    ARC, LFU; the third build) against step_ref over check_runs.PANEL_CASES
+    (on the host's CPU, in the pool; the FP-geometry chunks on the card,
+    timed), chunk by chunk: 1, 4, 8, 16 and 32 ways, one and
     two main sets, 4- and 8-bit counters, the doorkeeper on and off, resets
     inside and across chunk boundaries, zero-way window sets, ARC at 256 ghost
     bits with both halves cleared inside a chunk, four lanes with per-lane
@@ -2688,51 +2840,37 @@ def panel_phase28():
     geometry; every state leaf (ARC's ghost too) and hit flag must be equal.
     Returns (max abs difference, the plain version's ms per FP-geometry chunk
     by policy)."""
-    import torch
     from repro_torch.kernels import sketch_step as ks
+    on_card = [i for i, c in enumerate(PANEL_CASES) if "FP geometry" in c[0]]
+    jobs = {i: submit_plain(panel_case, i) for i in range(len(PANEL_CASES))
+            if i not in on_card}
     err, plain_ms = 0, {}
     for case, (name, kw, prows, wcap, mcap, kind, n,
                chunk) in enumerate(PANEL_CASES):
         lanes = LANES if len(prows) > 1 else 1
         spec = ks.StepSpec(**kw, streams=lanes)
-        lo, hi = lanes_on_card(lane_keys(kind, n) if lanes > 1
-                               else hazard_keys(kind, n, seed=case))
-        starts = range(0, n, chunk)
-        counts = [lane_n_valid(chunk, c, n - s) if lanes > 1
-                  else min(chunk, n - s) for c, s in enumerate(starts)]
-        outs, times = [], []
-        for fn in (ks.step, ks.step_ref):
-            params = case_params(prows, spec)
-            state = ks.init_step_state(spec, wcap, mcap, device="cuda")
-            before = ks.step.launches
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            hits = [fn(spec, params, state, lo[..., s:s + chunk],
-                       hi[..., s:s + chunk], nv)[1]
-                    for s, nv in zip(starts, counts)]
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1) / len(counts))
-            if fn is ks.step:
-                check(ks.step.launches - before == len(counts),
-                      f"panel {name}: {ks.step.launches - before} launches")
-            outs.append((state, torch.cat(hits, dim=-1)))
-        (k_state, k_hits), (p_state, p_hits) = outs
-        d = max([int((k_hits - p_hits).abs().max())]
-                + [int((k_state[k].long() - p_state[k].long()).abs().max())
-                   for k in p_state])
-        check(d == 0, f"panel {name}: kernel and plain differ")
-        check(int(p_hits.sum()) > 0, f"panel {name}: no hit at all")
-        err = max(err, d)
-        regs = p_state["regs"].reshape(-1, ks.NREGS)[0].tolist()
-        if "FP geometry" in name:
+        nchunks = -(-n // chunk)
+        times = []
+        before = ks.step.launches
+        got = panel_case(case, ks.step, "cuda", times)
+        check(ks.step.launches - before == nchunks,
+              f"panel {name}: {ks.step.launches - before} launches")
+        if case in jobs:
+            want = jobs[case].result()
+            plain = (f"plain {want[2] * 1e3 / nchunks:.1f} ms per chunk on "
+                     "the CPU")
+        else:
+            want = numpy_run(*panel_case(case, ks.step_ref, "cuda", times))
             plain_ms[spec.policy] = times[1]
+            plain = f"plain {times[1]:.1f} ms per chunk on the card"
+        err = max(err, plain_diff(f"panel {name}", got, want))
+        check(int(want[1].sum()) > 0, f"panel {name}: no hit at all")
+        regs = want[0]["regs"].reshape(-1, ks.NREGS)[0].tolist()
         print(f"phase 28 panel {name}: kernel == plain, {lanes} lane(s) x "
               f"{n} accesses (chunk {chunk}, {spec.assoc} ways, "
               f"{spec.main_sets} main sets, {spec.counter_bits}-bit, "
               f"dk_bits {spec.dk_bits}; lane 0 regs {regs}); kernel "
-              f"{times[0]:.4f} ms, plain {times[1]:.1f} ms per chunk")
+              f"{times[0]:.4f} ms, {plain}")
     return err, plain_ms
 
 
@@ -3139,10 +3277,10 @@ def fault_phase34(card):
               f"drill {name}: hits {res.hits} digest {digest(state)} != JAX "
               f"{pin}")
         also = ""
-        if name in ("flip", "probes"):
+        if name in FD_FLIP_BOUNDED:
             check(abs(res.hit_ratio - clean.hit_ratio) < FD_FLIP_TOL,
                   f"drill {name}: {res.hit_ratio} vs {clean.hit_ratio}")
-        else:
+        elif name in ("quarantine", "loss"):
             check(abs(res.hit_ratio - FD_GOLDEN) < GP_TOL,
                   f"drill {name}: hit ratio {res.hit_ratio}")
         if name == "quarantine":
@@ -3186,6 +3324,183 @@ def cross_phase35(card, work):
               f"{cursor}: hits {res.hits}, hit flags and every state leaf == "
               "the card's uninterrupted run")
     return True
+
+
+def step12_phase36(card):
+    """Phase 36: the step kernel's stale mesh instances (kernel mode 1e),
+    wide instances and exact path against step_ref over
+    check_runs.STEP12_CASES (run_step_case: the same chunks, folds,
+    rebalances and flips through each); every state leaf and hit flag must
+    be equal.  The plain version runs on the host's CPU, in the pool,
+    while the kernel runs the cases here.  Returns (max abs difference, one
+    row per case: kernel and plain ms per launch and the kernel's ns per
+    access)."""
+    err, rows = 0, []
+    jobs = [submit_plain(run_step_case, case) for case in STEP12_CASES]
+    for case, job in zip(STEP12_CASES, jobs):
+        err = max(err, step12_case(case, job, card, rows))
+    return err, rows
+
+
+def step12_case(case, job, card, rows):
+    """One phase 36 case: the kernel's run here against the plain version's
+    (``job``, a worker's); appends the case's row and returns its max abs
+    difference."""
+    import torch
+    from repro_torch.kernels import sketch_step as ks
+    events = []
+
+    def timed(spec, params, state, lo, hi, n_valid=None, probes=None,
+              rank=0):
+        if probes is None:              # the keys hashed outside the events
+            probes = ks.precompute_probes(spec, lo, hi)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = ks.step(spec, params, state, lo, hi, n_valid, probes,
+                      rank=rank)
+        e1.record()
+        events.append((e0, e1))
+        return out
+    got = run_step_case(case, timed, "cuda")
+    torch.cuda.synchronize()
+    *want, plain_s = job.result()
+    plain_ms = plain_s * 1e3 / len(events)
+    diff = max([int(np.abs(got[1] - want[1]).max())]
+               + [int(np.abs(got[0][k].astype(np.int64)
+                             - want[0][k].astype(np.int64)).max())
+                  for k in want[0]])
+    check(diff == 0, f"phase 36 {case[0]}: kernel != plain (max abs "
+          f"difference {diff})")
+    # the fastest launch: an instance's first launch also loads it
+    ms = min(a.elapsed_time(b) for a, b in events)
+    rows.append({"case": case[0], "launches": len(events), "ms": ms,
+                 "plain_ms": plain_ms, "ns_per_access": ms * 1e6 / case[7]})
+    print(f"phase 36 {case[0]}: kernel == plain, every leaf and hit flag; "
+          f"kernel {ms:.4f} ms per launch of {case[7]} accesses, the "
+          f"fastest of {len(events)} ({ms * 1e6 / case[7]:,.0f} ns per "
+          f"access), plain {plain_ms:.1f} ms per launch (one CPU thread of "
+          f"a worker process, host clock); card {card}")
+    return diff
+
+
+def gloo_rank_phase37(rank, n):
+    """A rank of phase 37's gloo group on the shared card: F4's first n
+    accesses in stale mode on its mesh; returns (hits, digest)."""
+    from repro_torch.core.device_simulate import simulate_trace
+    from repro_torch.distributed.mesh import make_shard_mesh
+    from repro_torch.traces.synthetic import zipf_trace
+    tr = zipf_trace(F_ACCESSES, n_items=1_000_000, alpha=0.9, seed=11)[:n]
+    mesh = make_shard_mesh(SHARDS, device="cuda")
+    res, st, _ = simulate_trace(tr, F_CAPACITY, warmup=0, assoc=F_ASSOC,
+                                shards=SHARDS, mesh=mesh,
+                                mesh_exchange="stale", return_state=True)
+    return res.hits, digest(st)
+
+
+MESH_GLOO_ACCESSES = 262_144
+
+
+def mesh_phase37(f_trace, card, f4_ms, f4_bound_ms):
+    """Phase 37: the mesh at F4's geometry on a one-rank NCCL group: chunk
+    mode equals F4's JAX pins, stale mode (kernel mode 1e) F4S_PINS, with
+    the launch and fold counts set to 0 just before and read just after;
+    the stale run timed per launch and per gather-and-fold against F4's
+    sharded kernel, and its bound (F4's, phase 20: the same words, the
+    estimates reading one half of them); then two ranks over gloo sharing
+    the card.  Returns
+    (launches, ms per launch, bound ms per launch, fold ms, NCCL start-up
+    s)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.device_simulate import (DeviceWTinyLFU,
+                                                  simulate_trace)
+    from repro_torch.distributed.launch import run_ranks
+    from repro_torch.distributed.mesh import make_shard_mesh
+    from repro_torch.kernels.sketch_merge import merge_halve
+    n = len(f_trace)
+    nep, nfold = -(-n // F4_EPOCH), n // F4_EPOCH
+    CKPT_WORKDIR.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="mesh-", dir=CKPT_WORKDIR)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        f"{work}/store", 1), rank=0, world_size=1)
+    try:
+        mesh = make_shard_mesh(SHARDS)
+        mesh.all_gather(torch.zeros(1, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        check(mesh.size == 1 and mesh.device.type == "cuda",
+              f"phase 37 mesh {mesh}")
+        print(f"phase 37 NCCL one-rank group: init and first all_gather "
+              f"{start_s:.3f} s; {mesh}")
+        kw = dict(warmup=F_WARMUP, assoc=F_ASSOC, shards=SHARDS, mesh=mesh,
+                  trace_name="zipf-1.2M", return_state=True)
+        out = {}
+        for exchange, pins in (("chunk", (F4_HITS, F4_REGS, F4_DIGEST)),
+                               ("stale", F4S_PINS)):
+            torch.cuda.synchronize()
+            set_launches(0)
+            merge_halve.folds = 0
+            t0 = time.perf_counter()
+            res, state, flags = simulate_trace(f_trace, F_CAPACITY,
+                                               mesh_exchange=exchange, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, folds = read_launches(), merge_halve.folds
+            check(launches["sketch_step"] == nep
+                  and sum(launches.values()) == nep and folds == nfold,
+                  f"phase 37 {exchange}: launches {launches}, folds {folds}")
+            regs = state["regs"].cpu().tolist()
+            got = (res.hits, regs, digest(state))
+            check(got == tuple(pins) and int(flags[F_WARMUP:].sum())
+                  == res.hits, f"phase 37 {exchange}: {got} != JAX {pins}")
+            check(res.extra["mesh_devices"] == 1
+                  and res.extra["mesh_exchange"] == exchange,
+                  f"phase 37 {exchange}: extra {res.extra}")
+            out[exchange] = (launches["sketch_step"], res)
+            print(f"phase 37 F4 on the mesh, {exchange}: hits {res.hits}/"
+                  f"{res.accesses} ratio {res.hit_ratio:.6f}, regs and "
+                  f"digest == JAX; {launches['sketch_step']} launches, "
+                  f"{folds} folds; wall {wall:.3f} s, {n / wall:,.0f} acc/s "
+                  f"(host clock); card {card}")
+        cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC, shards=SHARDS,
+                             mesh=mesh, mesh_exchange="stale")
+        t_state, t_hits, step_ms, stream_ms, fold_ms = timed_launches(
+            f_trace, cfg, None, F_WARMUP)
+        check(int(t_state["regs"][3]) == F4S_PINS[0],
+              "phase 37: the timed stale run differs from the main run")
+        ms = sum(step_ms) / len(step_ms)
+        fold = sum(fold_ms) / len(fold_ms)
+        idle = 1.0 - (sum(step_ms) + sum(fold_ms)) / stream_ms
+        ns = ms * 1e6 / F4_EPOCH
+        bound_ms = f4_bound_ms
+        print(f"phase 37 stale (mode 1e): kernel {ms:.4f} ms per launch "
+              f"(CUDA events around each of {len(step_ms)}), {ns:.0f} ns per "
+              f"access ({ms / f4_ms:.3f}x F4's sharded kernel, phase 20); "
+              f"merge_halve_mesh {fold:.4f} ms per epoch (gather, reorder "
+              f"and fold; {len(fold_ms)}), {sum(fold_ms) / stream_ms:.4f} of "
+              f"the runner's stream {stream_ms:.1f} ms; device idle share "
+              f"{idle:.6f}; bound {bound_ms:.6f} ms per launch (F4's words, "
+              f"bytes; the kernel {ms / bound_ms:.0f}x above it); card "
+              f"{card}")
+    finally:
+        dist.destroy_process_group()
+    m = MESH_GLOO_ACCESSES
+    one = simulate_trace(f_trace[:m], F_CAPACITY, warmup=0, assoc=F_ASSOC,
+                         shards=SHARDS, mesh=make_shard_mesh(SHARDS),
+                         mesh_exchange="stale", return_state=True)
+    t0 = time.perf_counter()
+    two = run_ranks(gloo_rank_phase37, 2, f"{work}/gloo", m, timeout=300)
+    want = (one[0].hits, digest(one[1]))
+    check(all(tuple(r) == want for r in two),
+          f"phase 37 gloo, two ranks on the card: {two} != one rank {want}")
+    print(f"phase 37 two ranks over gloo with CUDA tensors on the one card "
+          f"(stale, F4's first {m:,} accesses): both ranks' hits and digest "
+          f"== the one-rank run {want}; {time.perf_counter() - t0:.1f} s "
+          f"with the ranks' start-up")
+    return out["stale"][0], ms, bound_ms, fold, start_s
 
 
 def main() -> int:
@@ -3251,17 +3566,17 @@ def main() -> int:
     ]
     for i, (name, kw, pargs, wcap, mcap, kind, n,
             chunk) in enumerate(HAZARD_CASES):
-        spec = ks.StepSpec(**kw)
-        params = ks.make_step_params(*pargs, counter_bits=spec.counter_bits,
-                                     device="cuda")
-        cases.append((f"hazard: {name}", (spec, params, wcap, mcap),
+        cases.append((f"hazard: {name}", (ks.StepSpec(**kw), pargs, wcap,
+                                          mcap),
                       hazard_keys(kind, n, seed=i), chunk))
+    jobs = [submit_plain(chunk_case, cfg, tr, chunk)
+            for _, cfg, tr, chunk in cases]
     max_err = 0
-    for name, cfg, tr, chunk in cases:
-        max_err = max(max_err, compare_case(name, cfg, tr, chunk)[0])
+    for (name, cfg, tr, chunk), job in zip(cases, jobs):
+        max_err = max(max_err, compare_case(name, cfg, tr, chunk, job)[0])
     f_cfg = DeviceWTinyLFU(F_CAPACITY, assoc=F_ASSOC)
     err, plain_ms = compare_case("F geometry", f_cfg, f_trace[:2 * F_CHUNK],
-                                 F_CHUNK, timed=True)
+                                 F_CHUNK)
     max_err = max(max_err, err)
 
     # -- phase 3: golden traces through the entry point --------------------
@@ -3479,9 +3794,23 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     elapsed("phases 32-35")
-    err = max(max_err, lane_err, shard_err, adapt_err, panel_err)
+
+    # -- phases 36-37: the mesh (kernel mode 1e), wide instances, exact -----
+    step12_err, step12_rows = step12_phase36(card)
+    mesh_launches, mesh_ms, mesh_bound_ms, mesh_fold_ms, nccl_s = \
+        mesh_phase37(f_trace, card, f4_ms, f4_bound_ms)
+    elapsed("phases 36-37")
+    err = max(max_err, lane_err, shard_err, adapt_err, panel_err,
+              step12_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
-                             "1c adaptive", "1d panel"],
+                             "1c adaptive", "1d panel", "1e stale mesh",
+                             "wide (> 8 probes, > 128 ways)",
+                             "exact (out-of-range table addresses)"],
+                      mesh_launches=mesh_launches, mesh_ms=mesh_ms,
+                      mesh_bound_ms=mesh_bound_ms,
+                      mesh_fold_ms=mesh_fold_ms, nccl_start_s=nccl_s,
+                      mesh_max_abs_err=step12_err,
+                      instances=step12_rows,
                       max_abs_err=err, matches_plain=err == 0,
                       lane_launches=t_launches, lane_max_abs_err=lane_err,
                       lane_ms=t_ms, lane_bound_ms=t_bound_ms,
@@ -3513,7 +3842,7 @@ def main() -> int:
     kernels[1].update(dk_probes_held=sorted(set(add_probes)
                                             | set(LOOP_PROBES)))
 
-    # -- phase 36: the kernels line ----------------------------------------
+    # -- phase 38: the kernels line ----------------------------------------
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3534,3 +3863,6 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        for pool in _POOL:
+            pool.shutdown(cancel_futures=True)

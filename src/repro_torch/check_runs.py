@@ -144,6 +144,13 @@ F4_EPOCH = 4096
 F4_HITS = 455_655
 F4_REGS = [413568, 0, 1200000, 455655, 0, 0, 0, 0]
 F4_DIGEST = "0021147aefa66749"
+# F4 in stale mesh mode (kernel mode 1e, merge_halve_mesh every epoch): the
+# reference's stale step_ref and merge_halve_mesh under jax.vmap over the
+# mesh axis (one device; the stale result does not depend on the mesh
+# size): hits, regs, canonical state digest
+# (``PYTHONPATH=src:tests python tests/test_torch_mesh.py`` prints them)
+F4S_PINS = (453914, [413568, 0, 1200000, 453914, 0, 0, 0, 0],
+            "ead61c444a9c6818")
 F4I_DIGEST = "508ba2d17973ca92"
 # G1's trace (zipf_trace(60_000, n_items=50_000, alpha=0.9, seed=7), C=200,
 # warmup 10,000, flat tables, merge epoch 1,600) with shards=S: JAX hits
@@ -340,14 +347,33 @@ FD_DRILLS = {
                    3_200),
     "loss": (_FD_GOLDEN_TRACE, 200, dict(shards=2, merge_every=1_600),
              10_000, 3_200),
+    # table addresses out of range: every window record's stored main
+    # sets, or every main record's ARC ghost positions (table_flips)
+    "sets": (dict(length=10_000, n_items=1_500, alpha=0.9, seed=6), 300,
+             dict(assoc=8), 1_000, 2_048),
+    "sets-adaptive": (dict(length=10_000, n_items=1_500, alpha=0.9, seed=6),
+                      300, dict(assoc=8, adaptive=True), 1_000, 4_096),
+    "sets-s3fifo": (dict(length=10_000, n_items=1_500, alpha=0.9, seed=6),
+                    300, dict(assoc=8, policy="s3fifo", window_frac=0.1),
+                    1_000, 2_048),
+    "ghost-arc": (dict(length=10_000, n_items=1_500, alpha=0.9, seed=6), 300,
+                  dict(assoc=8, policy="arc"), 1_000, 2_048),
 }
 FD_GOLDEN = 0.3498
 FD_FLIP_TOL = 0.02
+# the table drills held within FD_FLIP_TOL of the run without the fault (ARC
+# with every ghost position out of range loses its ghost lists' memory and
+# falls 0.024 below, in the JAX engine as in the port: no bound)
+FD_FLIP_BOUNDED = ("flip", "probes", "sets", "sets-adaptive", "sets-s3fifo")
 FD_TAIL = 20_000
 FD_PINS = {"flip": (6105, "b15ce7193ba01595"),
            "probes": (6106, "bb23e1ba5135a613"),
            "quarantine": (17729, "ca22b61a610bd4c0"),
-           "loss": (17705, "15c871b27f957b68")}
+           "loss": (17705, "15c871b27f957b68"),
+           "sets": (6107, "fbaa7ef359cbdefe"),
+           "sets-adaptive": (6138, "eecbf17b728568dd"),
+           "sets-s3fifo": (6092, "8183a4265f2520e3"),
+           "ghost-arc": (5824, "bcfd5a888601ca73")}
 
 
 def stored_probe_flips(spec, key: str) -> list:
@@ -390,6 +416,10 @@ def fd_hook(name: str, faults, spec):
                                      [(spec.wps_shard, 2)])
         if name == "loss" and cursor in (19_200, 38_400):
             return faults.drop_shard_delta(spec, state, 0, half="global")
+        if name in ("sets", "sets-adaptive", "sets-s3fifo",
+                    "ghost-arc") and cursor == 4_096:
+            return faults.flip_words(state, *table_flips(
+                spec, "ghost" if name == "ghost-arc" else "sets"))
         return None
     return hook
 
@@ -923,3 +953,155 @@ def numpy_params(cfg, seed: int) -> dict:
            "w_up": dense(L, M, F), "w_down": dense(L, F, M)}
     tree["layers"] = {"attn0": attn, "mlp0": mlp}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# The step kernel's stale mesh instances (kernel mode 1e), its wide
+# instances (more than 8 doorkeeper probes or 128 ways) and its exact path
+# for out-of-range table addresses (stored main sets, ARC ghost positions):
+# chip_smoke.py phases 36-38 and tests/test_torch_kernel_gpu.py hold the
+# kernel to step_ref on the card with run_step_case, every state leaf and
+# hit flag; tests/test_torch_mesh.py, test_torch_sketch_edges.py and
+# test_torch_faults.py hold step_ref to the JAX step on the CPU.  Each case
+# is (name, StepSpec kwargs, make_step_params args, window_cap, main_cap,
+# hazard trace kind, accesses, chunk, options): ``rank`` (a meshed case runs
+# that rank's step, no fold), ``flip`` ("sets": every window record's
+# stored main sets, "ghost": every main record's stored doorkeeper bits,
+# flipped by table_flips after the first chunk) and ``quotas`` (adaptive:
+# the rebalance quotas between chunks, in turn).
+# ---------------------------------------------------------------------------
+_M4 = dict(width=512, rows=4, dk_bits=2048, shards=4)
+_W256 = dict(width=1024, rows=4, dk_bits=4096, window_slots=256,
+             main_slots=512, assoc=256)
+STEP12_CASES = [
+    ("mesh 2, rank 0, flat", dict(_M4, mesh_devices=2, window_slots=4,
+                                  main_slots=60), (4, 60, 48, 500, 7, 0),
+     4, 60, "skewed", 600, 200, dict(rank=0)),
+    ("mesh 2, rank 1, flat", dict(_M4, mesh_devices=2, window_slots=4,
+                                  main_slots=60), (4, 60, 48, 500, 7, 0),
+     4, 60, "skewed", 600, 200, dict(rank=1)),
+    ("mesh 2, rank 1, ways 8", dict(_M4, mesh_devices=2, window_slots=16,
+                                    main_slots=64, assoc=8),
+     (6, 58, 46, 500, 7, 0), 6, 58, "wide", 600, 200, dict(rank=1)),
+    ("mesh 4, rank 2, ways 8 adaptive",
+     dict(_M4, mesh_devices=4, window_slots=32, main_slots=64, assoc=8,
+          adaptive=True), (8, 56, 44, 500, 7, 0), 8, 56, "skewed", 600, 150,
+     dict(rank=2, quotas=[20, 3, 30])),
+    ("mesh 1, ways 16 cb8 no-dk", dict(_M4, dk_bits=0, counter_bits=8,
+                                       mesh_devices=1, window_slots=32,
+                                       main_slots=64, assoc=16),
+     (5, 59, 47, 500, 30, 0), 5, 59, "runs", 600, 200, dict(rank=0)),
+    ("ways 256", _W256, (200, 500, 400, 600, 7, 0), 200, 500, "wide", 800,
+     300, {}),
+    ("ways 256 adaptive", dict(_W256, adaptive=True),
+     (100, 400, 320, 600, 7, 0), 100, 400, "wide", 800, 200,
+     dict(quotas=[200, 20, 255])),
+    ("ways 256 shards 2", dict(_W256, shards=2), (200, 500, 400, 600, 7, 0),
+     200, 500, "wide", 800, 300, {}),
+    ("ways 256 mesh 2 rank 1", dict(_W256, shards=2, mesh_devices=2),
+     (200, 500, 400, 600, 7, 0), 200, 500, "wide", 800, 300, dict(rank=1)),
+    ("dk_probes 11, flat", dict(width=256, rows=4, dk_bits=1024,
+                                dk_probes=11, window_slots=4, main_slots=60),
+     (4, 60, 48, 300, 7, 0), 4, 60, "skewed", 600, 200, {}),
+    ("dk_probes 16, flat sharded", dict(width=512, rows=4, dk_bits=2048,
+                                        dk_probes=16, shards=2,
+                                        window_slots=4, main_slots=60),
+     (4, 60, 48, 300, 7, 0), 4, 60, "skewed", 600, 200, {}),
+    ("dk_probes 11, ways 8, resets mid-chunk",
+     dict(width=512, rows=3, dk_bits=2048, dk_probes=11, window_slots=8,
+          main_slots=16, assoc=8, counter_bits=8), (6, 16, 12, 64, 30, 0),
+     6, 16, "skewed", 600, 256, {}),
+    ("dk_probes 16, ways 8 adaptive",
+     dict(width=512, rows=3, dk_bits=2048, dk_probes=16, window_slots=64,
+          main_slots=64, assoc=8, adaptive=True), (20, 44, 35, 200, 7, 0),
+     20, 44, "skewed", 600, 150, dict(quotas=[30, 3, 60])),
+    ("dk_probes 11, ways 8 mesh 2 rank 0",
+     dict(_M4, dk_probes=11, mesh_devices=2, window_slots=16, main_slots=64,
+          assoc=8), (6, 58, 46, 500, 7, 0), 6, 58, "wide", 600, 200,
+     dict(rank=0)),
+    ("dk_probes 16 flat adaptive", dict(width=256, rows=4, dk_bits=1024,
+                                         dk_probes=16, window_slots=30,
+                                         main_slots=60, adaptive=True),
+     (3, 57, 45, 300, 7, 0), 3, 57, "skewed", 600, 150,
+     dict(quotas=[10, 2, 25])),
+    ("s3fifo ways 256", dict(_W256, policy="s3fifo"),
+     (100, 500, 400, 200, 7, 0), 100, 500, "wide", 800, 300, {}),
+    ("arc ways 256 dk_probes 11", dict(_W256, dk_probes=11, dk_bits=512,
+                                       policy="arc"),
+     (1, 500, 400, 200, 7, 0), 1, 500, "wide", 800, 300, {}),
+    ("lfu dk_probes 16", dict(_TINY16, dk_probes=16, policy="lfu"),
+     (1, 32, 25, 300, 15, 0), 1, 32, "skewed", 600, 200, {}),
+    ("sets out of range, ways 8", _TINY8, (6, 16, 12, 400, 30, 0), 6, 16,
+     "skewed", 600, 200, dict(flip="sets")),
+    ("sets out of range, ways 10 shards 2",
+     dict(width=512, rows=4, dk_bits=2048, window_slots=40, main_slots=80,
+          assoc=10, shards=2), (30, 80, 64, 400, 7, 0), 30, 80, "wide",
+     600, 200, dict(flip="sets")),
+    ("sets out of range, ways 8 adaptive", _A8, (20, 44, 35, 200, 7, 0), 20,
+     44, "skewed", 600, 150, dict(flip="sets", quotas=[30, 3, 60])),
+    ("sets out of range, s3fifo ways 4", dict(_TINY4, policy="s3fifo"),
+     (3, 8, 6, 50, 7, 0), 3, 8, "skewed", 600, 128, dict(flip="sets")),
+    ("ghost positions out of range, arc ways 4",
+     dict(_TINY4, dk_bits=256, policy="arc"), (1, 8, 6, 64, 7, 0), 1, 8,
+     "skewed", 600, 128, dict(flip="ghost")),
+    ("sets out of range, ways 256", _W256, (200, 500, 400, 600, 7, 0), 200,
+     500, "wide", 800, 300, dict(flip="sets")),
+]
+# the bits flipped into a stored set or ghost position, by turns: 30 and 31
+# keep an int32 product c * A of a power-of-two A in the table (the block
+# of the set itself, which no longer equals the key's sets), 20 and 4 push
+# it past the end or into another set (ways 10: 30 makes it negative)
+TABLE_FLIP_BITS = (30, 31, 20, 4)
+
+
+def table_flips(spec, what: str) -> tuple[str, list]:
+    """(leaf, (flat index, bit) flips) of drill ``what``: "sets", the two
+    stored main sets (WT_MSET, WT_MSET2 = columns 3, 4) of every window
+    record; "ghost", the stored doorkeeper bits of every main record (ARC's
+    ghost positions).  Bits by turns from TABLE_FLIP_BITS."""
+    b = TABLE_FLIP_BITS
+    if what == "sets":
+        return "wtab", [(r * spec.wcols + c, b[(r + c) % len(b)])
+                        for r in range(spec.window_slots) for c in (3, 4)]
+    c0 = 3 + spec.rows
+    return "mtab", [(r * spec.mcols + c, b[(r + c) % len(b)])
+                    for r in range(spec.main_slots)
+                    for c in range(c0, c0 + spec.dkp)]
+
+
+def run_step_case(case, fn, device: str):
+    """One STEP12_CASES case through ``fn`` (the port's ``step`` or
+    ``step_ref``) on ``device``: ((state leaves as numpy), hit flags).
+    Sharded unmeshed cases fold with ``merge_halve`` after every chunk;
+    adaptive ones rebalance to the case's quotas in turn; a flip is applied
+    (``core.faults.flip_words``) after the first chunk (the step finds the
+    addresses it leaves out of range by itself)."""
+    import torch
+    from repro_torch.core import faults
+    from repro_torch.kernels import sketch_step as port
+    from repro_torch.kernels.sketch_common import keys_to_lanes
+    from repro_torch.kernels.sketch_merge import merge_halve
+    _, kw, pargs, wcap, mcap, kind, n, chunk, opt = case
+    spec = port.StepSpec(**kw)
+    params = port.make_step_params(*pargs, counter_bits=spec.counter_bits,
+                                   device=device)
+    state = port.init_step_state(spec, wcap, mcap, device=device)
+    lo, hi = (torch.from_numpy(x).to(device)
+              for x in keys_to_lanes(hazard_keys(kind, n, seed=3)))
+    rank = opt.get("rank", 0)
+    quotas = list(opt.get("quotas", ()))
+    hits = []
+    for c in range(0, n, chunk):
+        if c == chunk and opt.get("flip"):
+            leaf, flips = table_flips(spec, opt["flip"])
+            state = faults.flip_words(state, leaf, flips)
+        lc, hc = lo[c:c + chunk], hi[c:c + chunk]
+        state, h = fn(spec, params, state, lc, hc, len(lc), rank=rank)
+        hits.append(h)
+        if spec.shards > 1 and not spec.mesh_devices:
+            merge_halve(spec, params, state)
+        if spec.adaptive and quotas:
+            port.rebalance(spec, params, state, quotas[(c // chunk)
+                                                       % len(quotas)])
+    return (port.state_to_numpy(state),
+            torch.cat(hits).cpu().numpy())

@@ -23,7 +23,10 @@ configuration, or (unsharded, one policy) as lanes of one run.
 in segments that end on epoch boundaries, saving the state tree after each
 in the reference's checkpoint format and calling the fault hook between
 them; ``resume_trace`` continues from the latest checkpoint, written by
-either package on either device.
+either package on either device.  ``mesh=`` (a ``distributed.mesh.ShardMesh``)
+runs a sharded configuration with its sketch deltas split over the ranks of
+a ``("shard",)`` mesh, one process per rank (see ``_segment``); every rank
+returns the same result.
 Entry points run on the card unless the caller passes ``device="cpu"`` (the
 plain version); without a card they raise.
 """
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -38,10 +42,10 @@ import torch
 from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels.sketch_step import (
     StepSpec, make_step_params, init_step_state, precompute_probes, step,
-    rebalance, resolve_device, R_EHITS, R_HITS, R_WQUOTA, WT_MSET,
-    WT_MSET2)
+    rebalance, resolve_device, R_EHITS, R_HITS, R_WQUOTA)
 from repro_torch.kernels.sketch_common import keys_to_lanes, POLICIES
-from repro_torch.kernels.sketch_merge import merge_halve
+from repro_torch.kernels.sketch_merge import merge_halve, merge_halve_mesh
+from repro_torch.distributed.mesh import SPLIT_LEAVES, ShardMesh
 from .adaptive import resolve_climb, window_cap_max
 from .hashing import assoc_geometry, slots_for, _pow2ceil
 from .simulate import SimResult
@@ -58,8 +62,9 @@ class DeviceWTinyLFU:
     ``adaptive=True`` hill-climbs the window quota between epochs.
     ``policy`` picks the W-TinyLFU rules or a competitor of the panel
     (``"s3fifo"``, ``"arc"``, ``"lfu"``; set-associative tables only).
-    ``mesh`` is accepted for sizing and refused by :meth:`run` until the
-    port carries it.
+    ``mesh`` (this rank's ``distributed.mesh.ShardMesh``) splits the
+    sketch deltas of a sharded run over the mesh's ranks; ``mesh_exchange``
+    is ``"chunk"`` (exact) or ``"stale"`` (stale-global admission).
     """
     capacity: int
     window_frac: float = 0.01
@@ -254,11 +259,10 @@ class DeviceWTinyLFU:
                                  "('shard',) mesh from "
                                  "distributed.mesh.make_shard_mesh)")
             return 0
-        if tuple(self.mesh.axis_names) != ("shard",):
-            raise ValueError(f"mesh axes {self.mesh.axis_names} != "
-                             "('shard',) — build it with "
-                             "distributed.mesh.make_shard_mesh")
-        n = int(self.mesh.devices.size)
+        if not isinstance(self.mesh, ShardMesh):
+            raise ValueError(f"mesh {self.mesh!r} is not a ShardMesh — build "
+                             "it with distributed.mesh.make_shard_mesh")
+        n = int(self.mesh.size)
         if self.shards <= 1:
             raise ValueError("mesh execution requires shards > 1")
         if self.shards % n:
@@ -403,16 +407,27 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     return state, torch.cat(hits, dim=-1)[..., :n]
 
 
+def _ops(spec: StepSpec, mesh):
+    """(step function, epoch fold) of a run: the step and ``merge_halve``,
+    or on a stale mesh (``spec.mesh_devices``) this rank's step and
+    ``merge_halve_mesh`` over ``mesh``."""
+    if not spec.mesh_devices:
+        return step, merge_halve
+    return (partial(step, rank=mesh.rank),
+            lambda sp, p, st: merge_halve_mesh(sp, p, st, mesh))
+
+
 def _run(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict, lo, hi,
-         chunk: int):
+         chunk: int, mesh=None):
     """One configuration's run: ``chunk`` accesses per launch, or with
     ``shards > 1`` (the reference's ``_run_sharded``) one launch per merge
-    epoch of ``cfg.merge_epoch`` accesses and the ``merge_halve`` fold after
-    every full epoch (``chunk`` does not apply)."""
+    epoch of ``cfg.merge_epoch`` accesses and the fold after every full
+    epoch (``chunk`` does not apply)."""
+    fn, fold = _ops(spec, mesh)
     if cfg.shards > 1:
         return run_chunks(spec, params, state, lo, hi, cfg.merge_epoch,
-                          fold=merge_halve)
-    return run_chunks(spec, params, state, lo, hi, chunk)
+                          fn=fn, fold=fold)
+    return run_chunks(spec, params, state, lo, hi, chunk, fn=fn)
 
 
 @dataclass(frozen=True)
@@ -498,7 +513,7 @@ def _climb_step(params, spec: StepSpec, state: dict, carry: torch.Tensor,
 
 def _run_adaptive(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict,
                   lo, hi, climb: ClimbSpec, cvec: torch.Tensor | None = None,
-                  carry: torch.Tensor | None = None):
+                  carry: torch.Tensor | None = None, mesh=None):
     """The adaptive run (the reference's ``_run_adaptive``): one step launch
     per epoch of ``climb.epoch_len`` accesses; after each full epoch, in
     this order, the ``merge_halve`` fold (sharded), the climb and
@@ -520,6 +535,7 @@ def _run_adaptive(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict,
         if spec.streams > 1 and carry.dim() == 1:
             carry = carry[:, None].repeat(1, spec.streams)
     rows = []
+    fn, merge = _ops(spec, mesh)
 
     def fold(spec, params, state):
         nonlocal carry
@@ -527,11 +543,11 @@ def _run_adaptive(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict,
         ehits = regs[..., R_EHITS].clone()
         rows.append(torch.stack([ehits, regs[..., R_WQUOTA].clone()]))
         if spec.shards > 1:
-            merge_halve(spec, params, state)
+            merge(spec, params, state)
         carry = _climb_step(params, spec, state, carry, ehits, cvec)
 
     state, hits = run_chunks(spec, params, state, lo, hi,
-                             int(climb.epoch_len), fold=fold)
+                             int(climb.epoch_len), fn=fn, fold=fold)
     return state, hits, (torch.stack(rows) if rows else None), carry
 
 
@@ -636,51 +652,89 @@ def _config_meta(cfg: DeviceWTinyLFU, climb: ClimbSpec, warmup: int,
     return meta
 
 
+def _from_mesh_state(spec: StepSpec, state: dict, mesh) -> dict:
+    """This rank's mesh-layout state -> the single-device ``[global ||
+    delta]`` layout (the canonical one checkpoints and callers see): the
+    delta blocks of every rank are gathered over ``mesh`` (a collective:
+    every rank calls it) and reordered into the delta half."""
+    H, HD = spec.counter_words, spec.dk_words
+    out = {k: v for k, v in state.items() if k not in SPLIT_LEAVES}
+    delta = mesh.all_gather(state["dcounters"]).transpose(0, 1).reshape(H)
+    ddk = (mesh.all_gather(state["ddoorkeeper"]).reshape(HD) if spec.dk_bits
+           else torch.zeros_like(state["doorkeeper"]))
+    out["counters"] = torch.cat([state["counters"], delta])
+    out["doorkeeper"] = torch.cat([state["doorkeeper"], ddk])
+    return out
+
+
+def _to_mesh_state(spec: StepSpec, state: dict, mesh) -> dict:
+    """The canonical ``[global || delta]`` layout -> rank ``mesh.rank``'s
+    mesh layout: the global halves, and the delta blocks of the shards it
+    owns, ``(L, rows, wps_shard)`` and ``(L, dkw_shard)``.  No collective:
+    a checkpoint of any mesh size (or of a single-device run) restores
+    onto any mesh whose size divides ``shards`` (elastic restore)."""
+    H, HD, L = spec.counter_words, spec.dk_words, spec.local_shards
+    owned = mesh.owned(spec.shards)
+    own = slice(owned.start, owned.stop)
+    out = {k: v for k, v in state.items()
+           if k not in ("counters", "doorkeeper")}
+    out["counters"] = state["counters"][:H].contiguous()
+    out["doorkeeper"] = state["doorkeeper"][:HD].contiguous()
+    out["dcounters"] = state["counters"][H:].reshape(
+        spec.rows, spec.shards, spec.wps_shard).transpose(0, 1)[
+            own].contiguous()
+    out["ddoorkeeper"] = (
+        state["doorkeeper"][HD:].reshape(spec.shards, spec.dkw_shard)[
+            own].contiguous() if spec.dk_bits else
+        torch.zeros((L, spec.dkw_shard), dtype=torch.int32,
+                    device=state["counters"].device))
+    return out
+
+
 def _segment(cfg: DeviceWTinyLFU, spec: StepSpec, params, state: dict, lo,
              hi, climb: ClimbSpec, cvec, carry, chunk: int):
     """One contiguous trace slice through the right runner; returns (state,
-    hits, the (epochs, 2) trajectory rows or None, carry)."""
+    hits, the (epochs, 2) trajectory rows or None, carry).
+
+    On a mesh (``cfg.mesh``, the reference's ``_mesh_runner``) every rank
+    runs the same epochs over replicated tables.  ``"chunk"``: the delta
+    blocks are gathered on entry (the one collective), the single-device
+    sharded program runs on the replicated ``[global || delta]`` replica
+    (step, fold, climb) and this rank's blocks are split out on exit, so the
+    run equals the single-device one bit for bit.  ``"stale"``: the mesh
+    layout is kept, each access runs the stale step (kernel mode 1e: delta
+    writes stay on the owning rank, estimates read the global halves) and
+    ``merge_halve_mesh`` gathers the deltas after every full epoch."""
+    mesh = cfg.mesh
+    if mesh is not None and spec.mesh_exchange == "chunk":
+        flat = _from_mesh_state(spec, state, mesh)
+        flat, hits, traj, carry = _segment(
+            replace(cfg, mesh=None), replace(spec, mesh_devices=0), params,
+            flat, lo, hi, climb, cvec, carry, chunk)
+        return _to_mesh_state(spec, flat, mesh), hits, traj, carry
     if cfg.adaptive:
         return _run_adaptive(cfg, spec, params, state, lo, hi, climb, cvec,
-                             carry)
-    state, hits = _run(cfg, spec, params, state, lo, hi, chunk)
+                             carry, mesh=mesh)
+    state, hits = _run(cfg, spec, params, state, lo, hi, chunk, mesh=mesh)
     return state, hits, None, carry
-
-
-def _check_table_indices(spec: StepSpec, arrays: dict):
-    """Refuse table words that the step kernel takes as addresses when
-    they are out of range: a window record's stored main sets
-    (``WT_MSET``, ``WT_MSET2``, read by the set bodies and ``rebalance``)
-    and, under ARC, a main record's stored doorkeeper bits (its ghost
-    positions).  The reference clamps or drops such indices; the port does
-    not yet (ROADMAP queue 3 fault 4), so a state that holds one raises
-    here instead of reading or writing out of range on the card."""
-    if spec.assoc is None:
-        return
-    ms = np.asarray(arrays["wtab"])[..., [WT_MSET, WT_MSET2]]
-    bad = [f"wtab main sets outside [0, {spec.main_sets})"
-           ] if ((ms < 0) | (ms >= spec.main_sets)).any() else []
-    if spec.policy == "arc" and spec.dk_bits:
-        c0 = 3 + spec.rows
-        gp = np.asarray(arrays["mtab"])[..., c0:c0 + spec.dkp]
-        if ((gp < 0) | (gp >= 32 * spec.dk_words)).any():
-            bad.append(f"mtab ghost positions outside "
-                       f"[0, {32 * spec.dk_words})")
-    if bad:
-        raise ValueError(
-            f"state holds {' and '.join(bad)}: the step kernel does not "
-            "clamp these indices yet (ROADMAP queue 3 fault 4)")
 
 
 def _hook_state(spec: StepSpec, state: dict, dev: torch.device) -> dict:
     """A fault hook's state (tensors on any device, or numpy) on ``dev``,
-    its keys and shapes checked against ``spec`` and its table-held
-    addresses by :func:`_check_table_indices`."""
+    its keys and shapes checked against ``spec``.  Table addresses out of
+    range are the step's to take, as the reference's are."""
     arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                   else np.asarray(v)) for k, v in state.items()}
-    out = ks.state_from_numpy(spec, arrays, dev)
-    _check_table_indices(spec, arrays)
-    return out
+    return ks.state_from_numpy(spec, arrays, dev)
+
+
+def _run_device(cfg: DeviceWTinyLFU, device) -> torch.device:
+    """The run's device: the caller's, else a CUDA mesh's card, else the
+    card (see ``resolve_device``)."""
+    if (device is None and cfg.mesh is not None
+            and cfg.mesh.device.type == "cuda"):
+        return cfg.mesh.device
+    return resolve_device(device)
 
 
 def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
@@ -702,7 +756,6 @@ def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
     for the card); the disk write runs on a background thread while the
     next segment runs, and its error, if any, is raised here."""
     climb = climb or ClimbSpec()
-    ks._require_ported(cfg.spec())
     segmenting = checkpoint_dir is not None or fault_hook is not None
     if segmenting and cfg.streams > 1:
         raise ValueError(
@@ -710,12 +763,17 @@ def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
             "fault_hook: the checkpoint tree and fault surface are the "
             "single-tenant state layout — run per-tenant streams=1 runs "
             "for fault-tolerant execution")
-    dev = resolve_device(device)
+    dev = _run_device(cfg, device)
     trace = np.asarray(trace)
     _check_trace_streams(cfg, trace)
     every = (_resolve_every(cfg, climb, checkpoint_every) if segmenting
              else None)
     spec = cfg.spec()
+    mesh = cfg.mesh
+
+    def canonical(st):              # the single-device layout (collective)
+        return st if mesh is None else _from_mesh_state(spec, st, mesh)
+
     params = cfg.params(warmup=warmup, device=dev)
     lo, hi = _trace_lanes(trace, dev)
     n = lo.shape[-1]
@@ -727,8 +785,9 @@ def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
     ck = None
     if checkpoint_dir is not None:
         from repro_torch.checkpoint.store import AsyncCheckpointer
-        ck = AsyncCheckpointer(checkpoint_dir)
         meta = _config_meta(cfg, climb, warmup, n)
+        if mesh is None or mesh.rank == 0:      # one writer per mesh
+            ck = AsyncCheckpointer(checkpoint_dir)
     zeros = torch.zeros(lo.shape[:-1] + (0,), dtype=torch.int32, device=dev)
 
     def joined(parts):
@@ -753,8 +812,8 @@ def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
             if traj is not None:
                 traj_parts.append(traj)
         i = j
-        if ck is not None:
-            tree = {"state": state,
+        if checkpoint_dir is not None:
+            tree = {"state": canonical(state),
                     "carry": (carry if carry is not None else
                               torch.zeros((6,), dtype=torch.int32)),
                     "hits": joined(hits_parts)}
@@ -762,19 +821,27 @@ def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
                 traj = torch.cat(traj_parts) if traj_parts else None
                 tree["ehits"] = traj[:, 0] if traj is not None else zeros
                 tree["quotas"] = traj[:, 1] if traj is not None else zeros
-            ck.save(i, tree, extra_meta={**meta, "cursor": i})
+            if ck is not None:
+                ck.save(i, tree, extra_meta={**meta, "cursor": i})
             if on_checkpoint is not None:
                 on_checkpoint(i)
         if i >= n:
             break
         if fault_hook is not None:
-            # the checkpoint just written holds the state before the fault
-            mutated = fault_hook(i, state)
+            # the checkpoint just written holds the state before the fault;
+            # a meshed run's hook sees (and returns) the canonical layout
+            mutated = fault_hook(i, canonical(state))
             if mutated is not None:
-                state = _hook_state(spec, mutated, dev)
+                cspec = replace(spec, mesh_devices=0)
+                state = _hook_state(cspec, mutated, dev)
+                if mesh is not None:
+                    state = _to_mesh_state(spec, state, mesh)
     if ck is not None:
         ck.wait()
+    if mesh is not None and checkpoint_dir is not None:
+        mesh.barrier()          # no rank returns before the last save
 
+    state = canonical(state)
     hits = joined(hits_parts)
     regs = state["regs"].cpu()                   # waits for the device
     traj = torch.cat(traj_parts).cpu() if traj_parts else None
@@ -825,7 +892,10 @@ def resume_trace(trace, cfg: DeviceWTinyLFU, *, checkpoint_dir: str,
 
     Checkpoints hold the reference's tree, leaf for leaf, so one written by
     the JAX package resumes here and the reverse, and one written on the
-    card resumes on the CPU.  With no checkpoint yet (killed before the
+    card resumes on the CPU.  They hold the single-device layout, so a
+    meshed run's checkpoint resumes on one device or on any mesh whose
+    size divides ``cfg.shards``, and the reverse (elastic restore); every
+    rank of a mesh calls this.  With no checkpoint yet (killed before the
     first), the resume is a fresh run (``resumed_at`` 0).  A checkpoint
     written under another logical configuration (any ``DeviceWTinyLFU``
     field, climb vector, warmup or trace length) raises ``ValueError``.
@@ -854,10 +924,10 @@ def resume_trace(trace, cfg: DeviceWTinyLFU, *, checkpoint_dir: str,
             f"checkpoint {checkpoint_dir!r} step {step} was saved under a "
             f"different configuration (differing fields: {diffs}) — resume "
             "with the original DeviceWTinyLFU / climb / warmup / trace")
-    ks._require_ported(cfg.spec())
     spec = cfg.spec()
+    cspec = replace(spec, mesh_devices=0)       # the canonical layout
     template = {"state": {k: np.zeros(v, np.int32)
-                          for k, v in ks._state_shapes(spec).items()},
+                          for k, v in ks._state_shapes(cspec).items()},
                 "carry": np.zeros((6,), np.int32),
                 "hits": np.zeros((cursor,), np.int32)}
     if cfg.adaptive:
@@ -866,8 +936,10 @@ def resume_trace(trace, cfg: DeviceWTinyLFU, *, checkpoint_dir: str,
         template["quotas"] = np.zeros((ne,), np.int32)
     tree = restore_checkpoint(checkpoint_dir, step, template, device="cpu")
     arrays = {k: v.numpy() for k, v in tree["state"].items()}
-    state = ks.state_from_numpy(spec, arrays, resolve_device(device))
-    _check_table_indices(spec, arrays)
+    state = ks.state_from_numpy(cspec, arrays, _run_device(cfg, device))
+    if cfg.mesh is not None:    # elastic: onto this mesh, whatever wrote it
+        state = _to_mesh_state(spec, state, cfg.mesh)
+        cfg.mesh.barrier()      # every rank has read before rank 0 writes
     return _run_checkpointed(
         cfg, trace, _start=cursor, _state=state,
         _carry=(tree["carry"] if cfg.adaptive else None),
@@ -884,7 +956,7 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
                    policies=("wtinylfu",), device=None, chunk: int = 512,
                    **cfg_kw) -> list[SimResult]:
     """Cartesian (capacity x window_frac x policy) sweep (counterpart of
-    the reference's ``simulate_sweep`` for unmeshed grids).
+    the reference's ``simulate_sweep``).
 
     ``mode="sequential"`` runs one configuration after another, each with
     its own tight geometry (sketch sized like the host's, bit-identical to
@@ -913,7 +985,8 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
     ``trace`` may be ``(N,)`` (shared by all configurations) or ``(G, N)``
     (one trace per grid point).  Rows carry the reference's schema
     (``grid``, ``grid_wall_s``, amortized ``wall_s``).  Meshed grids are
-    not ported yet and raise.
+    run ``"sequential"`` only, each configuration on its mesh (``"auto"``
+    resolves to it; ``"vmap"`` raises).
     """
     policies = tuple(policies)
     grid = [DeviceWTinyLFU(C, window_frac=wf, sample_factor=sample_factor,
@@ -929,15 +1002,15 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
                 "mode='sequential'")
         if mode == "auto":
             mode = "sequential"
-    if any(c.mesh is not None for c in grid):
-        raise NotImplementedError("mesh sweeps are ROADMAP queue 1 item 12")
-    for c in grid:
-        ks._require_ported(c.spec())
-    dev = resolve_device(device)
+    meshed = any(c.mesh is not None for c in grid)
+    if meshed:
+        for c in grid:
+            c.mesh_devices    # eager: reject bad mesh/shards combos up front
+    dev = _run_device(grid[0], device)
     sharded = any(c.shards > 1 for c in grid)
     if mode == "auto":
-        mode = ("vmap" if dev.type == "cuda" and not (sharded or adaptive)
-                else "sequential")
+        mode = ("vmap" if dev.type == "cuda"
+                and not (sharded or adaptive or meshed) else "sequential")
     if mode not in ("vmap", "sequential"):
         raise ValueError(f"unknown mode {mode!r}")
     if adaptive:
@@ -947,6 +1020,10 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
         if len(climbs) != len(grid):
             raise ValueError(f"climb sequence length {len(climbs)} != "
                              f"{len(grid)} grid configurations")
+    if meshed and mode == "vmap":
+        raise ValueError("mesh sweeps run per-config mesh programs (the "
+                         "lanes would silently run the single-device "
+                         "path): use mode='sequential'")
     if sharded and mode == "vmap":
         raise ValueError("sharded sweeps run per-config epoch-chunked "
                          "programs: use mode='sequential'")
@@ -984,11 +1061,9 @@ def simulate_sweep(trace: np.ndarray, capacities, *, window_fracs=(0.01,),
             st = init_step_state(spec, c.window_cap, c.main_cap, device=dev)
             lo, hi = _trace_lanes(trace if shared_trace else trace[gi], dev)
             params = c.params(warmup=warmup, device=dev)
-            if adaptive:
-                st = _run_adaptive(c, spec, params, st, lo, hi,
-                                   climbs[gi])[0]
-            else:
-                st = _run(c, spec, params, st, lo, hi, chunk)[0]
+            st = _segment(c, spec, params, st, lo, hi,
+                          climbs[gi] if adaptive else ClimbSpec(), None,
+                          None, chunk)[0]
             outs.append(st["regs"])
         regs = torch.stack(outs).cpu()
     wall = time.perf_counter() - t0

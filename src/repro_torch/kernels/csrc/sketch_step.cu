@@ -104,6 +104,18 @@
 // LFU loads no window set; on a miss each lane estimates its own records of
 // the key's two sets and the warp takes the minimum (estimate, stamp).
 //
+// The stale mesh step (mesh = 1, the reference's _sketch_add_mesh and
+// _estimate_pair_stale; kernel mode 1e) is the kMesh instance of the static
+// and adaptive builds: counters/dk hold only the global halves, so every
+// estimate is the unsharded one on them, and the add (add_mesh) composes
+// the global words with this rank's delta blocks and writes the deltas,
+// only where the rank owns the key's shard; no per-access reset.  The wide
+// instances (RM = kWideSet, kWideFlat; more than 8 doorkeeper probes or 128
+// ways) keep no record in registers: the add runs on one thread, the flat
+// path's lookups as before with the probes read from the tables, and the
+// set path's accesses on one thread (access_exact*), which also takes a
+// fault's out-of-range table addresses.
+//
 // Timing probes (python -m repro_torch.kernels.phase_timing) build this file
 // with -DSKETCH_STEP_SKIP_ADD or -DSKETCH_STEP_SKIP_ACCESS to compile one
 // phase out of the loop; the engine's build defines neither.
@@ -116,8 +128,10 @@ constexpr int kI32Max = 0x7fffffff;
 constexpr int kProt = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRows = 8;
-constexpr int kMaxDkp = 8;
-constexpr int kMaxWays = 128;    // the wrapper's _MAX_WAYS
+constexpr int kMaxDkp = 8;       // past it: the wide instances
+constexpr int kMaxWays = 128;    // past it: the wide instances
+constexpr int kWideSet = -1;     // RM of the wide set-associative instances
+constexpr int kWideFlat = -2;    // RM of the wide flat instances
 constexpr int kNRegs = 8;        // NREGS
 
 enum { P_WINDOW_CAP, P_MAIN_CAP, P_PROT_CAP, P_SAMPLE, P_CAP, P_WARMUP };
@@ -164,6 +178,17 @@ struct StepArgs {
   int adaptive;         // 1: the runtime window quota (the kAdapt build)
   int policy;           // kWtinylfu, or a competitor (the panel build)
   int* ghost;           // ARC: (2 dk_words,) B1 || B2 ghost Blooms
+  // the stale mesh step (mode 1e; after every older field, so their
+  // offsets stay): counters/dk hold the global halves, these this rank's
+  // delta blocks of its local_shards shards, the first of them mesh_base
+  int* dcounters;       // (local_shards, rows, wps_shard)
+  int* ddk;             // (local_shards, dkw_shard)
+  int mesh;             // 1: the stale mesh step
+  int mesh_base, local_shards, width_shard, dk_bits_shard, wps_shard,
+      dkw_shard;
+  // 1: the tables may hold addresses out of range (a fault's: stored main
+  // sets, ARC ghost positions), so the chunk runs on the exact path
+  int exact;
 };
 
 namespace {
@@ -193,6 +218,12 @@ struct Entry {
 // usable ways per set (mbase, one more below set mrem).
 struct Adapt {
   int wquota, wcount, mcount, mcap_rt, prot_rt, mbase, mrem;
+};
+
+// ARC's registers for a chunk: the target p, |T1|, and the inserts into the
+// B1 and B2 ghost halves since each was last cleared.
+struct Arc {
+  int p, t1, gb1, gb2;
 };
 
 // Floor division and modulo by d > 0 (jnp.int32 // and %).
@@ -396,6 +427,45 @@ __device__ __forceinline__ void add_words(const StepArgs& a, const Sketch& s,
   if (gate && static_cast<int>(m) < cap && ln.row && v == m)
     a.counters[a.counter_words + ln.lane * a.words_per_row
                + (k.pr >> s.shift)] = static_cast<int>(
+        w.d + (1u << ((k.pr & s.cpw_mask) * a.counter_bits)));
+}
+
+// The stale mesh step's add (mode 1e): the rank that owns the key's shard
+// (row 0's probe over width_shard; every probe of a key lies in one shard)
+// composes its delta words with the global ones as the sharded add does and
+// writes its delta blocks, shard-major (local shard, row, word in shard) and
+// (local shard, doorkeeper word in shard); another rank writes nothing.
+__device__ __forceinline__ void add_mesh(const StepArgs& a, const Sketch& s,
+                                         const Lanes& ln, int cap,
+                                         const Entry& k) {
+  // each probe lane finds the shard from its own probe (the shard widths
+  // are powers of two), so the loads issue as soon as the probe is in
+  const int sw = ln.row ? a.width_shard : max(a.dk_bits_shard, 1);
+  const int lk = (k.pr >> (__ffs(sw) - 1)) - a.mesh_base;
+  const bool local = lk >= 0 && lk < a.local_shards;
+  const bool own = ln.row || ln.dk_on;
+  const int* gp = ln.row ? a.counters + ln.lane * a.words_per_row
+                               + (k.pr >> s.shift)
+                         : a.dk + (k.pr >> 5);
+  int* dp = ln.row ? a.dcounters + (lk * a.rows + ln.lane) * a.wps_shard
+                         + ((k.pr & (sw - 1)) >> s.shift)
+                   : a.ddk + lk * a.dkw_shard + ((k.pr & (sw - 1)) >> 5);
+  const Words w{own ? static_cast<uint32_t>(*gp) : 0u,
+                own && local ? static_cast<uint32_t>(*dp) : 0u};
+  if (!__shfl_sync(kFull, local, 0)) return;   // another rank's shard
+  bool gate = true;
+  if (a.dk_bits) {
+    const unsigned same = __match_any_sync(kFull, ln.dk_on ? k.pr
+                                                           : -1 - ln.lane);
+    const bool eff = (((w.g | w.d) >> (k.pr & 31)) & 1u)
+                     || (same & ((1u << ln.lane) - 1u));
+    gate = __ballot_sync(kFull, ln.dk_on && !eff) == 0;
+  }
+  const uint32_t v = counter_of(a, s, ln, w, k.pr);
+  const uint32_t m = __reduce_min_sync(kFull, v);
+  if (ln.dk_on) atomicOr(reinterpret_cast<unsigned*>(dp), 1u << (k.pr & 31));
+  if (gate && static_cast<int>(m) < cap && ln.row && v == m)
+    *dp = static_cast<int>(
         w.d + (1u << ((k.pr & s.cpw_mask) * a.counter_bits)));
 }
 
@@ -611,6 +681,562 @@ __device__ int access_flat(const StepArgs& a, const Sketch& s, const int* P,
   return 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// The exact path: one thread, the records in memory, any ways and probes
+// ---------------------------------------------------------------------------
+// The wide instances (more than kMaxDkp doorkeeper probes or kMaxWays ways,
+// past what the register-held records of the other instances take) run
+// every access here, and the launch takes them for any geometry when the
+// tables may hold addresses out of range (StepArgs.exact: a fault's stored
+// main sets or ARC ghost positions, core/faults.py; the kernel writes
+// none), where the reference's block slices clamp and its block writes
+// overwrite one another; the other instances are unchanged.  One thread runs
+// it (lane 0 of warp 0), reading the records from memory, and follows the
+// reference's per-access program: the decisions read the pre-access blocks
+// (a candidate set block at the clamped start of its stored set, fixed up by
+// the hit updates where the stored set equals one of the key's), and the
+// blocks are written in the order km1, km2, c1, c2, window, a later block's
+// write winning where blocks overlap.  Instead of copying blocks, each main
+// row is written once, from the last block whose write covers it, from its
+// pre-access content, the hit updates and the insert; only the words that
+// change are stored.  kSk: 0 one sketch, 1 the [global || delta] halves,
+// 2 the stale mesh step (global estimates; the add writes the delta blocks).
+
+// The row where the block of set c starts, as the reference's dynamic
+// slices take it: the int32 product c * A (it wraps), clamped into
+// [0, n - A].
+__device__ __forceinline__ int block_start(int c, int A, int n) {
+  return min(max(wrap_mul(c, A), 0), n - A);
+}
+
+// TinyLFU estimate of an entry from its stored probes in memory (rows
+// counter probes at idx, dkp doorkeeper probes at dkb); word indices clamp.
+// kH: global + delta counters, global | delta bits.
+template <bool kH>
+__device__ int estimate_mem(const StepArgs& a, const Sketch& s, const int* idx,
+                            const int* dkb) {
+  uint32_t est = 0xffffffffu;
+  for (int r = 0; r < a.rows; ++r) {
+    const int i = r * a.words_per_row + (idx[r] >> s.shift);
+    const int sh = (idx[r] & s.cpw_mask) * a.counter_bits;
+    uint32_t v;
+    if constexpr (kH) {
+      const int n = 2 * a.counter_words;
+      v = ((static_cast<uint32_t>(a.counters[clip_index(i, n)]) >> sh)
+           & s.capmax)
+          + ((static_cast<uint32_t>(
+                  a.counters[clip_index(a.counter_words + i, n)]) >> sh)
+             & s.capmax);
+    } else {
+      v = (static_cast<uint32_t>(a.counters[clip_index(i, a.counter_words)])
+           >> sh) & s.capmax;
+    }
+    est = v < est ? v : est;
+  }
+  if (a.dk_bits) {
+    bool ok = true;
+    for (int p = 0; p < a.dkp && ok; ++p) {
+      const int b = dkb[p] >> 5;
+      uint32_t w;
+      if constexpr (kH) {
+        const int n = 2 * a.dk_words;
+        w = static_cast<uint32_t>(a.dk[clip_index(b, n)]
+                                  | a.dk[clip_index(a.dk_words + b, n)]);
+      } else {
+        w = static_cast<uint32_t>(a.dk[clip_index(b, a.dk_words)]);
+      }
+      ok = (w >> (dkb[p] & 31)) & 1u;
+    }
+    est += ok ? 1u : 0u;
+  }
+  return static_cast<int>(est);
+}
+
+// Access i's sketch add, any probe count, by one thread: the doorkeeper gate
+// reads every probe's word before any bit is set, then the conservative
+// increment.  kSk = 2: only the rank that owns the key's shard adds, into
+// its delta blocks.
+template <int kSk>
+__device__ void add_generic(const StepArgs& a, const Sketch& s, int cap,
+                            int i) {
+  const int* kidx = a.kidx + i * a.rows;
+  const int* kdkb = a.kdkb + i * a.dkp;
+  int ks = 0, lks = 0;
+  if constexpr (kSk == 2) {
+    ks = kidx[0] / a.width_shard;
+    lks = ks - a.mesh_base;
+    if (lks < 0 || lks >= a.local_shards) return;
+  }
+  // where probe b's doorkeeper bit goes, and its word as the gate reads it
+  auto dk_slot = [&](int b) -> int* {
+    if constexpr (kSk == 0) return a.dk + (b >> 5);
+    else if constexpr (kSk == 1) return a.dk + a.dk_words + (b >> 5);
+    else return a.ddk + lks * a.dkw_shard + ((b - ks * a.dk_bits_shard) >> 5);
+  };
+  auto dk_read = [&](int b) -> uint32_t {
+    const uint32_t own = static_cast<uint32_t>(*dk_slot(b));
+    return kSk == 0 ? own : own | static_cast<uint32_t>(a.dk[b >> 5]);
+  };
+  bool gate = true;
+  if (a.dk_bits) {
+    for (int p = 0; p < a.dkp; ++p) {
+      const int b = kdkb[p];
+      bool eff = (dk_read(b) >> (b & 31)) & 1u;
+      for (int q = 0; q < p && !eff; ++q) eff = kdkb[q] == b;
+      gate = gate && eff;
+    }
+    for (int p = 0; p < a.dkp; ++p)
+      *dk_slot(kdkb[p]) |= static_cast<int>(1u << (kdkb[p] & 31));
+  }
+  // row r's counter word that the bump goes into, and its counter value
+  auto c_slot = [&](int r) -> int* {
+    const int pr = kidx[r];
+    if constexpr (kSk == 0)
+      return a.counters + r * a.words_per_row + (pr >> s.shift);
+    else if constexpr (kSk == 1)
+      return a.counters + a.counter_words + r * a.words_per_row
+             + (pr >> s.shift);
+    else
+      return a.dcounters + (lks * a.rows + r) * a.wps_shard
+             + ((pr - ks * a.width_shard) >> s.shift);
+  };
+  auto c_val = [&](int r) -> uint32_t {
+    const int sh = (kidx[r] & s.cpw_mask) * a.counter_bits;
+    uint32_t v = (static_cast<uint32_t>(*c_slot(r)) >> sh) & s.capmax;
+    if constexpr (kSk != 0)
+      v += (static_cast<uint32_t>(
+                a.counters[r * a.words_per_row + (kidx[r] >> s.shift)]) >> sh)
+           & s.capmax;
+    return v;
+  };
+  uint32_t m = 0xffffffffu;
+  for (int r = 0; r < a.rows; ++r) m = min(m, c_val(r));
+  if (!gate || static_cast<int>(m) >= cap) return;
+  for (int r = 0; r < a.rows; ++r) {        // rows are distinct words
+    if (c_val(r) != m) continue;
+    int* w = c_slot(r);
+    *w = static_cast<int>(static_cast<uint32_t>(*w)
+                          + (1u << ((kidx[r] & s.cpw_mask) * a.counter_bits)));
+  }
+}
+
+// Write an entry into a main record: lo, hi, meta, then its probes.
+__device__ __forceinline__ void put_main(const StepArgs& a, int* r, int lo,
+                                         int hi, int meta, const int* idx,
+                                         const int* dkb) {
+  r[MT_LO] = lo;
+  r[MT_HI] = hi;
+  r[MT_META] = meta;
+  for (int q = 0; q < a.rows; ++q) r[3 + q] = idx[q];
+  for (int q = 0; q < a.dkp; ++q) r[3 + a.rows + q] = dkb[q];
+}
+
+// W-TinyLFU (kPol = kWtinylfu, static or adaptive) or S3-FIFO on the set
+// tables, one access, by one thread; returns the hit flag.
+template <int kSk, bool kAdapt, int kPol>
+__device__ __noinline__ int access_exact(const StepArgs& a, const Sketch& s,
+                                         const int* P, int i, int t,
+                                         const Adapt& ad) {
+  constexpr bool kW = kPol == kWtinylfu;
+  const int A = a.assoc, wc = a.wcols, mc = a.mcols, rows = a.rows;
+  const int klo = a.lo[i], khi = a.hi[i], kw = a.kwset[i];
+  const int km1 = a.kmset[2 * i], km2 = a.kmset[2 * i + 1];
+  const int* kidx = a.kidx + i * rows;
+  const int* kdkb = a.kdkb + i * a.dkp;
+  const bool same_km = km1 == km2;
+  const int wst = kW ? wstamp<kAdapt>(t) : t;
+  const int mst = kW ? mstamp<kAdapt>(t) : t;
+  int* W = a.wtab + kw * A * wc;
+  int* mt = a.mtab;
+  const int wu = kAdapt ? a.wuw[kw] : A;
+  // usable ways of main set c (any int c, as the reference computes them)
+  auto mu = [&](int c) { return kAdapt ? ad.mbase + (c < ad.mrem ? 1 : 0)
+                                       : A; };
+  // a way at or past its set's usable count reads as padding
+  auto rd = [&](int m, int j, int u) { return kAdapt && j >= u ? kI32Max
+                                                                : m; };
+  auto meta = [&](int row) { return mt[row * mc + MT_META]; };
+  auto match = [&](int row, int j, int u) {
+    const int* r = mt + row * mc;
+    return r[MT_LO] == klo && r[MT_HI] == khi && rd(r[MT_META], j, u) >= 0;
+  };
+
+  bool hit_w = false;
+  int jw = 0;
+  for (int j = 0; j < A && !hit_w; ++j) {
+    const int* r = W + j * wc;
+    if (r[WT_LO] == klo && r[WT_HI] == khi && rd(r[WT_META], j, wu) >= 0) {
+      hit_w = true;
+      jw = j;
+    }
+  }
+  const int s1 = km1 * A, s2 = km2 * A, u1 = mu(km1), u2 = mu(km2);
+  bool hit1 = false, hit2 = false;
+  int j1 = 0, j2 = 0;
+  for (int j = 0; j < A; ++j) {
+    if (!hit1 && match(s1 + j, j, u1)) { hit1 = true; j1 = j; }
+    if (!hit2 && match(s2 + j, j, u2)) { hit2 = true; j2 = j; }
+  }
+  hit2 = hit2 && !same_km;
+  const bool hit = hit_w || hit1 || hit2;
+
+  // the window's LRU record (W-TinyLFU: after the hit's refresh) is the
+  // candidate; a zero-way window set is bypassed and the key is it
+  int ws = 0, wsm = kI32Max;
+  for (int j = 0; j < A; ++j) {
+    int m = rd(W[j * wc + WT_META], j, wu);
+    if (kW && hit_w && j == jw) m = wst;
+    if (m < wsm) { wsm = m; ws = j; }
+  }
+  const bool w_ok = wsm != kI32Max;
+  const bool push = !hit && (wsm >= 0 || !w_ok);
+  const int* cw = W + ws * wc;
+  const int clo = w_ok ? cw[WT_LO] : klo, chi = w_ok ? cw[WT_HI] : khi;
+  const int c1 = w_ok ? cw[WT_MSET] : km1, c2 = w_ok ? cw[WT_MSET2] : km2;
+  const int* cidx = w_ok ? cw + 5 : kidx;
+  const int* cdkb = w_ok ? cw + 5 + rows : kdkb;
+
+  // W-TinyLFU's hit update of a key set: the way hit moves to protected,
+  // then the set's protected LRU is demoted if the set is over its budget;
+  // returns the demoted way, or -1
+  auto demoted = [&](int st, int u, bool h, int jh) {
+    if (!kW || !h) return -1;
+    int usable = 0, nprot = 0, kd = 0, kv = kI32Max;
+    for (int j = 0; j < A; ++j) {
+      const int m = j == jh ? (kProt | mst) : rd(meta(st + j), j, u);
+      usable += m != kI32Max ? 1 : 0;
+      nprot += m >= kProt && m != kI32Max ? 1 : 0;
+      const int key = m >= kProt ? m : kI32Max;
+      if (key < kv) { kv = key; kd = j; }
+    }
+    const int mcap = P[P_MAIN_CAP] > 1 ? P[P_MAIN_CAP] : 1;
+    long long cap = static_cast<long long>(usable) * P[P_PROT_CAP] / mcap;
+    return nprot > (cap < 1 ? 1 : cap) ? kd : -1;
+  };
+  const int kd1 = demoted(s1, u1, hit1, j1);
+  const int kd2 = demoted(s2, u2, hit2, j2);
+  // way j of the key's first / second set after the hit updates (masked);
+  // S3-FIFO marks every matching way
+  auto post1 = [&](int j) {
+    int m = rd(meta(s1 + j), j, u1);
+    if (kW) {
+      if (hit1 && j == j1) m = kProt | mst;
+      if (j == kd1) m = mst;
+    } else if (match(s1 + j, j, u1)) {
+      m |= kProt;
+    }
+    return m;
+  };
+  auto post2 = [&](int j) {
+    if (same_km) return post1(j);
+    int m = rd(meta(s2 + j), j, u2);
+    if (kW) {
+      if (hit2 && j == j2) m = kProt | mst;
+      if (j == kd2) m = mst;
+    } else if (match(s2 + j, j, u2)) {
+      m |= kProt;
+    }
+    return m;
+  };
+  // way j of candidate set block h (the reference's fixup compares the
+  // stored set itself, unclamped, with the key's sets)
+  const int cs1 = block_start(c1, A, a.main_slots);
+  const int cs2 = block_start(c2, A, a.main_slots);
+  const int cu1 = mu(c1), cu2 = mu(c2);
+  auto cb = [&](int h, int j) {
+    const int c = h ? c2 : c1;
+    if (c == km2) return post2(j);
+    if (c == km1) return post1(j);
+    return rd(meta((h ? cs2 : cs1) + j), j, h ? cu2 : cu1);
+  };
+  int vh = 0, vj = 0, vm = cb(0, 0);
+  for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < A; ++j) {
+      const int m = cb(h, j);
+      if (m < vm) { vm = m; vh = h; vj = j; }
+    }
+  bool do_ins = false;
+  if (push && vm != kI32Max) {
+    constexpr bool kH = kSk == 1;
+    if constexpr (kW) {
+      do_ins = vm < 0;
+      if (!do_ins) {
+        const int* v = mt + ((vh ? cs2 : cs1) + vj) * mc;
+        do_ins = estimate_mem<kH>(a, s, cidx, cdkb)
+                 > estimate_mem<kH>(a, s, v + 3, v + 3 + rows);
+      }
+    } else {
+      do_ins = estimate_mem<kH>(a, s, cidx, cdkb) >= 2;
+    }
+  }
+
+  // main rows, each from the last block written over it
+  const int st[4] = {s1, s2, cs1, cs2};
+  const bool same_c = c1 == c2;
+  for (int x = 3; x >= 0; --x) {
+    for (int j = 0; j < A; ++j) {
+      const int row = st[x] + j;
+      bool later = false;
+      for (int y = x + 1; y < 4; ++y)
+        later = later || (row >= st[y] && row < st[y] + A);
+      if (later) continue;
+      int m, u;
+      bool ins = false;
+      if (x == 0) {
+        m = post1(j);
+        u = u1;
+      } else if (x == 1) {
+        m = post2(j);
+        u = u2;
+      } else {
+        const int h = x == 3 && !same_c ? 1 : 0;
+        m = cb(h, j);
+        u = h ? cu2 : cu1;
+        ins = do_ins && vh == h && vj == j;
+      }
+      int* r = mt + row * mc;
+      if (ins) {
+        put_main(a, r, clo, chi, mst, cidx, cdkb);
+      } else {
+        if (kAdapt && j >= u) m = -1;     // masked ways are written EMPTY
+        if (r[MT_META] != m) r[MT_META] = m;
+      }
+    }
+  }
+  // the window block (its own table): refresh, the key's row, masked EMPTY
+  for (int j = 0; j < A; ++j) {
+    int* r = W + j * wc;
+    if (!hit && w_ok && j == ws) {
+      r[WT_LO] = klo;
+      r[WT_HI] = khi;
+      r[WT_META] = wst;
+      r[WT_MSET] = km1;
+      r[WT_MSET2] = km2;
+      for (int q = 0; q < rows; ++q) r[5 + q] = kidx[q];
+      for (int q = 0; q < a.dkp; ++q) r[5 + rows + q] = kdkb[q];
+    } else {
+      int m = r[WT_META];
+      if (kW && hit_w && j == jw) m = wst;
+      if (kAdapt && j >= wu) m = -1;
+      if (r[WT_META] != m) r[WT_META] = m;
+    }
+  }
+  return hit ? 1 : 0;
+}
+
+// ARC or LFU (the wide instances of the panel), one access, by one thread,
+// in the order of the reference's program; returns the hit flag.  ARC's
+// ghost words of a victim's stored probes clamp into the leaf, and where
+// two clamp together the later probe's write wins.
+template <int kPol>
+__device__ __noinline__ int access_exact_panel(const StepArgs& a,
+                                               const Sketch& s, const int* P,
+                                               int i, int t, Arc& arc) {
+  const int A = a.assoc, mc = a.mcols, rows = a.rows, dkw = a.dk_words;
+  const int klo = a.lo[i], khi = a.hi[i];
+  const int km1 = a.kmset[2 * i], km2 = a.kmset[2 * i + 1];
+  const int* kidx = a.kidx + i * rows;
+  const int* kdkb = a.kdkb + i * a.dkp;
+  const bool same_km = km1 == km2;
+  int* mt = a.mtab;
+  const int s1 = km1 * A, s2 = km2 * A;
+  auto meta = [&](int row) { return mt[row * mc + MT_META]; };
+  auto match = [&](int row) {
+    const int* r = mt + row * mc;
+    return r[MT_LO] == klo && r[MT_HI] == khi && r[MT_META] >= 0;
+  };
+  bool hit = false, hit_t1 = false;
+  for (int j = 0; j < A; ++j) {
+    const bool m1 = match(s1 + j), m2 = !same_km && match(s2 + j);
+    hit = hit || m1 || m2;
+    hit_t1 = hit_t1 || (m1 && meta(s1 + j) < kProt)
+             || (m2 && meta(s2 + j) < kProt);
+  }
+  const int hmeta = kPol == kArc ? (kProt | t) : t;   // a hit's new meta
+  // way j of block h after the hit updates (block 1 is the first when the
+  // key's sets alias)
+  auto post = [&](int h, int j) {
+    const int row = (h && !same_km ? s2 : s1) + j;
+    return match(row) ? hmeta : meta(row);
+  };
+  const int* vrow = nullptr;
+  int vh = 0, vj = 0, mins = kI32Max;
+  bool do_ins = false, t2 = false;
+  if constexpr (kPol == kArc) {
+    bool gb1 = true, gb2 = true;
+    for (int p = 0; p < a.dkp; ++p) {
+      const int b = kdkb[p];
+      gb1 = gb1 && ((static_cast<uint32_t>(a.ghost[b >> 5]) >> (b & 31)) & 1u);
+      gb2 = gb2 && ((static_cast<uint32_t>(a.ghost[dkw + (b >> 5)])
+                     >> (b & 31)) & 1u);
+    }
+    const bool in_b1 = !hit && gb1, in_b2 = !hit && gb2 && !gb1;
+    const int p = in_b1 ? min(P[P_MAIN_CAP], arc.p + 1)
+                        : (in_b2 ? max(0, arc.p - 1) : arc.p);
+    const int flip = arc.t1 > p || (in_b2 && arc.t1 == p) ? 0 : kProt;
+    auto okey = [&](int m) { return m == kI32Max ? kI32Max
+                                                 : (m < 0 ? -1 : m ^ flip); };
+    for (int h = 0; h < 2; ++h)
+      for (int j = 0; j < A; ++j) {
+        const int k = okey(post(h, j));
+        if ((h == 0 && j == 0) || k < mins) { mins = k; vh = h; vj = j; }
+      }
+    do_ins = !hit && mins != kI32Max;
+    const int vmeta = post(vh, vj);
+    vrow = mt + ((vh && !same_km ? s2 : s1) + vj) * mc;
+    const bool evict = do_ins && vmeta >= 0;
+    const bool was_t1 = evict && vmeta < kProt;
+    if (evict) {
+      const int goff = was_t1 ? 0 : dkw;
+      const bool clr = (was_t1 ? arc.gb1 : arc.gb2) >= P[P_MAIN_CAP];
+      const int* vd = vrow + 3 + rows;
+      auto cpos = [&](int q) { return min(max(goff + (vd[q] >> 5), 0),
+                                          2 * dkw - 1); };
+      if (clr)
+        for (int w = 0; w < dkw; ++w) a.ghost[goff + w] = 0;
+      for (int q = a.dkp - 1; q >= 0; --q) {   // the last writer of a word
+        bool later = false;
+        for (int o = q + 1; o < a.dkp && !later; ++o) later = cpos(o) == cpos(q);
+        if (later) continue;
+        const int vpos = goff + (vd[q] >> 5);
+        uint32_t merged = clr ? 0u : static_cast<uint32_t>(a.ghost[cpos(q)]);
+        for (int o = 0; o < a.dkp; ++o)
+          if (goff + (vd[o] >> 5) == vpos) merged |= 1u << (vd[o] & 31);
+        a.ghost[cpos(q)] = static_cast<int>(merged);
+      }
+      if (was_t1) arc.gb1 = (clr ? 0 : arc.gb1) + 1;
+      else arc.gb2 = (clr ? 0 : arc.gb2) + 1;
+    }
+    t2 = gb1 || gb2;
+    arc.t1 += (do_ins && !t2 ? 1 : 0) - (was_t1 ? 1 : 0) - (hit_t1 ? 1 : 0);
+    arc.p = p;
+  } else {
+    // LFU: the smallest estimate (empty as -1, padding and an aliased
+    // second set never), then the oldest stamp among those
+    auto okey1 = [&](int h, int j) {
+      const int m = post(h, j);
+      if (m == kI32Max || (same_km && h == 1)) return kI32Max;
+      if (m < 0) return -1;
+      const int* r = mt + ((h ? s2 : s1) + j) * mc;
+      return estimate_mem<false>(a, s, r + 3, r + 3 + rows);
+    };
+    int emin = kI32Max;
+    for (int h = 0; h < 2; ++h)
+      for (int j = 0; j < A; ++j) emin = min(emin, okey1(h, j));
+    int k1 = kI32Max;
+    for (int h = 0; h < 2; ++h)
+      for (int j = 0; j < A; ++j) {
+        const int k0 = okey1(h, j);
+        const int k = k0 == emin ? post(h, j) : kI32Max;
+        if ((h == 0 && j == 0) || k < mins) { mins = k; vh = h; vj = j;
+                                              k1 = k0; }
+      }
+    do_ins = !hit && k1 != kI32Max;
+  }
+  // the key's blocks: km1 then km2 (aliased: one block, written twice)
+  const int head = kPol == kArc && t2 ? (kProt | t) : t;
+  for (int h = 1; h >= 0; --h) {
+    if (h == 0 && same_km) break;
+    for (int j = 0; j < A; ++j) {
+      int* r = mt + ((h ? s2 : s1) + j) * mc;
+      if (do_ins && j == vj && (vh == h || same_km)) {
+        put_main(a, r, klo, khi, head, kidx, kdkb);
+      } else {
+        const int m = post(h, j);
+        if (r[MT_META] != m) r[MT_META] = m;
+      }
+    }
+  }
+  return hit ? 1 : 0;
+}
+
+// One access against the exact flat tables with any probe count (the wide
+// flat instances): access_flat's program, the probes read from the tables;
+// the window row is written after the main insert has copied the
+// candidate's probes out of it.
+template <bool kH, bool kAdapt>
+__device__ int access_flat_wide(const StepArgs& a, const Sketch& s,
+                                const int* P, int i, int t, int& pcount,
+                                int lane, Adapt& ad) {
+  const int wst = wstamp<kAdapt>(t), mst = mstamp<kAdapt>(t);
+  const int klo = __ldg(a.lo + i), khi = __ldg(a.hi + i);
+  const int* kidx = a.kidx + i * a.rows;
+  const int* kdkb = a.kdkb + i * a.dkp;
+  bool f;
+  const int jw = first_true(a.window_slots, [&](int j) {
+    return a.wlo[j] == klo && a.whi[j] == khi; }, f);
+  const int jm = first_true(a.main_slots, [&](int j) {
+    return a.mlo[j] == klo && a.mhi[j] == khi; }, f);
+  const bool hit_w = a.wlo[jw] == klo && a.whi[jw] == khi && a.wmeta[jw] >= 0;
+  const int mjm = a.mmeta[jm];
+  const bool hit_m = a.mlo[jm] == klo && a.mhi[jm] == khi && mjm >= 0;
+  const bool hit = hit_w || hit_m;
+  __syncwarp();
+  if (lane == 0) {
+    if (hit_w) a.wmeta[jw] = wst;
+    if (hit_m) a.mmeta[jm] = kProt | mst;
+  }
+  __syncwarp();
+  pcount += (hit_m && mjm < kProt) ? 1 : 0;
+  int v;
+  const int prot_cap = kAdapt ? ad.prot_rt : P[P_PROT_CAP];
+  if ((!kAdapt || hit_m) && pcount > prot_cap) {
+    const int kd = argmin_over(a.main_slots, [&](int j) {
+      const int mm = a.mmeta[j]; return mm >= kProt ? mm : kI32Max; }, v);
+    __syncwarp();
+    if (lane == 0) a.mmeta[kd] = mst;
+    __syncwarp();
+    pcount -= 1;
+  }
+  if (hit) return 1;
+
+  int wsmeta;
+  const bool at_wcap = kAdapt && ad.wcount >= ad.wquota;
+  const int ws = argmin_over(a.window_slots, [&](int j) {
+    const int wm = a.wmeta[j];
+    return at_wcap && wm == -1 ? kI32Max : wm; }, wsmeta);
+  if constexpr (kAdapt) {
+    wsmeta = a.wmeta[ws];
+    ad.wcount += wsmeta == -1 ? 1 : 0;
+  }
+  const int* cidx = a.widx + ws * a.rows;
+  const int* cdkb = a.wdkb + ws * a.dkp;
+  bool do_ins = false;
+  int tslot = 0, vmeta = 0;
+  if (wsmeta >= 0) {                          // the window pushes a record
+    const bool at_mcap = kAdapt && ad.mcount >= ad.mcap_rt;
+    tslot = argmin_over(a.main_slots, [&](int j) {
+      const int mm = a.mmeta[j];
+      return at_mcap && mm == -1 ? kI32Max : mm; }, vmeta);
+    if constexpr (kAdapt) vmeta = a.mmeta[tslot];
+    do_ins = vmeta < 0
+             || estimate_mem<kH>(a, s, cidx, cdkb)
+                > estimate_mem<kH>(a, s, a.midx + tslot * a.rows,
+                                   a.mdkb + tslot * a.dkp);
+  }
+  __syncwarp();
+  if (lane == 0) {
+    if (do_ins) {
+      a.mlo[tslot] = a.wlo[ws];
+      a.mhi[tslot] = a.whi[ws];
+      a.mmeta[tslot] = mst;
+      for (int r = 0; r < a.rows; ++r) a.midx[tslot * a.rows + r] = cidx[r];
+      for (int p = 0; p < a.dkp; ++p) a.mdkb[tslot * a.dkp + p] = cdkb[p];
+    }
+    a.wlo[ws] = klo;
+    a.whi[ws] = khi;
+    a.wmeta[ws] = wst;
+    for (int r = 0; r < a.rows; ++r) a.widx[ws * a.rows + r] = kidx[r];
+    for (int p = 0; p < a.dkp; ++p) a.wdkb[ws * a.dkp + p] = kdkb[p];
+  }
+  __syncwarp();
+  if (do_ins) {
+    if (vmeta >= kProt) pcount -= 1;
+    if (kAdapt && vmeta < 0) ad.mcount += 1;
+  }
+  return 0;
+}
 
 // v[r] for a runtime r < N, by selects (register arrays are indexed by
 // unrolled constants only, so they stay in registers).
@@ -945,12 +1571,6 @@ __device__ __forceinline__ int pair_argmin(const int (&key)[RM], int& vh,
   return vm;
 }
 
-// ARC's registers for a chunk: the target p, |T1|, and the inserts into the
-// B1 and B2 ghost halves since each was last cleared.
-struct Arc {
-  int p, t1, gb1, gb2;
-};
-
 // One access of a competitor policy (kPol: S3-FIFO, ARC or LFU) against the
 // set-associative tables, from the registers load_sets filled (the main
 // sets; S3-FIFO's window set); returns the hit flag.  A main hit writes the
@@ -1191,14 +1811,21 @@ __device__ __forceinline__ void to_lane(StepArgs& a, long long l) {
   if (a.nvalid) a.n_valid = a.nvalid[l];
 }
 
-// The chunk loop.  RM = 0: the flat tables; else the set-associative path
-// with RM records per lane of a pair of main sets.  kLanes: CTA l runs
-// lane l of the lane grid.  kShard: the sharded sketch.  kAdapt: the
-// adaptive window.  kPol: W-TinyLFU, or a competitor of the panel (set
-// path only; ARC compiles out the sketch add and reset, and keeps its p,
-// |T1| and ghost counts in registers for the chunk).
-template <int RM, bool kLanes, bool kShard, bool kAdapt, int kPol = kWtinylfu>
+// The chunk loop.  RM = 0: the flat tables; RM > 0: the set-associative
+// path with RM records per lane of a pair of main sets; kWideSet /
+// kWideFlat: the wide instances (the add by one thread, the set path's
+// accesses by access_exact* and the flat path's by access_flat_wide).
+// kLanes: CTA l runs lane l of the lane grid.  kShard: the sharded sketch.
+// kAdapt: the adaptive window.  kPol: W-TinyLFU, or a competitor of the
+// panel (set path only; ARC compiles out the sketch add and reset, and keeps
+// its p, |T1| and ghost counts in registers for the chunk).  kMesh: the
+// stale mesh step (mode 1e: the add writes this rank's delta blocks, the
+// estimates read the global halves, no per-access reset).
+template <int RM, bool kLanes, bool kShard, bool kAdapt, int kPol = kWtinylfu,
+          bool kMesh = false>
 __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
+  constexpr bool kWide = RM < 0;
+  constexpr int kSk = kMesh ? 2 : (kShard ? 1 : 0);
   if constexpr (kLanes) to_lane<kShard, kAdapt, kPol>(a, blockIdx.x);
   __shared__ int prot_cap[kMaxWays + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1232,7 +1859,7 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
     ad.mcap_rt = P[P_WINDOW_CAP] + P[P_MAIN_CAP] - ad.wquota;
     const int pr = floordiv(wrap_mul(ad.mcap_rt, P[P_PROT_CAP]), main_cap);
     ad.prot_rt = pr < 1 ? 1 : pr;
-    if (RM != 0) {
+    if (RM != 0 && RM != kWideFlat) {
       const int nms = a.main_slots / a.assoc;
       ad.mbase = floordiv(ad.mcap_rt, nms);
       ad.mrem = floormod(ad.mcap_rt, nms);
@@ -1250,30 +1877,38 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   ln.dk_on = ln.dk && a.dk_bits != 0;
 
   Entry k, next;
-  if (warp == 0 && a.n_valid > 0) load_key(a, ln, 0, k);
+  if (!kWide && warp == 0 && a.n_valid > 0) load_key(a, ln, 0, k);
   for (int i = 0; i < a.n_valid; ++i) {
-    SetRegs<RM == 0 ? 1 : RM> g;
+    SetRegs<RM <= 0 ? 1 : RM> g;
     if (warp == 0) {
-      if (i + 1 < a.n_valid) load_key(a, ln, i + 1, next);   // one ahead
+      if (!kWide && i + 1 < a.n_valid) load_key(a, ln, i + 1, next);
 #ifndef SKETCH_STEP_SKIP_ACCESS
-      if constexpr (RM != 0)        // ARC and LFU never read the window
+      if constexpr (RM > 0)         // ARC and LFU never read the window
         load_sets<RM, kAdapt, kPol == kWtinylfu || kPol == kS3fifo>(
             a, k, g, lane, ad);
-      if constexpr (kAdapt && RM != 0)      // the window set's traffic
-        if (lane == 0) atomicAdd(a.wsl + k.w, 1);
+      if constexpr (kAdapt && RM != 0 && RM != kWideFlat)   // window set
+        if (lane == 0) atomicAdd(a.wsl + (kWide ? a.kwset[i] : k.w), 1);
 #endif
 #ifndef SKETCH_STEP_SKIP_ADD
       if constexpr (kPol != kArc) {
-        add_words(a, s, ln, P[P_CAP], k, load_probe<kShard>(a, s, ln, k.pr));
+        if constexpr (kWide) {
+          if (lane == 0) add_generic<kSk>(a, s, P[P_CAP], i);
+        } else if constexpr (kMesh) {
+          add_mesh(a, s, ln, P[P_CAP], k);
+        } else {
+          add_words(a, s, ln, P[P_CAP], k,
+                    load_probe<kShard>(a, s, ln, k.pr));
+        }
         __syncwarp();
       }
 #endif
     }
     // size is data-independent, so every thread agrees on when to reset
-    // (never, sharded: the epoch fold ages the sketch; ARC has no sketch)
+    // (never, sharded or meshed: the epoch fold ages the sketch; ARC has
+    // no sketch)
     if constexpr (kPol != kArc) {
       size += 1;
-      if (!kShard && P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
+      if (kSk == 0 && P[P_SAMPLE] > 0 && size >= P[P_SAMPLE]) {
         __syncthreads();
         for (int w = tid; w < a.counter_words; w += blockDim.x)
           a.counters[w] = static_cast<int>(
@@ -1288,24 +1923,39 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
       const int hit = 0;
 #else
       int hit;
-      if constexpr (RM == 0)
+      if constexpr (RM == 0) {
         hit = access_flat<kShard, kAdapt>(a, s, P, i, t, pcount, lane, ad);
-      else if constexpr (kPol == kWtinylfu)
+      } else if constexpr (RM == kWideFlat) {
+        hit = access_flat_wide<kShard, kAdapt>(a, s, P, i, t, pcount, lane,
+                                               ad);
+      } else if constexpr (RM == kWideSet) {
+        int h = 0;
+        if (lane == 0) {
+          if constexpr (kPol == kArc || kPol == kLfu)
+            h = access_exact_panel<kPol>(a, s, P, i, t, arc);
+          else
+            h = access_exact<kSk == 1 ? 1 : 0, kAdapt, kPol>(a, s, P, i, t,
+                                                             ad);
+        }
+        __syncwarp();
+        hit = __shfl_sync(kFull, h, 0);
+      } else if constexpr (kPol == kWtinylfu) {
         hit = access_set<RM, kShard, kAdapt>(a, s, ln, prot_cap, t, k, g,
                                              ad);
-      else
+      } else {
         hit = access_panel<RM, kPol>(a, s, ln, P, t, k, g, arc);
+      }
 #endif
       if (lane == 0) a.hits[i] = hit;
       nhits += (hit && t >= P[P_WARMUP]) ? 1 : 0;
       if constexpr (kAdapt) ehits += hit;
       t += 1;
-      k = next;
+      if constexpr (!kWide) k = next;
       __syncwarp();
     }
   }
   __syncthreads();      // every thread has read regs before they change
-  if (tid == 0) {
+  if (tid == 0) {       // (thread 0 is lane 0 of warp 0: it holds them all)
     a.regs[R_SIZE] = size;
     a.regs[R_PCOUNT] = pcount;
     a.regs[R_T] = t;
@@ -1324,30 +1974,40 @@ __global__ void __launch_bounds__(256) sketch_step_kernel(StepArgs a) {
   }
 }
 
-template <bool kLanes, bool kShard, bool kAdapt, int kPol = kWtinylfu>
+// The instance for the geometry: the wide ones past kMaxDkp probes or
+// kMaxWays ways.
+template <bool kLanes, bool kShard, bool kAdapt, int kPol = kWtinylfu,
+          bool kMesh = false>
 int launch_rm(const StepArgs& a, int threads, cudaStream_t st) {
   const dim3 grid(kLanes ? a.lanes : 1);
   const int rm = (a.assoc + 15) / 16;
+  const bool wide = a.dkp > kMaxDkp || a.assoc > kMaxWays || a.exact;
   if (a.assoc == 0) {
-    if constexpr (kPol == kWtinylfu)
-      sketch_step_kernel<0, kLanes, kShard, kAdapt><<<grid, threads, 0, st>>>(
-          a);
-    else
+    if constexpr (kPol == kWtinylfu) {
+      if (wide)
+        sketch_step_kernel<kWideFlat, kLanes, kShard, kAdapt, kPol, kMesh>
+            <<<grid, threads, 0, st>>>(a);
+      else
+        sketch_step_kernel<0, kLanes, kShard, kAdapt, kPol, kMesh>
+            <<<grid, threads, 0, st>>>(a);
+    } else {
       return static_cast<int>(cudaErrorInvalidValue);   // no flat panel
+    }
+  } else if (wide) {
+    sketch_step_kernel<kWideSet, kLanes, kShard, kAdapt, kPol, kMesh>
+        <<<grid, threads, 0, st>>>(a);
   } else if (rm <= 1) {
-    sketch_step_kernel<1, kLanes, kShard, kAdapt, kPol>
+    sketch_step_kernel<1, kLanes, kShard, kAdapt, kPol, kMesh>
         <<<grid, threads, 0, st>>>(a);
   } else if (rm <= 2) {
-    sketch_step_kernel<2, kLanes, kShard, kAdapt, kPol>
+    sketch_step_kernel<2, kLanes, kShard, kAdapt, kPol, kMesh>
         <<<grid, threads, 0, st>>>(a);
   } else if (rm <= 4) {
-    sketch_step_kernel<4, kLanes, kShard, kAdapt, kPol>
-        <<<grid, threads, 0, st>>>(a);
-  } else if (rm <= 8) {
-    sketch_step_kernel<8, kLanes, kShard, kAdapt, kPol>
+    sketch_step_kernel<4, kLanes, kShard, kAdapt, kPol, kMesh>
         <<<grid, threads, 0, st>>>(a);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    sketch_step_kernel<8, kLanes, kShard, kAdapt, kPol, kMesh>
+        <<<grid, threads, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1378,8 +2038,12 @@ extern "C" int sketch_step_launch(const StepArgs* args, int threads,
   if (a.lanes < 0 || a.halves < 1 || a.halves > 2
       || (a.adaptive != 0) != kAdaptBuild)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.mesh && (a.lanes || a.halves != 1 || !a.dcounters || !a.ddk
+                 || a.local_shards < 1 || a.width_shard < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
 #ifdef SKETCH_STEP_PANEL
-  if (a.halves != 1 || a.assoc == 0 || (a.policy == kArc && !a.ghost))
+  if (a.halves != 1 || a.assoc == 0 || (a.policy == kArc && !a.ghost)
+      || a.mesh)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (a.policy) {
     case kS3fifo: return launch_policy<kS3fifo>(a, threads, st);
@@ -1389,6 +2053,9 @@ extern "C" int sketch_step_launch(const StepArgs* args, int threads,
   }
 #else
   if (a.policy != kWtinylfu) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.mesh)
+    return launch_rm<false, false, kAdaptBuild, kWtinylfu, true>(a, threads,
+                                                                 st);
   return a.halves == 2 ? launch_lanes<true>(a, threads, st)
                        : launch_lanes<false>(a, threads, st);
 #endif

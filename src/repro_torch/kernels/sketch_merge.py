@@ -20,14 +20,21 @@ half and reads global plus delta.  Between merge epochs :func:`merge_halve`
 The fold is tensor ops on the state's device, in place: ``k`` is computed on
 the card, so nothing is read back to the host.  With ``streams=B`` every
 leaf has a lane axis and each lane folds with its own ``size`` and params
-row.  ``merge_halve.folds`` counts the folds.  ``merge_halve_mesh`` is
-ROADMAP queue 1 item 12.
+row.  ``merge_halve.folds`` counts the folds.
+
+:func:`merge_halve_mesh` is the fold of the stale mesh run
+(``StepSpec.mesh_devices``): every rank gathers the others' delta blocks over
+the mesh's process group (the one collective of that mode, on the card under
+NCCL), reorders them into the delta-half layout and applies the same fold, so
+each rank ends the epoch with the same global halves and zeroed deltas.
 """
 from __future__ import annotations
 
 import torch
 
 from .sketch_common import _check, _i32, _u32, checksum_words, merge_words
+from dataclasses import replace
+
 from .sketch_step import P_SAMPLE, R_SIZE, StepSpec
 
 
@@ -113,3 +120,35 @@ def merge_halve(spec: StepSpec, params: torch.Tensor, state: dict) -> dict:
 
 
 merge_halve.folds = 0   # folds since the last reset to 0 (no kernel of its own)
+
+
+def merge_halve_mesh(spec: StepSpec, params: torch.Tensor, state: dict,
+                     mesh) -> dict:
+    """The stale mesh run's epoch fold, in place on this rank's state;
+    returns ``state``.
+
+    ``mesh`` is this rank's ``distributed.mesh.ShardMesh``.  The delta
+    blocks ``(L, rows, wps_shard)`` and ``(L, dkw_shard)`` of every rank are
+    gathered in rank order into ``(S, ...)`` (shard-major), reordered into
+    the delta half's layout (word ``r * words_per_row + s * wps_shard +
+    w``), and :func:`merge_halve` folds ``[global || delta]``; the global
+    halves take the result and the delta blocks are zeroed."""
+    _check(spec.mesh_devices > 0,
+           "merge_halve_mesh requires StepSpec.mesh_devices")
+    H, HD = spec.counter_words, spec.dk_words
+    cd = mesh.all_gather(state["dcounters"])            # (S, rows, wps)
+    delta = cd.transpose(0, 1).reshape(H)
+    if spec.dk_bits:
+        ddk = mesh.all_gather(state["ddoorkeeper"]).reshape(HD)
+    else:
+        ddk = torch.zeros_like(state["doorkeeper"])
+    flat = {**{k: v for k, v in state.items()
+               if k not in ("dcounters", "ddoorkeeper")},
+            "counters": torch.cat([state["counters"], delta]),
+            "doorkeeper": torch.cat([state["doorkeeper"], ddk])}
+    merge_halve(replace(spec, mesh_devices=0), params, flat)
+    state["counters"].copy_(flat["counters"][:H])
+    state["doorkeeper"].copy_(flat["doorkeeper"][:HD])
+    state["dcounters"].zero_()
+    state["ddoorkeeper"].zero_()
+    return state

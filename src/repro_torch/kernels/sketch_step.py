@@ -22,6 +22,17 @@ and writes only the delta half, and there is no per-access reset: the §3.3
 aging moves to the epoch fold (``kernels/sketch_merge.py``).  ``integrity``
 adds a ``csum`` leaf of ``S + 1`` int32 words that only the fold touches.
 
+``mesh_devices=D`` (with ``shards``) is one rank's step of the sharded sketch
+split over a ``("shard",)`` mesh of D ranks (``distributed/mesh.py``): the
+``counters``/``doorkeeper`` leaves hold only the replicated global halves,
+and ``dcounters``/``ddoorkeeper`` this rank's delta blocks, ``(L, rows,
+wps_shard)`` and ``(L, dkw_shard)`` for its ``L = shards / D`` shards
+(placed by ``distributed.mesh.owned_shards``; ``rank=`` of :func:`step`
+says which rank).  This is the ``mesh_exchange="stale"`` step (kernel
+mode 1e): the owner of the key's shard composes its delta with the global
+half and writes its delta, a non-owner writes nothing, and estimates read the
+global halves only, so every rank takes the same decisions.
+
 The policy panel's competitors run on the set-associative tables, one
 stream or lanes, unsharded and static (``_SET_BODIES``): ``"s3fifo"`` (the
 window is the small FIFO, main a CLOCK-marked FIFO, the sketch the
@@ -42,6 +53,13 @@ moves the split between epochs (tensor ops, no host read).
 The state is a dict of int32 tensors with the reference's keys and shapes
 (``_state_keys``), so ``state_from_numpy``/``state_to_numpy`` carry state
 between the JAX package and the port leaf for leaf.
+
+Table words that the step takes as addresses are clamped as the
+reference's ``dynamic_slice``/``dynamic_update_slice`` clamp them: a stored
+main set ``c`` (``WT_MSET``, ``WT_MSET2``) addresses the block that starts at
+the int32 product ``c * A`` clamped into ``[0, main_slots - A]``, and ARC's
+ghost positions clamp into the ghost leaf.  A fault may corrupt them
+(``core/faults.py``); the step degrades as the reference does.
 
 ``step_ref`` is the plain version: a Python loop over the accesses of one
 chunk (and over the lanes), written with tensor ops that run on any device.
@@ -94,10 +112,8 @@ NREGS = 8
 WT_LO, WT_HI, WT_META, WT_MSET, WT_MSET2 = 0, 1, 2, 3, 4
 MT_LO, MT_HI, MT_META = 0, 1, 2
 
-# the kernel keeps one access's probes and its sets' records in registers
+# the kernel keeps one access's counter probes one per lane of a warp half
 _MAX_ROWS = 8
-_MAX_DKP = 8
-_MAX_WAYS = 128
 
 
 @dataclass(frozen=True)
@@ -105,9 +121,9 @@ class StepSpec:
     """Static geometry of one simulated W-TinyLFU instance.
 
     Same fields, properties and validation as the reference ``StepSpec``
-    (see its docstring for each field).  The port runs every field but
-    ``mesh_devices``/``mesh_exchange``, which are accepted here and refused
-    by the entry points that do not port them yet.
+    (see its docstring for each field).  ``mesh_devices`` selects the
+    stale mesh step (the per-rank layout of the module docstring);
+    ``mesh_exchange`` is read by the engine, not by the step.
     """
     width: int
     rows: int = 4
@@ -238,12 +254,6 @@ class StepSpec:
         return 3 + self.rows + self.dkp
 
 
-def _require_ported(spec: StepSpec):
-    """Refuse the StepSpec modes the port does not run yet."""
-    if spec.mesh_devices:
-        raise NotImplementedError("mesh execution is ROADMAP queue 1 item 12")
-
-
 def make_step_params(window_cap: int, main_cap: int, prot_cap: int,
                      sample_size: int, cap: int, warmup: int = 0,
                      counter_bits: int = 4, device=None) -> torch.Tensor:
@@ -258,13 +268,15 @@ def make_step_params(window_cap: int, main_cap: int, prot_cap: int,
 
 def _state_keys(spec: StepSpec) -> tuple[str, ...]:
     csum = ("csum",) if spec.integrity else ()
+    mesh = ("dcounters", "ddoorkeeper") if spec.mesh_devices else ()
     if spec.assoc is None:
-        return ("counters", "doorkeeper", "wlo", "whi", "wmeta", "widx",
-                "wdkb", "mlo", "mhi", "mmeta", "midx", "mdkb", "regs") + csum
+        return (("counters", "doorkeeper") + mesh
+                + ("wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi",
+                   "mmeta", "midx", "mdkb", "regs") + csum)
     load = ("wsl", "wuw") if spec.adaptive else ()
     ghost = ("ghost",) if spec.policy == "arc" else ()
-    return (("counters", "doorkeeper", "wtab", "mtab") + ghost + ("regs",)
-            + load + csum)
+    return (("counters", "doorkeeper") + mesh + ("wtab", "mtab") + ghost
+            + ("regs",) + load + csum)
 
 
 def _state_shapes(spec: StepSpec) -> dict:
@@ -281,9 +293,17 @@ def _state_shapes(spec: StepSpec) -> dict:
             tables["wsl"] = tables["wuw"] = (spec.window_sets,)
         if spec.policy == "arc":      # B1 || B2 ghost Blooms
             tables["ghost"] = (2 * spec.dk_words,)
-    shapes = {"counters": (spec.sketch_halves * spec.counter_words,),
-              "doorkeeper": (spec.sketch_halves * spec.dk_words,), **tables,
-              "regs": (NREGS,)}
+    if spec.mesh_devices:         # global halves + this rank's delta blocks
+        L = spec.local_shards
+        shapes = {"counters": (spec.counter_words,),
+                  "doorkeeper": (spec.dk_words,),
+                  "dcounters": (L, spec.rows, spec.wps_shard),
+                  "ddoorkeeper": (L, spec.dkw_shard), **tables,
+                  "regs": (NREGS,)}
+    else:
+        shapes = {"counters": (spec.sketch_halves * spec.counter_words,),
+                  "doorkeeper": (spec.sketch_halves * spec.dk_words,),
+                  **tables, "regs": (NREGS,)}
     if spec.integrity:
         shapes["csum"] = (spec.shards + 1,)
     if spec.streams > 1:
@@ -303,22 +323,24 @@ def init_step_state(spec: StepSpec, window_cap: int | None = None,
     register ``R_WQUOTA`` and (set mode) the window's usable ways ``wuw =
     set_ways(window_cap, window_sets)``, ``wsl`` starts at 0.  With
     ``spec.streams = B > 1`` every leaf gains a leading lane axis and each
-    lane is the same zeroed instance.
+    lane is the same zeroed instance.  With ``spec.mesh_devices`` it is one
+    rank's state: the global halves and this rank's zeroed delta blocks.
     """
-    _require_ported(spec)
     if spec.streams > 1:
         base = init_step_state(replace(spec, streams=1), window_cap,
                                main_cap, device)
-        return {k: v.unsqueeze(0).repeat((spec.streams,) + (1,) * v.dim())
-                for k, v in base.items()}
+        state = {k: v.unsqueeze(0).repeat((spec.streams,) + (1,) * v.dim())
+                 for k, v in base.items()}
+        _mark_in_range(spec, state)
+        return state
     wcap = spec.window_slots if window_cap is None else int(window_cap)
     mcap = spec.main_slots if main_cap is None else int(main_cap)
     _check(1 <= wcap <= spec.window_slots and 1 <= mcap <= spec.main_slots,
            f"capacities ({wcap}, {mcap}) must fit the static slots "
            f"({spec.window_slots}, {spec.main_slots})")
     arrays = {k: np.zeros(v, np.int32) for k, v in _state_shapes(spec).items()
-              if k in ("counters", "doorkeeper", "regs", "csum", "wsl",
-                       "ghost")}
+              if k in ("counters", "doorkeeper", "dcounters", "ddoorkeeper",
+                       "regs", "csum", "wsl", "ghost")}
     if spec.adaptive:
         arrays["regs"][R_WQUOTA] = wcap
         if spec.assoc is not None:
@@ -368,6 +390,8 @@ def state_from_numpy(spec: StepSpec, arrays: dict, device=None) -> dict:
         _check(a.shape == shapes[k],
                f"state[{k!r}] shape {a.shape} != {shapes[k]}")
         out[k] = torch.from_numpy(a.copy()).to(dev)
+    if not tables_out_of_range(spec, arrays):
+        _mark_in_range(spec, out)
     return out
 
 
@@ -498,11 +522,64 @@ def _sketch_add_sharded(spec: StepSpec, params, counters, dk, size, kidx,
     return size + 1
 
 
+def _sketch_add_mesh(spec: StepSpec, params, st: dict, size, kidx, kdkb):
+    """One rank's add of the stale mesh step (the reference's
+    ``_sketch_add_mesh``), in place on its delta blocks: the rank that owns
+    the key's shard (``st["_base"] <= shard < base + L``) composes its delta
+    with the global half exactly as the sharded add does (gate on delta |
+    global bits, minimum over delta + global fields) and writes its delta
+    blocks; another rank computes the same arithmetic on don't-care words
+    and writes back what it read.  No reset; returns size + 1."""
+    L, rows = spec.local_shards, spec.rows
+    base = st["_base"]
+    cg, dkg = st["counters"], st["doorkeeper"]
+    cdf = st["dcounters"].view(-1)
+    ddf = st["ddoorkeeper"].view(-1)
+    ks = kidx[0] // spec.width_shard            # owning shard (rows agree)
+    local = (ks >= base) & (ks < base + L)
+    lks = torch.clamp(ks - base, 0, L - 1)
+    if spec.dk_bits:
+        w_idx = (kdkb >> 5).long()
+        bpos = kdkb & 31
+        ldw = (lks * spec.dkw_shard
+               + ((kdkb - ks * spec.dk_bits_shard) >> 5)).long()
+        words, gwords = ddf[ldw], dkg[w_idx]
+        pre = ((torch.where(local, words, 0) | gwords) >> bpos) & 1
+        earlier = torch.tril(kdkb[:, None] == kdkb[None, :], diagonal=-1)
+        gate = ((pre == 1) | earlier.any(dim=1)).all()
+        bitm = torch.ones_like(bpos) << bpos
+        same = w_idx[:, None] == w_idx[None, :]
+        merged = words.clone()
+        for j in range(kdkb.shape[0]):
+            merged = merged | torch.where(same[:, j], bitm[j], 0)
+        ddf[ldw] = torch.where(local, merged, words)    # duplicates agree
+    else:
+        gate = torch.ones((), dtype=torch.bool, device=cg.device)
+    r = torch.arange(rows, device=cg.device)
+    flat = (r * spec.words_per_row + _word_of(spec, kidx)).long()
+    h = kidx - ks * spec.width_shard            # per-shard probe offsets
+    dflat = ((lks * rows + r) * spec.wps_shard + _word_of(spec, h)).long()
+    words, gw = cdf[dflat], cg[flat]
+    vals = (torch.where(local, _counter_vals(spec, words, kidx), 0)
+            + _counter_vals(spec, gw, kidx))
+    m = vals.min()
+    bump = gate & (m < params[P_CAP])
+    sub = (kidx & (spec.counters_per_word - 1)) * spec.counter_bits
+    new = torch.where(bump & (vals == m), words + (torch.ones_like(sub)
+                                                   << sub), words)
+    cdf[dflat] = torch.where(local, new, words)
+    return size + 1
+
+
 def _add(spec: StepSpec, params, st: dict, kidx, kdkb):
-    """The access's sketch add (sharded or not); returns the new size."""
+    """The access's sketch add (sharded, meshed or not); returns the new
+    size."""
+    size = st["regs"][R_SIZE].clone()
+    if spec.mesh_devices:
+        return _sketch_add_mesh(spec, params, st, size, kidx, kdkb)
     fn = _sketch_add_sharded if spec.shards > 1 else _sketch_add
-    return fn(spec, params, st["counters"], st["doorkeeper"],
-              st["regs"][R_SIZE].clone(), kidx, kdkb)
+    return fn(spec, params, st["counters"], st["doorkeeper"], size, kidx,
+              kdkb)
 
 
 def _clip_index(i: torch.Tensor, n: int) -> torch.Tensor:
@@ -511,25 +588,38 @@ def _clip_index(i: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(i < 0, i + n, i).clamp(0, n - 1).long()
 
 
+def _block_start(s: torch.Tensor, A: int, n: int) -> torch.Tensor:
+    """Row offset of the A-row block of set ``s`` in an n-row table as the
+    reference's dynamic slices take it: the int32 product ``s * A`` (it
+    wraps), clamped into ``[0, n - A]``.  A set index read from the tables
+    (a stored main set) may be out of range after a fault."""
+    p = (s.long() * A) & 0xFFFFFFFF
+    p = torch.where(p >= 2**31, p - 2**32, p)
+    return torch.clamp(p, 0, n - A)
+
+
 def _estimate_block(spec: StepSpec, counters, dk, idx2, dkb2):
     """TinyLFU estimates of K entries from their stored probes: (K, rows)
     probes, (K, dkp) doorkeeper bits -> (K,) int32 (the reference's
     ``_estimate_pair`` at K = 2, its ``_estimate_block`` at any K).
     Sharded: counters are global + delta fields, doorkeeper bits global |
-    delta.  A stored probe is table state, which a fault may corrupt: its
-    word index clamps as the reference's gathers clamp it."""
+    delta.  Meshed (the stale step): the global halves only, so every rank
+    takes the same verdict.  A stored probe is table state, which a fault
+    may corrupt: its word index clamps as the reference's gathers clamp
+    it."""
     rows = torch.arange(spec.rows, device=counters.device)
     flat2 = rows[None, :] * spec.words_per_row + _word_of(spec, idx2)
     n = counters.shape[-1]
+    halves = spec.shards > 1 and not spec.mesh_devices
     vals = _counter_vals(spec, counters[_clip_index(flat2, n)], idx2)
-    if spec.shards > 1:
+    if halves:
         vals = vals + _counter_vals(spec, counters[_clip_index(
             spec.counter_words + flat2, n)], idx2)
     est = vals.min(dim=-1).values
     if spec.dk_bits:
         b2, nd = dkb2 >> 5, dk.shape[-1]
         w2 = dk[_clip_index(b2, nd)]
-        if spec.shards > 1:
+        if halves:
             w2 = w2 | dk[_clip_index(spec.dk_words + b2, nd)]
         ok = (((w2 >> (dkb2 & 31)) & 1) == 1).all(dim=-1)
         est = est + ok.to(torch.int32)
@@ -779,8 +869,10 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
     def fixup(cb, c):
         return torch.where(c == km2, m2eff, torch.where(c == km1, mblk1u, cb))
 
-    cb1 = fixup(block(mtab, c1, m_usable(c1), MT_META), c1)
-    cb2 = fixup(block(mtab, c2, m_usable(c2), MT_META), c2)
+    ms = mtab.shape[0]
+    cs1, cs2 = _block_start(c1, A, ms), _block_start(c2, A, ms)
+    cb1 = fixup(masked(mtab[cs1 + ways], m_usable(c1), MT_META, _I32_MAX), c1)
+    cb2 = fixup(masked(mtab[cs2 + ways], m_usable(c2), MT_META, _I32_MAX), c2)
     cblk = torch.cat([cb1, cb2], dim=0)
     tslot = torch.argmin(cblk[:, MT_META])        # ties pick the first half
     vic = _get(cblk, tslot)
@@ -795,8 +887,10 @@ def _one_access_set(spec: StepSpec, params, st: dict, klo, khi, kidx, kdkb,
                          cand[5:5 + rows], cand[5 + rows:5 + rows + dkp]])
     cb1u, cb2u = _insert(cb1, cb2, tslot, candrow, do_ins, same_c)
 
-    for s, blk in ((km1, mblk1u), (km2, m2eff), (c1, cb1u), (c2, cb2u)):
-        mtab[s.long() * A + ways] = masked(blk, m_usable(s), MT_META, _EMPTY)
+    for s, st0, blk in ((km1, km1.long() * A, mblk1u),
+                        (km2, km2.long() * A, m2eff), (c1, cs1, cb1u),
+                        (c2, cs2, cb2u)):
+        mtab[st0 + ways] = masked(blk, m_usable(s), MT_META, _EMPTY)
     wtab[kwset.long() * A + ways] = masked(wblk, w_usable(kwset), WT_META,
                                            _EMPTY)
 
@@ -852,11 +946,14 @@ def _one_access_set_s3fifo(spec: StepSpec, params, st: dict, klo, khi,
 
     c1, c2 = cand[WT_MSET], cand[WT_MSET2]
 
-    def fixup(c):
-        cb = mtab[c.long() * A + ways]
+    cs1 = _block_start(c1, A, mtab.shape[0])
+    cs2 = _block_start(c2, A, mtab.shape[0])
+
+    def fixup(c, cs):
+        cb = mtab[cs + ways]
         return torch.where(c == km2, m2eff, torch.where(c == km1, mblk1u, cb))
 
-    cb1, cb2 = fixup(c1), fixup(c2)
+    cb1, cb2 = fixup(c1, cs1), fixup(c2, cs2)
     cblk = torch.cat([cb1, cb2], dim=0)
     tslot = torch.argmin(cblk[:, MT_META])    # empty < unmarked < marked
     vic = _get(cblk, tslot)
@@ -867,8 +964,9 @@ def _one_access_set_s3fifo(spec: StepSpec, params, st: dict, klo, khi,
                          cand[5:5 + rows], cand[5 + rows:5 + rows + dkp]])
     cb1u, cb2u = _insert(cb1, cb2, tslot, candrow, do_ins, c2 == c1)
 
-    for s, blk in ((km1, mblk1u), (km2, m2eff), (c1, cb1u), (c2, cb2u)):
-        mtab[s.long() * A + ways] = blk
+    for st0, blk in ((km1.long() * A, mblk1u), (km2.long() * A, m2eff),
+                     (cs1, cb1u), (cs2, cb2u)):
+        mtab[st0 + ways] = blk
     wtab[kwset.long() * A + ways] = wblk
 
     regs[R_SIZE] = size
@@ -934,12 +1032,16 @@ def _one_access_set_arc(spec: StepSpec, params, st: dict, klo, khi, kidx,
 
     # the victim's stored probes enter B1 (from T1) or B2; a half whose
     # count reached P_MAIN_CAP is cleared first; probes sharing a word merge
-    # onto the word as read before the clear (zero when cleared)
+    # onto the word as read before the clear (zero when cleared).  A stored
+    # probe is table state: its word clamps into the leaf, as the
+    # reference's dynamic slices clamp it, and the words are written in
+    # probe order (a later probe's write wins where two clamp together)
     goff = torch.where(vic_was_t1, 0, dkw)
     vdkb = vic[3 + rows:3 + rows + dkp]
-    vpos = (goff + (vdkb >> 5)).long()
+    vpos = goff + (vdkb >> 5)
+    cpos = torch.clamp(vpos, 0, 2 * dkw - 1).long()
     vbit = torch.ones_like(vdkb) << (vdkb & 31)
-    gw = ghost[vpos]
+    gw = ghost[cpos]
     clr1 = vic_was_t1 & (gb1count >= params[P_MAIN_CAP])
     clr2 = evict & ~vic_was_t1 & (gb2count >= params[P_MAIN_CAP])
     clr = clr1 | clr2
@@ -949,7 +1051,9 @@ def _one_access_set_arc(spec: StepSpec, params, st: dict, klo, khi, kidx,
     same = vpos[:, None] == vpos[None, :]
     for j in range(dkp):
         merged = merged | torch.where(same[:, j], vbit[j], 0)
-    ghost[vpos] = torch.where(evict, merged, gw)     # duplicates agree
+    vals = torch.where(evict, merged, gw)
+    for j in range(dkp):
+        _put(ghost, cpos[j], vals[j])
 
     meta0 = torch.where(gb1 | gb2, _PROT | t, t)   # remembered keys -> T2
     candrow = torch.cat([torch.stack([klo, khi, meta0]), kidx, kdkb])
@@ -1042,8 +1146,9 @@ def _lane_count(n_valid, b: int, lanes: int):
 
 
 def _check_inputs(spec: StepSpec, params, state: dict, lo, hi, n_valid,
-                  probes=None):
-    _require_ported(spec)
+                  probes=None, rank: int = 0):
+    _check(0 <= rank < max(1, spec.mesh_devices),
+           f"rank {rank} must be in [0, {max(1, spec.mesh_devices)})")
     shapes = _state_shapes(spec)
     _check(set(state) == set(shapes),
            f"state keys {sorted(state)} != {sorted(shapes)}")
@@ -1077,7 +1182,7 @@ def _check_inputs(spec: StepSpec, params, state: dict, lo, hi, n_valid,
 
 def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
              lo: torch.Tensor, hi: torch.Tensor, n_valid: int | None = None,
-             probes=None):
+             probes=None, rank: int = 0):
     """Plain version: advance ``state`` (in place) through the first
     ``n_valid`` accesses of ``lo/hi``; returns (state, hit flags).
 
@@ -1085,9 +1190,12 @@ def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
     hit 0.  ``probes`` may carry ``precompute_probes(spec, lo, hi)`` when the
     caller hashed the keys already.  Runs on any device, one tensor op at a
     time.  With ``spec.streams > 1`` it runs each lane in turn through the
-    single-lane body, on that lane's views of the state.
+    single-lane body, on that lane's views of the state.  With
+    ``spec.mesh_devices`` the state is rank ``rank``'s (its delta blocks
+    hold the shards ``distributed.mesh.owned_shards`` gives it).  Every
+    address it reads from the tables is clamped, as the reference's are.
     """
-    n = _check_inputs(spec, params, state, lo, hi, n_valid, probes)
+    n = _check_inputs(spec, params, state, lo, hi, n_valid, probes, rank)
     if spec.streams > 1:
         lspec = replace(spec, streams=1)
         hits = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
@@ -1104,12 +1212,16 @@ def step_ref(spec: StepSpec, params: torch.Tensor, state: dict,
     kidx, kdkb, kwset, kmset = (precompute_probes(spec, lo, hi)
                                 if probes is None else probes)
     hits = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
+    st = state
+    if spec.mesh_devices:           # the rank's first shard, for the add
+        st = {**state, "_base": torch.tensor(
+            _mesh_base(spec, rank), dtype=torch.int32, device=lo.device)}
     for i in range(n):
         if spec.assoc is None:
-            hit = _one_access_flat(spec, params, state, lo[i], hi[i],
+            hit = _one_access_flat(spec, params, st, lo[i], hi[i],
                                    kidx[i], kdkb[i])
         else:
-            hit = _SET_BODIES[spec.policy](spec, params, state, lo[i],
+            hit = _SET_BODIES[spec.policy](spec, params, st, lo[i],
                                            hi[i], kidx[i], kdkb[i], kwset[i],
                                            kmset[i])
         hits[i] = hit.to(torch.int32)
@@ -1235,25 +1347,45 @@ def _rebalance_set(spec: StepSpec, total, state: dict, nq):
     w3n, w3s, w_evict = _compact(wtab, nws, A, WT_META, uw)
     m3n, _, _ = _compact(mtab, nms, A, MT_META, um)
 
-    # the evicted window records move into a free usable way of their first
-    # choice main set, in set-then-way order; after compaction set s's free
-    # usable ways are [r_s, u_s) (r_s its kept residents), so the k-th
-    # migrant to s lands in way r_s + k, or is dropped past u_s: a stable
-    # sort by target set, a rank within each run of one target, one scatter
+    # the evicted window records move, in set-then-way order, into the
+    # first free way below u(s) of the block of their stored first-choice
+    # main set s: the block at s * A clamped into the table (_block_start;
+    # a stored set is table state, which a fault may put out of range), u
+    # the usable ways of s itself, base + (s < rem).  After compaction a
+    # set's free ways are [r, A) (r its kept residents) and u takes one of
+    # two values, base or base + 1, so with V = base - r the migrants of
+    # one block that land are its first V and then the first later one
+    # whose u is base + 1; the i-th of them lands in way r + i.  A stable
+    # sort by block, ranks within each run of one block, one scatter.
+    # (An out-of-range set whose product wraps into the table at a start
+    # that is not a multiple of A straddles two sets; no single-bit flip of
+    # a stored set makes one, and this rank arithmetic does not model it.)
     meta = m3n[..., MT_META]
     kept = ((meta >= 0) & (meta < _I32_MAX)).sum(dim=2).to(torch.int32)
     recs = w3s.reshape(B, -1, spec.wcols)
-    tset = torch.where(w_evict.reshape(B, -1), recs[..., WT_MSET], nms)
+    raw = recs[..., WT_MSET]
+    tset = torch.where(w_evict.reshape(B, -1),
+                       _block_start(raw, A, spec.main_slots) // A, nms)
     order = _argsort(tset)
     st_ = torch.gather(tset, 1, order)
+    s_raw = torch.gather(raw, 1, order)
     pos = torch.arange(st_.shape[1], device=st_.device).expand_as(st_)
     start = torch.ones_like(st_, dtype=torch.bool)
     start[:, 1:] = st_[:, 1:] != st_[:, :-1]
     k = pos - torch.cummax(torch.where(start, pos, 0), dim=1).values
     sc = st_.clamp(max=nms - 1).long()
-    way = torch.gather(kept, 1, sc) + k
-    ok = (st_ < nms) & (way < torch.gather(um, 1, sc))
-    dest = torch.where(ok, st_ * A + way, nms * A)
+    r = torch.gather(kept, 1, sc)
+    base = _floordiv(mcap_new, nms)[:, None]
+    u = base + (s_raw < torch.remainder(mcap_new, nms)[:, None]).to(
+        torch.int32)
+    V = base - r
+    first = k < V
+    late = (st_ < nms) & (V >= 0) & (k >= V) & (u - r == V + 1)
+    cs = torch.cumsum(late.to(torch.int32), dim=1)
+    before = torch.cummax(torch.where(start, cs - late.to(torch.int32), 0),
+                          dim=1).values
+    ok = (st_ < nms) & (first | (late & (cs - before == 1)))
+    dest = torch.where(ok, st_ * A + r + torch.where(first, k, V), nms * A)
     src = torch.gather(recs, 1, order[..., None].expand_as(recs))
     mainrow = torch.cat([src[..., :WT_META + 1], src[..., WT_MSET2 + 1:]],
                         dim=-1)
@@ -1284,6 +1416,7 @@ def rebalance(spec: StepSpec, params: torch.Tensor, state: dict,
     Tensor ops on the state's device; nothing is read back to the host.
     """
     _check(spec.adaptive, "rebalance requires StepSpec.adaptive")
+    in_range = _in_range_marked(spec, state)    # it moves records only
     lanes = spec.streams > 1
     st = state if lanes else {k: v.unsqueeze(0) for k, v in state.items()}
     dev = st["regs"].device
@@ -1300,6 +1433,8 @@ def rebalance(spec: StepSpec, params: torch.Tensor, state: dict,
         _rebalance_set(spec, total, st, nq)
     st["regs"][:, R_WQUOTA] = nq
     st["regs"][:, R_EHITS] = 0
+    if in_range:
+        _mark_in_range(spec, state)
     return state
 
 
@@ -1312,7 +1447,7 @@ _THREADS = 256
 
 class _Args(ctypes.Structure):
     """Mirror of ``StepArgs`` in csrc/sketch_step.cu (pointers, then ints,
-    then the policy panel's two fields)."""
+    then the policy panel's two fields, then the stale mesh step's)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "lo", "hi", "kidx", "kdkb", "kwset", "kmset", "params", "counters",
         "dk", "wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi", "mmeta",
@@ -1323,7 +1458,11 @@ class _Args(ctypes.Structure):
             "words_per_row", "counter_words", "dk_words", "window_slots",
             "main_slots", "assoc", "wcols", "mcols", "lanes",
             "params_stride", "halves", "adaptive", "policy")] + [
-        ("ghost", ctypes.c_void_p)]
+        ("ghost", ctypes.c_void_p), ("dcounters", ctypes.c_void_p),
+        ("ddk", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in (
+            "mesh", "mesh_base", "local_shards", "width_shard",
+            "dk_bits_shard", "wps_shard", "dkw_shard", "exact")]
 
 # the adaptive instances (kernel mode 1c) and the competitor policies'
 # (mode 1d) are a second and a third build of the same source, compiled in
@@ -1341,7 +1480,8 @@ def _defines(spec: StepSpec) -> tuple[str, ...]:
 
 def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
             probes, n_valid, hits: torch.Tensor, lib=None,
-            lane_grid: bool | None = None):
+            lane_grid: bool | None = None, rank: int = 0,
+            exact: bool = False):
     """One kernel launch over one chunk: state updated in place, hit flags
     written to ``hits`` (zeros past n_valid).  No host sync.  ``lib`` is the
     loaded kernel library (default: the build of ``csrc/sketch_step.cu``).
@@ -1355,16 +1495,16 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     ``spec.adaptive`` the adaptive ones (runtime quota registers, per-set
     usable ways, ``wsl``), from the ``ADAPTIVE_DEFINES`` build; a
     competitor ``spec.policy`` the panel's (ARC's ``ghost`` Blooms too),
-    from the ``PANEL_DEFINES`` build."""
+    from the ``PANEL_DEFINES`` build.  ``spec.mesh_devices`` launches the
+    stale mesh instances (mode 1e) for mesh rank ``rank``.  More than 8
+    doorkeeper probes or 128 ways launch the wide instances of the build
+    (records read from memory, the set path's accesses by one thread), and
+    so does ``exact``: the tables hold addresses out of range (see
+    :func:`_needs_exact`), which only those instances take as the
+    reference does."""
     from ._build import check_error, load_library
-    _check(spec.rows <= _MAX_ROWS and spec.dkp <= _MAX_DKP,
-           f"the kernel takes rows <= {_MAX_ROWS} and dk_probes <= "
-           f"{_MAX_DKP}, not {spec.rows} and {spec.dkp}; the reference runs "
-           "more probes (a limit of the port's, listed in ROADMAP.md queue 3)")
-    _check((spec.assoc or 0) <= _MAX_WAYS,
-           f"the kernel holds at most {_MAX_WAYS} ways per set in registers, "
-           f"not {spec.assoc}; the reference runs more ways (a limit of the "
-           "port's, listed in ROADMAP.md queue 3)")
+    _check(spec.rows <= _MAX_ROWS,
+           f"the kernel takes rows <= {_MAX_ROWS}, not {spec.rows}")
     if lane_grid is None:
         lane_grid = spec.streams > 1
     kidx, kdkb, kwset, kmset = probes
@@ -1372,9 +1512,12 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
            "kmset": kmset, "params": params, "counters": state["counters"],
            "dk": state["doorkeeper"], "regs": state["regs"], "hits": hits}
     for k in ("wlo", "whi", "wmeta", "widx", "wdkb", "mlo", "mhi", "mmeta",
-              "midx", "mdkb", "wtab", "mtab", "wsl", "wuw", "ghost"):
+              "midx", "mdkb", "wtab", "mtab", "wsl", "wuw", "ghost",
+              "dcounters"):
         if k in state:
             ptr[k] = state[k]
+    if spec.mesh_devices:
+        ptr["ddk"] = state["ddoorkeeper"]
     per_lane = isinstance(n_valid, torch.Tensor)
     _check(lane_grid or not per_lane,
            "a per-lane n_valid needs the lane grid")
@@ -1396,8 +1539,17 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
                  mcols=spec.mcols if spec.assoc else 0,
                  lanes=lanes if lane_grid else 0,
                  params_stride=NPARAMS if params.dim() == 2 else 0,
-                 halves=spec.sketch_halves, adaptive=int(spec.adaptive),
-                 policy=POLICIES.index(spec.policy))
+                 halves=1 if spec.mesh_devices else spec.sketch_halves,
+                 adaptive=int(spec.adaptive),
+                 policy=POLICIES.index(spec.policy),
+                 mesh=int(spec.mesh_devices > 0),
+                 mesh_base=_mesh_base(spec, rank) if spec.mesh_devices
+                 else 0,
+                 local_shards=spec.local_shards,
+                 width_shard=spec.width_shard,
+                 dk_bits_shard=spec.dk_bits_shard,
+                 wps_shard=spec.wps_shard, dkw_shard=spec.dkw_shard,
+                 exact=int(exact))
     lib = lib or load_library("sketch_step", _defines(spec))
     stream = torch.cuda.current_stream(lo.device).cuda_stream
     check_error("sketch_step", lib, lib.sketch_step_launch(
@@ -1406,16 +1558,21 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
 
 
 def step(spec: StepSpec, params: torch.Tensor, state: dict,
-         lo: torch.Tensor, hi: torch.Tensor, n_valid=None, probes=None):
+         lo: torch.Tensor, hi: torch.Tensor, n_valid=None, probes=None,
+         rank: int = 0):
     """Fused chunk step; same contract as :func:`step_ref`.
 
     CUDA tensors: one launch of the hand-written kernel for all lanes, state
     updated in place (the analogue of the reference's donated buffers); a
-    failed build or launch raises.  CPU tensors: the plain version.
+    failed build or launch raises.  Tables that hold addresses out of range
+    (only a fault's state does: the kernel writes none) take the exact
+    instances, which clamp them as the reference does; :func:`_needs_exact`
+    finds them.  CPU tensors: the plain version, which clamps every
+    address.
     """
-    n = _check_inputs(spec, params, state, lo, hi, n_valid, probes)
+    n = _check_inputs(spec, params, state, lo, hi, n_valid, probes, rank)
     if lo.device.type == "cpu":
-        return step_ref(spec, params, state, lo, hi, n, probes)
+        return step_ref(spec, params, state, lo, hi, n, probes, rank)
     if lo.device.type != "cuda":
         raise ValueError(f"step runs on CUDA or CPU tensors, not "
                          f"{lo.device.type}")
@@ -1428,8 +1585,90 @@ def step(spec: StepSpec, params: torch.Tensor, state: dict,
     if isinstance(n, list):         # per-lane counts: one int per lane
         n = (n[0] if len(set(n)) == 1 else
              torch.tensor(n, dtype=torch.int32).to(lo.device))
-    _launch(spec, params, state, lo, hi, probes, n, hits)
+    _launch(spec, params, state, lo, hi, probes, n, hits, rank=rank,
+            exact=_needs_exact(spec, state))
     return state, hits
+
+
+def _mesh_base(spec: StepSpec, rank: int) -> int:
+    """The first shard whose delta blocks mesh rank ``rank`` holds."""
+    from repro_torch.distributed.mesh import owned_shards
+    return owned_shards(spec.shards, spec.mesh_devices, rank).start
+
+
+def _address_table(spec: StepSpec):
+    """(leaf, columns, limit) of the table words the step takes as
+    addresses: a window record's stored main sets, ``[0, main_sets)``
+    (W-TinyLFU, S3-FIFO), or under ARC a main record's stored doorkeeper
+    bits, ``[0, 32 dk_words)`` (its ghost positions); None where the tables
+    hold no address (the flat tables, LFU)."""
+    if spec.assoc is None:
+        return None
+    if spec.policy in ("wtinylfu", "s3fifo"):
+        return "wtab", slice(WT_MSET, WT_MSET2 + 1), spec.main_sets
+    if spec.policy == "arc":
+        c0 = 3 + spec.rows
+        return "mtab", slice(c0, c0 + spec.dkp), 32 * spec.dk_words
+    return None
+
+
+def tables_out_of_range(spec: StepSpec, state: dict) -> bool:
+    """Whether ``state`` (tensors or numpy) holds table words that the step
+    takes as addresses out of range (see :func:`_address_table`).  The
+    kernel writes none, so only a fault's state (a hook's, a restored
+    checkpoint's) can.  A device tensor's answer is read to the host."""
+    at = _address_table(spec)
+    if at is None:
+        return False
+    key, cols, lim = at
+    w = state[key][..., cols]
+    if not isinstance(w, torch.Tensor):
+        w = np.asarray(w)
+    return bool(((w < 0) | (w >= lim)).any())
+
+
+def _version(t: torch.Tensor):
+    """``t``'s version counter (torch's in-place writes advance it, the
+    kernel's do not); None for an inference tensor, which keeps none."""
+    return None if t.is_inference() else t._version
+
+
+def _in_range_marked(spec: StepSpec, state: dict) -> bool:
+    """Whether ``state``'s address table was found in range at its current
+    version (see :func:`_needs_exact`)."""
+    at = _address_table(spec)
+    if at is None:
+        return True
+    t = state[at[0]]
+    v = _version(t)
+    return v is not None and getattr(t, "_in_range_at", None) == v
+
+
+def _mark_in_range(spec: StepSpec, state: dict):
+    """Record that ``state``'s address table is in range at its current
+    version."""
+    at = _address_table(spec)
+    if at is not None:
+        t = state[at[0]]
+        t._in_range_at = _version(t)
+
+
+def _needs_exact(spec: StepSpec, state: dict) -> bool:
+    """Whether a launch on ``state`` must take the exact instances: its
+    tables hold an address out of range (:func:`tables_out_of_range`).  A
+    table found in range is marked with its version counter; the kernel
+    writes only addresses in range and does not advance the counter, and
+    the engine's own in-place writes (``rebalance``) keep the mark, so a
+    run reads the table once, or not at all when its state came from
+    :func:`init_step_state` or :func:`state_from_numpy`.  A torch write
+    into the table, a fault's, makes the next launch read it again, and
+    while it holds an address out of range every launch does."""
+    if _in_range_marked(spec, state):
+        return False
+    if tables_out_of_range(spec, state):
+        return True
+    _mark_in_range(spec, state)
+    return False
 
 
 step.launches = 0       # kernel launches since the last reset to 0

@@ -9,7 +9,7 @@ the same ``extra`` meta at every step.  Also the counterparts of
 tests/test_checkpoint_resume.py's edges: the resume from an empty
 directory is a fresh run that checkpoints, a checkpoint of another
 configuration (capacity, warmup) is refused, a cadence off the epoch is
-refused, and so are lanes and a mesh.
+refused, and so are lanes and a stand-in mesh that is not a ShardMesh.
 """
 import json
 import os
@@ -135,6 +135,6 @@ def test_cadence_lanes_and_mesh_refused(tmp_path):
     mesh = SimpleNamespace(axis_names=("shard",),
                            devices=SimpleNamespace(size=2))
     meshed = pds.DeviceWTinyLFU(100, shards=4, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="ShardMesh"):
         meshed.run(tr, checkpoint_dir=d, device="cpu")
     assert latest_step(d) is None           # nothing was written

@@ -9,6 +9,7 @@ import torch
 
 from repro.core import device_simulate as jds
 from repro_torch.core import device_simulate as pds
+from repro_torch.distributed.mesh import make_shard_mesh
 from repro_torch.kernels.sketch_step import StepSpec
 from repro_torch.traces.synthetic import zipf_trace, scan_then_hotspot_trace
 
@@ -84,20 +85,31 @@ def test_simulate_trace_equals_jax_engine(trace, assoc):
                                       err_msg=f"state[{k}]")
 
 
-# a ("shard",) mesh of two devices, as DeviceWTinyLFU.mesh_devices reads it
+# a stand-in with a JAX mesh's attributes: the port takes a ShardMesh only
 _MESH2 = SimpleNamespace(axis_names=("shard",), devices=np.zeros(2))
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(shards=2, mesh=_MESH2), "item 12"),
-    (dict(shards=2, adaptive=True, mesh=_MESH2), "item 12"),
-    (dict(shards=4, assoc=4, mesh=_MESH2, mesh_exchange="stale"), "item 12"),
-    (dict(shards=4, integrity=True, mesh=_MESH2), "item 12"),
+    (dict(shards=2), "chunk"),
+    (dict(shards=2, adaptive=True), "chunk"),
+    (dict(shards=4, assoc=4, mesh_exchange="stale"), "stale"),
+    (dict(shards=4, integrity=True), "chunk"),
 ])
 def test_unported_options_raise(kw, what):
+    """The mesh options the port did not run before it carried the mesh
+    now run, on a one-rank ``ShardMesh`` (no process group): chunk mode
+    equals the unmeshed run, stale mode reports itself; a stand-in mesh
+    that is not a ShardMesh raises."""
     tr = np.arange(10)
-    with pytest.raises(NotImplementedError, match=what):
-        pds.simulate_trace(tr, 16, device="cpu", **kw)
+    mesh = make_shard_mesh(kw["shards"])
+    got = pds.simulate_trace(tr, 16, device="cpu", mesh=mesh, **kw)
+    assert got.extra["mesh_devices"] == 1
+    assert got.extra["mesh_exchange"] == what
+    if what == "chunk":
+        assert got.hits == pds.simulate_trace(tr, 16, device="cpu",
+                                              **kw).hits
+    with pytest.raises(ValueError, match="ShardMesh"):
+        pds.simulate_trace(tr, 16, device="cpu", mesh=_MESH2, **kw)
 
 
 @pytest.mark.parametrize("assoc", [None, 8])
@@ -114,9 +126,9 @@ def test_climb_is_ignored_without_adaptive(assoc):
 
 
 def test_unported_run_options_raise(tmp_path):
-    """The mesh (item 12) raises, with a checkpoint directory too.  The
-    checkpoint and fault-hook options (item 11) run, in segments, and a
-    hook that returns None changes nothing."""
+    """A mesh runs (a stand-in that is not a ShardMesh raises), with a
+    checkpoint directory too.  The checkpoint and fault-hook options run,
+    in segments, and a hook that returns None changes nothing."""
     cfg = pds.DeviceWTinyLFU(16)
     tr = np.arange(40) % 13
     plain = cfg.run(tr, device="cpu")
@@ -130,12 +142,14 @@ def test_unported_run_options_raise(tmp_path):
     class Mesh:
         axis_names = ("shard",)
         devices = np.zeros(2)
-    meshed = pds.DeviceWTinyLFU(16, shards=2, mesh=Mesh())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        meshed.run(np.arange(10), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        meshed.run(np.arange(10), device="cpu",
-                   checkpoint_dir=str(tmp_path / "mesh"))
+    with pytest.raises(ValueError, match="ShardMesh"):
+        pds.DeviceWTinyLFU(16, shards=2, mesh=Mesh()).run(np.arange(10),
+                                                           device="cpu")
+    meshed = pds.DeviceWTinyLFU(16, shards=2, mesh=make_shard_mesh(2))
+    ref = pds.DeviceWTinyLFU(16, shards=2).run(np.arange(10), device="cpu")
+    assert meshed.run(np.arange(10), device="cpu").hits == ref.hits
+    assert meshed.run(np.arange(10), device="cpu",
+                      checkpoint_dir=str(tmp_path / "mesh")).hits == ref.hits
 
 
 def test_run_equals_simulate_trace():

@@ -4,8 +4,9 @@ reference's (``repro.core.faults``), on the CPU.
 The mutators equal the reference's on the same numpy input, on tensors
 too, and leave their input untouched.  Faulted runs (a cache-table flip; a
 flip in a shard's global sketch slice caught by the checksums and
-quarantined; a shard's global slice lost twice) equal the JAX engine's run
-under the same hook bit for bit, on short traces.  And the SIGKILL drill:
+quarantined; a shard's global slice lost twice; stored main sets and ARC
+ghost positions put out of range) equal the JAX engine's
+run under the same hook bit for bit, on short traces.  And the SIGKILL drill:
 a port script on the CPU is killed after two checkpoints, and the resume
 equals the JAX engine's uninterrupted run.
 """
@@ -20,10 +21,12 @@ from repro.core import device_simulate as jds
 from repro.core import faults as jfaults
 from repro.kernels.sketch_step import StepSpec as JStepSpec
 from repro.traces import zipf_trace
-from repro_torch.check_runs import corrupt_stored_probes
+from repro_torch.check_runs import (_A8, _TINY4, _TINY16,
+                                    corrupt_stored_probes, table_flips)
 from repro_torch.checkpoint.store import latest_step
 from repro_torch.core import device_simulate as pds
 from repro_torch.core import faults
+from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels.sketch_step import StepSpec
 
 from test_torch_checkpoint_resume import C, N, SF, WARMUP, trace
@@ -80,10 +83,10 @@ def test_drop_shard_delta_matches_reference(half):
         assert np.array_equal(tst[k].numpy(), keep[k])
 
 
-def faulted(kw, make_hook, every=512, integrity=False):
+def faulted(kw, make_hook, every=512, integrity=False, climb=None):
     """The JAX engine's and the port's runs of ``trace()`` under the same
     hook (``make_hook(faults_module, spec)``), with the cursors each
-    hook saw."""
+    hook saw (adaptive: ``climb``, a (JAX, port) pair of ClimbSpecs)."""
     tr = trace()
     kw = dict(kw, integrity=integrity) if integrity else kw
     jcfg = jds.DeviceWTinyLFU(C, sample_factor=SF, **kw)
@@ -98,12 +101,13 @@ def faulted(kw, make_hook, every=512, integrity=False):
             return hook(cursor, state)
         return run
 
+    jc, pc = climb or (None, None)
     want = jcfg.run(tr, warmup=WARMUP, checkpoint_every=every,
                     fault_hook=hooked("jax", jfaults, jcfg.spec()),
-                    return_state=True)
+                    return_state=True, climb=jc)
     got = pcfg.run(tr, warmup=WARMUP, checkpoint_every=every,
                    fault_hook=hooked("port", faults, pcfg.spec()),
-                   return_state=True, device="cpu")
+                   return_state=True, device="cpu", climb=pc)
     assert seen["jax"] == seen["port"] == list(range(every, N, every))
     (rj, sj, hj), (rp, sp, hp) = want, got
     assert np.array_equal(np.asarray(hj), hp.numpy())
@@ -168,29 +172,87 @@ def test_corrupted_stored_probes_equal_jax(kw):
     faulted(kw, make)
 
 
-@pytest.mark.parametrize("kw,key,col,bit", [
-    (dict(assoc=8), "wtab", 3, 30),                # WT_MSET, too large
-    (dict(assoc=8), "wtab", 4, 31),                # WT_MSET2, negative
-    (dict(assoc=8, policy="arc"), "mtab", None, 31)],   # a ghost position
-    ids=["mset", "mset2", "arc-ghost"])
-def test_hook_out_of_range_table_index_is_refused(kw, key, col, bit):
-    """A hook that flips a stored main set or an ARC ghost position is
-    refused naming ROADMAP queue 3 fault 4 (the kernel does not clamp
-    these yet), before any step runs on the state; an untouched state from
-    the same hook is taken."""
-    cfg = pds.DeviceWTinyLFU(C, sample_factor=SF, **kw)
-    spec = cfg.spec()
-    ncols = spec.wcols if key == "wtab" else spec.mcols
-    c = 3 + spec.rows if col is None else col
-    hook = (lambda cursor, state:
-            faults.flip_words(state, key, [(2 * ncols + c, bit)]))
-    with pytest.raises(ValueError, match="queue 3 fault 4"):
-        cfg.run(trace()[:600], warmup=WARMUP, checkpoint_every=512,
-                fault_hook=hook, device="cpu")
-    res = cfg.run(trace()[:600], warmup=WARMUP, checkpoint_every=512,
-                  fault_hook=lambda cursor, state: dict(state), device="cpu")
-    assert res.hits == cfg.run(trace()[:600], warmup=WARMUP,
-                               device="cpu").hits
+@pytest.mark.parametrize("kw,what", [
+    (dict(assoc=8), ("wtab", 3, 30)),              # WT_MSET, too large
+    (dict(assoc=8), ("wtab", 4, 31)),              # WT_MSET2, negative
+    (dict(assoc=8, policy="arc"), ("mtab", None, 31)),  # a ghost position
+    (dict(assoc=8), "sets"),
+    (dict(assoc=8, shards=2, merge_every=128), "sets"),
+    (dict(assoc=8, policy="s3fifo", window_frac=0.1), "sets"),
+    (dict(assoc=8, policy="arc"), "ghost"),
+    (dict(assoc=8, adaptive=True), "sets")],
+    ids=["mset", "mset2", "arc-ghost", "sets", "sets-sharded",
+         "sets-s3fifo", "ghost-arc", "sets-adaptive"])
+def test_hook_out_of_range_table_index_equals_jax(kw, what):
+    """Queue 3 fault 4: a hook that puts table words the step takes as
+    addresses out of range (a window record's stored main sets, one of
+    them or every record's by ``check_runs.table_flips``, or ARC's ghost
+    positions) is taken, and the run degrades as the reference's does: it
+    equals the JAX engine's under the same hook, every leaf and hit flag.
+    The stored sets clamp and their blocks overwrite one another as the
+    reference's dynamic slices do; the adaptive case's rebalances migrate
+    window records by them (climb epoch 256)."""
+    def make(fmod, spec):
+        def hook(cursor, state):
+            if cursor != 512:
+                return None
+            if isinstance(what, str):
+                leaf, flips = table_flips(spec, what)
+            else:
+                leaf, col, bit = what
+                ncols = spec.wcols if leaf == "wtab" else spec.mcols
+                c = 3 + spec.rows if col is None else col
+                flips = [(2 * ncols + c, bit)]
+            return fmod.flip_words(state, leaf, flips)
+        return hook
+    climb = ((jds.ClimbSpec(epoch_len=256), pds.ClimbSpec(epoch_len=256))
+             if kw.get("adaptive") else None)
+    faulted(kw, make, climb=climb)
+
+
+@pytest.mark.parametrize("kw,leaf,col,lim", [
+    (dict(_A8, adaptive=True), "wtab", 3, "main_sets"),
+    (dict(_TINY4, dk_bits=256, policy="arc"), "mtab", 7, "ghost"),
+    (dict(_TINY16, policy="lfu"), None, None, None)],
+    ids=["wtinylfu-adaptive", "arc", "lfu"])
+def test_step_finds_out_of_range_addresses_itself(kw, leaf, col, lim):
+    """``step`` takes the exact instances by itself, from
+    ``sketch_step._needs_exact``: a state from ``init_step_state`` or from
+    arrays in range is marked in range (its table is not read at a launch),
+    a torch write into the table clears the mark, an address out of range
+    is found at every launch until it has left, ``rebalance`` keeps the
+    mark, and a state built from arrays out of range carries none.  LFU's
+    tables hold no address."""
+    spec = StepSpec(**kw)
+    st = ks.init_step_state(spec, device="cpu")
+    assert ks._in_range_marked(spec, st) and not ks._needs_exact(spec, st)
+    if leaf is None:
+        st["mtab"][0, 3] = -5
+        assert ks._in_range_marked(spec, st)
+        assert not ks._needs_exact(spec, st)
+        return
+    bad = spec.main_sets if lim == "main_sets" else 32 * spec.dk_words
+    st[leaf][1, col] = bad
+    assert not ks._in_range_marked(spec, st)
+    assert ks._needs_exact(spec, st) and ks._needs_exact(spec, st)
+    arrays = ks.state_to_numpy(st)
+    st[leaf][1, col] = 0
+    assert not ks._needs_exact(spec, st) and ks._in_range_marked(spec, st)
+    if spec.adaptive:
+        params = ks.make_step_params(20, 44, 35, 200, 7, 0, device="cpu")
+        ks.rebalance(spec, params, st, 30)
+        assert ks._in_range_marked(spec, st)
+    st2 = ks.state_from_numpy(spec, arrays, "cpu")
+    assert not ks._in_range_marked(spec, st2) and ks._needs_exact(spec, st2)
+    arrays[leaf][1, col] = -1
+    assert ks._needs_exact(spec, ks.state_from_numpy(spec, arrays, "cpu"))
+    arrays[leaf][1, col] = 0
+    assert ks._in_range_marked(spec, ks.state_from_numpy(spec, arrays,
+                                                         "cpu"))
+    with torch.inference_mode():        # keeps no version: read each time
+        st3 = ks.init_step_state(spec, device="cpu")
+        assert not ks._in_range_marked(spec, st3)
+        assert not ks._needs_exact(spec, st3)
 
 
 KILL_SCRIPT = r"""
@@ -239,8 +301,9 @@ def test_sigkill_resume_equals_jax(tmp_path):
 def fd_pins():
     """The JAX engine's hits and state digest for each of
     check_runs.FD_DRILLS under its hook, and the reference's own bounds."""
-    from repro_torch.check_runs import (FD_DRILLS, FD_FLIP_TOL, FD_GOLDEN,
-                                        FD_TAIL, GP_TOL, digest, fd_hook)
+    from repro_torch.check_runs import (FD_DRILLS, FD_FLIP_BOUNDED,
+                                        FD_FLIP_TOL, FD_GOLDEN, FD_TAIL,
+                                        GP_TOL, digest, fd_hook)
     pins = {}
     for name, (tkw, cap, kw, warmup, every) in FD_DRILLS.items():
         tr = zipf_trace(**tkw)
@@ -252,10 +315,10 @@ def fd_pins():
                                           return_state=True, **kw)
         pins[name] = (res.hits, digest({k: torch.from_numpy(np.array(v))
                                         for k, v in st.items()}))
-        if name in ("flip", "probes"):
-            assert abs(res.hit_ratio - clean.hit_ratio) < FD_FLIP_TOL
-        else:
+        if name in ("quarantine", "loss"):
             assert abs(res.hit_ratio - FD_GOLDEN) < GP_TOL, res.hit_ratio
+        elif name in FD_FLIP_BOUNDED:
+            assert abs(res.hit_ratio - clean.hit_ratio) < FD_FLIP_TOL
         if name == "quarantine":
             assert int(np.asarray(st["csum"])[-1]) == 1
             tail = [float(np.asarray(x)[-FD_TAIL:].mean()) for x in (h, h0)]

@@ -6,7 +6,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "ab_timing.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "ab_timing.py",
+    ROOT / "tests" / "torch_mesh_ranks.py"]
 MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.core.adaptive", "repro_torch.core.hashing",
            "repro_torch.core.simulate", "repro_torch.core.device_simulate",
@@ -32,7 +33,9 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.models.api", "repro_torch.models.convert",
            "repro_torch.serve.extend", "repro_torch.serve.engine",
            "repro_torch.serve.driver", "repro_torch.checkpoint",
-           "repro_torch.checkpoint.store", "repro_torch.core.faults"]
+           "repro_torch.checkpoint.store", "repro_torch.core.faults",
+           "repro_torch.distributed", "repro_torch.distributed.mesh",
+           "repro_torch.distributed.launch"]
 
 
 def test_imports_with_jax_and_repro_blocked():

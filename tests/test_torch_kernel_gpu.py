@@ -22,7 +22,8 @@ from repro_torch.check_runs import (ADAPT_CASES, ADD_HAZARD_CASES,
                                     FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
                                     LANES, PANEL_CASES, PANEL_FRACS,
-                                    SHARD_CASES, SKETCH_EDGE_CFGS, lane_keys,
+                                    SHARD_CASES, SKETCH_EDGE_CFGS,
+                                    STEP12_CASES, lane_keys, run_step_case,
                                     lane_n_valid,
                                     SKETCH_CFGS as CFGS, add_hazard_batches,
                                     cache_tails, hazard_keys, mixed_keys,
@@ -400,20 +401,67 @@ def test_launch_refuses_cpu_tensors():
 
 
 def test_launch_refuses_more_ways_than_registers_hold():
-    """The set path holds a set's ways in registers, at most 128: more are
-    refused before anything is built or launched."""
+    """More ways than the register-held instances take (129) are no longer
+    refused by a limit: the wrapper passes them to the wide instances, and
+    only its CUDA-operand check refuses CPU tensors, before anything is
+    built or launched."""
     spec = port.StepSpec(width=256, rows=4, dk_bits=1024, window_slots=129,
-                         main_slots=129, assoc=129)
+                         main_slots=129, assoc=129, dk_probes=11)
     state = port.init_step_state(spec, device="cpu")
     lo = torch.zeros(4, dtype=torch.int32)
     probes = port.precompute_probes(spec, lo, lo)
     before = port.step.launches
-    with pytest.raises(ValueError, match="128 ways"):
+    with pytest.raises(ValueError, match="CUDA"):
         port._launch(spec, port.make_step_params(2, 120, 96, 500, 7,
                                                  device="cpu"),
                      state, lo, lo, probes, 4,
                      torch.zeros(4, dtype=torch.int32))
     assert port.step.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(STEP12_CASES)),
+                         ids=[c[0] for c in STEP12_CASES])
+def test_step12_kernel_matches_plain_on_card(case):
+    """The stale mesh instances (any rank's), the wide instances and the
+    exact path after out-of-range table addresses: the kernel equals the
+    plain version, every leaf and hit flag."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    got = run_step_case(STEP12_CASES[case], port.step, "cuda")
+    want = run_step_case(STEP12_CASES[case], port.step_ref, "cpu")
+    np.testing.assert_array_equal(got[1], want[1])
+    for k in want[0]:
+        np.testing.assert_array_equal(got[0][k], want[0][k], err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(shards=4, merge_every=256), dict(shards=4, assoc=8,
+                                          merge_every=256),
+    dict(shards=4, assoc=8, adaptive=True)],
+    ids=["flat", "ways 8", "ways 8 adaptive"])
+@pytest.mark.parametrize("exchange", ["chunk", "stale"])
+def test_mesh_engine_on_card_equals_cpu(kw, exchange):
+    """A one-rank mesh (no process group) on the card equals the same run
+    on the CPU, every leaf of the canonical state and every hit flag; chunk
+    mode also equals the unmeshed sharded run on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.distributed.mesh import make_shard_mesh
+    keys = hazard_keys("wide", 1_536, seed=5)
+    kw = dict(kw, mesh_exchange=exchange, climb=ClimbSpec(epoch_len=256))
+    out = [simulate_trace(keys, 150, warmup=200, mesh=make_shard_mesh(4),
+                          return_state=True, device=dev, **kw)
+           for dev in ("cuda", "cpu")]
+    (r, st, h), (rc, stc, hc) = out
+    assert r.hits == rc.hits and torch.equal(h.cpu(), hc)
+    for k in stc:
+        assert torch.equal(st[k].cpu(), stc[k]), k
+    if exchange == "chunk":
+        kw.pop("mesh_exchange")
+        assert simulate_trace(keys, 150, warmup=200, device="cuda",
+                              **kw).hits == r.hits
 
 
 # DeviceSketchConfig kwargs: the tests/test_kernels.py CFGS and one with W

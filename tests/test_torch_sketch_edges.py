@@ -2,7 +2,11 @@
 geometries (``check_runs.SKETCH_EDGE_CFGS``: one-word rows and doorkeepers,
 rows 1 to 8, doorkeeper probes 0 to 20) against the JAX package, bitwise;
 the add past 8 doorkeeper probes against the reference's numpy hashing
-twins; and the step kernel's refusals of more than 8 probes and 128 ways.
+twins; and the plain step at the geometries of the step kernel's wide
+instances (more than 8 doorkeeper probes, 256 ways) and with table
+addresses put out of range (``check_runs.STEP12_CASES``) against the JAX
+step where it runs (up to 10 doorkeeper probes), and past that its probes
+and sketch against the numpy twins.
 
 Both sides get the same state and keys (numpy, from a seed).  JAX runs on
 the CPU with its jnp oracles (``use_pallas=False``) and, for one small
@@ -23,8 +27,9 @@ from repro.core import hashing as jhash
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import sketch_common as jsc
-from repro_torch.check_runs import (SKETCH_EDGE_CFGS, mixed_keys,
-                                    random_sketch)
+from repro_torch.check_runs import (SKETCH_EDGE_CFGS, STEP12_CASES,
+                                    hazard_keys, mixed_keys, random_sketch,
+                                    run_step_case, table_flips)
 from repro_torch.kernels import sketch_common as psc
 from repro_torch.kernels import sketch_step, sketch_update
 from repro_torch.kernels.admission import admission_ref
@@ -191,22 +196,111 @@ def test_add_past_8_probes_matches_numpy_twins(dk_probes):
                 assert np.array_equal(ps[k].numpy(), np.asarray(js[k])), k
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(dk_probes=9), "dk_probes <= 8.*reference runs more probes.*"
-                        "ROADMAP.md queue 3"),
-    (dict(assoc=129, window_slots=129, main_slots=129),
-     "128 ways.*reference runs more ways.*ROADMAP.md queue 3"),
-], ids=["probes", "ways"])
-def test_step_kernel_refusals_name_the_limit(kw, match):
-    """The step kernel keeps its limits (8 doorkeeper probes, 128 ways),
-    refused before anything is built, naming where they are listed."""
-    spec = sketch_step.StepSpec(**{**dict(width=256, rows=4, dk_bits=1024,
-                                          window_slots=2, main_slots=60),
-                                   **kw})
-    state = sketch_step.init_step_state(spec, device="cpu")
-    lo = torch.zeros(4, dtype=torch.int32)
-    probes = sketch_step.precompute_probes(spec, lo, lo)
-    params = sketch_step.make_step_params(2, 120, 96, 500, 7, device="cpu")
-    with pytest.raises(ValueError, match=match):
-        sketch_step._launch(spec, params, state, lo, lo, probes, 4,
-                            torch.zeros(4, dtype=torch.int32))
+def jax_step_case(case):
+    """``check_runs.run_step_case`` on the JAX package: the same chunks
+    through its ``step_ref``, its ``merge_halve`` after each chunk
+    (sharded), its ``rebalance`` to the case's quotas (adaptive) and its
+    ``flip_words`` after the first chunk."""
+    import jax.numpy as jnp
+    from repro.core import faults as jfaults
+    from repro.kernels import sketch_step as js
+    from repro.kernels.sketch_merge import merge_halve as jmerge
+    _, kw, pargs, wcap, mcap, kind, n, chunk, opt = case
+    spec = js.StepSpec(**kw)
+    params = js.make_step_params(*pargs, counter_bits=spec.counter_bits)
+    state = js.init_step_state(spec, wcap, mcap)
+    lo, hi = psc.keys_to_lanes(hazard_keys(kind, n, seed=3))
+    quotas = list(opt.get("quotas", ()))
+    hits = []
+    for c in range(0, n, chunk):
+        if c == chunk and opt.get("flip"):
+            leaf, flips = table_flips(spec, opt["flip"])
+            state = jfaults.flip_words(state, leaf, flips)
+        state, h = js.step_ref(spec, params, state,
+                               jnp.asarray(lo[c:c + chunk]),
+                               jnp.asarray(hi[c:c + chunk]))
+        hits.append(np.asarray(h))
+        if spec.shards > 1:
+            state = jmerge(spec, params, state)
+        if spec.adaptive and quotas:
+            state = js.rebalance(spec, params, state,
+                                 quotas[(c // chunk) % len(quotas)])
+    return {k: np.asarray(v) for k, v in state.items()}, np.concatenate(hits)
+
+
+def _jax_runs(case) -> bool:
+    kw = case[1]
+    return not kw.get("mesh_devices") and jax_takes(kw.get("dk_probes", 3))
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in STEP12_CASES if _jax_runs(c)],
+    ids=[c[0] for c in STEP12_CASES if _jax_runs(c)])
+def test_step_at_wide_geometries_and_faulted_tables_matches_jax(case):
+    """The plain step at 256 ways (W-TinyLFU static, adaptive and sharded,
+    S3-FIFO), at the largest doorkeeper-probe counts JAX's step runs, and
+    with every window record's stored main sets put out of range (flat,
+    sharded, adaptive through its rebalances, S3-FIFO) or ARC's ghost
+    positions: every state leaf and hit flag equal to the JAX step's."""
+    got = run_step_case(case, sketch_step.step_ref, "cpu")
+    want = jax_step_case(case)
+    assert sorted(got[0]) == sorted(want[0])
+    for k in want[0]:
+        assert np.array_equal(got[0][k], want[0][k]), k
+    assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dkp", [9, 10])
+@pytest.mark.parametrize("assoc", [None, 8], ids=["flat", "ways 8"])
+def test_step_past_8_probes_matches_jax(dkp, assoc):
+    """The largest doorkeeper-probe counts the JAX step runs (its salts
+    overflow at 11): the plain step equals it, every leaf and hit flag."""
+    kw = dict(width=256, rows=4, dk_bits=1024, dk_probes=dkp,
+              window_slots=8, main_slots=16 if assoc else 60)
+    if assoc:
+        kw["assoc"] = assoc
+    case = ("", kw, (4, 12 if assoc else 56, 9 if assoc else 44, 300, 7, 0),
+            4, 12 if assoc else 56, "skewed", 500, 250, {})
+    assert jax_takes(dkp)
+    got = run_step_case(case, sketch_step.step_ref, "cpu")
+    want = jax_step_case(case)
+    for k in want[0]:
+        assert np.array_equal(got[0][k], want[0][k]), k
+    assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dkp", [13, 20])
+def test_step_past_10_probes_matches_numpy_twins(dkp):
+    """Past what the JAX step runs: the step's hashed probes equal the
+    reference's numpy twins (``probe_indices32_np``, ``dk_probe_index_np``),
+    and with no reset (W = 0) its sketch after a run of the keys equals the
+    sequential add built on those twins, from a random sketch with a dense
+    doorkeeper (the step's add is the batched add's per-key update; its
+    estimates read the stored probes as at the counts JAX checks)."""
+    kw = dict(width=16, rows=3, cap=15, dk_bits=1024, dk_probes=dkp)
+    spec = sketch_step.StepSpec(width=16, rows=3, dk_bits=1024,
+                                dk_probes=dkp, window_slots=4,
+                                main_slots=16, assoc=4)
+    keys = mixed_keys(dkp, 64)
+    lo, hi = port_lanes(keys)
+    idx, dkb, _, _ = sketch_step.precompute_probes(spec, lo, hi)
+    jlo, jhi = jhash.key_to_lanes(keys)
+    assert np.array_equal(idx.numpy(),
+                          jhash.probe_indices32_np(jlo, jhi, 3, 16))
+    for p in range(dkp):
+        assert np.array_equal(dkb[:, p].numpy(),
+                              jhash.dk_probe_index_np(jlo, jhi, p, 1024))
+    arrays = random_sketch(psc.DeviceSketchConfig(**kw), dkp)
+    state = sketch_step.init_step_state(spec, 4, 16, device="cpu")
+    state["counters"].copy_(torch.from_numpy(
+        arrays["counters"].reshape(-1).copy()))
+    state["doorkeeper"].copy_(torch.from_numpy(
+        arrays["doorkeeper"].reshape(-1).copy()))
+    params = sketch_step.make_step_params(4, 16, 12, 0, 15, device="cpu")
+    _, hits = sketch_step.step_ref(spec, params, state, lo, hi)
+    twin = twin_add(kw, arrays, keys)
+    assert np.array_equal(state["counters"].numpy(),
+                          twin["counters"].reshape(-1))
+    assert np.array_equal(state["doorkeeper"].numpy(),
+                          twin["doorkeeper"].reshape(-1))
+    assert int(state["regs"][sketch_step.R_T]) == len(keys)

@@ -16,6 +16,7 @@ import torch
 
 from repro.core import device_simulate as jds
 from repro_torch.core import device_simulate as pds
+from repro_torch.distributed.mesh import make_shard_mesh
 from repro_torch.traces.synthetic import zipf_trace
 
 torch.set_num_threads(1)
@@ -120,13 +121,25 @@ _MESH2 = SimpleNamespace(axis_names=("shard",), devices=np.zeros(2))
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(shards=2, mesh=_MESH2, mode="sequential"), "item 12"),
-    (dict(shards=2, adaptive=True, mesh=_MESH2), "item 12"),
-    (dict(shards=4, assoc=4, mesh=_MESH2), "item 12"),
-    (dict(shards=2, mesh=_MESH2, mesh_exchange="stale"), "item 12"),
+    (dict(shards=2, mode="sequential"), "chunk"),
+    (dict(shards=2, adaptive=True), "chunk"),
+    (dict(shards=4, assoc=4), "chunk"),
+    (dict(shards=2, mesh_exchange="stale"), "stale"),
 ])
 def test_sweep_unported_grids_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        pds.simulate_sweep(np.arange(10), [16], device="cpu", **kw)
+    """Meshed grids run, as the reference's do: sequentially, each row on
+    the configuration's (one-rank) mesh; mode="vmap" and a stand-in mesh
+    that is not a ShardMesh raise."""
+    mesh = make_shard_mesh(kw["shards"])
+    rows = pds.simulate_sweep(np.arange(10), [16], device="cpu", mesh=mesh,
+                              **kw)
+    assert rows[0].extra["backend"] == "plain+sequential"
+    assert rows[0].extra["mesh_exchange"] == what
+    with pytest.raises(ValueError, match="mesh sweeps"):
+        pds.simulate_sweep(np.arange(10), [16], device="cpu", mesh=mesh,
+                           **{**kw, "mode": "vmap"})
+    with pytest.raises(ValueError, match="ShardMesh"):
+        pds.simulate_sweep(np.arange(10), [16], device="cpu", mesh=_MESH2,
+                           **kw)
     with pytest.raises(ValueError, match="unknown mode"):
         pds.simulate_sweep(np.arange(10), [16], device="cpu", mode="x")

@@ -1,30 +1,44 @@
-"""This tree's step and add kernels against another copy of their sources,
-on the card, in turns.
+"""The step and add kernels on the card: ptxas lines by instance, the step
+kernel's special instances against its plain version, and this tree's
+kernels against another copy of their sources, in turns.
+
+The engine's loader (``repro_torch.kernels._build``, into ``build/``)
+builds ``sketch_step.cu`` (static, adaptive and panel builds) and
+``sketch_update.cu``, all at once, and the script prints every kernel
+instance's ptxas register and spill lines by demangled name.
 
 ``--other DIR`` names a directory that holds other versions of
 ``sketch_step.cu``, ``sketch_update.cu`` and ``sketch_common.cuh``: an
 earlier commit's (``git archive <commit> src/repro_torch/kernels/csrc |
-tar -x --strip-components=4 -C DIR``) or an edited copy.  Both pairs are
-built by the engine's loader (``repro_torch.kernels._build``, into
-``build/``), all at once, and for each source the script prints both
-builds' ptxas register and spill lines, in order, and whether the other's
-lines all appear among this tree's.  Then,
-with CUDA events around each launch:
+tar -x --strip-components=4 -C DIR``) or an edited copy.  It is built
+beside this tree's, and the script lists the other copy's instances whose
+lines are not among this tree's.  Then, with CUDA events around each
+launch:
 
 * run F's chunks (C=65,536, assoc=8, 1.2M Zipf accesses, chunk 512)
-  through each build's step kernel in turns (this, other, other, this,
-  this, other): ms per chunk, and the final states' digests, which must
-  be equal;
+  through each copy's static step kernel in turns (this, other, other,
+  this, this, other): ms per chunk, and the final states' digests, which
+  must be equal;
 * add S's batches (F's trace in 4,096-key batches into
-  ``DeviceTinyLFU(65,536)``'s sketch, no reset) through each build's add
+  ``DeviceTinyLFU(65,536)``'s sketch, no reset) through each copy's add
   kernel in the same turns: ms per batch, final states equal;
 * add 60 of S's batches at S's geometry with 8, 9, 13 and 20 doorkeeper
   probes through this tree's add, twice each (past 8 probes, its loop
   instance).
 
+``--cases`` runs every ``check_runs.STEP12_CASES`` case (the stale mesh
+instances, mode 1e; the wide instances; the exact path after table
+addresses put out of range) through this tree's kernel and through the
+plain version on the CPU: equal state leaves and hit flags, and the
+kernel's ms per launch.  ``--mesh`` runs F's trace at F4's geometry
+(shards=4, epoch 4,096) through the sharded instance (``merge_halve``
+after each epoch) and through the stale mesh instance of a one-rank mesh
+(``merge_halve_mesh``, no process group), in turns: ns per access of the
+step and ms per fold.
+
 Run on a machine with a card, from the repository root:
 
-    PYTHONPATH=src python tools/ab_timing.py --other DIR
+    PYTHONPATH=src python tools/ab_timing.py [--other DIR] [--cases] [--mesh]
 """
 from __future__ import annotations
 
@@ -32,30 +46,54 @@ import argparse
 import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch import check_runs as cr
 from repro_torch.check_runs import S_BATCH, S_BLOCKS, digest
 from repro_torch.core.device_simulate import (DeviceWTinyLFU, _trace_lanes,
                                               run_chunks)
+from repro_torch.distributed.mesh import make_shard_mesh
 from repro_torch.kernels import _build
 from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels import sketch_update as su
 from repro_torch.kernels.ops import make_config
 from repro_torch.kernels.sketch_common import (DeviceSketchConfig,
                                                init_state, keys_to_lanes)
+from repro_torch.kernels.sketch_merge import merge_halve, merge_halve_mesh
 from repro_torch.traces.synthetic import zipf_trace
 
 TURNS = ("this", "other", "other", "this", "this", "other")
-SOURCES = ("sketch_step", "sketch_update")
+BUILDS = {"step": ("sketch_step", ()),
+          "step adaptive": ("sketch_step", ks.ADAPTIVE_DEFINES),
+          "step panel": ("sketch_step", ks.PANEL_DEFINES),
+          "add": ("sketch_update", ())}
 
 
-def ptxas_lines(log: str) -> list[str]:
-    return [ln.split("ptxas info    : ")[-1].strip()
-            for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
+def instance_lines(log: str) -> dict:
+    """Demangled kernel name -> its ptxas register/spill lines."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.split("ptxas info    : ")[-1].strip())
+    names = list(out)
+    dem = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                         capture_output=True).stdout.split("\n")
+    return {(dem[i] if i < len(dem) and dem[i] else n): out[n]
+            for i, n in enumerate(names)}
+
+
+def canonical(name: str) -> str:
+    """A step instance's name without its last template flag when that is
+    false: the mesh flag, which copies older than the stale mesh step's
+    instances lack."""
+    return name.replace(", false>(StepArgs)", ">(StepArgs)")
 
 
 def events_ms(pairs) -> float:
@@ -63,16 +101,21 @@ def events_ms(pairs) -> float:
     return statistics.mean(a.elapsed_time(b) for a, b in pairs)
 
 
-def step_with(lib):
-    """run_chunks' ``fn`` launching the step kernel of ``lib``, with CUDA
-    events around each launch (appended to ``run.events``)."""
-    def run(spec, params, state, lo, hi, n_valid=None, probes=None):
+def step_with(lib=None):
+    """run_chunks' ``fn`` launching the step kernel of ``lib`` (default:
+    the build this tree's wrapper picks for the spec), with CUDA events
+    around each launch (appended to ``run.events``)."""
+    def run(spec, params, state, lo, hi, n_valid=None, probes=None, rank=0):
+        if probes is None:
+            probes = ks.precompute_probes(spec, lo, hi)
+        exact = ks._needs_exact(spec, state)
         hits = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        ks._launch(spec, params, state, lo, hi, probes, n_valid, hits,
-                   lib=lib)
+        ks._launch(spec, params, state, lo, hi, probes,
+                   lo.shape[-1] if n_valid is None else n_valid, hits,
+                   lib=lib, rank=rank, exact=exact)
         e1.record()
         run.events.append((e0, e1))
         return state, hits
@@ -107,11 +150,109 @@ def time_adds(lib, cfg, f_trace, batches: int):
     return events_ms(pairs), state
 
 
+def print_ptxas(other):
+    """Every instance's ptxas lines of this tree, and with ``other`` the
+    other copy's instances whose lines are not among them."""
+    for b, (src, defs) in BUILDS.items():
+        this = instance_lines(_build.build_info[(src, defs)]["log"])
+        for n, lines in this.items():
+            print(f"[{b}] {n}: {' | '.join(lines)}")
+        if other:
+            oth = instance_lines(_build.build_info[
+                (src, defs, str(other))]["log"])
+            mine = {canonical(n): v for n, v in this.items()}
+            diff = [n for n, v in oth.items() if mine.get(canonical(n)) != v]
+            print(f"[{b}] other copy: {len(oth)} instances, {len(diff)} with "
+                  "other lines here:", *diff, sep="\n  ")
+
+
+def ab_turns(libs, f_trace, card):
+    """F's chunks and S's adds through each copy in turns, then this tree's
+    add past 8 doorkeeper probes."""
+    ms, digests = {"this": [], "other": []}, {}
+    for turn in TURNS:
+        m, digests[turn] = time_f(libs[("step", turn)], f_trace)
+        ms[turn].append(round(m, 4))
+    print(f"F, step kernel ms per 512-access chunk in turns: {ms}; "
+          f"digests equal {len(set(digests.values())) == 1}; {card}")
+    s_cfg = make_config(S_BLOCKS)
+    ms, states = {"this": [], "other": []}, {}
+    for turn in TURNS:
+        m, states[turn] = time_adds(libs[("add", turn)], s_cfg, f_trace, 293)
+        ms[turn].append(round(m, 4))
+    same = all(torch.equal(states["this"][k], states["other"][k])
+               for k in ("counters", "doorkeeper"))
+    print(f"S's adds (293 batches of {S_BATCH}, no reset), ms per batch "
+          f"in turns: {ms}; final states equal {same}; {card}")
+    for dkp in (8, 9, 13, 20):
+        cfg = DeviceSketchConfig(width=s_cfg.width, rows=s_cfg.rows,
+                                 cap=s_cfg.cap, dk_bits=s_cfg.dk_bits,
+                                 dk_probes=dkp)
+        runs = [round(time_adds(libs[("add", "this")], cfg, f_trace, 60)[0],
+                      4) for _ in range(2)]
+        print(f"add at S's geometry, {dkp} doorkeeper probes: {runs} ms "
+              f"per 4,096-key batch (60 batches, this tree); {card}")
+
+
+def step_cases(card) -> int:
+    """Every STEP12 case through the kernel and the plain version; returns
+    the number that differ."""
+    bad = 0
+    for case in cr.STEP12_CASES:
+        fn = step_with()
+        got = cr.run_step_case(case, fn, "cuda")
+        want = cr.run_step_case(case, ks.step_ref, "cpu")
+        same = (np.array_equal(got[1], want[1])
+                and all(np.array_equal(got[0][k], want[0][k])
+                        for k in want[0]))
+        bad += not same
+        print(f"{case[0]}: kernel == plain {same}; hits {int(got[1].sum())}; "
+              f"{events_ms(fn.events):.4f} ms per launch of {case[7]} "
+              f"accesses; {card}", flush=True)
+    return bad
+
+
+def sharded_vs_mesh(f_trace, card):
+    """F4's geometry through the sharded instance and the stale mesh
+    instance of a one-rank mesh, in turns."""
+    mesh = make_shard_mesh(4)
+    for turn in ("sharded", "mesh", "mesh", "sharded"):
+        cfg = DeviceWTinyLFU(65_536, assoc=8, shards=4, merge_every=4096)
+        spec = cfg.spec()
+        if turn == "mesh":
+            spec = replace(spec, mesh_devices=1, mesh_exchange="stale")
+        params = cfg.params(warmup=480_000, device="cuda")
+        state = ks.init_step_state(spec, cfg.window_cap, cfg.main_cap,
+                                   device="cuda")
+        lo, hi = _trace_lanes(f_trace, "cuda")
+        fn, folds = step_with(), []
+
+        def fold(sp, p, st):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            if turn == "mesh":
+                merge_halve_mesh(sp, p, st, mesh)
+            else:
+                merge_halve(sp, p, st)
+            e1.record()
+            folds.append((e0, e1))
+        run_chunks(spec, params, state, lo, hi, 4096, fn=fn, fold=fold)
+        ms = events_ms(fn.events)
+        print(f"F4 geometry, {turn}: {ms / 4096 * 1e6:.1f} ns per access, "
+              f"fold {events_ms(folds):.4f} ms per epoch, hits "
+              f"{int(state['regs'][ks.R_HITS])}; {card}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", required=True, type=Path,
+    ap.add_argument("--other", type=Path, default=None,
                     help="directory with the other sketch_step.cu, "
                          "sketch_update.cu and sketch_common.cuh")
+    ap.add_argument("--cases", action="store_true",
+                    help="the STEP12 cases, kernel against plain")
+    ap.add_argument("--mesh", action="store_true",
+                    help="F4's geometry, sharded against stale mesh")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_timing: no CUDA device")
@@ -119,50 +260,23 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card, flush=True)
-    other_dir = args.other.resolve()
-    with ThreadPoolExecutor(4) as ex:
-        jobs = {(n, w): ex.submit(_build.load_library, n, (),
-                                  None if w == "this" else other_dir)
-                for n in SOURCES for w in ("this", "other")}
-        libs = {n: {w: jobs[(n, w)].result() for w in ("this", "other")}
-                for n in SOURCES}
-        for n in SOURCES:
-            this = ptxas_lines(_build.build_info[(n, ())]["log"])
-            other = ptxas_lines(
-                _build.build_info[(n, (), str(other_dir))]["log"])
-            print(f"{n} ptxas, this tree:", *this, sep="\n  ")
-            print(f"{n} ptxas, other:", *other, sep="\n  ")
-            print(f"{n}: every line of the other's among this tree's: "
-                  f"{all(this.count(x) >= other.count(x) for x in other)}")
-        f_trace = zipf_trace(1_200_000, n_items=1_000_000, alpha=0.9,
-                             seed=11)
-        ms = {"this": [], "other": []}
-        digests = {}
-        for turn in TURNS:
-            m, digests[turn] = time_f(libs["sketch_step"][turn], f_trace)
-            ms[turn].append(round(m, 4))
-        print(f"F, step kernel ms per 512-access chunk in turns: {ms}; "
-              f"digests equal {len(set(digests.values())) == 1}; {card}")
-        s_cfg = make_config(S_BLOCKS)
-        ms = {"this": [], "other": []}
-        states = {}
-        for turn in TURNS:
-            m, states[turn] = time_adds(libs["sketch_update"][turn], s_cfg,
-                                        f_trace, 293)
-            ms[turn].append(round(m, 4))
-        same = all(torch.equal(states["this"][k], states["other"][k])
-                   for k in ("counters", "doorkeeper"))
-        print(f"S's adds (293 batches of {S_BATCH}, no reset), ms per batch "
-              f"in turns: {ms}; final states equal {same}; {card}")
-        for dkp in (8, 9, 13, 20):
-            cfg = DeviceSketchConfig(width=s_cfg.width, rows=s_cfg.rows,
-                                     cap=s_cfg.cap, dk_bits=s_cfg.dk_bits,
-                                     dk_probes=dkp)
-            runs = [round(time_adds(libs["sketch_update"]["this"], cfg,
-                                    f_trace, 60)[0], 4) for _ in range(2)]
-            print(f"add at S's geometry, {dkp} doorkeeper probes: {runs} ms "
-                  f"per 4,096-key batch (60 batches, this tree); {card}")
-    return 0
+    other = args.other.resolve() if args.other else None
+    trees = ("this",) + (("other",) if other else ())
+    with ThreadPoolExecutor(8) as ex:
+        jobs = {(b, w): ex.submit(_build.load_library, src, defs,
+                                  None if w == "this" else other)
+                for b, (src, defs) in BUILDS.items() for w in trees}
+        libs = {k: j.result() for k, j in jobs.items()}
+    print_ptxas(other)
+    f_trace = zipf_trace(1_200_000, n_items=1_000_000, alpha=0.9, seed=11)
+    if other:
+        ab_turns(libs, f_trace, card)
+    bad = step_cases(card) if args.cases else 0
+    if args.mesh:
+        sharded_vs_mesh(f_trace, card)
+    if args.cases:
+        print(f"ab_timing: {bad} case(s) differ")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
