@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
 trace engine (one stream, tenant lanes, sweeps, the sharded sketch, the
-adaptive window, the policy panel, checkpoint/resume and fault injection),
-the serving-admission path (device and host sketch) and the LLM serving
-path.
+adaptive window, the policy panel, checkpoint/resume and fault injection,
+the paper's trace families beside the host engine), the serving-admission
+path (device and host sketch) and the LLM serving path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -242,7 +242,19 @@ card, timed:
    F4's) and its bound; then two ranks sharing the card over gloo with
    CUDA tensors (F4's first 262,144 accesses, stale), equal to the
    one-rank run of the same accesses;
-38. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+38. PF, the paper's trace families at the full sizes of the reference's
+   benchmark scripts (``check_runs.PF_CELLS``: YouTube-like, Wikipedia-like,
+   SPC1-like and OLTP-like; each trace's sha256 the reference's): each
+   through ``simulate_trace`` at 8 ways and on the exact flat tables (counts
+   set to 0 just before each run, read just after), hits, registers and
+   digest equal to the JAX engine's (``PF_PINS``), then again with CUDA
+   events around each launch (acc/s, ms per launch, idle share, the set
+   runs' bound); meanwhile the port's host engine (``WTinyLFU`` flat and
+   at 8 ways, and bench_traces.py's cast on PF-spc1) runs in the pool of
+   CPU worker processes: hits equal to the reference host engine's
+   (``PF_HOST_PINS``, ``PF_CAST_PINS``) and the device's hit ratios within
+   the reference's host-vs-device bands (±0.005 flat, ±0.01 set);
+39. print the ``kernels`` JSON line (six kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive, panel, mesh
    and wide instances' launches and checks and its checkpointed runs; the
    add's with the
@@ -291,6 +303,11 @@ from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
                                     LANE_CASES, LANES,
                                     P1_CAPS, P1_HOST_PINS, P1_TRACE, P2_CAP,
                                     P2_TRACE, P_PINS, PANEL_CASES,
+                                    PF_ASSOC, PF_CAST, PF_CAST_CELL,
+                                    PF_CELLS, PF_CAST_PINS, PF_HOST_PINS,
+                                    PF_PINS, PF_TOL, PF_TRACE_SHA256,
+                                    pf_host_run, pf_trace, pf_warmup,
+                                    trace_sha256,
                                     PANEL_FRACS, PANEL_POLICIES,
                                     S_BATCH, S_BLOCKS, S_DECISIONS, S_PINS,
                                     SHARD_CASES, SHARDS,
@@ -357,13 +374,18 @@ PLAIN_WORKERS = 6
 _POOL = []
 
 
-def submit_plain(runner, *args):
-    """``runner(*args, step_ref, "cpu")`` in the pool (started at the first
-    call): a future of :func:`cpu_plain`'s result."""
+def cpu_pool() -> ProcessPoolExecutor:
+    """The pool of CPU worker processes (started at the first call)."""
     if not _POOL:
         _POOL.append(ProcessPoolExecutor(
             PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn")))
-    return _POOL[0].submit(cpu_plain, runner, *args)
+    return _POOL[0]
+
+
+def submit_plain(runner, *args):
+    """``runner(*args, step_ref, "cpu")`` in the pool: a future of
+    :func:`cpu_plain`'s result."""
+    return cpu_pool().submit(cpu_plain, runner, *args)
 
 
 def cpu_plain(runner, *args):
@@ -3503,6 +3525,130 @@ def mesh_phase37(f_trace, card, f4_ms, f4_bound_ms):
     return out["stale"][0], ms, bound_ms, fold, start_s
 
 
+def pf_phase38(card):
+    """Phase 38: PF, the paper's trace families at their scripts' full
+    sizes.  The host engine's runs (W-TinyLFU flat and at PF_ASSOC ways on
+    every cell, the cast on PF_CAST_CELL) go to the pool of CPU worker
+    processes first; meanwhile each cell runs on the card through
+    ``simulate_trace`` at PF_ASSOC ways and on the flat tables (counts set
+    to 0 just before each run, read just after), held to the JAX pins, and
+    again with CUDA events around each launch.  Then the host runs are held
+    to the reference host engine's pins and the device's hit ratios to the
+    reference's host-vs-device bands."""
+    import torch
+    from repro_torch.core.device_simulate import DeviceWTinyLFU, simulate_trace
+    from repro_torch.kernels import sketch_step as ks
+    t_phase = time.perf_counter()
+    assocs = (PF_ASSOC, None)
+    order = sorted(PF_CELLS, key=lambda c: -PF_CELLS[c][2] * PF_CELLS[c][3])
+    jobs = {(c, a): cpu_pool().submit(pf_host_run, c, a)
+            for a in assocs for c in order}
+    jobs.update({n: cpu_pool().submit(pf_host_run, PF_CAST_CELL, n)
+                 for n in PF_CAST if n != "W-TinyLFU"})
+    dev = {}
+    for cell, (gen, kw, cap, sf, _) in PF_CELLS.items():
+        t0 = time.perf_counter()
+        tr = pf_trace(cell)
+        sha = trace_sha256(tr)
+        check(sha == PF_TRACE_SHA256[cell],
+              f"{cell}: trace sha256 {sha} != the reference's")
+        print(f"phase 38 {cell}: {gen}({kw}) generated in "
+              f"{time.perf_counter() - t0:.2f} s, sha256 == the reference's")
+        warmup = pf_warmup(cell, tr)
+        nchunks = math.ceil(len(tr) / F_CHUNK)
+        for assoc in assocs:
+            torch.cuda.synchronize()
+            ks.step.launches = 0
+            t0 = time.perf_counter()
+            res, state, flags = simulate_trace(
+                tr, cap, sample_factor=sf, warmup=warmup, assoc=assoc,
+                chunk=F_CHUNK, trace_name=cell, return_state=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ks.step.launches
+            hits, regs, dig = PF_PINS[(cell, assoc)]
+            name = f"{cell} {'flat' if assoc is None else f'{assoc} ways'}"
+            check(launches == nchunks,
+                  f"{name}: {launches} kernel launches, expected {nchunks}")
+            got = state["regs"].cpu().tolist()
+            check(res.hits == hits, f"{name}: hits {res.hits} != JAX {hits}")
+            check(got == regs, f"{name}: regs {got} != JAX {regs}")
+            check(digest(state) == dig,
+                  f"{name}: state digest {digest(state)} != JAX {dig}")
+            check(int(flags[warmup:].sum()) == hits,
+                  f"{name}: hit flags disagree with the hit register")
+            cfg = DeviceWTinyLFU(cap, sample_factor=sf, assoc=assoc)
+            t_state, t_flags, step_ms, stream_ms, _ = timed_launches(
+                tr, cfg, F_CHUNK, warmup)
+            check(digest(t_state) == dig and bool((t_flags == flags).all()),
+                  f"{name}: the timed run differs from the main run")
+            ms = sum(step_ms) / len(step_ms)
+            idle = 1.0 - sum(step_ms) / stream_ms
+            bound = None
+            if assoc is not None:
+                total, _, size = bound_bytes(cfg.spec(), tr, F_CHUNK,
+                                             cfg.sample_size)
+                check(size == regs[0], f"{name}: reset model ends at size "
+                      f"{size}, the kernel at {regs[0]}")
+                bound = total / nchunks / HBM_BYTES_PER_S * 1e3
+            dev[(cell, assoc)] = res
+            where = ("" if bound is None else
+                     f"; bound {bound:.6f} ms per launch (bytes), kernel "
+                     f"{ms / bound:.0f}x above it")
+            print(f"phase 38 {name}: C={cap} W={cfg.sample_size} hits "
+                  f"{res.hits}/{res.accesses} ratio {res.hit_ratio:.6f}, "
+                  f"regs and digest == JAX; wall {wall:.3f} s, "
+                  f"{len(tr) / wall:,.0f} acc/s (host clock around "
+                  f"simulate_trace); launches {launches}; kernel {ms:.4f} ms "
+                  f"per launch ({ms * 1e6 / F_CHUNK:.0f} ns/access; CUDA "
+                  f"events around each launch), device idle share "
+                  f"{idle:.6f}{where}; card {card}")
+        del tr
+    t_dev = time.perf_counter() - t_phase
+    host = {}
+    for key in [(c, a) for c in PF_CELLS for a in assocs]:
+        cell, assoc = key
+        hits, acc, secs = jobs[key].result()
+        host[key] = hits / acc
+        check(hits == PF_HOST_PINS[key],
+              f"{cell} host assoc={assoc}: hits {hits} != the reference "
+              f"host engine's {PF_HOST_PINS[key]}")
+        d = dev[key].hit_ratio
+        check(abs(d - host[key]) <= PF_TOL[assoc],
+              f"{cell} assoc={assoc}: device {d:.6f} vs host "
+              f"{host[key]:.6f} outside ±{PF_TOL[assoc]}")
+        print(f"phase 38 {cell} host WTinyLFU assoc={assoc}: hits {hits}/"
+              f"{acc} == the reference host engine's, ratio "
+              f"{host[key]:.6f}; device {d:.6f} (|diff| "
+              f"{abs(d - host[key]):.6f} <= {PF_TOL[assoc]}); "
+              f"{secs:.1f} s on one CPU worker, {acc / secs:,.0f} counted "
+              f"acc/s")
+    for cell in PF_CELLS:
+        d = dev[(cell, PF_ASSOC)].hit_ratio
+        check(abs(d - host[(cell, None)]) <= PF_TOL[PF_ASSOC],
+              f"{cell}: {PF_ASSOC}-way device {d:.6f} vs the exact host "
+              f"{host[(cell, None)]:.6f} outside ±{PF_TOL[PF_ASSOC]}")
+    ratios = {}
+    for name in PF_CAST:
+        if name == "W-TinyLFU":
+            hits, acc, secs = jobs[(PF_CAST_CELL, None)].result()
+        else:
+            hits, acc, secs = jobs[name].result()
+        check(hits == PF_CAST_PINS[name],
+              f"{PF_CAST_CELL} {name}: hits {hits} != the reference's "
+              f"{PF_CAST_PINS[name]}")
+        ratios[name] = hits / acc
+        print(f"phase 38 {PF_CAST_CELL} cast {name}: hits {hits}/{acc} == "
+              f"the reference's, ratio {ratios[name]:.6f} ({secs:.1f} s)")
+    best = max(ratios, key=ratios.get)
+    spent = time.perf_counter() - t_phase
+    print(f"phase 38 {PF_CAST_CELL} cast, best first: " + ", ".join(
+        f"{n} {ratios[n]:.6f}" for n in sorted(ratios, key=ratios.get,
+                                               reverse=True))
+          + f" (best {best}); phase 38 {spent:.1f} s (card runs "
+          f"{t_dev:.1f} s, the host runs beside them)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3800,6 +3946,10 @@ def main() -> int:
     mesh_launches, mesh_ms, mesh_bound_ms, mesh_fold_ms, nccl_s = \
         mesh_phase37(f_trace, card, f4_ms, f4_bound_ms)
     elapsed("phases 36-37")
+
+    # -- phase 38: PF, the paper's trace families; the host engine ---------
+    pf_phase38(card)
+    elapsed("phase 38")
     err = max(max_err, lane_err, shard_err, adapt_err, panel_err,
               step12_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
@@ -3842,7 +3992,7 @@ def main() -> int:
     kernels[1].update(dk_probes_held=sorted(set(add_probes)
                                             | set(LOOP_PROBES)))
 
-    # -- phase 38: the kernels line ----------------------------------------
+    # -- phase 39: the kernels line ----------------------------------------
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

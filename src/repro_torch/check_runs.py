@@ -9,10 +9,11 @@ same procedures at a small size against the JAX package, and, run as
 scripts, print the JAX results that are pinned here.  The tenant-lane and
 sweep runs T and W, their sharded counterparts F4, T4 and W4, the
 adaptive-window runs FA, FA4, WA and GA, the policy panel's runs FP, GP and
-WP with their JAX pins, the hazard cases of the step and add kernels (the
-step kernel's lane grid, sharded, adaptive and panel instances too) and a
-numpy model of the add kernel's schedule live here as well.  Imports numpy
-only.
+WP with their JAX pins, the paper's trace families PF with the JAX and
+reference host-engine pins, the hazard cases of the step and add kernels
+(the step kernel's lane grid, sharded, adaptive and panel instances too)
+and a numpy model of the add kernel's schedule live here as well.  Imports
+numpy only.
 """
 from __future__ import annotations
 
@@ -315,6 +316,173 @@ P1_HOST_PINS = {
     ("wtinylfu", 2000): (6779, 55621, 161282, 103320, 2336, 98984, 2336),
     ("wtinylfu", 4000): (6779, 63231, 153672, 87280, 2473, 80807, 2473),
 }
+
+# Runs PF: the paper's trace families at the full sizes of the reference's
+# benchmark scripts (bench_youtube.py:25, bench_wiki.py:14,
+# bench_traces.py:23-24), each at one capacity of its script with the
+# script's sample factor and warmup share.  cell -> (generator of
+# repro_torch.traces.synthetic, its kwargs, capacity, sample_factor, warmup
+# share).  On the card: simulate_trace(trace, C, sample_factor=sf,
+# warmup=w) at assoc=PF_ASSOC and on the exact flat tables; on the host:
+# WTinyLFU(C, sample_factor=sf) and WTinyLFU(..., assoc=PF_ASSOC) through
+# run_trace, and on PF_CAST_CELL bench_traces.py's cast (pf_cast).  The
+# device pins are the JAX engine's (backend="jit", bit-equal to its Pallas
+# kernel): hits, registers and state digest; the host pins the reference
+# host engine's hits; PF_TRACE_SHA256 the sha256 of the reference
+# generators' int64 keys (``PYTHONPATH=src python
+# tests/test_torch_paper_traces.py`` prints them all, ~5 min).
+PF_CELLS = {
+    "PF-yt": ("youtube_dynamic_trace",
+              dict(length=800_000, weeks=21, items_per_week=8000,
+                   churn=0.4, seed=22), 1_000, 9, 0.1),
+    "PF-wiki": ("wiki_drift_trace",
+                dict(length=1_000_000, n_items=400_000, alpha=0.9,
+                     drift_every=20_000, drift_frac=0.02, seed=31),
+                1_000, 8, 0.2),
+    "PF-spc1": ("spc1_like_trace", dict(length=900_000, seed=42), 4_096, 8,
+                0.1),
+    "PF-oltp": ("oltp_like_trace", dict(length=900_000, seed=43), 1_024, 8,
+                0.1),
+}
+PF_ASSOC = 8
+# the reference's host-vs-device bands (tests/test_device_simulate.py:20,
+# 148): the flat tables against the host engine, the set tables against it
+PF_TOL = {None: 0.005, PF_ASSOC: 0.01}
+PF_CAST_CELL = "PF-spc1"
+PF_CAST = ("LRU", "ARC", "LIRS", "2Q", "TLRU", "W-TinyLFU", "W-TinyLFU(20%)")
+PF_TRACE_SHA256 = {
+    "PF-yt":
+        "108de65bb0a82393c87ad3b3aee49006cf2ecdfaf1c7518b073cbdfa82e3579b",
+    "PF-wiki":
+        "4f3e14f6900e5c422e5afd50c3d3563b7ad6ea9af997fec1627a658a6054d285",
+    "PF-spc1":
+        "8282cc1bc47f47f9cac81907837ed15e0ad7fca532c05795f3260542a302e364",
+    "PF-oltp":
+        "3bfdaca956e1431c16314d9ac53a89f55e3870a5ec854f69d6b6616772a501b7",
+}
+# (cell, assoc) -> (hits, regs, digest)
+PF_PINS = {
+    ("PF-yt", None):
+        (433686, [7995, 792, 799995, 433686, 0, 0, 0, 0], "90d11af745f2ac02"),
+    ("PF-yt", 8):
+        (437073, [7995, 0, 799995, 437073, 0, 0, 0, 0], "a7ea4e6c8b73785c"),
+    ("PF-wiki", None):
+        (289700, [4000, 792, 1000000, 289700, 0, 0, 0, 0], "1507a060d141d167"),
+    ("PF-wiki", 8):
+        (285085, [4000, 0, 1000000, 285085, 0, 0, 0, 0], "a9539104f5e25bc9"),
+    ("PF-spc1", None): (164190, [31648, 2532, 900000, 164190, 0, 0, 0, 0],
+                        "ef68fb31089f4490"),
+    ("PF-spc1", 8):
+        (163656, [31648, 0, 900000, 163656, 0, 0, 0, 0], "fb4ae256e4ecba01"),
+    ("PF-oltp", None):
+        (443814, [7072, 811, 900000, 443814, 0, 0, 0, 0], "31cdfd7ebecb7387"),
+    ("PF-oltp", 8):
+        (446349, [7072, 0, 900000, 446349, 0, 0, 0, 0], "0156512d3a221462"),
+}
+# (cell, assoc) -> hits of the host engine; cast name -> hits on PF_CAST_CELL
+PF_HOST_PINS = {
+    ("PF-yt", None): 433564,
+    ("PF-yt", 8): 436991,
+    ("PF-wiki", None): 289833,
+    ("PF-wiki", 8): 285310,
+    ("PF-spc1", None): 163889,
+    ("PF-spc1", 8): 163613,
+    ("PF-oltp", None): 444177,
+    ("PF-oltp", 8): 446689,
+}
+PF_CAST_PINS = {
+    "LRU": 123544,
+    "ARC": 165901,
+    "LIRS": 174034,
+    "2Q": 156688,
+    "TLRU": 144170,
+    "W-TinyLFU": 163889,
+    "W-TinyLFU(20%)": 162774,
+}
+# (cell, twin name) -> sha256 (16 hex) of the reference's per-access flags
+# of tests/test_torch_host_engine.py's set-associative twins on the cell's
+# first 6,000 accesses
+PF_TWIN_FLAGS_SHA256 = {
+    ("PF-yt", "slru-assoc"): "274d597506da55bb",
+    ("PF-yt", "w-tinylfu assoc 8"): "57ab5a6c79e9caa3",
+    ("PF-yt", "w-tinylfu assoc 4 shards 2"): "b2dc0364f1592c44",
+    ("PF-yt", "s3fifo-assoc"): "e10edf2f37e96359",
+    ("PF-yt", "arc-assoc"): "385152d203d217bb",
+    ("PF-yt", "lfu-assoc"): "5616961be2db3af7",
+    ("PF-wiki", "slru-assoc"): "32c3fcd5db693e99",
+    ("PF-wiki", "w-tinylfu assoc 8"): "c455bb67de174892",
+    ("PF-wiki", "w-tinylfu assoc 4 shards 2"): "1d76dd9517ab74b3",
+    ("PF-wiki", "s3fifo-assoc"): "6c6de7cf402e089a",
+    ("PF-wiki", "arc-assoc"): "5b45e55c7a3275b8",
+    ("PF-wiki", "lfu-assoc"): "85b9b58c8395f5d0",
+    ("PF-spc1", "slru-assoc"): "c29faeb0f5417777",
+    ("PF-spc1", "w-tinylfu assoc 8"): "800d5af7548169b6",
+    ("PF-spc1", "w-tinylfu assoc 4 shards 2"): "26ed3ba597221413",
+    ("PF-spc1", "s3fifo-assoc"): "6b98e8e6bba594d4",
+    ("PF-spc1", "arc-assoc"): "b089b75dec76fda7",
+    ("PF-spc1", "lfu-assoc"): "d2bb9a356b19c3c0",
+    ("PF-oltp", "slru-assoc"): "7470b618aec98dff",
+    ("PF-oltp", "w-tinylfu assoc 8"): "dc75711758df70d7",
+    ("PF-oltp", "w-tinylfu assoc 4 shards 2"): "15ccf9a80701b63a",
+    ("PF-oltp", "s3fifo-assoc"): "fa41d4a85088f38e",
+    ("PF-oltp", "arc-assoc"): "92d9792eafda9826",
+    ("PF-oltp", "lfu-assoc"): "c916c761d37fa699",
+}
+
+
+def pf_trace(cell: str) -> np.ndarray:
+    """The int64 keys of PF cell ``cell`` (the port's generator)."""
+    from repro_torch.traces import synthetic
+    gen, kw, *_ = PF_CELLS[cell]
+    return getattr(synthetic, gen)(**kw)
+
+
+def pf_warmup(cell: str, trace: np.ndarray) -> int:
+    """The cell's warmup over ``trace`` (its script's int(len * share))."""
+    return int(len(trace) * PF_CELLS[cell][4])
+
+
+def trace_sha256(trace: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        trace, dtype="<i8").tobytes()).hexdigest()
+
+
+def pf_cast(core, sample_factor: int) -> dict:
+    """bench_traces.py's cast (benchmarks/common.py policy_factories, the
+    PF_CAST names) over the host-engine package ``core``: name ->
+    factory(capacity)."""
+    sf = sample_factor
+    return {
+        "LRU": lambda C: core.Cache(core.LRUEviction(C)),
+        "ARC": lambda C: core.ARC(C),
+        "LIRS": lambda C: core.LIRS(C),
+        "2Q": lambda C: core.TwoQ(C),
+        "TLRU": lambda C: core.tinylfu_cache(C, "lru", sample_factor=sf),
+        "W-TinyLFU": lambda C: core.WTinyLFU(C, sample_factor=sf),
+        "W-TinyLFU(20%)": lambda C: core.WTinyLFU(C, window_frac=0.20,
+                                                  sample_factor=sf),
+    }
+
+
+def pf_host_run(cell: str, policy, core=None):
+    """One host-engine run of PF cell ``cell``: ``policy`` an assoc (None
+    or PF_ASSOC: W-TinyLFU) or a PF_CAST name, through ``core`` (default
+    the port's) and ``run_trace`` with the cell's warmup.  Returns (hits,
+    counted accesses, seconds)."""
+    import time
+    if core is None:
+        from repro_torch import core
+    trace = pf_trace(cell)
+    _, _, cap, sf, _ = PF_CELLS[cell]
+    if isinstance(policy, str):
+        cache = pf_cast(core, sf)[policy](cap)
+    else:
+        cache = core.WTinyLFU(cap, sample_factor=sf, assoc=policy)
+    t0 = time.perf_counter()
+    r = core.run_trace(cache, trace, warmup=pf_warmup(cell, trace),
+                       trace_name=cell)
+    return r.hits, r.accesses, time.perf_counter() - t0
+
 
 # Runs FD: the reference's fault drills at their own sizes
 # (tests/test_faults.py:83-145), through DeviceWTinyLFU.run(...,

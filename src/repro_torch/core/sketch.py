@@ -13,8 +13,10 @@ host twin of the device engine's ``shards=S`` mode.
 * after ``sample_size`` (W) additions every counter is halved and the
   doorkeeper cleared (§3.3 reset; §3.4.2 doorkeeper reset).
 
+``ExactHistogram`` is accurate TinyLFU (exact per-key counters, the same
+reset), the paper's Fig. 22 reference point.
+
 Pure Python with memoized probe indices: no tensor and no device.
-``ExactHistogram`` is ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -341,6 +343,40 @@ class ShardedFrequencySketch:
         merged = [g + d for g, d in zip(self.gtable, self.dtable)]
         return np.asarray(merged, dtype=np.int64).reshape(
             self.cfg.rows, self.cfg.width)
+
+
+class ExactHistogram:
+    """Accurate TinyLFU: per-key exact counters (hash table), same reset
+    semantics.  ``integer_division=False`` gives the floating-point reset used
+    to isolate the truncation error in Fig 22."""
+
+    def __init__(self, sample_size: int, cap: float | None = None,
+                 integer_division: bool = True):
+        self.sample_size = sample_size
+        self.cap = cap
+        self.integer_division = integer_division
+        self.counts: dict[int, float] = {}
+        self.size = 0
+        self.resets = 0
+
+    def estimate(self, key: int) -> float:
+        return self.counts.get(key, 0)
+
+    def add(self, key: int) -> None:
+        c = self.counts.get(key, 0) + 1
+        if self.cap is None or c <= self.cap:
+            self.counts[key] = c
+        self.size += 1
+        if self.size >= self.sample_size:
+            self.reset()
+
+    def reset(self) -> None:
+        if self.integer_division:
+            self.counts = {k: v // 2 for k, v in self.counts.items() if v >= 2}
+        else:
+            self.counts = {k: v / 2 for k, v in self.counts.items()}
+        self.size //= 2
+        self.resets += 1
 
 
 def default_sketch(cache_size: int, sample_factor: int = 8,

@@ -1329,7 +1329,7 @@ def _spread(cap, n: int):
             + (s < torch.remainder(cap, n)[:, None]).to(torch.int32))
 
 
-def _rebalance_set(spec: StepSpec, total, state: dict, nq):
+def _rebalance_set(spec: StepSpec, total, state: dict, nq, exact: bool):
     A, nws, nms = spec.assoc, spec.window_sets, spec.main_sets
     wtab, mtab = state["wtab"], state["mtab"]
     B = wtab.shape[0]
@@ -1356,16 +1356,30 @@ def _rebalance_set(spec: StepSpec, total, state: dict, nq):
     # two values, base or base + 1, so with V = base - r the migrants of
     # one block that land are its first V and then the first later one
     # whose u is base + 1; the i-th of them lands in way r + i.  A stable
-    # sort by block, ranks within each run of one block, one scatter.
-    # (An out-of-range set whose product wraps into the table at a start
-    # that is not a multiple of A straddles two sets; no single-bit flip of
-    # a stored set makes one, and this rank arithmetic does not model it.)
-    meta = m3n[..., MT_META]
-    kept = ((meta >= 0) & (meta < _I32_MAX)).sum(dim=2).to(torch.int32)
+    # sort by block, ranks within each run of one block, one scatter.  That
+    # needs every block to be one set's; with ``exact`` (a stored set out of
+    # range, whose block may start inside a set) the migrants go one at a
+    # time instead (_migrate_exact).
     recs = w3s.reshape(B, -1, spec.wcols)
+    mnew = m3n.reshape(B, -1, spec.mcols)
+    migrate = _migrate_exact if exact else _migrate_ranked
+    migrate(spec, mcap_new, recs, w_evict.reshape(B, -1), mnew)
+    wtab.copy_(w3n.reshape(wtab.shape))
+    mtab.copy_(mnew)
+    state["wsl"].zero_()
+    state["wuw"].copy_(uw)
+
+
+def _migrate_ranked(spec: StepSpec, mcap_new, recs, evicted, mnew):
+    """The closed-form migration (see :func:`_rebalance_set`) of the
+    evicted window records ``recs`` (B, window_slots, wcols) into the
+    compacted main table ``mnew`` (B, main_slots, mcols), in place."""
+    A, nms = spec.assoc, spec.main_sets
+    meta = mnew[..., MT_META].reshape(mnew.shape[0], nms, A)
+    kept = ((meta >= 0) & (meta < _I32_MAX)).sum(dim=2).to(torch.int32)
     raw = recs[..., WT_MSET]
-    tset = torch.where(w_evict.reshape(B, -1),
-                       _block_start(raw, A, spec.main_slots) // A, nms)
+    tset = torch.where(evicted, _block_start(raw, A, spec.main_slots) // A,
+                       nms)
     order = _argsort(tset)
     st_ = torch.gather(tset, 1, order)
     s_raw = torch.gather(raw, 1, order)
@@ -1389,12 +1403,34 @@ def _rebalance_set(spec: StepSpec, total, state: dict, nq):
     src = torch.gather(recs, 1, order[..., None].expand_as(recs))
     mainrow = torch.cat([src[..., :WT_META + 1], src[..., WT_MSET2 + 1:]],
                         dim=-1)
-    mnew = m3n.reshape(B, -1, spec.mcols)
     _scatter_drop(mnew, dest, mainrow)
-    wtab.copy_(w3n.reshape(wtab.shape))
-    mtab.copy_(mnew)
-    state["wsl"].zero_()
-    state["wuw"].copy_(uw)
+
+
+def _migrate_exact(spec: StepSpec, mcap_new, recs, evicted, mnew):
+    """The reference's migration loop, for tables that hold a stored main
+    set out of range: the evicted window records ``recs`` move one at a
+    time, in set-then-way order, each into the first free way below u(s)
+    of the A-row block at ``_block_start(s)`` (s its stored set as it is,
+    u = base + (s < rem)), and each block is written back whole, so a
+    later block overwrites an earlier one where two overlap.  It reads the
+    tables back to the host and writes ``mnew`` once."""
+    A, nms = spec.assoc, spec.main_sets
+    way = np.arange(A)
+    caps = mcap_new.cpu().tolist()
+    recs_h, ev_h = recs.cpu().numpy(), evicted.cpu().numpy()
+    out = mnew.cpu().numpy().copy()
+    starts = _block_start(recs[..., WT_MSET], A, spec.main_slots).cpu()
+    for b, cap in enumerate(caps):
+        base, rem = cap // nms, cap % nms
+        for i in np.flatnonzero(ev_h[b]):
+            rec, start = recs_h[b, i], int(starts[b, i])
+            blk = out[b, start:start + A]
+            free = ((blk[:, MT_META] == _EMPTY)
+                    & (way < base + (int(rec[WT_MSET]) < rem)))
+            if free.any():
+                blk[int(np.argmax(free))] = np.concatenate(
+                    [rec[:WT_META + 1], rec[WT_MSET2 + 1:]])
+    mnew.copy_(torch.from_numpy(out))
 
 
 def rebalance(spec: StepSpec, params: torch.Tensor, state: dict,
@@ -1413,10 +1449,14 @@ def rebalance(spec: StepSpec, params: torch.Tensor, state: dict,
     ``wsl`` restarts at 0.  ``R_WQUOTA`` takes the quota and ``R_EHITS``
     restarts at 0.  With lanes (``streams > 1``) every lane rebalances to
     its own quota (``new_quota`` of shape (B,)) with its own params row.
-    Tensor ops on the state's device; nothing is read back to the host.
+    Tensor ops on the state's device; nothing is read back to the host
+    while the tables are marked in range (:func:`_needs_exact`).  A state
+    whose tables hold a stored main set out of range (a fault's) migrates
+    its window records one at a time on the host, as the reference's loop
+    does, and is written back.
     """
     _check(spec.adaptive, "rebalance requires StepSpec.adaptive")
-    in_range = _in_range_marked(spec, state)    # it moves records only
+    exact = _needs_exact(spec, state)
     lanes = spec.streams > 1
     st = state if lanes else {k: v.unsqueeze(0) for k, v in state.items()}
     dev = st["regs"].device
@@ -1430,10 +1470,10 @@ def rebalance(spec: StepSpec, params: torch.Tensor, state: dict,
     if spec.assoc is None:
         _rebalance_flat(spec, total, st, nq)
     else:
-        _rebalance_set(spec, total, st, nq)
+        _rebalance_set(spec, total, st, nq, exact)
     st["regs"][:, R_WQUOTA] = nq
     st["regs"][:, R_EHITS] = 0
-    if in_range:
+    if not exact:                   # it moves records only
         _mark_in_range(spec, state)
     return state
 

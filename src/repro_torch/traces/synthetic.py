@@ -11,12 +11,21 @@ def zipf_probs(n_items: int, alpha: float) -> np.ndarray:
     return w / w.sum()
 
 
-def _sample_from_probs(probs: np.ndarray, length: int,
-                       rng: np.random.Generator) -> np.ndarray:
+def _cdf(probs: np.ndarray) -> np.ndarray:
     cdf = np.cumsum(probs)
     cdf[-1] = 1.0
+    return cdf
+
+
+def _sample_from_cdf(cdf: np.ndarray, length: int,
+                     rng: np.random.Generator) -> np.ndarray:
     u = rng.random(length)
     return np.searchsorted(cdf, u, side="right").astype(np.int64)
+
+
+def _sample_from_probs(probs: np.ndarray, length: int,
+                       rng: np.random.Generator) -> np.ndarray:
+    return _sample_from_cdf(_cdf(probs), length, rng)
 
 
 def zipf_trace(length: int, n_items: int = 1_000_000, alpha: float = 0.9,
@@ -26,6 +35,108 @@ def zipf_trace(length: int, n_items: int = 1_000_000, alpha: float = 0.9,
     ranks = _sample_from_probs(zipf_probs(n_items, alpha), length, rng)
     perm = rng.permutation(n_items).astype(np.int64)
     return perm[ranks]
+
+
+def youtube_dynamic_trace(length: int, weeks: int = 21,
+                          items_per_week: int = 8000, alpha: float = 0.9,
+                          churn: float = 0.4, seed: int = 0) -> np.ndarray:
+    """Weekly popularity snapshots (paper §5.2 [12]): every week, a fraction
+    ``churn`` of the active set is replaced by brand-new videos and ranks are
+    re-drawn; accesses within a week are i.i.d. from that week's Zipf."""
+    rng = np.random.default_rng(seed)
+    per_week = length // weeks
+    probs = zipf_probs(items_per_week, alpha)
+    active = np.arange(items_per_week, dtype=np.int64)
+    next_id = items_per_week
+    out = np.empty(weeks * per_week, dtype=np.int64)
+    for w in range(weeks):
+        if w > 0:
+            n_new = int(items_per_week * churn)
+            repl = rng.choice(items_per_week, size=n_new, replace=False)
+            active = active.copy()
+            active[repl] = np.arange(next_id, next_id + n_new)
+            next_id += n_new
+            rng.shuffle(active)          # fresh rank assignment each week
+        idx = _sample_from_probs(probs, per_week, rng)
+        out[w * per_week:(w + 1) * per_week] = active[idx]
+    return out
+
+
+def wiki_drift_trace(length: int, n_items: int = 400_000, alpha: float = 0.9,
+                     drift_every: int = 20_000, drift_frac: float = 0.02,
+                     seed: int = 0) -> np.ndarray:
+    """Gradually changing Zipf (paper's Wikipedia trace behaviour): every
+    ``drift_every`` accesses, ``drift_frac`` of items swap ranks."""
+    rng = np.random.default_rng(seed)
+    probs = zipf_probs(n_items, alpha)
+    perm = rng.permutation(n_items).astype(np.int64)
+    out = np.empty(length, dtype=np.int64)
+    pos = 0
+    n_swap = max(2, int(n_items * drift_frac))
+    while pos < length:
+        chunk = min(drift_every, length - pos)
+        idx = _sample_from_probs(probs, chunk, rng)
+        out[pos:pos + chunk] = perm[idx]
+        pos += chunk
+        a = rng.choice(n_items, size=n_swap, replace=False)
+        b = rng.choice(n_items, size=n_swap, replace=False)
+        perm[a], perm[b] = perm[b].copy(), perm[a].copy()
+    return out
+
+
+def spc1_like_trace(length: int, n_random: int = 200_000, alpha: float = 1.0,
+                    scan_frac: float = 0.55, mean_scan: int = 400,
+                    scan_space: int = 4_000_000, seed: int = 0) -> np.ndarray:
+    """SPC1-like [44]: interleave long ascending sequential scans over a huge
+    address space (cache-polluting, never re-used) with zipf random I/O over a
+    hot region.  Scan keys are offset above the random region."""
+    rng = np.random.default_rng(seed)
+    cdf = _cdf(zipf_probs(n_random, alpha))     # built once, not per burst
+    out = np.empty(length, dtype=np.int64)
+    pos = 0
+    scan_ptr = 0
+    while pos < length:
+        if rng.random() < scan_frac:
+            slen = min(int(rng.exponential(mean_scan)) + 16, length - pos)
+            start = scan_ptr
+            scan_ptr = (scan_ptr + slen) % scan_space
+            seq = (np.arange(start, start + slen) % scan_space) + n_random
+            out[pos:pos + slen] = seq
+            pos += slen
+        else:
+            rlen = min(int(rng.exponential(mean_scan * 0.6)) + 8, length - pos)
+            out[pos:pos + rlen] = _sample_from_cdf(cdf, rlen, rng)
+            pos += rlen
+    return out
+
+
+def oltp_like_trace(length: int, n_pages: int = 100_000, alpha: float = 0.8,
+                    log_frac: float = 0.6, burst: int = 4,
+                    seed: int = 0) -> np.ndarray:
+    """OLTP-like [44] (§5.1): "ascending lists of sequential block accesses
+    sprinkled with a few random accesses" — a transaction log appends to
+    ever-increasing block ids (each touched a handful of times in a short
+    burst, then never again = the paper's 'sparse bursts'), plus zipf reads
+    over the database pages."""
+    rng = np.random.default_rng(seed)
+    cdf = _cdf(zipf_probs(n_pages, alpha))     # built once, not per burst
+    out = np.empty(length, dtype=np.int64)
+    pos = 0
+    log_ptr = 0
+    while pos < length:
+        if rng.random() < log_frac:
+            # short ascending burst re-touching the current tail of the log
+            blen = min(int(rng.integers(2, burst * 2)), length - pos)
+            base = log_ptr
+            log_ptr += max(1, blen // burst)
+            seq = base + (np.arange(blen) % burst)
+            out[pos:pos + blen] = seq + n_pages
+            pos += blen
+        else:
+            rlen = min(int(rng.integers(1, 8)), length - pos)
+            out[pos:pos + rlen] = _sample_from_cdf(cdf, rlen, rng)
+            pos += rlen
+    return out
 
 
 def scan_then_hotspot_trace() -> np.ndarray:

@@ -243,6 +243,74 @@ def test_rebalance_migration_fills_sets_and_drops_the_rest():
     assert (after >= 0).all(axis=1).any()  # in its full first-choice set
 
 
+# six ways: a stored main set s whose int32 product 6 s wraps lands its
+# block at a start that is not a multiple of 6, across two sets
+_WRAP = dict(width=256, rows=4, dk_bits=0, window_slots=12, main_slots=24,
+             assoc=6, adaptive=True)
+_WRAP_ARGS = (10, 14, 11, 500, 7, 0)
+# 6 * 715,827,883 wraps to 2, 6 * -715,827,882 to 4; a start past the
+# table's last block clamps to it
+_WRAP_SETS = (715_827_883, -715_827_882)
+
+
+def _wrapped_state(stored_set: int) -> dict:
+    """The JAX step's state after 600 keys, with every resident window
+    record's first-choice main set replaced by ``stored_set``."""
+    jspec = jks.StepSpec(**_WRAP)
+    keys = np.random.default_rng(3).integers(1, 400, 600, dtype=np.uint64)
+    lo, hi = lanes(keys)
+    js, _ = jds._jit_step(jspec, jks.make_step_params(*_WRAP_ARGS),
+                          jks.init_step_state(jspec, _WRAP_ARGS[0]),
+                          jnp.asarray(lo), jnp.asarray(hi))
+    st = numpy_state(js)
+    res = st["wtab"][:, pks.WT_META] >= 0
+    st["wtab"][res, pks.WT_MSET] = stored_set
+    return st
+
+
+@pytest.mark.parametrize("stored_set", _WRAP_SETS)
+def test_rebalance_with_a_wrapped_stored_set_equals_reference(stored_set):
+    """A stored main set out of range whose product with a way count that
+    is not a power of two wraps into the table at a start that is not a
+    multiple of it (a fault's state): the migrants' blocks overlap two
+    sets, and the port's rebalance writes them one at a time as the
+    reference's loop does, leaf for leaf, then marks the state in range
+    only once no such set is left."""
+    pspec, jspec = pks.StepSpec(**_WRAP), jks.StepSpec(**_WRAP)
+    before = _wrapped_state(stored_set)
+    n_win = int((before["wtab"][:, pks.WT_META] >= 0).sum())
+    assert n_win > 2 and pks.tables_out_of_range(pspec, before)
+    ps = pks.state_from_numpy(pspec, before, device="cpu")
+    pks.rebalance(pspec, pks.make_step_params(*_WRAP_ARGS, device="cpu"),
+                  ps, 1)
+    js = jks.rebalance(jspec, jks.make_step_params(*_WRAP_ARGS),
+                       {k: jnp.asarray(v) for k, v in before.items()}, 1)
+    assert_state_equal({k: v.numpy() for k, v in ps.items()}, js)
+    moved = (np.asarray(js["mtab"])[:, pks.MT_META] >= 0).sum() - (
+        before["mtab"][:, pks.MT_META] >= 0).sum()
+    assert moved > 0                       # some migrant found a free way
+    assert pks._in_range_marked(pspec, ps) == (
+        not pks.tables_out_of_range(pspec, ps))
+
+
+def test_rebalance_with_wrapped_stored_sets_on_lanes_equals_reference():
+    """Two lanes, each with its own wrapped stored set and its own quota:
+    each lane equals the reference's rebalance of that lane alone."""
+    pspec = pks.StepSpec(**_WRAP, streams=2)
+    jspec = jks.StepSpec(**_WRAP)
+    lanes_in = [_wrapped_state(s) for s in _WRAP_SETS]
+    ps = pks.state_from_numpy(pspec, {k: np.stack([st[k] for st in lanes_in])
+                                      for k in lanes_in[0]}, device="cpu")
+    pp = pks.make_step_params(*_WRAP_ARGS, device="cpu")
+    quotas = (1, 3)
+    pks.rebalance(pspec, torch.stack([pp, pp]), ps, torch.tensor(quotas))
+    for b, (st, q) in enumerate(zip(lanes_in, quotas)):
+        js = jks.rebalance(jspec, jks.make_step_params(*_WRAP_ARGS),
+                           {k: jnp.asarray(v) for k, v in st.items()}, q)
+        assert_state_equal({k: v[b].numpy() for k, v in ps.items()}, js,
+                           f"lane {b}")
+
+
 def test_load_aware_ways_follow_the_hot_sets():
     """Below the window set count the quota's ways go to the sets with the
     most traffic last epoch (not a fixed prefix of sets), and the window

@@ -12,7 +12,8 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.core.adaptive", "repro_torch.core.hashing",
            "repro_torch.core.simulate", "repro_torch.core.device_simulate",
            "repro_torch.core.sketch",
-           "repro_torch.core.policies",
+           "repro_torch.core.policies", "repro_torch.core.tinylfu",
+           "repro_torch.core.wtinylfu",
            "repro_torch.kernels.sketch_common",
            "repro_torch.kernels.sketch_step",
            "repro_torch.kernels.sketch_merge", "repro_torch.kernels._build",
@@ -38,11 +39,24 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.distributed.launch"]
 
 
+# the host engine runs, not only imports, with jax and repro blocked
+HOST_ENGINE_DRIVE = """
+from repro_torch import core
+from repro_torch.traces import oltp_like_trace
+tr = oltp_like_trace(3000, seed=1)
+for cache in (core.WTinyLFU(64), core.WTinyLFU(64, assoc=8),
+              core.AdaptiveWTinyLFU(64, epoch_len=500),
+              core.tinylfu_cache(64, "lfu"), core.SetAssocARC(64)):
+    assert 0 < core.run_trace(cache, tr).hits < len(tr)
+"""
+
+
 def test_imports_with_jax_and_repro_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in MODULES)
+            + HOST_ENGINE_DRIVE
             + "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,

@@ -5,7 +5,8 @@ epochs), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
 batches; all four at the edge geometries, past 8 doorkeeper probes too,
 and one stream of programmatic dependent launches), the flash-attention
-kernel, and checkpointed and resumed runs of the engine on the card.
+kernel, checkpointed and resumed runs of the engine on the card, and a
+prefix of one of the paper's trace families through the engine.
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
@@ -22,6 +23,7 @@ from repro_torch.check_runs import (ADAPT_CASES, ADD_HAZARD_CASES,
                                     FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
                                     LANES, PANEL_CASES, PANEL_FRACS,
+                                    PF_CELLS, pf_trace, pf_warmup,
                                     SHARD_CASES, SKETCH_EDGE_CFGS,
                                     STEP12_CASES, lane_keys, run_step_case,
                                     lane_n_valid,
@@ -312,6 +314,30 @@ def test_adaptive_engine_on_card_equals_cpu(kw):
     assert r.hits == rc.hits and r.extra["backend"] == "cuda"
     assert (r.extra["trajectory"], r.extra["final_quota"]) == (
         rc.extra["trajectory"], rc.extra["final_quota"])
+    np.testing.assert_array_equal(h.cpu().numpy(), hc.numpy())
+    for k in sc_:
+        np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),
+                                      err_msg=f"state[{k}]")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assoc", [8, None], ids=["8 ways", "flat"])
+def test_paper_family_prefix_on_card_equals_cpu(assoc):
+    """PF-oltp's first 20,000 accesses (an OLTP-like log of sparse bursts
+    over a Zipf page set, check_runs.PF_CELLS) through simulate_trace at
+    the cell's capacity and sample factor: the card equals the plain
+    version on the CPU leaf for leaf, with every hit flag."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, cap, sf, _ = PF_CELLS["PF-oltp"]
+    tr = pf_trace("PF-oltp")[:20_000]
+    args = dict(sample_factor=sf, warmup=pf_warmup("PF-oltp", tr),
+                assoc=assoc, return_state=True)
+    before = port.step.launches
+    r, st, h = simulate_trace(tr, cap, device="cuda", **args)
+    assert port.step.launches - before == -(-len(tr) // 512)
+    rc, sc_, hc = simulate_trace(tr, cap, device="cpu", **args)
+    assert r.hits == rc.hits > 0
     np.testing.assert_array_equal(h.cpu().numpy(), hc.numpy())
     for k in sc_:
         np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),

@@ -11,9 +11,9 @@ epoch.  Stale mode equals the reference's stale step (``step_ref`` with
 ``mesh_devices``) and ``merge_halve_mesh`` under ``jax.vmap(...,
 axis_name="shard")``, which supplies the mesh axis on the CPU, bit for bit,
 with the epoch folds halving the sketch; and its hit flags equal the
-reference's host twin ``WTinyLFU(stale_admission=True)`` under
-collision-free sketches.  Placement, ``make_shard_mesh``'s errors and the
-sweep's mesh rules are the reference's.  The stale goldens are in
+reference's host twin ``WTinyLFU(stale_admission=True)`` and the port's
+own under collision-free sketches.  Placement, ``make_shard_mesh``'s errors
+and the sweep's mesh rules are the reference's.  The stale goldens are in
 ``test_torch_mesh_goldens.py``.
 """
 import os
@@ -29,6 +29,7 @@ from repro.core import device_simulate as jds
 from repro.core.wtinylfu import WTinyLFU
 from repro.traces import phase_shift_trace, zipf_trace
 from repro_torch.core import device_simulate as pds
+from repro_torch.core.wtinylfu import WTinyLFU as PortWTinyLFU
 from repro_torch.distributed import mesh as pmesh
 from repro_torch.distributed.launch import run_ranks
 
@@ -148,12 +149,15 @@ def world():
                             h.numpy())
         jax_ref = {(name, D): jax_stale(tr, C, D, **kw)
                    for name, (C, tr, kw) in STALE.items() for D in (2, 4)}
-        host = WTinyLFU(TWIN_C, shards=2, merge_every=512,
-                        stale_admission=True, **TWIN_KW)
-        twin = np.array([host.access(int(k)) for k in _twin_trace()],
-                        np.int32)
+        twins = []
+        for engine in (WTinyLFU, PortWTinyLFU):
+            host = engine(TWIN_C, shards=2, merge_every=512,
+                          stale_admission=True, **TWIN_KW)
+            twins.append(np.array([host.access(int(k))
+                                   for k in _twin_trace()], np.int32))
         ranks = {n: j.result() for n, j in jobs.items()}
-    return dict(ranks=ranks, single=single, jax=jax_ref, twin=twin)
+    return dict(ranks=ranks, single=single, jax=jax_ref, twin=twins[0],
+                port_twin=twins[1])
 
 
 def _same_state(a: dict, b: dict):
@@ -191,8 +195,12 @@ def test_stale_mode_equals_jax_vmap(world, n, name):
 
 
 def test_stale_mode_equals_host_twin(world):
+    """The stale mode's hit flags equal the reference's host twin's and the
+    port's own ``WTinyLFU(shards=2, stale_admission=True)``'s."""
+    assert np.array_equal(world["port_twin"], world["twin"])
     for out in world["ranks"][2]:
         assert np.array_equal(out[2][0][2], world["twin"])
+        assert np.array_equal(out[2][0][2], world["port_twin"])
 
 
 @pytest.mark.parametrize("n", [2, 4])
