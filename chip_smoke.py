@@ -3,7 +3,8 @@
 trace engine (one stream, tenant lanes, sweeps, the sharded sketch, the
 adaptive window, the policy panel, checkpoint/resume and fault injection,
 the paper's trace families beside the host engine), the serving-admission
-path (device and host sketch) and the LLM serving path.
+path (device and host sketch) and the LLM serving path (every model
+family: dense, MoE, VLM, audio, hybrid SSM and xLSTM).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -89,18 +90,23 @@ card, timed:
    tests/test_flash_kernel.py's shapes causal and not, ragged lengths,
    q_offset 0, 512 and 1024 at run L's three shapes (K/V read from a slot
    of a KV cache), per-row kv_len, GQA groups 1, 4, 8 and 16, head dims 16
-   to 128, softcap 0 and 30; and cache slots past kv_len holding NaN and
-   +-3e38 must give an output bit-equal to a zeroed tail;
+   to 128, softcap 0 and 30, and the serving families' heads (llama4's
+   40/8 and llava's 56/8: groups 5 and 7, one head a work item, prefill and
+   extend at q_offset 1,024; zamba2's MHA 32x64 extend; musicgen's MHA
+   24x64); and cache slots past kv_len holding NaN and +-3e38 must give an
+   output bit-equal to a zeroed tail;
 12. run L, qwen3-4b at full width (36 layers, random weights from a seed)
    serving 24 prompts of 1,280 tokens through ``ServeEngine`` (counts set
-   to 0 just before, read just after); every ``stats`` field must equal
-   the JAX engine's, with 36 flash launches per extend and one sketch add
-   per lookup; then the same run again with its phases timed, and the
-   flash kernel timed at each of L's attention shapes against its bound,
-   its plain version and ``scaled_dot_product_attention``;
-13. run qwen3-4b at full width and depth 2 with ``numpy_params`` weights:
-   prefill 1,280 tokens, decode 4; each step's logits at the JAX top-8
-   ids within 0.05 of the largest (the reference's decode bound);
+   to 0 just before, read just after); every ``stats`` field must equal the JAX engine's, with 36 flash launches per
+   extend and one sketch add per lookup; then the same run again with its
+   phases timed, once more under ``torch.profiler`` (device time by kind,
+   idle share), and the flash kernel timed at each of L's attention shapes
+   against its bound, its plain version and
+   ``scaled_dot_product_attention``, every timed launch's output held
+   against the plain version's;
+13. run qwen3-4b at full width and depth 2 with ``numpy_leaves`` weights
+   (D2): prefill 1,280 tokens, decode 4; each step's logits at the JAX
+   top-8 ids within 0.05 of the largest (the reference's decode bound);
 14. hold the step kernel's lane grid (one CTA per lane, one launch per
    chunk) against ``step_ref`` with lanes over ``check_runs.LANE_CASES`` (4 lanes; flat and set tables, shared and
    per-lane params, a lane with a shorter ``n_valid`` and one with none,
@@ -254,14 +260,45 @@ card, timed:
    CPU worker processes: hits equal to the reference host engine's
    (``PF_HOST_PINS``, ``PF_CAST_PINS``) and the device's hit ratios within
    the reference's host-vs-device bands (±0.005 flat, ±0.01 set);
-39. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+39. FAM: each of the six serving families' smoke configs (llama4 scout and
+   maverick, llava-next with 8 vision embeddings, musicgen's codebooks,
+   zamba2, xLSTM) in bf16 through ``Model.prefill``, three decodes and an
+   ``extend`` after a cached prefix, on the card against the same model and
+   ``numpy_params`` weights on the CPU (the plain versions), within 0.05
+   of the largest value or 1.5x the CPU's own bf16-vs-fp32 distance;
+40. Z7, X8 and M1, full-width depth-cut pins against JAX as D2 is:
+   zamba2-1.2b at 7 layers (one group of six Mamba2 layers, the shared
+   block, one tail layer), xlstm-1.3b at 8 (seven mLSTM, one sLSTM),
+   llama4-scout at 1 (its numpy leaves handed to the card one at a time);
+   prefill 1,280 tokens, 4 greedy decodes, the JAX top-8 logits within
+   0.05 (X8 in fp32, and in bf16 on its first 64 prompt tokens, X8S; X8
+   in bf16 on all 1,280 within 1.5x the JAX bf16 run's own distance from
+   its fp32 run, where that is larger); M1 prints how many prompt tokens
+   the first MoE layer sends to another expert than JAX's and the
+   router's top-2 margins;
+41. LZ, LX and LM: zamba2-1.2b (38 layers), xlstm-1.3b (48) and
+   llama4-scout at published width and 2 layers serving 12 prompts of
+   1,280 tokens (4 tenants' 1,024-token prefixes) through
+   ``ServeEngine(device_sketch=True)`` (SSM state snapshots every 16
+   blocks for LZ and LX; counts set to 0 just before, read just after),
+   every engine phase timed: stats equal to the JAX engine's pins
+   (``check_runs.LF_PINS``), tokens in range, 6 flash launches per extend
+   for LZ, 0 for LX, 2 for LM, one add per lookup and one admit per
+   decision; wall, prefill tokens/s, ms per decode tick, ms per snapshot
+   store and restore, peak memory; the flash kernel at LZ's and LM's
+   attention shapes against its bound, its plain version and
+   ``scaled_dot_product_attention``, every timed launch's output held
+   against the plain version's;
+42. print the ``kernels`` JSON line (six kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive, panel, mesh
    and wide instances' launches and checks and its checkpointed runs; the
    add's with the
    doorkeeper probe counts it was held at; the reset's and the estimate's
    with their burst times, the empty launch's in a burst, their in-stream
-   pairs with and without PDL and their first designs' times), the card
-   line and the result line.  Lines
+   pairs with and without PDL and their first designs' times; the sketch
+   kernels' launches in LZ, LX and LM; the flash kernel's launches in L,
+   LZ and LM, its numbers at L's shapes and, per cell, at LZ's and LM's),
+   the card line and the result line.  Lines
    ``elapsed ...`` mark the time taken after each group of phases.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -1572,24 +1609,36 @@ def flash_work(Sq, q_offset, kv_len, Hq=32, Hkv=8, D=128):
             2 * (2 * Sq * Hq * D + 2 * kv_len * Hkv * D))
 
 
-def time_flash_shape(Sq, q_offset, kv_len, reps=20):
+def time_flash_shape(Sq, q_offset, kv_len, reps=20, Hq=32, Hkv=8, D=128,
+                     max_len=None):
     """Device ms per launch of the kernel, the plain version and one
     ``scaled_dot_product_attention`` call (its yardstick: KV heads repeated
-    and the mask built before the timer) at one of L's attention shapes,
-    K/V in a slot of an L-sized cache."""
+    and the mask built before the timer) at one attention shape of a
+    serving run (L's heads by default), K/V in a slot of a
+    ``max_len``-slot cache (L's).  Every timed launch's output is held
+    against the plain version's within FLASH_TOL.  Returns (kernel ms,
+    plain ms, library ms, max |kernel - plain|, max |library - plain|)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.check_runs import L_ENGINE
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = flash_inputs(7, 1, Sq, L_ENGINE["max_len"], 32, 8, 128)
+    q, k, v = flash_inputs(7, 1, Sq, max_len or L_ENGINE["max_len"], Hq,
+                           Hkv, D)
     kw = dict(q_offset=q_offset, kv_len=kv_len)
-    timed, _ = kernel_ms([("flash", lambda: fa.flash_attention(
+    timed, outs = kernel_ms([("flash", lambda: fa.flash_attention(
         q, k, v, **kw))] * reps)
     ms = sum(t for _, t in timed) / reps
+    want = fa.flash_attention_ref(q, k, v, **kw).float()
+    err = max(float((o.float() - want).abs().max()) for o in outs)
+    check(all(bool(torch.isfinite(o).all()) for o in outs)
+          and err <= FLASH_TOL, f"flash Hq={Hq} Hkv={Hkv} D={D} Sq={Sq} "
+          f"q_offset={q_offset} kv_len={kv_len}: kernel and plain differ by "
+          f"{err} > {FLASH_TOL}")
+    del outs
     plain = timed_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), 2)
     qt = q.transpose(1, 2)
-    kt, vt = (x[:, :kv_len].repeat_interleave(4, dim=2).transpose(1, 2)
-              for x in (k, v))
+    kt, vt = (x[:, :kv_len].repeat_interleave(Hq // Hkv, dim=2)
+              .transpose(1, 2) for x in (k, v))
     pos = torch.arange(kv_len, device="cuda")
     mask = (q_offset + pos[:Sq, None]) >= pos[None, :]
     lib_kw = (dict(is_causal=True) if q_offset == 0 and Sq == kv_len
@@ -1600,19 +1649,67 @@ def time_flash_shape(Sq, q_offset, kv_len, reps=20):
     sdpa()                                  # its first call loads kernels
     timed, outs = kernel_ms([("sdpa", sdpa)] * reps)
     lib = sum(t for _, t in timed) / reps
-    lib_err = float((outs[-1].transpose(1, 2).float()
-                     - fa.flash_attention_ref(q, k, v, **kw).float()
-                     ).abs().max())
-    return ms, plain, lib, lib_err
+    lib_err = float((outs[-1].transpose(1, 2).float() - want).abs().max())
+    return ms, plain, lib, err, lib_err
+
+
+TIMED_HOOKS = {"start": "_start", "tick": "_decode_tick",
+               "finish": "_finish", "restore": "_restore_snapshot",
+               "store": "_offer"}
+
+
+def timed_engine(spent, sync_before=False):
+    """A ServeEngine whose methods named by ``spent``'s keys (TIMED_HOOKS)
+    each append the seconds they took on the host clock to ``spent[key]``,
+    ending in a sync (``sync_before``: and starting after one, so that no
+    earlier work of the card is counted in them)."""
+    import torch
+    from repro_torch.serve import ServeEngine
+
+    def hook(name, key):
+        def timed(self, *a):
+            if sync_before:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = getattr(ServeEngine, name)(self, *a)
+            torch.cuda.synchronize()
+            spent[key].append(time.perf_counter() - t0)
+            return out
+        return timed
+    return type("TimedServeEngine", (ServeEngine,),
+                {TIMED_HOOKS[k]: hook(TIMED_HOOKS[k], k) for k in spent})
+
+
+def device_time_by_kind(prof):
+    """(seconds of device time by kind of kernel, number of device
+    activities) of a finished torch.profiler run, read from its raw kineto
+    events (building the profiler's Python event tree for a whole serving
+    run takes minutes)."""
+    from torch.autograd import DeviceType
+    kinds = {"flash": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name().lower()
+        ns = (e.duration_ns() if hasattr(e, "duration_ns")
+              else e.duration_us() * 1e3)
+        kind = ("flash" if "flash_attention_kernel" in name else
+                "gemm" if any(w in name for w in ("gemm", "xmma", "nvjet",
+                                                  "cutlass")) else
+                "copy" if "memcpy" in name or "memset" in name else "other")
+        kinds[kind] += ns / 1e9
+        n += 1
+    return kinds, n
 
 
 def llm_phase12(card):
     """Phase 12: run L through ServeEngine at full width (counts set to 0
     just before, read just after), then again with its phases timed, once
     more under torch.profiler, and the flash kernel at each of L's
-    attention shapes.  Returns (flash
-    launches, the kernel's JSON numbers as means per launch over L's
-    launches: ms, plain ms, bound ms, bound_by, library ms)."""
+    attention shapes.  Returns (flash launches, the largest max |kernel -
+    plain| at L's shapes, the kernel's JSON numbers as means per launch
+    over L's launches: ms, plain ms, bound ms, bound_by, library ms)."""
     import torch
     from repro_torch.check_runs import (L_ENGINE, L_NEW_TOKENS, L_PINS,
                                         L_WORKLOAD)
@@ -1667,66 +1764,40 @@ def llm_phase12(card):
           f"tokens prefilled, {stats['tokens_prefilled'] / wall:,.0f} per "
           f"second of wall; launches {launches}; max_memory_allocated "
           f"{peak} bytes; card {card}")
+    del eng
 
     # the same run with each phase timed on the host clock (each ends in a
-    # read of the card: the emitted token)
+    # sync, after the emitted token's read or the offers)
     spent = {"start": [], "tick": [], "finish": []}
-
-    class Timed(ServeEngine):
-        def _start(self, req):
-            t0 = time.perf_counter()
-            super()._start(req)
-            spent["start"].append(time.perf_counter() - t0)
-
-        def _decode_tick(self):
-            t0 = time.perf_counter()
-            super()._decode_tick()
-            spent["tick"].append(time.perf_counter() - t0)
-
-        def _finish(self, req):
-            t0 = time.perf_counter()
-            super()._finish(req)
-            torch.cuda.synchronize()
-            spent["finish"].append(time.perf_counter() - t0)
-
-    del eng
-    t_eng, t_reqs, t_out, t_wall = serve_l(Timed)
+    t_eng, _, t_out, t_wall = serve_l(timed_engine(spent))
     check(t_eng.stats == stats and t_out == out,
           "L: the timed run differs from the main run")
     del t_eng
 
     # and once more under torch.profiler: device time by kind of kernel,
     # and the share of the run's wall time in which the card ran none
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         p_eng, _, p_out, p_wall = serve_l(ServeEngine)
+        t1 = time.perf_counter()
     check(p_eng.stats == stats and p_out == out,
           "L: the profiled run differs from the main run")
     del p_eng
-    kinds = {"flash": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.name.lower()
-        us = e.time_range.end - e.time_range.start
-        kind = ("flash" if "flash_attention_kernel" in name else
-                "gemm" if any(w in name for w in ("gemm", "xmma", "nvjet",
-                                                  "cutlass")) else
-                "copy" if "memcpy" in name or "memset" in name else "other")
-        kinds[kind] += us / 1e6
-        n_kernels += 1
+    kinds, n_kernels = device_time_by_kind(prof)
+    read_s = time.perf_counter() - t1
+    del prof
     busy = sum(kinds.values())
     if busy:
         print(f"phase 12 L profiled run (torch.profiler): wall {p_wall:.3f}"
-              f" s with the profiler on; {n_kernels} device activities, "
-              f"busy {busy:.3f} s: gemm {kinds['gemm']:.3f}, flash "
-              f"{kinds['flash']:.3f}, copies {kinds['copy']:.3f}, other "
-              f"kernels {kinds['other']:.3f}; device idle share "
+              f" s with the profiler on (stopping it and reading its "
+              f"events {read_s:.1f} s more); {n_kernels} device "
+              f"activities, busy {busy:.3f} s: gemm {kinds['gemm']:.3f}, "
+              f"flash {kinds['flash']:.3f}, copies {kinds['copy']:.3f}, "
+              f"other kernels {kinds['other']:.3f}; device idle share "
               f"{1 - busy / p_wall:.4f} of the profiled wall, "
-              f"{1 - busy / t_wall:.4f} of the timed run's; card {card}")
+              f"{1 - busy / t_wall:.4f} of the timed run's, "
+              f"{1 - busy / wall:.4f} of the main run's; card {card}")
     else:
         print("phase 12 L profiled run: the profiler saw no device "
               "activity; device time by kind not measured")
@@ -1735,9 +1806,10 @@ def llm_phase12(card):
         start = r.prefix_blocks_reused * L_ENGINE["block_size"]
         key = (len(r.prompt) - start, start, len(r.prompt))
         mix[key] = mix.get(key, 0) + cfg.n_layers
-    per = {}
+    per, worst = {}, 0.0
     for (Sq, off, kvl), n in sorted(mix.items()):
-        ms, plain, lib, lib_err = time_flash_shape(Sq, off, kvl)
+        ms, plain, lib, err, lib_err = time_flash_shape(Sq, off, kvl)
+        worst = max(worst, err)
         flops, nbytes = flash_work(Sq, off, kvl)
         o_ms = flops / BF16_FLOPS_PER_S * 1e3
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1750,7 +1822,8 @@ def llm_phase12(card):
         print(f"phase 12 L flash Sq={Sq} q_offset={off} kv_len={kvl}: "
               f"{items} work items of {128 // gp} positions x {gp} heads on "
               f"{min(items, sms)} persistent CTAs (1 per SM); "
-              f"{n} launches; kernel {ms:.4f} ms; plain {plain:.3f} ms; "
+              f"{n} launches; kernel {ms:.4f} ms (max |kernel - plain| "
+              f"{err:.4f}); plain {plain:.3f} ms; "
               f"scaled_dot_product_attention {lib:.4f} ms (max |sdpa - "
               f"plain| {lib_err:.4f}); bound: {flops / 1e9:.3f} GFLOP over "
               f"989 TFLOP/s = {o_ms:.4f} ms, {nbytes / 1e6:.2f} MB over "
@@ -1765,7 +1838,8 @@ def llm_phase12(card):
     flash_s = sum(per[k][0] * n for k, n in mix.items()) / 1e3
     start_s, tick_s = sum(spent["start"]), sum(spent["tick"])
     finish_s = sum(spent["finish"])
-    print(f"phase 12 L timed run: wall {t_wall:.3f} s; {len(spent['start'])}"
+    print(f"phase 12 L timed run: wall {t_wall:.3f} s; "
+          f"{len(spent['start'])}"
           f" starts (lookup, gather, extend, head) {start_s:.3f} s, "
           f"{stats['tokens_prefilled'] / start_s:,.0f} prefill tokens/s; "
           f"{len(spent['tick'])} decode ticks {tick_s:.3f} s, "
@@ -1774,7 +1848,7 @@ def llm_phase12(card):
           f"{finish_s:.3f} s; the flash kernel's time is a share "
           f"{flash_s / start_s:.4f} of the starts' wall time; card {card}")
     o_ms, b_ms = mean(3), mean(4)
-    return launches["flash_attention"], dict(
+    return launches["flash_attention"], worst, dict(
         ms=mean(0), plain_ms=mean(1), library_ms=mean(2),
         bound_ms=max(o_ms, b_ms),
         bound_by="operations" if o_ms >= b_ms else "bytes")
@@ -1782,45 +1856,98 @@ def llm_phase12(card):
 
 def llm_phase13(card):
     """Phase 13: qwen3-4b at full width and depth 2 with numpy_params
-    weights: prefill, then decode the JAX model's greedy tokens; each
-    step's logits at the pinned top-8 ids against the JAX values."""
+    weights against the JAX pin D2."""
+    from repro_torch.check_runs import D2_PINS
+    depth_pin("13", "D2", "qwen3-4b", 2, D2_PINS, card)
+
+
+def depth_pin(phase, name, arch, n_layers, pins, card, routing=None,
+              fp32=False, bounds=None, leaves=None, prompt_len=None):
+    """A depth pin: ``arch`` at full width cut to ``n_layers`` with the
+    ``numpy_leaves`` weights (handed to the card one leaf at a time, or
+    ``leaves`` when given), bf16 compute (``fp32``: fp32): prefill the
+    pin's prompt (its first ``prompt_len`` tokens), then decode the JAX model's greedy tokens; each step's
+    logits at the pinned top-8 ids within D2_TOL of the largest (or the
+    step's entry of ``bounds``).  With ``routing`` (the JAX expert of each
+    prompt token at the first MoE layer), prints how many of the port's
+    experts differ and the router's top-2 margins.  Returns the seconds it
+    took."""
     import torch
-    from repro_torch.check_runs import (D2_MAX_LEN, D2_PINS, D2_SEED,
-                                        D2_STEPS, d2_prompt, numpy_params)
+    from repro_torch.check_runs import (D2_MAX_LEN, D2_SEED, D2_STEPS,
+                                        d2_prompt, numpy_leaves)
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.convert import params_from_numpy
-    cfg = get_config("qwen3-4b").replace(n_layers=2)
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    if fp32:
+        cfg = cfg.replace(compute_dtype=torch.float32)
     t0 = time.perf_counter()
-    params = params_from_numpy(cfg, numpy_params(cfg, D2_SEED))
+    params = params_from_numpy(cfg, leaves if leaves is not None
+                               else numpy_leaves(cfg, D2_SEED))
+    torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
     m = Model(cfg)
     cache = m.init_cache(1, D2_MAX_LEN)
-    prompt = torch.from_numpy(d2_prompt(cfg.vocab_size)[None]).cuda()
+    prompt = torch.from_numpy(
+        d2_prompt(cfg.vocab_size)[None, :prompt_len]).cuda()
+    t1 = time.perf_counter()
     cache, h = m.prefill(params, {"tokens": prompt}, cache)
     logits = m.lm_head(params, h)[0, 0]
     worst = 0.0
-    for step, (ids, want) in enumerate(D2_PINS):
+    for step, (ids, want) in enumerate(pins):
         got = logits[list(ids)].cpu().numpy()
         rel = float(np.max(np.abs(got - np.asarray(want)))
                     / np.max(np.abs(want)))
         top = logits.topk(8).indices.tolist()
-        check(bool(torch.isfinite(logits).all()) and rel < D2_TOL,
-              f"D2 step {step}: logits at the JAX top-8 differ by {rel:.4f}"
-              f" of the largest (> {D2_TOL})")
+        bound = bounds[step] if bounds else D2_TOL
+        check(bool(torch.isfinite(logits).all()) and rel < bound,
+              f"{name} step {step}: logits at the JAX top-8 differ by "
+              f"{rel:.4f} of the largest (> {bound:.4f})")
         worst = max(worst, rel)
-        print(f"phase 13 D2 step {step}: max |port - JAX| over the JAX top-8"
-              f" {rel:.5f} of the largest; top-1 {top[0]} (JAX {ids[0]}); "
-              f"{len(set(top) & set(ids))} of 8 ids shared")
+        print(f"phase {phase} {name} step {step}: max |port - JAX| over the "
+              f"JAX top-8 {rel:.5f} of the largest (bound {bound:.4f}); "
+              f"top-1 {top[0]} (JAX {ids[0]}); {len(set(top) & set(ids))} "
+              f"of 8 ids shared")
         if step < D2_STEPS:
             tok = torch.tensor([[ids[0]]], device="cuda")
             logits, cache = m.decode(params, tok, cache)
             logits = logits[0, 0]
     check(int(cache["pos"][0]) == len(prompt[0]) + D2_STEPS,
-          "D2: cache position")
-    print(f"phase 13 D2: qwen3-4b full width, 2 layers, numpy_params loaded "
-          f"in {load_s:.1f} s: every step within {D2_TOL} (worst "
+          f"{name}: cache position")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    if routing is not None:
+        from repro_torch.models import transformer as T
+        routing = "".join(routing)
+        blk, j = params.layers[0], cfg.moe_every - 1
+        x = T.embed_tokens(params, prompt, cfg)
+        pos = torch.arange(x.shape[1], device="cuda")[None]
+        for i in range(j + 1):
+            x, _ = T.attn_block_train(getattr(blk, f"attn{i}"), x, cfg, pos)
+            if i < j:
+                x, _ = T.ffn_or_moe(blk, i, x, cfg)
+        hm = T.rmsnorm(x, getattr(blk, f"moe{j}_norm"), cfg.norm_eps)
+        lg = (hm @ getattr(blk, f"moe{j}").router).float()[0]
+        mine = lg.argmax(-1).tolist()
+        want = [int(c, 36) for c in routing]
+        top2 = lg.topk(2, -1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        flips = [i for i, (a, b) in enumerate(zip(mine, want)) if a != b]
+        print(f"phase {phase} {name} routing at the first MoE layer: "
+              f"{len(flips)} of {len(want)} prompt tokens sent to another "
+              f"expert than JAX's (positions {flips[:8]}); the router's top-2"
+              f" margin (bf16 logits) min {margin.min():.6f}, median "
+              f"{float(np.median(margin)):.6f}, at the differing tokens "
+              f"{[round(float(margin[i]), 6) for i in flips[:8]]}")
+    print(f"phase {phase} {name}: {arch} full width, {n_layers} layer(s), "
+          f"{n_params:,} parameters, {'fp32' if fp32 else 'bf16'} compute, "
+          f"{prompt.shape[1]}-token prompt, "
+          f"numpy_leaves loaded in {load_s:.1f} s, prefill and {D2_STEPS} "
+          f"decodes {run_s:.2f} s: every step within its bound (worst "
           f"{worst:.5f}); card {card}")
+    del params, cache
+    return time.perf_counter() - t0
 
 
 def lane_case(case, fn, device):
@@ -3649,6 +3776,286 @@ def pf_phase38(card):
           f"{t_dev:.1f} s, the host runs beside them)")
 
 
+FAM_ARCHS = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
+             "llava-next-34b", "musicgen-medium", "zamba2-1.2b", "xlstm-1.3b")
+FAM_TOL = 0.05      # bf16: the reference's bound, or 1.5x the distance of
+                    # the CPU's own bf16 run from its fp32 run, if larger
+
+
+def fam_drive(cfg, params, device, toks, vis):
+    """The families' drive: prefill 21 tokens (after the vision
+    embeddings), three decodes; then from a fresh cache prefill 16, extend
+    12.  Returns the outputs as fp32 CPU tensors."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.serve.extend import extend
+    m = Model(cfg, device=device)
+    t = torch.from_numpy(toks).to(device)
+    batch = {"tokens": t[:, :21]}
+    if vis is not None:
+        batch["vision_embeds"] = torch.from_numpy(vis).to(device)
+    out = []
+    cache, h = m.prefill(params, batch, m.init_cache(2, 64))
+    out.append(h)
+    for i in range(21, 24):
+        lg, cache = m.decode(params, t[:, i:i + 1], cache)
+        out.append(lg)
+    cache, _ = m.prefill(params, dict(batch, tokens=t[:, :16]),
+                         m.init_cache(2, 64))
+    cache, h = extend(m, params, t[:, 16:28], cache, 16 + cfg.n_vis_tokens)
+    out.append(h)
+    lg, cache = m.decode(params, t[:, 28:29], cache)
+    out.append(lg)
+    return [o.float().cpu() for o in out]
+
+
+def fam_phase39(card):
+    """Phase 39: each new family's smoke config in bf16 through
+    Model.prefill (llava with 8 vision embeddings), three decodes and an
+    extend after a cached prefix, on the card against the same model and
+    weights on the CPU (the plain versions)."""
+    import torch
+    from repro_torch.check_runs import numpy_params
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_numpy
+    names = ("prefill", "decode 1", "decode 2", "decode 3", "extend",
+             "decode after extend")
+    for arch in FAM_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        tree = numpy_params(cfg, seed=3)
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, cfg.vocab_size, (2, 29))
+        if cfg.n_codebooks:
+            toks = (toks[..., None] + np.arange(cfg.n_codebooks)) \
+                % cfg.vocab_size
+        vis = (rng.standard_normal((2, cfg.n_vis_tokens, cfg.d_model),
+                                   dtype=np.float32) * 0.02
+               if cfg.n_vis_tokens else None)
+        got = fam_drive(cfg, params_from_numpy(cfg, tree), "cuda", toks, vis)
+        want = fam_drive(cfg, params_from_numpy(cfg, tree, device="cpu"),
+                         "cpu", toks, vis)
+        cfg32 = cfg.replace(compute_dtype=torch.float32)
+        ref = fam_drive(cfg32, params_from_numpy(cfg32, tree, device="cpu"),
+                        "cpu", toks, vis)
+        worst = []
+        for name, g, w, r in zip(names, got, want, ref):
+            err = float((g - w).abs().max() / w.abs().max())
+            own = float((w - r).abs().max() / r.abs().max())
+            bound = max(FAM_TOL, 1.5 * own)
+            check(bool(torch.isfinite(g).all()) and g.shape == w.shape
+                  and err < bound, f"FAM {arch} {name}: card and CPU differ "
+                  f"by {err:.4f} of the largest (bound {bound:.4f})")
+            worst.append(f"{name} {err:.4f}/{bound:.4f}")
+        print(f"phase 39 FAM {arch} (smoke, bf16): card == CPU within the "
+              f"bound (max |card - CPU| / max |CPU| / bound: "
+              + ", ".join(worst) + ")")
+
+
+def fam_phase40(card):
+    """Phase 40: Z7, X8 and M1, full-width depth-cut pins against JAX.  X8
+    runs three times from one set of leaves: fp32 compute against the JAX
+    fp32 pin within D2_TOL; bf16 on the prompt's first X8S_PROMPT_LEN
+    tokens against that bf16 pin (X8S) within D2_TOL, where the JAX bf16
+    run stands within X8S_BF16_SPREAD of its fp32 run; and bf16 on the
+    whole prompt against the bf16 pin within the larger of D2_TOL and 1.5x
+    that distance at each step (0.10-0.24: the sLSTM's exponential gating
+    carries the bf16 rounding of 1,280 steps, in the reference as in the
+    port)."""
+    import gc
+    import torch
+    from repro_torch.check_runs import (D2_SEED, M1_PINS, M1_ROUTING,
+                                        X8_BF16_SPREAD, X8_FP32_PINS,
+                                        X8_PINS, X8S_BF16_SPREAD,
+                                        X8S_PINS, X8S_PROMPT_LEN, Z7_PINS,
+                                        numpy_leaves)
+    from repro_torch.configs import get_config
+    x8_leaves = list(numpy_leaves(get_config("xlstm-1.3b").replace(
+        n_layers=8), D2_SEED))
+    print(f"phase 40 X8S: the JAX bf16 run on the first {X8S_PROMPT_LEN} "
+          f"prompt tokens stands {list(X8S_BF16_SPREAD)} of the largest "
+          f"from its fp32 run at each step (on all 1,280: "
+          f"{list(X8_BF16_SPREAD)})")
+    for name, arch, n, pins, kw in (
+            ("Z7", "zamba2-1.2b", 7, Z7_PINS, {}),
+            ("X8 fp32", "xlstm-1.3b", 8, X8_FP32_PINS,
+             dict(fp32=True, leaves=x8_leaves)),
+            ("X8S", "xlstm-1.3b", 8, X8S_PINS,
+             dict(leaves=x8_leaves, prompt_len=X8S_PROMPT_LEN)),
+            ("X8", "xlstm-1.3b", 8, X8_PINS,
+             dict(leaves=x8_leaves, bounds=[max(D2_TOL, 1.5 * d)
+                                           for d in X8_BF16_SPREAD])),
+            ("M1", "llama4-scout-17b-a16e", 1, M1_PINS,
+             dict(routing=M1_ROUTING))):
+        torch.cuda.reset_peak_memory_stats()
+        s = depth_pin("40", name, arch, n, pins, card, **kw)
+        print(f"phase 40 {name}: {s:.1f} s; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def flash_extends(eng, reqs):
+    """(Sq, q_offset, kv_len) of every extend the engine ran for ``reqs``:
+    one per request for an attention family, one per segment of
+    ``snapshot_every`` blocks for an SSM one."""
+    bs = eng.block_size
+    seg = eng.snapshot_every * bs
+    out = []
+    for r in reqs:
+        pos, n = r.prefix_blocks_reused * bs, len(r.prompt)
+        step = n - pos if eng.cfg.family not in ("hybrid_ssm", "xlstm") \
+            else seg
+        while pos < n:
+            nxt = min(pos + step, n)
+            out.append((nxt - pos, pos, nxt))
+            pos = nxt
+    return out
+
+
+def serve_cell(cell, card):
+    """One of runs LZ, LX, LM at full width through ServeEngine (counts set
+    to 0 just before, read just after), each phase of the engine timed on
+    the host clock (each ends in a sync).  Returns (launches, the flash
+    shapes' mix {shape: launches}, heads (Hq, Hkv, D))."""
+    import torch
+    from repro_torch.check_runs import (LF_CELLS, LF_NEW_TOKENS, LF_PINS,
+                                        LF_WORKLOAD)
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve.driver import make_workload
+    arch, engine_kw, n_layers = LF_CELLS[cell]
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    wl = dict(LF_WORKLOAD)
+    prompts = make_workload(cfg, wl.pop("n_requests"), **wl)
+    spent = {"start": [], "tick": [], "finish": [], "store": [],
+             "restore": []}
+    eng = timed_engine(spent, sync_before=True)(model, params, **engine_kw, prefix_policy="wtinylfu",
+                device_sketch=True)
+    for pr in prompts:
+        eng.submit(pr, LF_NEW_TOKENS)
+    reqs = list(eng.queue)
+    set_launches(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = eng.stats
+    check(stats == LF_PINS[cell], f"{cell}: stats {stats} != JAX "
+          f"{LF_PINS[cell]}")
+    check(len(out) == len(prompts) and all(
+        len(t) == LF_NEW_TOKENS and all(0 <= x < cfg.vocab_size for x in t)
+        for t in out.values()), f"{cell}: missing or bad generated tokens")
+    shapes = flash_extends(eng, reqs)
+    per_extend = {"hybrid_ssm": cfg.n_layers // max(cfg.attn_every, 1),
+                  "xlstm": 0}.get(cfg.family, cfg.n_layers)
+    check(launches["flash_attention"] == per_extend * len(shapes),
+          f"{cell}: {launches['flash_attention']} flash launches, expected "
+          f"{per_extend} per extend x {len(shapes)}")
+    check(launches["sketch_update"] == eng.prefix_cache.stats.lookups
+          and launches["admission"] == stats["admitted"] + stats["rejected"],
+          f"{cell}: sketch launches {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    ticks, starts = spent["tick"], sum(spent["start"])
+    snap = ""
+    if spent["restore"] or cfg.family in ("hybrid_ssm", "xlstm"):
+        nbytes = sum(a.numel() * a.element_size()
+                     for a in _leaves(eng.pool.pool)) // eng.pool.n_slots
+        mean_ms = {k: 1e3 * sum(spent[k]) / max(1, len(spent[k]))
+                   for k in ("store", "restore")}
+        snap = (f"; a snapshot {nbytes} bytes: {len(spent['store'])} stores"
+                f" {mean_ms['store']:.3f} ms each (with the admission), "
+                f"{len(spent['restore'])} restores "
+                f"{mean_ms['restore']:.3f} ms each")
+    print(f"phase 41 {cell}: {arch} full width ({cfg.n_layers} layers, "
+          f"{n_params:,} parameters, bf16; init {init_s:.2f} s), "
+          f"{len(prompts)} prompts of {len(prompts[0])} tokens, engine "
+          f"{engine_kw}: stats == JAX {stats}; launches {launches}")
+    print(f"phase 41 {cell}: wall {wall:.3f} s (host clock, ends in a "
+          f"sync; every engine phase synced); {len(spent['start'])} starts "
+          f"{starts:.3f} s, {stats['tokens_prefilled'] / starts:,.0f} "
+          f"prefill tokens/s; {len(ticks)} decode ticks "
+          f"{1e3 * sum(ticks) / len(ticks):.2f} ms per tick; "
+          f"{len(spent['finish'])} finishes {sum(spent['finish']):.3f} s"
+          f"{snap}; max_memory_allocated {peak} bytes; card {card}")
+    mix = {}
+    for shp in shapes if per_extend else ():
+        mix[shp] = mix.get(shp, 0) + per_extend
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    del eng, params, model
+    return launches, mix, heads
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+def flash_cell(cell, mix, heads, card):
+    """The flash kernel at each of a run's attention shapes, held against
+    its plain version: kernel, plain and scaled_dot_product_attention ms
+    against the bound; returns the JSON numbers as means over the run's
+    launches, and the largest max |kernel - plain| as max_abs_err."""
+    from repro_torch.check_runs import LF_CELLS
+    Hq, Hkv, D = heads
+    max_len = LF_CELLS[cell][1]["max_len"]
+    per, worst = {}, 0.0
+    for (Sq, off, kvl), n in sorted(mix.items()):
+        ms, plain, lib, err, lib_err = time_flash_shape(
+            Sq, off, kvl, Hq=Hq, Hkv=Hkv, D=D, max_len=max_len)
+        worst = max(worst, err)
+        flops, nbytes = flash_work(Sq, off, kvl, Hq, Hkv, D)
+        o_ms = flops / BF16_FLOPS_PER_S * 1e3
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        per[(Sq, off, kvl)] = (ms, plain, lib, o_ms, b_ms)
+        print(f"phase 41 {cell} flash Hq={Hq} Hkv={Hkv} D={D} Sq={Sq} "
+              f"q_offset={off} kv_len={kvl}: {n} launches; kernel "
+              f"{ms:.4f} ms (max |kernel - plain| {err:.4f}); plain "
+              f"{plain:.3f} ms; "
+              f"scaled_dot_product_attention {lib:.4f} ms (max |sdpa - "
+              f"plain| {lib_err:.4f}); bound: {flops / 1e9:.3f} GFLOP over "
+              f"989 TFLOP/s = {o_ms:.4f} ms, {nbytes / 1e6:.2f} MB over "
+              f"3.35 TB/s = {b_ms:.4f} ms; kernel at "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{max(o_ms, b_ms) / ms:.3f} of the bound; card {card}")
+    total = sum(mix.values())
+
+    def mean(i):
+        return sum(per[k][i] * n for k, n in mix.items()) / total
+    o_ms, b_ms = mean(3), mean(4)
+    return dict(ms=mean(0), plain_ms=mean(1), library_ms=mean(2),
+                max_abs_err=worst, bound_ms=max(o_ms, b_ms),
+                bound_by="operations" if o_ms >= b_ms else "bytes")
+
+
+def serve_phase41(card):
+    """Phase 41: runs LZ, LX and LM; the flash kernel at LZ's and LM's
+    shapes.  Returns {cell: (launches, flash numbers or None)}."""
+    import gc
+    import torch
+    out = {}
+    for cell in ("LZ", "LX", "LM"):
+        launches, mix, heads = serve_cell(cell, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[cell] = (launches, flash_cell(cell, mix, heads, card)
+                     if mix else None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3877,7 +4284,8 @@ def main() -> int:
 
     # -- phases 11-13: the LLM serving path ------------------------------
     flash_err = flash_phase11()
-    flash_launches, flash = llm_phase12(card)
+    flash_launches, l_err, flash = llm_phase12(card)
+    flash_err = max(flash_err, l_err)
     gc.collect()
     torch.cuda.empty_cache()
     llm_phase13(card)
@@ -3950,6 +4358,12 @@ def main() -> int:
     # -- phase 38: PF, the paper's trace families; the host engine ---------
     pf_phase38(card)
     elapsed("phase 38")
+
+    # -- phases 39-41: the serving families ---------------------------------
+    fam_phase39(card)
+    fam_phase40(card)
+    cells = serve_phase41(card)
+    elapsed("phases 39-41")
     err = max(max_err, lane_err, shard_err, adapt_err, panel_err,
               step12_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
@@ -3992,13 +4406,22 @@ def main() -> int:
     kernels[1].update(dk_probes_held=sorted(set(add_probes)
                                             | set(LOOP_PROBES)))
 
-    # -- phase 39: the kernels line ----------------------------------------
+    # -- phase 42: the kernels line ----------------------------------------
+    flash_err = max([flash_err] + [fl["max_abs_err"]
+                                   for _, fl in cells.values() if fl])
+    for k in kernels[1:]:
+        k["serving_launches"] = {cell: launches[k["name"]]
+                                 for cell, (launches, _) in cells.items()}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:94",
-        "launches": flash_launches, "max_abs_err": flash_err,
-        "matches_plain": flash_err <= FLASH_TOL, **flash})
+        "launches": flash_launches + sum(
+            launches["flash_attention"] for launches, _ in cells.values()),
+        "max_abs_err": flash_err, "matches_plain": flash_err <= FLASH_TOL,
+        **flash, "L_launches": flash_launches,
+        "cells": {cell: dict(launches=launches["flash_attention"], **fl)
+                  for cell, (launches, fl) in cells.items() if fl}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

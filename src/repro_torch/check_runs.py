@@ -987,7 +987,11 @@ SHARD_CASES = [
 # causal and not, ragged lengths, extends, per-row kv_len, GQA groups 1,
 # 2, 4, 8 and 16 (the kernel puts up to 16 query heads of one KV group in a
 # CTA), head dims 16 to 128, softcap 30, and run L's three shapes (the
-# extends read a 2,048-slot cache up to kv_len 1,280).
+# extends read a 2,048-slot cache up to kv_len 1,280); the serving
+# families' shapes: llama4's 40/8 heads and llava's 56/8 (groups 5 and 7,
+# which the kernel takes one head to a work item), zamba2's shared block
+# (MHA 32x64, run LZ's 256-token segment at q_offset 1,024) and musicgen's
+# MHA 24x64.
 # (name, B, Sq, Skv, Hq, Hkv, D, causal, q_offset, kv_len, softcap)
 FLASH_CASES = [
     ("2x256x4x64 causal", 2, 256, 256, 4, 4, 64, True, 0, None, 0.0),
@@ -1014,6 +1018,15 @@ FLASH_CASES = [
      [310, 364], 0.0),
     ("GQA 8 D=32 extend", 1, 100, 400, 16, 2, 32, True, 250, 350, 0.0),
     ("GQA 4 D=64 softcap 30", 2, 90, 90, 8, 2, 64, True, 0, None, 30.0),
+    ("llama4 prefill GQA 5", 1, 1280, 1280, 40, 8, 128, True, 0, None, 0.0),
+    ("llama4 extend GQA 5 q_offset 1024", 1, 256, 2048, 40, 8, 128, True,
+     1024, 1280, 0.0),
+    ("llava GQA 7", 1, 300, 300, 56, 8, 128, True, 0, None, 0.0),
+    ("llava extend GQA 7 q_offset 1024", 1, 256, 2048, 56, 8, 128, True,
+     1024, 1280, 0.0),
+    ("zamba2 extend MHA 32x64 q_offset 1024", 1, 256, 2048, 32, 32, 64,
+     True, 1024, 1280, 0.0),
+    ("musicgen MHA 24x64", 2, 200, 200, 24, 24, 64, True, 0, None, 0.0),
 ]
 
 # The flash kernel's cache-tail case: a causal extend at q_offset 123 over
@@ -1066,18 +1079,253 @@ L_PINS = {"prefix_hit_ratio": 0.4666666666666667, "block_hits": 896,
 # (``python tests/test_torch_models.py`` prints them).
 D2_SEED, D2_PROMPT_LEN, D2_STEPS, D2_MAX_LEN = 0, 1280, 4, 2048
 D2_PINS = [
-    ((69720, 3637, 88408, 120032, 99561, 84631, 142015, 12029),
-     (4.34375, 4.1875, 3.984375, 3.984375, 3.875, 3.84375, 3.796875, 3.78125)),
-    ((41621, 114060, 121561, 109247, 69169, 110847, 26450, 100668),
-     (4.125, 3.875, 3.875, 3.78125, 3.703125, 3.703125, 3.6875, 3.671875)),
-    ((9696, 7365, 14065, 99982, 38500, 142829, 48752, 148353),
-     (4.15625, 4.03125, 3.9375, 3.828125, 3.8125, 3.75, 3.734375, 3.734375)),
-    ((112189, 135893, 85057, 111349, 67115, 81801, 110753, 30512),
-     (4.03125, 4.0, 3.890625, 3.890625, 3.703125, 3.703125, 3.6875, 3.671875)),
-    ((113232, 94596, 49353, 116508, 150924, 38728, 131563, 105765),
-     (4.4375, 4.34375, 3.921875, 3.84375,
-      3.84375, 3.703125, 3.6875, 3.671875)),
+    ((48892, 93556, 82806, 87151, 55300, 85177, 50981, 146340),
+     (4.03125, 4.0, 3.984375, 3.984375, 3.953125, 3.921875, 3.84375, 3.84375)),
+    ((106187, 89896, 81149, 9308, 3542, 64708, 124174, 104577),
+     (4.34375, 4.3125, 4.25, 4.0625, 4.03125, 4.03125, 4.03125, 3.96875)),
+    ((122777, 18552, 121436, 82665, 82014, 1135, 22323, 22024),
+     (4.25, 4.15625, 4.03125, 3.984375, 3.90625, 3.875, 3.78125, 3.75)),
+    ((13690, 95871, 93975, 19213, 96613, 93132, 110456, 40335),
+     (4.5, 4.375, 4.1875, 3.96875, 3.96875, 3.921875, 3.90625, 3.890625)),
+    ((14146, 4613, 28347, 97790, 62129, 19272, 69124, 116820),
+     (4.4375, 4.0, 3.953125, 3.9375, 3.859375, 3.796875, 3.796875, 3.796875)),
 ]
+
+
+# The serving families at full width (chip_smoke.py phase 41): runs LZ
+# (zamba2-1.2b, 38 layers), LX (xlstm-1.3b, 48 layers) and LM (llama4-scout
+# at published width, n_layers LM_LAYERS) through ServeEngine(...,
+# prefix_policy="wtinylfu", device_sketch=True) with their engine settings,
+# replaying make_workload(cfg, **LF_WORKLOAD) with LF_NEW_TOKENS new tokens
+# each.  As for L, the stats depend only on the prompts, the schedule and
+# the cache: the pins come from the JAX ServeEngine on each smoke config
+# with the published vocabulary, its admission on
+# DeviceAdmission(use_pallas=False)
+# (``python tests/test_torch_family_serving.py`` prints them).
+LF_WORKLOAD = dict(n_requests=12, n_tenants=4, prefix_len=1024,
+                   suffix_len=256, seed=0)
+LF_NEW_TOKENS = 8
+LZ_ENGINE = dict(max_batch=4, max_len=2048, block_size=16, snapshot_every=16,
+                 pool_slots=32)
+LX_ENGINE = dict(LZ_ENGINE, pool_slots=16)
+LM_ENGINE = dict(L_ENGINE)
+LM_LAYERS = 2
+LF_CELLS = {"LZ": ("zamba2-1.2b", LZ_ENGINE, None),
+            "LX": ("xlstm-1.3b", LX_ENGINE, None),
+            "LM": ("llama4-scout-17b-a16e", LM_ENGINE, LM_LAYERS)}
+LF_PINS = {
+    'LM': {'prefix_hit_ratio': 0.3333333333333333, 'block_hits': 320,
+     'block_misses': 640, 'admitted': 0, 'rejected': 0, 'tokens_prefilled':
+     10240, 'tokens_reused': 5120, 'reuse_frac': 0.3333333333333333,
+     'pool_used': 384},
+    'LX': {'prefix_hit_ratio': 0.4666666666666667, 'block_hits': 28,
+     'block_misses': 32, 'admitted': 0, 'rejected': 0, 'tokens_prefilled':
+     8192, 'tokens_reused': 7168, 'reuse_frac': 0.4666666666666667,
+     'pool_used': 16},
+    'LZ': {'prefix_hit_ratio': 0.6, 'block_hits': 36, 'block_misses': 24,
+     'admitted': 0, 'rejected': 0, 'tokens_prefilled': 6144, 'tokens_reused':
+     9216, 'reuse_frac': 0.6, 'pool_used': 24},
+}
+
+
+# The serving families at smoke width with fp32 compute against the JAX
+# engine (tests/test_torch_family_serving.py prints both): serve.driver's
+# smoke setup per architecture, (stats, tokens by request id); and the
+# slot-state carry-over, per SSM architecture (tokens of prompt b after
+# prompt a in one slot, tokens of b alone).
+FAMILY_SERVE_PINS = {
+    'llama4_scout_17b_a16e': (
+        {'prefix_hit_ratio': 0.28125, 'block_hits': 18, 'block_misses': 46,
+         'admitted': 0, 'rejected': 0, 'tokens_prefilled': 384,
+         'tokens_reused': 144, 'reuse_frac': 0.2727272727272727, 'pool_used':
+         43},
+        {0: [357, 265, 150], 1: [228, 430, 349], 2: [287, 8, 406], 3: [306,
+         336, 304], 4: [463, 480, 151], 5: [240, 128, 433], 6: [485, 150, 271],
+         7: [383, 122, 140], 8: [403, 449, 5], 9: [502, 486, 362], 10: [190,
+         128, 190], 11: [173, 118, 78], 12: [380, 31, 54], 13: [360, 146, 286],
+         14: [214, 430, 89], 15: [260, 76, 382]}),
+    'llama4_maverick_400b_a17b': (
+        {'prefix_hit_ratio': 0.28125, 'block_hits': 18, 'block_misses': 46,
+         'admitted': 0, 'rejected': 0, 'tokens_prefilled': 384,
+         'tokens_reused': 144, 'reuse_frac': 0.2727272727272727, 'pool_used':
+         43},
+        {0: [476, 476, 170], 1: [499, 103, 415], 2: [464, 300, 135], 3: [137,
+         438, 42], 4: [56, 182, 182], 5: [495, 115, 456], 6: [487, 476, 114],
+         7: [128, 385, 444], 8: [37, 418, 430], 9: [362, 112, 417], 10: [416,
+         416, 417], 11: [370, 167, 424], 12: [195, 321, 471], 13: [437, 417,
+         489], 14: [415, 499, 26], 15: [453, 453, 453]}),
+    'llava_next_34b': (
+        {'prefix_hit_ratio': 0.28125, 'block_hits': 18, 'block_misses': 46,
+         'admitted': 0, 'rejected': 0, 'tokens_prefilled': 384,
+         'tokens_reused': 144, 'reuse_frac': 0.2727272727272727, 'pool_used':
+         43},
+        {0: [141, 44, 44], 1: [476, 330, 453], 2: [184, 377, 482], 3: [419,
+         319, 223], 4: [304, 478, 190], 5: [35, 195, 164], 6: [172, 108, 344],
+         7: [80, 271, 337], 8: [90, 138, 114], 9: [50, 50, 50], 10: [190, 304,
+         50], 11: [452, 80, 111], 12: [37, 190, 64], 13: [478, 505, 194], 14:
+         [453, 225, 188], 15: [358, 460, 417]}),
+    'musicgen_medium': (
+        {'prefix_hit_ratio': 0.28125, 'block_hits': 18, 'block_misses': 46,
+         'admitted': 0, 'rejected': 0, 'tokens_prefilled': 384,
+         'tokens_reused': 144, 'reuse_frac': 0.2727272727272727, 'pool_used':
+         43},
+        {0: [[71, 30, 89, 59], [71, 92, 117, 90], [71, 92, 57, 90]], 1: [[34,
+         106, 16, 125], [58, 62, 16, 95], [117, 3, 7, 18]], 2: [[49, 126, 86,
+         85], [64, 120, 95, 30], [29, 100, 86, 15]], 3: [[65, 67, 113, 20],
+         [83, 61, 117, 17], [126, 61, 8, 100]], 4: [[111, 98, 82, 58], [27,
+         126, 55, 68], [12, 93, 99, 80]], 5: [[71, 12, 28, 2], [76, 94, 25,
+         68], [92, 38, 127, 74]], 6: [[71, 75, 84, 59], [71, 11, 81, 67], [71,
+         11, 81, 67]], 7: [[105, 56, 9, 112], [8, 20, 19, 120], [78, 56, 89,
+         112]], 8: [[69, 106, 112, 92], [110, 67, 112, 33], [75, 42, 109, 74]],
+         9: [[82, 82, 46, 51], [113, 18, 127, 87], [113, 24, 38, 39]], 10:
+         [[66, 88, 88, 64], [103, 39, 15, 45], [95, 22, 88, 2]], 11: [[49, 53,
+         105, 22], [42, 82, 56, 46], [96, 49, 35, 49]], 12: [[20, 17, 65, 28],
+         [20, 24, 75, 28], [20, 90, 88, 28]], 13: [[127, 18, 2, 46], [48, 100,
+         60, 45], [44, 77, 75, 2]], 14: [[34, 99, 101, 28], [125, 75, 122, 60],
+         [17, 3, 35, 36]], 15: [[24, 33, 8, 28], [24, 24, 82, 28], [24, 24, 82,
+         28]]}),
+    'zamba2_1p2b': (
+        {'prefix_hit_ratio': 0.21875, 'block_hits': 7, 'block_misses': 25,
+         'admitted': 0, 'rejected': 0, 'tokens_prefilled': 416,
+         'tokens_reused': 112, 'reuse_frac': 0.21212121212121213, 'pool_used':
+         25},
+        {0: [334, 470, 29], 1: [215, 23, 511], 2: [377, 311, 343], 3: [357, 59,
+         510], 4: [7, 134, 470], 5: [215, 126, 215], 6: [300, 389, 194], 7:
+         [446, 199, 343], 8: [9, 182, 257], 9: [156, 10, 72], 10: [69, 389,
+         69], 11: [509, 362, 384], 12: [112, 58, 492], 13: [372, 50, 141], 14:
+         [38, 155, 435], 15: [199, 397, 188]}),
+    'xlstm_1p3b': (
+        {'prefix_hit_ratio': 0.21875, 'block_hits': 7, 'block_misses': 25,
+         'admitted': 0, 'rejected': 0, 'tokens_prefilled': 416,
+         'tokens_reused': 112, 'reuse_frac': 0.21212121212121213, 'pool_used':
+         25},
+        {0: [98, 466, 56], 1: [184, 184, 184], 2: [225, 146, 145], 3: [286,
+         286, 145], 4: [150, 170, 404], 5: [310, 310, 310], 6: [56, 312, 312],
+         7: [399, 98, 98], 8: [440, 440, 440], 9: [324, 324, 324], 10: [312,
+         312, 312], 11: [56, 146, 425], 12: [98, 219, 312], 13: [98, 312, 312],
+         14: [307, 485, 307], 15: [312, 312, 312]}),
+}
+CARRY_PINS = {
+    'zamba2_1p2b': ([459, 113, 357, 260], [279, 248, 159, 256]),
+    'xlstm_1p3b': ([264, 336, 271, 336], [49, 115, 341, 13]),
+}
+
+
+# The serving families' depth pins (chip_smoke.py phase 40), D2's procedure
+# at other architectures: Z7, zamba2-1.2b at full width with n_layers=7 (one
+# group of six Mamba2 layers, the shared block, one tail layer); X8,
+# xlstm-1.3b with n_layers=8 (seven mLSTM blocks, one sLSTM), in bf16 and
+# in fp32 compute (X8_FP32_PINS), with X8_BF16_SPREAD, per step the
+# distance of the bf16 pin's logits from the JAX fp32 run's at the same ids
+# along the same tokens (the reference's own bf16 rounding: its sLSTM's
+# exponential gating carries it through 1,280 steps); X8S, X8 in bf16 on
+# the prompt's first X8S_PROMPT_LEN tokens, with X8S_BF16_SPREAD the same
+# distance there (no prompt length puts it under D2_TOL at every step:
+# 0.046-0.079 at 8 tokens, 0.043-0.081 at 32); M1,
+# llama4-scout-17b-a16e with n_layers=1, and M1_ROUTING, the JAX expert of
+# each prompt token at its MoE layer in base 36.  Weights numpy_leaves(cfg,
+# D2_SEED), prompt d2_prompt(vocab); per step the JAX top-8 ids and logits
+# (``python tests/test_torch_ssm_families.py`` prints Z7 and X8,
+# ``python tests/test_torch_families.py`` M1).
+Z7_PINS = [
+    ((27002, 26071, 22290, 12270, 22621, 16585, 13489, 5675),
+     (3.328125, 3.265625, 3.234375, 3.1875, 3.1875, 3.125, 3.0625, 3.015625)),
+    ((1284, 8366, 20971, 17348, 21423, 4251, 16302, 9732),
+     (3.546875, 3.328125, 3.28125, 3.265625,
+      3.21875, 3.125, 3.078125, 3.0625)),
+    ((27686, 12383, 5309, 2131, 30778, 12762, 19546, 27810),
+     (4.8125, 3.578125, 3.53125, 3.3125, 3.3125, 3.15625, 3.125, 3.09375)),
+    ((1089, 3170, 30848, 18469, 6783, 16796, 9690, 23238),
+     (4.15625, 3.453125, 3.4375, 3.171875,
+      3.109375, 2.984375, 2.96875, 2.96875)),
+    ((22160, 27292, 30337, 22042, 13180, 19901, 7642, 16413),
+     (3.546875, 3.546875, 3.390625, 3.359375,
+      3.1875, 3.078125, 3.0625, 3.046875)),
+]
+X8_PINS = [
+    ((26551, 39174, 26033, 16332, 42242, 37321, 22793, 12240),
+     (3.8125, 3.671875, 3.65625, 3.546875, 3.546875, 3.53125, 3.515625, 3.5)),
+    ((27196, 15883, 12595, 36124, 39703, 29666, 32980, 42827),
+     (3.828125, 3.765625, 3.65625, 3.625,
+      3.5625, 3.546875, 3.515625, 3.515625)),
+    ((42347, 33751, 9520, 22788, 35712, 9138, 34079, 20389),
+     (4.625, 3.515625, 3.484375, 3.46875,
+      3.40625, 3.390625, 3.34375, 3.328125)),
+    ((48855, 36273, 19663, 49942, 15642, 17714, 24959, 12528),
+     (4.8125, 3.765625, 3.75, 3.671875, 3.609375, 3.5, 3.5, 3.46875)),
+    ((5157, 7795, 6391, 35290, 13650, 7891, 19008, 30767),
+     (3.984375, 3.78125, 3.640625, 3.484375,
+      3.46875, 3.40625, 3.40625, 3.359375)),
+]
+X8_FP32_PINS = [
+    ((26033, 30766, 18069, 27782, 7466, 46237, 1162, 42242),
+     (3.94353, 3.684536, 3.639984, 3.605491,
+      3.567473, 3.488958, 3.466267, 3.455807)),
+    ((15605, 4212, 8948, 23634, 44270, 34429, 9669, 4175),
+     (4.174811, 4.082479, 4.051406, 3.751294,
+      3.660664, 3.647384, 3.49587, 3.452315)),
+    ((47669, 26079, 15699, 34522, 41557, 26875, 16832, 18516),
+     (3.750967, 3.513546, 3.49833, 3.489086,
+      3.479267, 3.46, 3.45458, 3.419734)),
+    ((34070, 29193, 353, 48865, 7089, 41945, 44438, 19648),
+     (4.898414, 4.253314, 4.009543, 3.809867,
+      3.732819, 3.699774, 3.639621, 3.62144)),
+    ((7753, 38162, 38384, 18207, 19563, 34555, 32897, 9048),
+     (4.349684, 3.870331, 3.704633, 3.634318,
+      3.603503, 3.545106, 3.48489, 3.389931)),
+]
+X8_BF16_SPREAD = (0.175421, 0.151419, 0.154122, 0.104915, 0.236393)
+X8S_PROMPT_LEN = 16
+X8S_PINS = [
+    ((3906, 40054, 43749, 17091, 16656, 30594, 47120, 4212),
+     (3.921875, 3.78125, 3.75, 3.625, 3.609375, 3.578125, 3.5625, 3.515625)),
+    ((13038, 34172, 25470, 50079, 1627, 31924, 6153, 43488),
+     (3.96875, 3.890625, 3.78125, 3.578125, 3.546875, 3.546875, 3.515625,
+      3.515625)),
+    ((34014, 26852, 16512, 44566, 49553, 38465, 42056, 17737),
+     (4.5625, 4.34375, 3.953125, 3.671875, 3.59375, 3.53125, 3.53125,
+      3.484375)),
+    ((36415, 50079, 24848, 19287, 27046, 33340, 25630, 104),
+     (4.125, 4.0625, 3.71875, 3.59375, 3.484375, 3.46875, 3.421875, 3.375)),
+    ((44395, 28394, 22764, 38943, 42727, 31244, 46601, 8631),
+     (4.09375, 3.90625, 3.796875, 3.71875, 3.671875, 3.59375, 3.546875,
+      3.53125)),
+]
+X8S_BF16_SPREAD = (0.061233, 0.048256, 0.053486, 0.036771, 0.055753)
+M1_PINS = [
+    ((153695, 131528, 172489, 187334, 53368, 115921, 30821, 79342),
+     (4.09375, 4.0, 4.0, 3.9375, 3.90625, 3.875, 3.859375, 3.828125)),
+    ((101228, 44917, 186160, 110750, 54726, 80861, 109633, 45995),
+     (4.375, 4.28125, 4.0, 3.9375, 3.921875, 3.890625, 3.859375, 3.8125)),
+    ((156370, 13151, 87678, 127346, 145143, 182419, 152739, 153797),
+     (4.78125, 4.0625, 3.875, 3.859375, 3.859375, 3.828125, 3.796875, 3.75)),
+    ((79555, 181167, 7984, 13649, 6381, 8775, 109914, 139894),
+     (4.28125, 4.15625, 4.0, 4.0, 3.953125, 3.9375, 3.921875, 3.890625)),
+    ((157603, 152706, 97212, 126787, 3963, 135492, 175038, 43137),
+     (4.46875, 4.15625, 4.125, 4.0, 3.984375, 3.953125, 3.9375, 3.90625)),
+]
+M1_ROUTING = (
+    "f4a8d55ddddda5df0a5bf2fdd5dda11d8d2b1d8dad1f1addf51ddded5adcd5dd"
+    "0d0dddd5a6ddd805ddcdadfa55a128aad07ad5dddd1efddadddfd2fedad9d0d2"
+    "bddd5bb1812d65baaddddadd08dd0dd0dd6adf05fdfade0dfdda6ef5f10bdde5"
+    "d0ddf682db5b55adec508ddfdfef5aede0beb55d5fc5dbf5920bdcab1a5ed801"
+    "55c5bb8588570d5b55d0b0bcfbf5bde755dbdbddd5d555dfdddddbad5c5a50cb"
+    "dddd1d558a88dfdcddd50dd6d5ddfdf5d08d625dd05a55dc8b5ddb0db7af5d0c"
+    "da0727d785fdf1dffd1d6d6fcab02fbc8cacdfa0dbabad7a1dedadbb5dad505b"
+    "eaad5b5bdd55157bfe58d9eedbf02b55a0dddd9dafb25fdd5be7de2c51bf657d"
+    "db5bcc2a20567aeeb002df958570292ddb10d78772879c5b552a0edd99d9d5a7"
+    "6b8070bae99d15bbb0b0dbe00b05555050597e505e855d5dfe559870e77590b7"
+    "9dedfe25bed9575090b66ed960e0de9fe5dd675e02b59d0be9d090ed79eef6d9"
+    "e570d5f99f5e2bbb60e20bb6009ee79bb080b5eee7d0db6965eaf06dfebeed00"
+    "706957729bbe9d05b979190d117597e79dee65bd0e5965915909e6d67ebeb997"
+    "756097bb9d5e99bedbbb0690e0be79e7e69109e9e0d9ee7b47e506a5ebeddf96"
+    "d5965d7e9eeeeb5de97d76d0d8e99e9e75e5ec6e96d6e88ea789ee19eed1ebee"
+    "6e9ebb96b5eb06be6e56abfe69b95dd5eee8a8bdd6a61ee1e6d860bee5b6eeef"
+    "ee6e8efef1be0e0eaeeeb50ceb069eee568a66d5debbd66a65e78e5feecfbbe6"
+    "b66d6c5e6696ee56e5bdfebb0ece16b5bd6baf65ed1ce6ee65b56eea9ebecbcb"
+    "ec6eb6fe6e6e09f666ceafb6ebeb00b0eeeeee5b6bd9b5deeb9665e006d02b9c"
+    "67eee1a59e6eeeea0be606beeebb6e0e5ebbb06960e6ecec0c5dbeebe0e50ebe"
+)
 
 
 def d2_prompt(vocab_size: int) -> np.ndarray:
@@ -1085,41 +1333,168 @@ def d2_prompt(vocab_size: int) -> np.ndarray:
         0, vocab_size, D2_PROMPT_LEN)
 
 
-def numpy_params(cfg, seed: int) -> dict:
-    """Weights for ``cfg`` in the JAX package's tree layout
-    (``init_params``: leaves of the layer stack on a leading axis), made
-    with numpy alone, fp32: embeddings N(0, 0.02), matrices N(0, 1/fan-in)
-    clipped at 2 sigma, norm weights 1 + N(0, 0.1) clipped at ±0.2.
-    Either package loads them (the port through
-    ``models.convert.params_from_numpy``)."""
+def numpy_leaves(cfg, seed: int):
+    """Weights for ``cfg`` in the JAX package's tree layout (its
+    ``init_params``: every layer stack's leaves on leading stack axes),
+    made with numpy alone, fp32, and handed over one leaf at a time as
+    (path, array) in a fixed order, so that a large tree need never be
+    held whole: embeddings N(0, 0.02), matrices N(0, 1/fan-in) clipped
+    at 2 sigma (Mamba2's conv N(0, 0.5^2)), norm weights and Mamba2's D
+    1 + N(0, 0.1) clipped at +-0.2, biases N(0, 0.1) clipped at +-0.2
+    (on Mamba2's log(linspace(1, 16)) A_log and the mLSTM forget gates'
+    3 + 0.5 h).  Leaves of up to 2^26 values come from one generator,
+    ``default_rng(seed)``, in order (the dense smoke configs' draws are
+    those of earlier releases; drawn per leaf, two dense fp32 decodes land
+    at 1.2e-4 against their 1e-4 bound through one bf16 rounding of the KV
+    cache, and the MoE smoke router drops a token at capacity 1.25); the
+    k-th larger one from
+    ``SeedSequence([seed, k])``, in blocks of 2^22 values each from a child
+    of it, filled in threads (numpy releases the GIL while it fills; the
+    values do not depend on how many), so that llama4-scout's 4.3B draws
+    take a fraction of the ~86 s one generator takes on a chip host.
+    Either package loads the
+    leaves (the port through ``models.convert.params_from_numpy``)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
     rng = np.random.default_rng(seed)
+    large = iter(range(1 << 30))
     M, hd, F, L = cfg.d_model, cfg.hd, cfg.d_ff, cfg.n_layers
-    Hq, Hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    V, K = cfg.padded_vocab, cfg.n_codebooks
 
     def normal(shape, std):
-        a = rng.standard_normal(shape, dtype=np.float32)
-        np.clip(a, -2.0, 2.0, out=a)
-        a *= np.float32(std)
-        return a
+        n, block = int(np.prod(shape)), 1 << 22
+        if n <= 1 << 26:
+            a = rng.standard_normal(shape, dtype=np.float32)
+            np.clip(a, -2.0, 2.0, out=a)
+            a *= np.float32(std)
+            return a
+        a = np.empty(n, np.float32)
+        seqs = np.random.SeedSequence([seed, next(large)]).spawn(
+            -(-n // block))
 
-    def dense(*shape):
-        return normal(shape, 1.0 / np.sqrt(shape[-2]))
+        def fill(i):
+            part = a[i * block:(i + 1) * block]
+            np.random.default_rng(seqs[i]).standard_normal(
+                out=part, dtype=np.float32)
+            np.clip(part, -2.0, 2.0, out=part)
+            part *= np.float32(std)
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+            list(ex.map(fill, range(len(seqs))))
+        return a.reshape(shape)
+
+    def dense(*shape, std=None):
+        return normal(shape, std or 1.0 / np.sqrt(shape[-2]))
 
     def norm(*shape):
         return 1.0 + normal(shape, 0.1)
 
-    tree = {"embed": normal((cfg.padded_vocab, M), 0.02),
-            "final_norm": norm(M)}
-    if not cfg.tie_embeddings:
-        tree["out_head"] = dense(M, cfg.padded_vocab)
-    attn = {"norm": norm(L, M), "wq": dense(L, M, Hq), "wk": dense(L, M, Hkv),
-            "wv": dense(L, M, Hkv), "wo": dense(L, Hq, M)}
-    if cfg.qk_norm:
-        attn["q_norm"] = norm(L, hd)
-        attn["k_norm"] = norm(L, hd)
-    mlp = {"norm": norm(L, M), "w_gate": dense(L, M, F),
-           "w_up": dense(L, M, F), "w_down": dense(L, F, M)}
-    tree["layers"] = {"attn0": attn, "mlp0": mlp}
+    def attn(pre, path):
+        Hq, Hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        yield path + ("norm",), norm(*pre, M)
+        yield path + ("wq",), dense(*pre, M, Hq)
+        yield path + ("wk",), dense(*pre, M, Hkv)
+        yield path + ("wv",), dense(*pre, M, Hkv)
+        yield path + ("wo",), dense(*pre, Hq, M)
+        if cfg.qk_norm:
+            yield path + ("q_norm",), norm(*pre, hd)
+            yield path + ("k_norm",), norm(*pre, hd)
+
+    def mlp(pre, path):
+        yield path + ("norm",), norm(*pre, M)
+        yield path + ("w_gate",), dense(*pre, M, F)
+        yield path + ("w_up",), dense(*pre, M, F)
+        yield path + ("w_down",), dense(*pre, F, M)
+
+    def moe(pre, path):
+        E, Fs = cfg.n_experts, F * cfg.n_shared_experts
+        yield path + ("router",), dense(*pre, M, E)
+        yield path + ("w_gate",), dense(*pre, E, M, F)
+        yield path + ("w_up",), dense(*pre, E, M, F)
+        yield path + ("w_down",), dense(*pre, E, F, M)
+        if Fs:
+            yield path + ("shared_gate",), dense(*pre, M, Fs)
+            yield path + ("shared_up",), dense(*pre, M, Fs)
+            yield path + ("shared_down",), dense(*pre, Fs, M)
+
+    def mamba(pre, path):
+        d_in = cfg.ssm_expand * M
+        H, N = d_in // cfg.ssm_head_dim, cfg.ssm_state
+        C = d_in + 2 * N
+        yield path + ("in_proj",), dense(*pre, M, 2 * d_in + 2 * N + H)
+        yield path + ("conv_w",), dense(*pre, cfg.ssm_conv, C, std=0.5)
+        yield path + ("conv_b",), normal((*pre, C), 0.1)
+        yield path + ("dt_bias",), normal((*pre, H), 0.1)
+        yield path + ("A_log",), (np.log(np.linspace(1.0, 16.0, H,
+                                                     dtype=np.float32))
+                                  + normal((*pre, H), 0.1))
+        yield path + ("D",), norm(*pre, H)
+        yield path + ("norm_w",), norm(*pre, d_in)
+        yield path + ("out_proj",), dense(*pre, d_in, M)
+
+    def mlstm(pre, path):
+        d_in = int(cfg.proj_factor * M)
+        H = cfg.n_heads
+        for name in ("up_x", "up_z"):
+            yield path + (name,), dense(*pre, M, d_in)
+        for name in ("w_q", "w_k", "w_v"):
+            yield path + (name,), dense(*pre, d_in, d_in)
+        yield path + ("w_gates",), dense(*pre, d_in, 2 * H)
+        bias = np.concatenate([np.zeros(H, np.float32),
+                               3.0 + np.arange(H, dtype=np.float32) * 0.5])
+        yield path + ("gate_bias",), bias + normal((*pre, 2 * H), 0.1)
+        yield path + ("norm_w",), norm(*pre, d_in)
+        yield path + ("down",), dense(*pre, d_in, M)
+
+    def slstm(pre, path):
+        H = cfg.n_heads
+        yield path + ("w_x",), dense(*pre, M, 4 * M)
+        yield path + ("r",), dense(*pre, H, M // H, 4 * (M // H))
+        yield path + ("b",), normal((*pre, 4 * M), 0.1)
+        yield path + ("norm_w",), norm(*pre, M)
+        yield path + ("out",), dense(*pre, M, M)
+
+    yield ("embed",), normal((K, V, M) if K else (V, M), 0.02)
+    yield ("final_norm",), norm(M)
+    if K:
+        yield ("out_head",), dense(K, M, V)
+    elif not cfg.tie_embeddings or cfg.family == "hybrid_ssm":
+        yield ("out_head",), dense(M, V)
+    if cfg.family == "hybrid_ssm":
+        groups, tail = divmod(L, cfg.attn_every)
+        yield from attn((), ("shared_attn",))
+        yield from mlp((), ("shared_mlp",))
+        for name, pre in (("groups", (groups, cfg.attn_every)),
+                          ("tail", (tail,))):
+            if tail or name == "groups":
+                yield from mamba(pre, (name, "mamba"))
+                yield (name, "norm"), norm(*pre, M)
+    elif cfg.family == "xlstm":
+        n_super, n_ml = L // cfg.slstm_period, cfg.slstm_period - 1
+        yield from mlstm((n_super, n_ml), ("supers", "mlstm", "p"))
+        yield ("supers", "mlstm", "norm"), norm(n_super, n_ml, M)
+        yield from slstm((n_super,), ("supers", "slstm", "p"))
+        yield ("supers", "slstm", "norm"), norm(n_super, M)
+    else:
+        every = cfg.moe_every if cfg.n_experts else 1
+        pre = (L // every,)
+        for j in range(every):
+            yield from attn(pre, ("layers", f"attn{j}"))
+            if cfg.n_experts and j == every - 1:
+                yield from moe(pre, ("layers", f"moe{j}"))
+                yield ("layers", f"moe{j}_norm"), norm(*pre, M)
+            else:
+                yield from mlp(pre, ("layers", f"mlp{j}"))
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """``numpy_leaves(cfg, seed)`` gathered into the JAX package's dict
+    tree."""
+    tree: dict = {}
+    for path, a in numpy_leaves(cfg, seed):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
     return tree
 
 

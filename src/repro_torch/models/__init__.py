@@ -1,4 +1,5 @@
-"""The port's models: the dense transformer family behind ``Model``."""
+"""The port's models: every family of the reference (dense, moe, vlm,
+audio, hybrid_ssm, xlstm) behind ``Model``."""
 from .common import ModelConfig
 from .api import Model, build_model
 

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch import nn
 
 
 @dataclass(frozen=True)
@@ -101,6 +102,24 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+
+def _param(shape, cfg: ModelConfig, device, cast: bool | None = None
+           ) -> nn.Parameter:
+    """An uninitialised parameter in the compute dtype when ``cast`` (by
+    default: at two or more dimensions, the reference's ``cast_params``
+    on a leaf outside a layer stack), else in the parameter dtype.  A 1-D
+    leaf of a layer stack has two dimensions in the reference's tree, so
+    its cast rounds it to the compute dtype.  Norm weights enter only
+    through ``rmsnorm``, which casts them, and stay in the parameter
+    dtype; the other 1-D leaves of the Mamba2 and xLSTM stacks (biases,
+    ``A_log``, ``D``), some of which enter fp32 arithmetic, pass
+    ``cast=True``."""
+    if cast is None:
+        cast = len(shape) >= 2
+    dt = cfg.compute_dtype if cast else cfg.param_dtype
+    return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                        requires_grad=False)
+
 
 def dense_init(shape, generator: torch.Generator, dtype=torch.float32,
                scale: float | None = None, device=None) -> torch.Tensor:

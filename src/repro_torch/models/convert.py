@@ -1,68 +1,108 @@
 """Weights carried across between the JAX package and the port.
 
-The JAX package keeps a model's parameters as a dict tree
-(``repro.models.transformer.init_params``): ``embed`` (V, M),
-``final_norm`` (M,), ``out_head`` (M, V) unless the embeddings are tied,
-and ``layers`` = {``attn0``: {...}, ``mlp0``: {...}} with every leaf
-stacked on a leading layer axis.  ``params_from_numpy`` loads such a tree
-(numpy arrays) into the port's ``Transformer``, casting as the reference's
-``cast_params`` does; ``params_to_numpy`` gives the tree back (fp32 numpy
-arrays, exact for bf16 weights).  With the same tree both frameworks
-compute the same function.
+The JAX package keeps a model's parameters as a dict tree whose layer
+stacks carry leading layer axes: the attention families' ``layers``
+(superblocks: ``attn{j}``, ``mlp{j}``, ``moe{j}``, ``moe{j}_norm``), zamba's
+``groups`` (two axes: group, layer) and ``tail``, xLSTM's ``supers`` (its
+``mlstm`` stack a second axis), and musicgen's per-codebook ``embed``
+(K,V,M) and ``out_head`` (K,M,V).  The port's modules mirror that tree:
+a dict key is an attribute, and a stacked subtree is an ``nn.ModuleList``
+whose i-th module takes index i of the stack's next axis.
+
+``params_from_numpy`` loads such a tree (numpy arrays), or the (path,
+array) leaves of one handed over one at a time (``check_runs.numpy_leaves``,
+so that a large model's tree never sits whole in host memory), into the
+family's module, casting as the reference's ``cast_params`` does;
+``params_to_numpy`` gives the tree back (fp32 numpy arrays, exact for
+bf16 weights).  With the same tree both frameworks compute the same
+function.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.kernels.sketch_common import resolve_device
+from .api import Model
 from .common import ModelConfig
-from .transformer import Transformer
-
-_BLOCK = ("attn0", "mlp0")
 
 
-def _leaves(module: torch.nn.Module) -> dict:
-    return dict(module.named_parameters(recurse=False))
+def _targets(module: nn.Module, path=(), idx=()):
+    """(tree path, stack index, parameter) for every parameter of
+    ``module``, its ModuleLists read as stacks."""
+    if isinstance(module, nn.ModuleList):
+        for i, m in enumerate(module):
+            yield from _targets(m, path, idx + (i,))
+        return
+    for name, p in module.named_parameters(recurse=False):
+        yield path + (name,), idx, p
+    for name, m in module.named_children():
+        yield from _targets(m, path + (name,), idx)
 
 
-def _mismatch(what: str, got, want) -> None:
-    if set(got) != set(want):
-        raise ValueError(f"{what}: keys {sorted(got)} != {sorted(want)}")
+def _by_path(model: nn.Module) -> dict:
+    out: dict = {}
+    for path, idx, p in _targets(model):
+        out.setdefault(path, []).append((idx, p))
+    return out
+
+
+def _flatten(tree: dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _name(path) -> str:
+    return "params" + "".join(f"[{k!r}]" for k in path)
 
 
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: dict,
-                      device=None) -> Transformer:
-    """The port's ``Transformer`` holding ``tree``'s weights, on
-    ``device`` (the card unless ``"cpu"``)."""
-    model = Transformer(cfg, resolve_device(device))
-    top = _leaves(model)
-    _mismatch("params", set(tree), set(top) | {"layers"})
-    for name, p in top.items():
-        p.copy_(torch.from_numpy(np.asarray(tree[name])))
-    _mismatch("params['layers']", set(tree["layers"]), set(_BLOCK))
-    for part in _BLOCK:
-        sub = tree["layers"][part]
-        _mismatch(f"params['layers'][{part!r}]", set(sub),
-                  set(_leaves(getattr(model.layers[0], part))))
-        for li, blk in enumerate(model.layers):
-            for name, p in _leaves(getattr(blk, part)).items():
-                p.copy_(torch.from_numpy(np.asarray(sub[name][li])))
+def params_from_numpy(cfg: ModelConfig, tree, device=None) -> nn.Module:
+    """The family's module (``Model(cfg).module()``) holding ``tree``'s
+    weights, on ``device`` (the card unless ``"cpu"``).  ``tree`` is the
+    reference's dict tree or an iterable of its (path, array) leaves."""
+    model = Model(cfg, resolve_device(device)).module()
+    want = _by_path(model)
+    leaves = _flatten(tree) if isinstance(tree, dict) else tree
+    seen = set()
+    for path, a in leaves:
+        path = tuple(path)
+        if path not in want or path in seen:
+            raise ValueError(f"{_name(path)}: keys {sorted(map(str, want))}"
+                             " do not hold it once")
+        seen.add(path)
+        a = np.asarray(a)
+        for idx, p in want[path]:
+            leaf = a[idx]
+            if leaf.shape != tuple(p.shape):
+                raise ValueError(f"{_name(path)}{list(idx)}: shape "
+                                 f"{leaf.shape} != {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.ascontiguousarray(leaf)))
+        del a
+    missing = set(want) - seen
+    if missing:
+        raise ValueError(f"params: keys {sorted(map(str, missing))} "
+                         "missing")
     return model
 
 
 @torch.no_grad()
-def params_to_numpy(cfg: ModelConfig, model: Transformer) -> dict:
+def params_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
     """``model``'s weights as the JAX package's tree of fp32 numpy
     arrays."""
-    def arr(p):
-        return p.detach().float().cpu().numpy()
-
-    tree = {name: arr(p) for name, p in _leaves(model).items()}
-    tree["layers"] = {
-        part: {name: np.stack([arr(_leaves(getattr(blk, part))[name])
-                               for blk in model.layers])
-               for name in _leaves(getattr(model.layers[0], part))}
-        for part in _BLOCK}
+    tree: dict = {}
+    for path, items in _by_path(model).items():
+        stack = tuple(max(i[k] for i, _ in items) + 1
+                      for k in range(len(items[0][0])))
+        arr = np.empty(stack + tuple(items[0][1].shape), np.float32)
+        for idx, p in items:
+            arr[idx] = p.detach().float().cpu().numpy()
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
     return tree

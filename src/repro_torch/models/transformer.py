@@ -1,16 +1,23 @@
-"""The dense decoder-only stack (mistral-nemo, chatglm3, minicpm, qwen3):
-GQA, partial RoPE, qk-norm, scaled embeddings and residuals, tied or
-separate output head.
+"""The attention families' decoder-only stack: dense (mistral-nemo,
+chatglm3, minicpm, qwen3: GQA, partial RoPE, qk-norm, scaled embeddings and
+residuals, tied or separate head), moe (llama4 scout and maverick: a
+shared expert and top-1 routed experts on every ``moe_every``-th layer),
+vlm (llava-next: precomputed vision embeddings prepended at prefill) and
+audio (musicgen: K codebooks summed at the input, K output heads).
 
-Counterpart of the dense part of ``repro/models/transformer.py``.  The
-parameters are ``nn.Module``s (``Attention``, ``MLP``, ``Block``,
-``Transformer``) with the reference's names; the reference's stacked layer
-axis becomes ``Transformer.layers``, and its ``lax.scan`` a loop over them.
-The reference casts every fp32 parameter of two or more dimensions to the
-compute dtype on each call (``cast_params``); the port stores those
-parameters in the compute dtype once, which gives the same values, and
-keeps the 1-D norm weights in the parameter dtype.  The KV cache is
-updated in place.  Experts, codebooks and vision tokens are not ported.
+Counterpart of ``repro/models/transformer.py``.  The parameters are
+``nn.Module``s with the reference's names (``Attention``, ``MLP``,
+``moe.MoE``, ``Block``, ``Transformer``): the reference's stacked layer
+axis becomes ``Transformer.layers``, one ``Block`` per superblock of
+``moe_every`` layers (``attn{j}``, then ``moe{j}`` with ``moe{j}_norm`` or
+``mlp{j}``; one layer, ``attn0`` and ``mlp0``, without experts), and its
+``lax.scan`` a loop over them.  The reference casts every fp32 parameter
+of two or more dimensions to the compute dtype on each call
+(``cast_params``); the port stores those parameters in the compute dtype
+once, which gives the same values, and keeps the 1-D norm weights in the
+parameter dtype (they enter only through ``rmsnorm``, which casts them).
+The KV cache is updated in place.  ``forward_train`` comes with the
+training slice.
 """
 from __future__ import annotations
 
@@ -19,17 +26,10 @@ import math
 import torch
 from torch import nn
 
-from .common import ModelConfig, dense_init, embed_init
+from .common import ModelConfig, _param, dense_init, embed_init
 from .layers import (rmsnorm, rope_cos_sin, apply_rope, flash_attention,
                      decode_attention, swiglu)
-
-
-def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
-    """An uninitialised parameter: the compute dtype at two or more
-    dimensions (the reference's cast), else the parameter dtype."""
-    dt = cfg.compute_dtype if len(shape) >= 2 else cfg.param_dtype
-    return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
-                        requires_grad=False)
+from .moe import MoE, moe_layer
 
 
 class Attention(nn.Module):
@@ -77,26 +77,58 @@ class MLP(nn.Module):
                                      scale=1.0 / math.sqrt(cfg.d_ff)))
 
 
+def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
+    """MoE sits on the last slot of each ``moe_every`` superblock."""
+    return cfg.n_experts > 0 and (layer_idx % cfg.moe_every
+                                  == cfg.moe_every - 1)
+
+
+def n_attn(cfg: ModelConfig) -> int:
+    """Layers per superblock."""
+    return cfg.moe_every if cfg.n_experts else 1
+
+
 class Block(nn.Module):
+    """One superblock: ``attn{j}`` and ``moe{j}`` (with ``moe{j}_norm``)
+    or ``mlp{j}`` for each of its layers j."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.attn0 = Attention(cfg, device)
-        self.mlp0 = MLP(cfg, device)
+        M = cfg.d_model
+        for j in range(n_attn(cfg)):
+            setattr(self, f"attn{j}", Attention(cfg, device))
+            if _is_moe_layer(cfg, j):
+                setattr(self, f"moe{j}", MoE(cfg, device))
+                setattr(self, f"moe{j}_norm", _param((M,), cfg, device))
+            else:
+                setattr(self, f"mlp{j}", MLP(cfg, device))
+
+    @torch.no_grad()
+    def init(self, cfg: ModelConfig, g: torch.Generator) -> None:
+        for j in range(n_attn(cfg)):
+            getattr(self, f"attn{j}").init(cfg, g)
+            if hasattr(self, f"moe{j}"):
+                getattr(self, f"moe{j}").init(cfg, g)
+                getattr(self, f"moe{j}_norm").fill_(1.0)
+            else:
+                getattr(self, f"mlp{j}").init(cfg, g)
 
 
 class Transformer(nn.Module):
-    """Embedding, ``n_layers`` blocks, final norm and (unless the
-    embeddings are tied) the output head."""
+    """Embedding (per codebook with ``n_codebooks``), the superblocks,
+    final norm and (unless the embeddings are tied) the output head."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        V, M = cfg.padded_vocab, cfg.d_model
-        self.embed = _param((V, M), cfg, device)
+        V, M, K = cfg.padded_vocab, cfg.d_model, cfg.n_codebooks
+        self.embed = _param((K, V, M) if K else (V, M), cfg, device)
         self.final_norm = _param((M,), cfg, device)
-        if not cfg.tie_embeddings:
+        if K:
+            self.out_head = _param((K, M, V), cfg, device)
+        elif not cfg.tie_embeddings:
             self.out_head = _param((M, V), cfg, device)
-        self.layers = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, device) for _ in
+                                    range(cfg.n_layers // n_attn(cfg)))
 
     @torch.no_grad()
     def init(self, cfg: ModelConfig, g: torch.Generator) -> "Transformer":
@@ -105,12 +137,11 @@ class Transformer(nn.Module):
         dev = self.embed.device
         self.embed.copy_(embed_init(tuple(self.embed.shape), g, device=dev))
         self.final_norm.fill_(1.0)
-        if not cfg.tie_embeddings:
+        if hasattr(self, "out_head"):
             self.out_head.copy_(dense_init(tuple(self.out_head.shape), g,
                                            device=dev))
         for blk in self.layers:
-            blk.attn0.init(cfg, g)
-            blk.mlp0.init(cfg, g)
+            blk.init(cfg, g)
         return self
 
 
@@ -174,22 +205,55 @@ def mlp_block(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + swiglu(h, p.w_gate, p.w_up, p.w_down) * cfg.residual_scale
 
 
+def ffn_or_moe(block: Block, j: int, x: torch.Tensor, cfg: ModelConfig):
+    """Layer j's feed-forward half; returns (x, aux_loss)."""
+    moe = getattr(block, f"moe{j}", None)
+    if moe is not None:
+        h = rmsnorm(x, getattr(block, f"moe{j}_norm"), cfg.norm_eps)
+        out, aux = moe_layer(moe, h, cfg)
+        return x + out * cfg.residual_scale, aux
+    return mlp_block(getattr(block, f"mlp{j}"), x, cfg), 0.0
+
+
+def layer_blocks(params: "Transformer", cfg: ModelConfig):
+    """(layer index, superblock, j) for every layer, in order."""
+    na = n_attn(cfg)
+    for s, blk in enumerate(params.layers):
+        for j in range(na):
+            yield s * na + j, blk, j
+
+
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params: Transformer, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B,S) -> (B,S,M) in the compute dtype."""
-    return params.embed[tokens].to(cfg.compute_dtype) * cfg.scale_emb
+                 cfg: ModelConfig, vision_embeds=None) -> torch.Tensor:
+    """tokens (B,S) or (B,S,K) -> (B,S',M) in the compute dtype, with the
+    vision embeddings (B,n_vis,M), when given, in front."""
+    emb = params.embed
+    if cfg.n_codebooks:
+        x = 0
+        for k in range(cfg.n_codebooks):        # summed in the weights' dtype
+            x = x + emb[k][tokens[..., k]]
+    else:
+        x = emb[tokens]
+    x = x.to(cfg.compute_dtype) * cfg.scale_emb
+    if cfg.n_vis_tokens and vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def lm_head(params: Transformer, x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
-    """x (B,S,M) -> logits (B,S,V) fp32."""
+    """x (B,S,M) -> logits (B,S,V), or (B,S,K,V) with codebooks, fp32."""
     h = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    w = params.embed.T if cfg.tie_embeddings else params.out_head
-    logits = (h @ w).float()
+    if cfg.n_codebooks:
+        logits = torch.einsum("bsm,kmv->bskv", h, params.out_head)
+    else:
+        w = params.embed.T if cfg.tie_embeddings else params.out_head
+        logits = h @ w
+    logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., :cfg.vocab_size]
     return logits
@@ -209,15 +273,16 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def forward_prefill(params: Transformer, tokens: torch.Tensor,
-                    cfg: ModelConfig, cache: dict):
-    """Run the prompt, fill the KV cache in place; returns (cache,
-    last-token hidden (B,1,M))."""
-    x = embed_tokens(params, tokens, cfg)
+                    cfg: ModelConfig, cache: dict, vision_embeds=None):
+    """Run the prompt (after the vision embeddings, when given), fill the
+    KV cache in place; returns (cache, last-token hidden (B,1,M))."""
+    x = embed_tokens(params, tokens, cfg, vision_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for li, blk in enumerate(params.layers):
-        x, (k, v) = attn_block_train(blk.attn0, x, cfg, positions)
-        x = mlp_block(blk.mlp0, x, cfg)
+    for li, blk, j in layer_blocks(params, cfg):
+        x, (k, v) = attn_block_train(getattr(blk, f"attn{j}"), x, cfg,
+                                     positions)
+        x, _ = ffn_or_moe(blk, j, x, cfg)
         cache["k"][li, :B, :S] = k.to(cache["k"].dtype)
         cache["v"][li, :B, :S] = v.to(cache["v"].dtype)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -227,13 +292,13 @@ def forward_prefill(params: Transformer, tokens: torch.Tensor,
 @torch.no_grad()
 def forward_decode(params: Transformer, tokens: torch.Tensor,
                    cfg: ModelConfig, cache: dict):
-    """One decode step over every batch row.  tokens (B,1) -> (logits
-    (B,1,V), cache), the cache updated in place."""
+    """One decode step over every batch row.  tokens (B,1) or (B,1,K) ->
+    (logits (B,1,V) or (B,1,K,V), cache), the cache updated in place."""
     x = embed_tokens(params, tokens, cfg)
     pos = cache["pos"]
-    for li, blk in enumerate(params.layers):
-        x = attn_block_decode(blk.attn0, x, cfg, pos, cache["k"][li],
-                              cache["v"][li])
-        x = mlp_block(blk.mlp0, x, cfg)
+    for li, blk, j in layer_blocks(params, cfg):
+        x = attn_block_decode(getattr(blk, f"attn{j}"), x, cfg, pos,
+                              cache["k"][li], cache["v"][li])
+        x, _ = ffn_or_moe(blk, j, x, cfg)
     cache["pos"] = pos + 1
     return lm_head(params, x, cfg), cache

@@ -1,19 +1,25 @@
 """Continue-prefill ("extend"): run a token segment on top of an existing
-KV cache, the primitive behind prefix-cache reuse.  A prefix hit restores
-KV blocks and the engine extends only the uncached suffix.
+cache, the primitive behind prefix-cache reuse.  A prefix hit restores KV
+blocks (attention families) or a state snapshot (SSM families) and the
+engine extends only the uncached suffix.
 
-Counterpart of ``repro/serve/extend.py`` for the attention families.  The
-reference copies a batch slot's cache out and back around the call; here
-``cache`` may be a view of the engine's slot, and the new K/V are written
-into it in place.  The attention reads K and V straight from the cache
-(through its strides, up to ``start + S``) with the query rows at
-``q_offset=start``.  ``start`` is a host int.
+Counterpart of ``repro/serve/extend.py``.  The reference copies a batch
+slot's cache out and back around the call; here ``cache`` may be views of
+the engine's slot, and the new K/V and states are written into it in
+place (a leaf the call must widen, zamba's conv state in fp32 compute, is
+replaced in ``cache`` instead, and the engine copies it back).  The
+attention reads K and V straight from the cache (through its strides, up
+to ``start + S``) with the query rows at ``q_offset=start``.  ``start`` is
+a host int.  As in the reference, zamba and xLSTM always continue from the
+states in ``cache``, at ``start == 0`` too.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
+from repro_torch.models import zamba as Z
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import flash_attention
 
@@ -38,35 +44,61 @@ def _attn_extend(p: T.Attention, x: torch.Tensor, cfg: ModelConfig,
 
 @torch.no_grad()
 def transformer_extend(params: T.Transformer, tokens: torch.Tensor,
-                       cfg: ModelConfig, cache: dict, start: int):
-    """tokens (B,S) after ``start`` cached positions; returns (cache,
-    last-token hidden (B,1,M)) with ``cache["pos"]`` = start + S."""
-    x = T.embed_tokens(params, tokens, cfg)
+                       cfg: ModelConfig, cache: dict, start: int, *,
+                       vision_embeds=None):
+    """tokens (B,S) or (B,S,K) after ``start`` cached positions (the
+    vision embeddings go in front at ``start == 0`` only); returns (cache,
+    last-token hidden (B,1,M)) with ``cache["pos"]`` = start + S'."""
+    x = T.embed_tokens(params, tokens, cfg,
+                       vision_embeds if start == 0 else None)
     B, S, _ = x.shape
-    for li, blk in enumerate(params.layers):
-        x = _attn_extend(blk.attn0, x, cfg, start, cache["k"][li],
-                         cache["v"][li])
-        x = T.mlp_block(blk.mlp0, x, cfg)
+    for li, blk, j in T.layer_blocks(params, cfg):
+        x = _attn_extend(getattr(blk, f"attn{j}"), x, cfg, start,
+                         cache["k"][li], cache["v"][li])
+        x, _ = T.ffn_or_moe(blk, j, x, cfg)
     cache["pos"][:] = start + S
     return cache, x[:, -1:]
 
 
-def zamba_extend(*args, **kw):
-    raise NotImplementedError("zamba extend (Mamba2 state continuation) is "
-                              "ROADMAP queue 1 item 14")
+@torch.no_grad()
+def zamba_extend(params: Z.Zamba, tokens: torch.Tensor, cfg: ModelConfig,
+                 cache: dict, start: int):
+    """Mamba2 from the cache's states, the shared attention over the
+    cache's KV at ``q_offset=start`` (the flash kernel)."""
+    x = Z._embed(params, tokens, cfg)
+    B, S, _ = x.shape
+    Z.promote_conv(cache, x.dtype)
+    for li, layer, g in Z.layer_schedule(params, cfg):
+        st = {k: a[li] for k, a in cache["mamba"].items()}
+        x, fin = Z.mamba_block(layer, x, cfg, st)
+        Z._store_state(cache, li, fin)
+        if g is not None:
+            x = _attn_extend(params.shared_attn, x, cfg, start,
+                             cache["k"][g], cache["v"][g])
+            x = T.mlp_block(params.shared_mlp, x, cfg)
+    cache["pos"][:] = start + S
+    return cache, x[:, -1:]
 
 
-def xlstm_extend(*args, **kw):
-    raise NotImplementedError("xLSTM extend (mLSTM/sLSTM state "
-                              "continuation) is ROADMAP queue 1 item 14")
+@torch.no_grad()
+def xlstm_extend(params: X.XLSTM, tokens: torch.Tensor, cfg: ModelConfig,
+                 cache: dict, start: int):
+    """Pure state continuation from the cache's states."""
+    x = X._embed(params, tokens, cfg)
+    S = x.shape[1]
+    x = X.run_stack(params, x, cfg, cache, carry=True)
+    cache["pos"][:] = start + S
+    return cache, x[:, -1:]
 
 
-def extend(model, params, tokens: torch.Tensor, cache: dict, start: int):
+def extend(model, params, tokens: torch.Tensor, cache: dict, start: int, *,
+           vision_embeds=None):
     cfg = model.cfg
     if cfg.family in ("dense", "moe", "vlm", "audio"):
-        return transformer_extend(params, tokens, cfg, cache, start)
+        return transformer_extend(params, tokens, cfg, cache, start,
+                                  vision_embeds=vision_embeds)
     if cfg.family == "hybrid_ssm":
-        return zamba_extend(model, params, tokens, cache, start)
+        return zamba_extend(params, tokens, cfg, cache, start)
     if cfg.family == "xlstm":
-        return xlstm_extend(model, params, tokens, cache, start)
+        return xlstm_extend(params, tokens, cfg, cache, start)
     raise ValueError(cfg.family)

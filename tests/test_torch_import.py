@@ -29,9 +29,18 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.configs.qwen3_4b", "repro_torch.configs.chatglm3_6b",
            "repro_torch.configs.minicpm_2b",
            "repro_torch.configs.mistral_nemo_12b",
+           "repro_torch.configs.llava_next_34b",
+           "repro_torch.configs.llama4_scout_17b_a16e",
+           "repro_torch.configs.llama4_maverick_400b_a17b",
+           "repro_torch.configs.zamba2_1p2b",
+           "repro_torch.configs.musicgen_medium",
+           "repro_torch.configs.xlstm_1p3b",
            "repro_torch.models", "repro_torch.models.common",
            "repro_torch.models.layers", "repro_torch.models.transformer",
            "repro_torch.models.api", "repro_torch.models.convert",
+           "repro_torch.models.moe", "repro_torch.models.mamba2",
+           "repro_torch.models.zamba", "repro_torch.models.mlstm",
+           "repro_torch.models.xlstm",
            "repro_torch.serve.extend", "repro_torch.serve.engine",
            "repro_torch.serve.driver", "repro_torch.checkpoint",
            "repro_torch.checkpoint.store", "repro_torch.core.faults",
@@ -50,13 +59,32 @@ for cache in (core.WTinyLFU(64), core.WTinyLFU(64, assoc=8),
     assert 0 < core.run_trace(cache, tr).hits < len(tr)
 """
 
+# and so does every model family, through the serving engine
+FAMILY_DRIVE = """
+import torch
+from repro_torch.check_runs import numpy_leaves
+from repro_torch.configs import get_config, list_archs
+from repro_torch.models import Model
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serve import ServeEngine
+for arch in list_archs():
+    cfg = get_config(arch, smoke=True)
+    eng = ServeEngine(Model(cfg, device="cpu"),
+                      params_from_numpy(cfg, numpy_leaves(cfg, 0),
+                                        device="cpu"),
+                      max_batch=2, max_len=64, block_size=8, pool_slots=8)
+    for p in ([1] * 20, [1] * 16 + [2] * 4):
+        eng.submit(p, 2)
+    assert len(eng.run()) == 2, arch
+"""
+
 
 def test_imports_with_jax_and_repro_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in MODULES)
-            + HOST_ENGINE_DRIVE
+            + HOST_ENGINE_DRIVE + FAMILY_DRIVE
             + "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,

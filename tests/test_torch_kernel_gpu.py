@@ -5,8 +5,9 @@ epochs), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
 batches; all four at the edge geometries, past 8 doorkeeper probes too,
 and one stream of programmatic dependent launches), the flash-attention
-kernel, checkpointed and resumed runs of the engine on the card, and a
-prefix of one of the paper's trace families through the engine.
+kernel, checkpointed and resumed runs of the engine on the card, a
+prefix of one of the paper's trace families through the engine, and each
+serving family's smoke engine.
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
@@ -871,3 +872,44 @@ def test_flash_launch_refuses_cpu_tensors():
         flash_attention._launch(q, q, q, causal=True, q_offset=0,
                                 kv_len=None, softcap=0.0)
     assert flash_attention.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e",
+                                  "llama4_maverick_400b_a17b",
+                                  "llava_next_34b", "musicgen_medium",
+                                  "zamba2_1p2b", "xlstm_1p3b"])
+def test_serving_family_engine_on_card(arch):
+    """Each serving family's smoke engine on the card (bf16): the stats of
+    the JAX engine (they depend on the prompts and the schedule only),
+    tokens in range, and the flash kernel launched for every attention
+    layer of every extend (per segment of snapshot_every blocks for the
+    SSM families; none for xLSTM)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.check_runs import FAMILY_SERVE_PINS, numpy_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.driver import make_workload
+    cfg = get_config(arch, smoke=True)
+    eng = ServeEngine(Model(cfg), params_from_numpy(cfg, numpy_params(cfg, 0)),
+                      max_batch=4, max_len=128, block_size=8, pool_slots=48)
+    for p in make_workload(cfg, 16, seed=1):
+        eng.submit(p, 3)
+    reqs = list(eng.queue)
+    flash_attention.flash_attention.launches = 0
+    out = eng.run()
+    assert eng.stats == FAMILY_SERVE_PINS[arch][0]
+    toks = [t for v in out.values() for s in v
+            for t in (s if isinstance(s, list) else [s])]
+    assert len(out) == 16 and all(0 <= t < cfg.vocab_size for t in toks)
+    seg = eng.snapshot_every * eng.block_size
+    extends = sum(
+        -(-(len(r.prompt) - r.prefix_blocks_reused * eng.block_size)
+          // (seg if cfg.family in ("hybrid_ssm", "xlstm") else 10 ** 9))
+        for r in reqs)
+    per = {"hybrid_ssm": cfg.n_layers // max(cfg.attn_every, 1),
+           "xlstm": 0}.get(cfg.family, cfg.n_layers)
+    assert flash_attention.flash_attention.launches == per * extends

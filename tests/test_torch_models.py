@@ -1,4 +1,6 @@
-"""The port's dense models (repro_torch.models) against the JAX package's:
+"""The port's dense models (repro_torch.models) against the JAX package's
+(the other families: tests/test_torch_families.py and its siblings), and
+every architecture's config:
 the layers (rmsnorm, RoPE, decode attention, SwiGLU), and ``Model.prefill``
 then ``Model.decode`` on the four dense smoke configs (qwen3: qk-norm and
 GQA; chatglm3: partial RoPE; minicpm: scale_emb, scale_depth, tied
@@ -30,7 +32,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.models import layers as jl
 from repro_torch.check_runs import numpy_params
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import DENSE, get_config, list_archs
 from repro_torch.models import Model, build_model, layers as pl
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 
@@ -66,17 +68,6 @@ def test_configs_match_the_reference(arch):
             assert str(got.pop(k)).split(".")[-1] == \
                 np.dtype(want.pop(k)).name
         assert got == want
-
-
-def test_unported_architectures_raise():
-    for arch in ("zamba2-1.2b", "xlstm-1.3b", "llama4-scout-17b-a16e",
-                 "musicgen-medium", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            get_config(arch)
-    cfg = get_config("qwen3-4b", smoke=True).replace(family="moe",
-                                                     n_experts=4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Model(cfg, device="cpu")
 
 
 def test_model_defaults_to_the_card():
@@ -135,7 +126,7 @@ def test_decode_attention_matches(dtype, softcap):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", DENSE)
 def test_prefill_then_decode_matches(arch, dtype):
     """Prefill 31 tokens (odd: ragged tiles) of two sequences, then decode
     three: last hidden, KV cache, logits and positions against JAX."""
@@ -165,7 +156,7 @@ def test_prefill_then_decode_matches(arch, dtype):
     assert rel(m.lm_head(params, th), jm.lm_head(jp, jh)) < TOL[dtype]
 
 
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", DENSE)
 def test_params_round_trip(arch):
     cfg = get_config(arch, smoke=True)
     tree = numpy_params(cfg, seed=5)

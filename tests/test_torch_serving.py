@@ -117,8 +117,7 @@ def test_snapshot_every_is_taken_and_inert_on_dense():
     """ServeEngine takes the reference's snapshot_every; on the dense model
     it changes nothing: snapshot_every=2 (in both packages) and the port's
     default give the JAX engine's stats and fp32 tokens.  The SSM families,
-    where the reference would snapshot, are refused by ``Model``
-    (test_torch_models)."""
+    where it sets the snapshot period: tests/test_torch_family_serving.py."""
     kw = dict(max_batch=4, max_len=128, block_size=8, pool_slots=48)
     jeng, peng = engines({**kw, "snapshot_every": 2}, fp32=True,
                          device_sketch=False)
@@ -205,9 +204,11 @@ def test_engine_defaults_and_refusals():
                       HostAdmission)
     assert isinstance(ServeEngine(m, None, device_sketch=True)
                       .prefix_cache.admission, DeviceAdmission)
-    from repro_torch.serve.extend import zamba_extend
-    with pytest.raises(NotImplementedError, match="item 14"):
-        zamba_extend()
+    from types import SimpleNamespace
+    from repro_torch.serve.extend import extend
+    with pytest.raises(ValueError, match="tpu"):
+        extend(SimpleNamespace(cfg=cfg.replace(family="tpu")), None, None,
+               None, 0)
     eng = port_engine(max_batch=1, max_len=16, block_size=8, pool_slots=4)
     eng.submit(list(range(20)), 1)
     with pytest.raises(ValueError, match="exceed"):
