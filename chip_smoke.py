@@ -3,8 +3,9 @@
 trace engine (one stream, tenant lanes, sweeps, the sharded sketch, the
 adaptive window, the policy panel, checkpoint/resume and fault injection,
 the paper's trace families beside the host engine), the serving-admission
-path (device and host sketch) and the LLM serving path (every model
-family: dense, MoE, VLM, audio, hybrid SSM and xLSTM).
+path (device and host sketch), the LLM serving path (every model family:
+dense, MoE, VLM, audio, hybrid SSM and xLSTM) and training (every family,
+through the flash forward's training instance and its backward kernel).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -17,7 +18,7 @@ six worker processes (started at phase 2, stopped at exit) while the card
 runs the kernel, and the plain version at the main run's geometry on the
 card, timed:
 
-1. print the card's name and power limit, build the six kernels, the step
+1. print the card's name and power limit, build the seven kernels, the step
    kernel's adaptive instances (a second build of ``sketch_step.cu`` with
    ``-DSKETCH_STEP_ADAPTIVE``), its policy panel's (a third, with
    ``-DSKETCH_STEP_PANEL``), the reset and estimate in plain stream order
@@ -289,7 +290,42 @@ card, timed:
    attention shapes against its bound, its plain version and
    ``scaled_dot_product_attention``, every timed launch's output held
    against the plain version's;
-42. print the ``kernels`` JSON line (six kernels; the step kernel's entry
+   (phase 1 also prints the flash sources' lines by instance: the
+   forward's eight serving instances must keep the parent's,
+   ``check_runs.FLASH_SERVING_PTXAS``, beside its training instances and
+   the backward's kernels;)
+42. FB: the flash backward kernel (``flash_attention_bwd.cu``) against
+   ``flash_attention_bwd_ref`` and the forward's training instance
+   (output and LSE) against ``flash_attention_ref`` on
+   ``check_runs.FB_CASES`` (head dims 16-128, GQA 1-8, S 1-2,048,
+   softcap 0 and 30, TRP's and TR's shapes): dq, dk, dv each within
+   FB_TOL of the plain version's largest, the output within FLASH_TOL,
+   the LSE within FB_LSE_TOL; ``torch.autograd.grad`` through
+   ``flash_attention`` on CUDA (no gradient None, bit-equal to the
+   kernels' direct calls); calls outside the training contract raise;
+   both kernels timed at TR's shape against their bounds, plain versions
+   and ``scaled_dot_product_attention`` (forward; backward through a
+   retained graph, KV heads repeated);
+43. TF: the six families' smoke configs (qwen3, scout, llava, musicgen,
+   zamba2, xLSTM) train four AdamW steps in bf16 on the card from
+   ``numpy_leaves`` weights, every loss within 0.05 of the port's CPU run
+   (in the pool meanwhile) and the last below the first; the driver's
+   ``train()`` on chatglm3's smoke config interrupted at step 3 and
+   resumed equals its continuous run within 1e-4;
+44. TRP: qwen3-4b at published width and 2 layers, three AdamW steps on
+   one 256-token sequence: each step's loss and grad norm against the JAX
+   package's pins (``check_runs.TRP_PINS``) within 1.5x the reference's
+   own bf16-vs-fp32 distance (``TRP_FP32_PINS``);
+45. TR, the training path's main run: qwen3-4b at published width, 12 of
+   its 36 layers (1.99 B parameters), batches of 8 x 2,048 tokens from
+   ``TokenPipeline`` over the W-TinyLFU shard cache, AdamW with WSD, remat
+   on, ten steps (counts set to 0 just before, read just after: 24
+   forward and 12 backward flash launches a step): losses finite and
+   falling, the pipeline's cache statistics equal to the CPU pipeline's;
+   ms per step and tokens/s after one warm-up step, peak memory; one more
+   step under torch.profiler (device time by kind of kernel, the flash
+   kernels' ms per launch and TFLOP/s); then three Adafactor steps;
+46. print the ``kernels`` JSON line (seven kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive, panel, mesh
    and wide instances' launches and checks and its checkpointed runs; the
    add's with the
@@ -297,8 +333,10 @@ card, timed:
    with their burst times, the empty launch's in a burst, their in-stream
    pairs with and without PDL and their first designs' times; the sketch
    kernels' launches in LZ, LX and LM; the flash kernel's launches in L,
-   LZ and LM, its numbers at L's shapes and, per cell, at LZ's and LM's),
-   the card line and the result line.  Lines
+   LZ, LM and TR, its numbers at L's shapes and, per cell, at LZ's and
+   LM's, its training instance's at TR's; the backward kernel's, with TR's
+   step time, tokens/s and peak memory), the card line and the result
+   line.  Lines
    ``elapsed ...`` mark the time taken after each group of phases.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -621,7 +659,7 @@ def bound_bytes(spec, trace, chunk, sample):
 
 
 SOURCES = ("sketch_step", "sketch_update", "sketch_estimate", "admission",
-           "sketch_reset", "flash_attention")
+           "sketch_reset", "flash_attention", "flash_attention_bwd")
 # built beside them: the empty-launch floor, and the first designs of the
 # reset, estimate and admit (phase 10 times the current kernels against them)
 PROBES = ("l2_chase", "sketch_baseline")
@@ -1680,27 +1718,35 @@ def timed_engine(spent, sync_before=False):
                 {TIMED_HOOKS[k]: hook(TIMED_HOOKS[k], k) for k in spent})
 
 
+FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+
+
 def device_time_by_kind(prof):
     """(seconds of device time by kind of kernel, number of device
-    activities) of a finished torch.profiler run, read from its raw kineto
-    events (building the profiler's Python event tree for a whole serving
-    run takes minutes)."""
+    activities, seconds by kernel name) of a finished torch.profiler run,
+    read from its raw kineto events (building the profiler's Python event
+    tree for a whole serving run takes minutes)."""
     from torch.autograd import DeviceType
-    kinds = {"flash": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+    kinds = {"flash": 0.0, "flash backward": 0.0, "gemm": 0.0, "copy": 0.0,
+             "other": 0.0}
+    names: dict = {}
     n = 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
             continue
-        name = e.name().lower()
+        name = e.name()
+        low = name.lower()
         ns = (e.duration_ns() if hasattr(e, "duration_ns")
               else e.duration_us() * 1e3)
-        kind = ("flash" if "flash_attention_kernel" in name else
-                "gemm" if any(w in name for w in ("gemm", "xmma", "nvjet",
-                                                  "cutlass")) else
-                "copy" if "memcpy" in name or "memset" in name else "other")
+        kind = ("flash" if "flash_attention_kernel" in low else
+                "flash backward" if any(k in low for k in FLASH_BWD_KERNELS)
+                else "gemm" if any(w in low for w in ("gemm", "xmma", "nvjet",
+                                                      "cutlass")) else
+                "copy" if "memcpy" in low or "memset" in low else "other")
         kinds[kind] += ns / 1e9
+        names[name] = names.get(name, 0.0) + ns / 1e9
         n += 1
-    return kinds, n
+    return kinds, n, names
 
 
 def llm_phase12(card):
@@ -1784,7 +1830,7 @@ def llm_phase12(card):
     check(p_eng.stats == stats and p_out == out,
           "L: the profiled run differs from the main run")
     del p_eng
-    kinds, n_kernels = device_time_by_kind(prof)
+    kinds, n_kernels, _ = device_time_by_kind(prof)
     read_s = time.perf_counter() - t1
     del prof
     busy = sum(kinds.values())
@@ -4056,6 +4102,521 @@ def serve_phase41(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 42-45: training (the flash backward kernel, every family's smoke
+# config, the JAX pin, run TR)
+# ---------------------------------------------------------------------------
+
+def ptxas_by_instance(log: str) -> dict:
+    """Kernel instance (its name and template arguments, read from the
+    mangled name) -> its ptxas register and spill lines."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            # the kernel's source name: a length-prefixed identifier
+            # ending in _kernel, then its template arguments
+            m = next((m for m in re.finditer(
+                r"(?=(\d+)([a-z_]+_kernel)I((?:L[ib]\d+E)+))", mangled)
+                if int(m.group(1)) == len(m.group(2))), None)
+            args = re.findall(r"L[ib](\d+)E", m.group(3)) if m else []
+            kind = ("TrainParams" if "TrainParams" in mangled else
+                    "Params" if "Params" in mangled else "")
+            name = (f"{m.group(2)}<{', '.join(args)}>({kind})" if m
+                    else mangled)
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.split("ptxas info    : ")[-1].strip())
+    return out
+
+
+def flash_ptxas_phase1():
+    """Phase 1's flash lines by instance: the forward's serving instances
+    must keep the parent's (check_runs.FLASH_SERVING_PTXAS), beside its
+    training (LSE) instances and the backward's kernels."""
+    from repro_torch.check_runs import FLASH_SERVING_PTXAS
+    from repro_torch.kernels import _build
+    fwd = ptxas_by_instance(_build.build_info[("flash_attention", ())]["log"])
+    serving = {n: v for n, v in fwd.items() if n.endswith("(Params)")}
+    check(len(serving) == 8 and all(tuple(v) == FLASH_SERVING_PTXAS
+                                    for v in serving.values()),
+          f"flash serving instances' ptxas lines differ from the parent's: "
+          f"{serving}")
+    print(f"phase 1  flash_attention: its {len(serving)} serving instances' "
+          f"ptxas lines == the parent's ({' | '.join(FLASH_SERVING_PTXAS)})")
+    for n, v in fwd.items():
+        if not n.endswith("(Params)"):
+            print(f"phase 1  flash_attention {n}: {' | '.join(v)}")
+    bwd = _build.build_info[("flash_attention_bwd", ())]["log"]
+    for n, v in ptxas_by_instance(bwd).items():
+        print(f"phase 1  flash_attention_bwd {n}: {' | '.join(v)}")
+
+
+def fb_inputs(seed, B, S, Hq, Hkv, D):
+    """Normal bf16 q, dO (B,S,Hq,D) and k, v (B,S,Hkv,D) on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+    return (randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D),
+            randn(B, S, Hq, D))
+
+
+def flash_train_work(B, S, Hq, Hkv, D):
+    """(forward flops, forward bytes, backward flops, backward bytes) of
+    causal attention at these shapes: 4 D flops per visible (query, key)
+    pair and head forward, 2.5 times that backward (five products of D
+    multiply-adds); forward reads q, k, v and writes the output and the
+    LSE; backward reads q, k, v, o, dO and the LSE and writes dq, dk, dv."""
+    pairs = B * Hq * S * (S + 1) // 2
+    nq, nkv, nlse = B * S * Hq * D * 2, B * S * Hkv * D * 2, B * Hq * S * 4
+    return (4 * D * pairs, 2 * nq + 2 * nkv + nlse,
+            10 * D * pairs, 4 * nq + 4 * nkv + nlse)
+
+
+def fb_phase42(card):
+    """Phase 42 (FB): the backward kernel against flash_attention_bwd_ref,
+    and the forward's training instance (output and LSE) against
+    flash_attention_ref, on check_runs.FB_CASES; gradients through
+    flash_attention under autograd on the card; calls outside the training
+    contract raise; both kernels timed at TR's shape beside their bounds,
+    their plain versions and scaled_dot_product_attention.  Returns the
+    numbers of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.check_runs import FB_CASES, FB_LSE_TOL, FB_TOL
+    from repro_torch.kernels import flash_attention as fa
+    worst = dict(out=0.0, lse=0.0, rel=0.0, abs=0.0)
+    for i, (name, B, S, Hq, Hkv, D, cap) in enumerate(FB_CASES):
+        q, k, v, do = fb_inputs(i, B, S, Hq, Hkv, D)
+        out, lse = fa._launch_train(q, k, v, cap)
+        want, want_lse = fa.flash_attention_ref(q, k, v, softcap=cap,
+                                                return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, softcap=cap)
+        ref = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, softcap=cap)
+        torch.cuda.synchronize()
+        o_err = float((out.float() - want.float()).abs().max())
+        l_err = float((lse - want_lse).abs().max())
+        check(bool(torch.isfinite(out).all()) and bool(
+            torch.isfinite(lse).all()), f"FB {name}: forward not finite")
+        check(o_err <= FLASH_TOL and l_err <= FB_LSE_TOL,
+              f"FB {name}: training forward differs from plain by {o_err} "
+              f"(output) and {l_err} (LSE)")
+        parts = []
+        for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
+            check(a.shape == b.shape and a.dtype == torch.bfloat16
+                  and bool(torch.isfinite(a).all()), f"FB {name}: bad {nm}")
+            err = float((a.float() - b.float()).abs().max())
+            rel = err / max(float(b.float().abs().max()), 1e-30)
+            check(rel <= FB_TOL, f"FB {name}: {nm} differs from plain by "
+                  f"{rel:.5f} of its largest > {FB_TOL}")
+            worst["rel"] = max(worst["rel"], rel)
+            worst["abs"] = max(worst["abs"], err)
+            parts.append(f"{nm} {rel:.5f}")
+        worst["out"] = max(worst["out"], o_err)
+        worst["lse"] = max(worst["lse"], l_err)
+        print(f"phase 42 FB {name}: B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+              f"softcap={cap}: forward max |kernel - plain| {o_err:.6f}, "
+              f"LSE {l_err:.2e}; backward max |kernel - plain| over max "
+              f"|plain|: {', '.join(parts)}")
+        del q, k, v, do, out, lse, want, want_lse, got, ref
+
+    # autograd through flash_attention on the card: the training forward,
+    # then the backward kernel, the same numbers as the direct calls
+    q, k, v, do = fb_inputs(100, 2, 130, 8, 2, 64)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    n_fwd, n_bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    check(out.grad_fn is not None and all(g is not None for g in grads),
+          "FB: flash_attention under autograd left a gradient out")
+    check(fa.flash_attention.launches == n_fwd + 1
+          and fa.flash_attention_bwd.launches == n_bwd + 1,
+          "FB: autograd did not go through the two kernels")
+    o2, lse2 = fa._launch_train(q, k, v, 0.0)
+    direct = fa.flash_attention_bwd(q, k, v, o2, do, lse2)
+    check(torch.equal(out.detach(), o2) and all(
+        torch.equal(a, b) for a, b in zip(grads, direct)),
+        "FB: autograd's gradients differ from the kernels' direct calls")
+    for bad in (dict(causal=False), dict(q_offset=3), dict(kv_len=100)):
+        try:
+            fa.flash_attention(*leaves, **bad)
+        except ValueError:
+            continue
+        check(False, f"FB: a differentiable call with {bad} did not raise")
+    print("phase 42 FB autograd: torch.autograd.grad through flash_attention "
+          "on CUDA gives q, k and v gradients (none None), bit-equal to the "
+          "kernels' direct calls; calls outside the training contract "
+          "(not causal, q_offset, kv_len) raise")
+    del q, k, v, do, leaves, out, grads, o2, lse2, direct
+
+    # both kernels at TR's shape
+    B, S, Hq, Hkv, D = 8, 2048, 32, 8, 128
+    q, k, v, do = fb_inputs(7, B, S, Hq, Hkv, D)
+    reps = 10
+    timed, outs = kernel_ms([("fwd", lambda: fa._launch_train(q, k, v, 0.0))]
+                            * reps)
+    fwd_ms = sum(t for _, t in timed) / reps
+    out, lse = outs[-1]
+    del outs
+    timed, outs = kernel_ms([("bwd", lambda: fa.flash_attention_bwd(
+        q, k, v, out, do, lse))] * reps)
+    bwd_ms = sum(t for _, t in timed) / reps
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, do, lse)
+    for got in outs:
+        for a, b in zip(got, ref):
+            rel = float((a.float() - b.float()).abs().max()) / float(
+                b.float().abs().max())
+            check(rel <= FB_TOL, f"FB timed at TR's shape: {rel} > {FB_TOL}")
+    del outs, ref
+    plain_fwd = timed_ms(lambda: fa.flash_attention_ref(
+        q, k, v, return_lse=True), 1)
+    plain_bwd = timed_ms(lambda: fa.flash_attention_bwd_ref(
+        q, k, v, out, do, lse), 1)
+    # the library yardstick: scaled_dot_product_attention with the KV heads
+    # repeated, forward, and backward through retained graphs
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(Hq // Hkv, dim=1),
+            vt.repeat_interleave(Hq // Hkv, dim=1), is_causal=True)
+    lib_out = sdpa()
+    timed, _ = kernel_ms([("sdpa", sdpa)] * reps)
+    lib_fwd = sum(t for _, t in timed) / reps
+    dot = do.transpose(1, 2)
+    torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+    timed, lib_grads = kernel_ms([("sdpa bwd", lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))] * reps)
+    lib_bwd = sum(t for _, t in timed) / reps
+    lib_dq = lib_grads[-1][0].transpose(1, 2).float()
+    kern_dq = fa.flash_attention_bwd(q, k, v, out, do, lse)[0].float()
+    lib_err = float((lib_dq - kern_dq).abs().max()) / float(
+        kern_dq.abs().max())
+    del lib_grads, lib_out, qt, kt, vt
+    f_fl, f_by, b_fl, b_by = flash_train_work(B, S, Hq, Hkv, D)
+    res = {}
+    for nm, ms, plain, lib, fl, by in (
+            ("forward with LSE", fwd_ms, plain_fwd, lib_fwd, f_fl, f_by),
+            ("backward", bwd_ms, plain_bwd, lib_bwd, b_fl, b_by)):
+        o_ms, b_ms = fl / BF16_FLOPS_PER_S * 1e3, by / HBM_BYTES_PER_S * 1e3
+        bound = max(o_ms, b_ms)
+        res[nm] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                       bound_by="operations" if o_ms >= b_ms else "bytes",
+                       tflops=fl / ms / 1e9)
+        print(f"phase 42 FB {nm} at TR's shape (B={B} S={S} Hq={Hq} "
+              f"Hkv={Hkv} D={D}): kernel {ms:.4f} ms ({fl / ms / 1e9:.1f} "
+              f"TFLOP/s, {bound / ms:.3f} of the bound); bound "
+              f"{fl / 1e9:.1f} GFLOP over 989 TFLOP/s = {o_ms:.4f} ms, "
+              f"{by / 1e6:.1f} MB over 3.35 TB/s = {b_ms:.4f} ms; plain "
+              f"{plain:.3f} ms; scaled_dot_product_attention {lib:.4f} ms "
+              f"(KV heads repeated); {card}")
+    print(f"phase 42 FB: scaled_dot_product_attention's dq against the "
+          f"kernel's at TR's shape: {lib_err:.5f} of its largest")
+    res.update(max_abs_err=worst["abs"], max_rel_err=worst["rel"],
+               forward_max_abs_err=worst["out"], lse_max_abs_err=worst["lse"])
+    return res
+
+
+TF_ARCHS = ("qwen3-4b", "llama4-scout-17b-a16e", "llava-next-34b",
+            "musicgen-medium", "zamba2-1.2b", "xlstm-1.3b")
+TF_STEPS, TF_TOL = 4, 0.05       # the reference's bf16 bound
+TF_FP32_TOL = 1e-3
+TF_LR = (2e-3, 1, 10, 10)
+
+
+def tf_batch(cfg) -> dict:
+    """TF's batch for a smoke config: two 32-token sequences (codebook
+    streams distinct), for vlm 0.02-scaled vision embeddings; numpy."""
+    rng = np.random.default_rng(11)
+    t = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    if cfg.n_codebooks:
+        t = ((t[..., None] + np.arange(cfg.n_codebooks)) % cfg.vocab_size
+             ).astype(np.int32)
+    out = {"tokens": t}
+    if cfg.n_vis_tokens:
+        out["vision_embeds"] = (rng.standard_normal(
+            (2, cfg.n_vis_tokens, cfg.d_model), dtype=np.float32) * 0.02)
+    return out
+
+
+def tf_losses(arch: str, device: str, fp32: bool = False) -> list:
+    """TF_STEPS AdamW steps of ``arch``'s smoke config in bf16 (fp32 with
+    ``fp32``) from ``numpy_leaves`` weights on ``device``: the losses."""
+    import torch
+    from repro_torch.check_runs import numpy_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import adamw, wsd
+    from repro_torch.train import TrainState, build_train_step
+    from repro_torch.models.common import leaf_tree
+    if device == "cpu":
+        torch.set_num_threads(1)
+    cfg = get_config(arch, smoke=True)
+    if fp32:
+        cfg = cfg.replace(compute_dtype=torch.float32)
+    m = build_model(cfg, device=device)
+    opt = adamw(wsd(*TF_LR))
+    params = params_from_numpy(cfg, numpy_leaves(cfg, 3), device=device,
+                               train=True)
+    state = TrainState(params=params, opt=opt.init(leaf_tree(params)),
+                       step=torch.zeros((), dtype=torch.int32))
+    step = build_train_step(m, opt, loss_chunk=16)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in tf_batch(cfg).items()}
+    if "vision_embeds" in batch:
+        batch["vision_embeds"] = batch["vision_embeds"].to(cfg.compute_dtype)
+    return [float(step(state, batch)[1]["loss"]) for _ in range(TF_STEPS)]
+
+
+def tf_phase43(card, work):
+    """Phase 43 (TF): each family's smoke config trains on the card, its
+    losses against the port's CPU run (in the pool meanwhile): within
+    TF_TOL, or 1.5x the CPU's own bf16-vs-fp32 distance where that is
+    larger.  xLSTM, which has no attention, also trains in fp32 on the
+    card, within TF_FP32_TOL of the CPU's fp32 run at every step; its bf16
+    runs part after two AdamW steps (the sLSTM's exponential gates carry
+    each rounding on, as at X8), so each is held to its own distance from
+    the fp32 trajectory: |card - CPU| in bf16 within |card bf16 - card
+    fp32| + |card fp32 - CPU fp32| + |CPU fp32 - CPU bf16| where that is
+    larger.  Then the driver on chatglm3's smoke config interrupted at step
+    3 and resumed == its continuous run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.driver import train
+    jobs = {(a, f): cpu_pool().submit(tf_losses, a, "cpu", f)
+            for a in TF_ARCHS for f in (False, True)}
+    for arch in TF_ARCHS:
+        n0, b0 = fa.flash_attention.launches, \
+            fa.flash_attention_bwd.launches
+        t0 = time.perf_counter()
+        card_l = tf_losses(arch, "cuda")
+        secs = time.perf_counter() - t0
+        cpu_l, cpu32 = jobs[(arch, False)].result(), jobs[(arch, True)].result()
+        bounds = [max(TF_TOL, 1.5 * abs(a - b)) for a, b in zip(cpu_l, cpu32)]
+        also = ""
+        if arch.startswith("xlstm"):
+            # fp32 on the card (no attention: no bf16-only kernel) against
+            # the CPU's fp32 run; in bf16 each run is held to its own
+            # distance from the fp32 trajectory, through the fp32 runs
+            card32 = tf_losses(arch, "cuda", True)
+            d32 = [abs(a - b) for a, b in zip(card32, cpu32)]
+            check(max(d32) <= TF_FP32_TOL, f"TF {arch} fp32: card {card32} "
+                  f"against the CPU's {cpu32}")
+            bounds = [max(b, abs(c16 - c32) + abs(p16 - p32) + d)
+                      for b, c16, c32, p16, p32, d in zip(
+                          bounds, card_l, card32, cpu_l, cpu32, d32)]
+            also = f"; in fp32 max |card - CPU| {max(d32):.2e}"
+        diffs = [abs(a - b) for a, b in zip(card_l, cpu_l)]
+        check(all(map(math.isfinite, card_l))
+              and all(d <= b for d, b in zip(diffs, bounds)),
+              f"TF {arch}: card losses {card_l} against the CPU's {cpu_l} "
+              f"(bounds {bounds})")
+        check(card_l[-1] < card_l[0], f"TF {arch}: no learning {card_l}")
+        print(f"phase 43 TF {arch}: {TF_STEPS} AdamW steps in bf16, losses "
+              f"{', '.join(f'{x:.4f}' for x in card_l)} on the card, "
+              f"|card - CPU| {', '.join(f'{d:.5f}' for d in diffs)} within "
+              f"{', '.join(f'{b:.4f}' for b in bounds)}{also}; flash "
+              f"launches {fa.flash_attention.launches - n0} forward, "
+              f"{fa.flash_attention_bwd.launches - b0} backward; "
+              f"{secs:.1f} s")
+    kw = dict(global_batch=4, seq_len=32, ckpt_every=3, device="cuda")
+    a, b = work / "tf-continuous", work / "tf-interrupted"
+    cont = train("chatglm3-6b", steps=6, out_dir=str(a), **kw)
+    train("chatglm3-6b", steps=3, out_dir=str(b), **kw)
+    resumed = train("chatglm3-6b", steps=6, out_dir=str(b), **kw)
+    diff = abs(cont["loss"] - resumed["loss"])
+    check(diff < 1e-4, f"TF driver: interrupted {resumed['loss']} != "
+          f"continuous {cont['loss']}")
+    print(f"phase 43 TF driver: chatglm3 smoke, 6 steps continuous loss "
+          f"{cont['loss']:.6f}, interrupted at 3 and resumed "
+          f"{resumed['loss']:.6f} (|diff| {diff:.2e} < 1e-4); {card}")
+
+
+def trp_phase44(card):
+    """Phase 44 (TRP): qwen3-4b at published width, 2 layers, three AdamW
+    steps on one 256-token sequence: each step's loss and grad norm
+    against the JAX package's pins, within 1.5x the reference's own
+    bf16-vs-fp32 distance."""
+    import torch
+    from repro_torch.check_runs import (TRP_FP32_PINS, TRP_LAYERS, TRP_LR,
+                                        TRP_PINS, TRP_SEED, TRP_SEQ,
+                                        numpy_leaves, trp_tokens)
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import leaf_tree
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import adamw, wsd
+    from repro_torch.train import TrainState, build_train_step
+    cfg = get_config("qwen3-4b").replace(n_layers=TRP_LAYERS)
+    t0 = time.perf_counter()
+    params = params_from_numpy(cfg, numpy_leaves(cfg, TRP_SEED),
+                               device="cuda", train=True)
+    opt = adamw(wsd(*TRP_LR))
+    state = TrainState(params=params, opt=opt.init(leaf_tree(params)),
+                       step=torch.zeros((), dtype=torch.int32))
+    step = build_train_step(build_model(cfg, device="cuda"), opt)
+    batch = {"tokens": torch.from_numpy(trp_tokens(cfg)).cuda()}
+    for i, (pin, ref32) in enumerate(zip(TRP_PINS, TRP_FP32_PINS)):
+        _, metrics = step(state, batch)
+        got = (float(metrics["loss"]), float(metrics["grad_norm"]))
+        for name, g, p, r in zip(("loss", "grad_norm"), got, pin, ref32):
+            bound = 1.5 * abs(p - r)
+            check(abs(g - p) <= bound, f"TRP step {i} {name}: port {g} vs "
+                  f"JAX {p}, |diff| {abs(g - p)} > 1.5 x the reference's "
+                  f"bf16-vs-fp32 {abs(p - r)}")
+        print(f"phase 44 TRP step {i}: loss {got[0]:.6f} (JAX bf16 "
+              f"{pin[0]:.6f}, fp32 {ref32[0]:.6f}), grad_norm "
+              f"{got[1]:.6f} (JAX bf16 {pin[1]:.6f}, fp32 {ref32[1]:.6f})")
+    print(f"phase 44 TRP: qwen3-4b full width, {TRP_LAYERS} layers, "
+          f"{TRP_SEQ} tokens, 3 AdamW steps within 1.5x the reference's "
+          f"own bf16-vs-fp32 distance ({time.perf_counter() - t0:.1f} s); "
+          f"{card}")
+    del state, params
+
+
+TR_LAYERS, TR_BATCH, TR_SEQ, TR_STEPS = 12, 8, 2048, 10
+TR_LR = (3e-4, 1, TR_STEPS, TR_STEPS)
+
+
+def tr_phase45(card, fb):
+    """Phase 45 (TR), the slice's main run: qwen3-4b at published width,
+    12 of its 36 layers, batches of 8 x 2,048 tokens from TokenPipeline
+    over the W-TinyLFU shard cache, AdamW with WSD, remat on, ten steps
+    (counts set to 0 just before, read just after); one more step
+    profiled; then three Adafactor steps.  Returns (the flash kernels'
+    launches in the run, per-kernel numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.common import leaf_tree, param_count
+    from repro_torch.optim import adafactor, adamw, wsd
+    from repro_torch.train import build_train_step, make_train_state
+    from repro_torch.train.driver import make_pipeline, next_batch
+    cfg = get_config("qwen3-4b").replace(n_layers=TR_LAYERS)
+    dev = torch.device("cuda")
+    model = build_model(cfg, dev)
+    opt = adamw(wsd(*TR_LR))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, opt,
+                             torch.Generator(device=dev).manual_seed(0))
+    n_params = param_count(state.params)
+    pipe = make_pipeline(cfg, global_batch=TR_BATCH, seq_len=TR_SEQ, seed=0)
+    step = build_train_step(model, opt)
+    fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+    losses, secs = [], []
+    for _ in range(TR_STEPS):
+        batch = next_batch(pipe, cfg, dev)
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))       # waits for the step
+        secs.append(time.perf_counter() - t0)
+    launches = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"TR: losses {losses}")
+    check(launches == (2 * TR_LAYERS * TR_STEPS, TR_LAYERS * TR_STEPS),
+          f"TR: flash launches {launches}, expected "
+          f"{2 * TR_LAYERS * TR_STEPS} forward and {TR_LAYERS * TR_STEPS} "
+          "backward")
+    host = make_pipeline(cfg, global_batch=TR_BATCH, seq_len=TR_SEQ, seed=0)
+    for _ in range(TR_STEPS):
+        host.next_batch()
+    check(pipe.cache_stats == host.cache_stats,
+          f"TR: pipeline {pipe.cache_stats} != CPU {host.cache_stats}")
+    ms = statistics.mean(secs[1:]) * 1e3
+    tokens = TR_BATCH * TR_SEQ
+    print(f"phase 45 TR: qwen3-4b full width, {TR_LAYERS} of 36 layers, "
+          f"{n_params / 1e9:.3f} B parameters, {TR_BATCH} x {TR_SEQ} "
+          f"tokens a step from TokenPipeline (cache {pipe.cache_stats}, == "
+          f"the CPU pipeline's), AdamW + WSD, remat on: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"phase 45 TR: {ms:.1f} ms per step on the host clock (mean of "
+          f"steps 2-{TR_STEPS}; min {min(secs[1:]) * 1e3:.1f}, max "
+          f"{max(secs[1:]) * 1e3:.1f}; first {secs[0] * 1e3:.1f}), "
+          f"{tokens / ms * 1e3:,.0f} tokens/s; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; flash launches {launches[0]} forward "
+          f"({launches[0] // TR_STEPS} per step), {launches[1]} backward "
+          f"({launches[1] // TR_STEPS} per step); {card}")
+
+    # one more step under the profiler: device time by kind of kernel
+    batch = next_batch(pipe, cfg, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        p_wall = time.perf_counter() - t0
+    kinds, n, names = device_time_by_kind(prof)
+    del prof
+    kinds["flash forward"] = kinds.pop("flash")
+    top = sorted(((nm, t) for nm, t in names.items() if not any(
+        k in nm.lower() for k in ("flash_attention_kernel", "gemm", "xmma",
+                                  "nvjet", "cutlass", "memcpy", "memset")
+        + FLASH_BWD_KERNELS)), key=lambda kv: -kv[1])[:8]
+    busy = sum(kinds.values())
+    if busy:
+        print(f"phase 45 TR profiled step: wall {p_wall * 1e3:.1f} ms, {n} "
+              f"device activities, busy {busy * 1e3:.1f} ms: "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in kinds.items())
+              + f"; device idle share {1 - busy / p_wall:.4f}")
+        print("phase 45 TR profiled step, the largest other kernels (ms): "
+              + "; ".join(f"{nm.replace('void at::native::', '')[:100]} "
+                          f"{t * 1e3:.1f}" for nm, t in top))
+    else:
+        print("phase 45 TR profiled step: the profiler saw no device "
+              "activity; device time by kind not measured")
+    res = {}
+    f_fl, _, b_fl, _ = flash_train_work(TR_BATCH, TR_SEQ, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.hd)
+    for nm, kind, per_step, fl in (
+            ("forward with LSE", "flash forward", 2 * TR_LAYERS, f_fl),
+            ("backward", "flash backward", TR_LAYERS, b_fl)):
+        dev_s = kinds[kind]
+        launch_ms = dev_s * 1e3 / per_step if dev_s else float("nan")
+        res[nm] = dict(ms_in_tr=launch_ms, launches_per_step=per_step,
+                       tflops_in_tr=fl / launch_ms / 1e9 if dev_s else None)
+        print(f"phase 45 TR {nm} kernel in the profiled step: "
+              f"{launch_ms:.4f} ms per launch, {per_step} launches per "
+              f"step, {fl / launch_ms / 1e9:.1f} TFLOP/s; at TR's shape in "
+              f"phase 42 {fb[nm]['ms']:.4f} ms, the bound "
+              f"{fb[nm]['bound_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{fb[nm]['library_ms']:.4f} ms")
+    print(f"phase 45 TR: scaled_dot_product_attention forward + backward "
+          f"at the same shape (the library yardstick, never on the path) "
+          f"{fb['forward with LSE']['library_ms'] + fb['backward']['library_ms']:.4f}"
+          f" ms against the kernels' {fb['forward with LSE']['ms'] + fb['backward']['ms']:.4f}"
+          " ms")
+
+    # three Adafactor steps on the same model, from its state now
+    opt2 = adafactor(wsd(*TR_LR))
+    state.opt = opt2.init(leaf_tree(state.params))
+    step2 = build_train_step(model, opt2)
+    torch.cuda.reset_peak_memory_stats()
+    af = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, metrics = step2(state, next_batch(pipe, cfg, dev))
+        af.append((float(metrics["loss"]), time.perf_counter() - t0))
+    check(all(math.isfinite(x) for x, _ in af), f"TR Adafactor: {af}")
+    print(f"phase 45 TR Adafactor: 3 steps, losses "
+          f"{', '.join(f'{x:.4f}' for x, _ in af)}, "
+          f"{', '.join(f'{s * 1e3:.1f}' for _, s in af)} ms; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
+    del state, step, step2
+    return launches, res, dict(ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+                               peak_gib=peak / 2**30, losses=losses)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4093,6 +4654,7 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1  {label} ptxas:", line.strip())
+    flash_ptxas_phase1()
 
     def elapsed(what):
         print(f"elapsed {time.perf_counter() - t_start:.1f} s after {what}",
@@ -4364,6 +4926,24 @@ def main() -> int:
     fam_phase40(card)
     cells = serve_phase41(card)
     elapsed("phases 39-41")
+
+    # -- phases 42-45: training -------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    fb = fb_phase42(card)
+    CKPT_WORKDIR.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train-", dir=CKPT_WORKDIR))
+    try:
+        tf_phase43(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trp_phase44(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr_launches, tr_kernels, tr = tr_phase45(card, fb)
+    elapsed("phases 42-45")
     err = max(max_err, lane_err, shard_err, adapt_err, panel_err,
               step12_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
@@ -4406,22 +4986,43 @@ def main() -> int:
     kernels[1].update(dk_probes_held=sorted(set(add_probes)
                                             | set(LOOP_PROBES)))
 
-    # -- phase 42: the kernels line ----------------------------------------
+    # -- phase 46: the kernels line ----------------------------------------
     flash_err = max([flash_err] + [fl["max_abs_err"]
                                    for _, fl in cells.values() if fl])
     for k in kernels[1:]:
         k["serving_launches"] = {cell: launches[k["name"]]
                                  for cell, (launches, _) in cells.items()}
+    from repro_torch.check_runs import FB_TOL
+    fwd, bwd = fb["forward with LSE"], fb["backward"]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:94",
-        "launches": flash_launches + sum(
+        "launches": flash_launches + tr_launches[0] + sum(
             launches["flash_attention"] for launches, _ in cells.values()),
-        "max_abs_err": flash_err, "matches_plain": flash_err <= FLASH_TOL,
+        "max_abs_err": max(flash_err, fb["forward_max_abs_err"]),
+        "matches_plain": max(flash_err, fb["forward_max_abs_err"])
+        <= FLASH_TOL,
         **flash, "L_launches": flash_launches,
         "cells": {cell: dict(launches=launches["flash_attention"], **fl)
-                  for cell, (launches, fl) in cells.items() if fl}})
+                  for cell, (launches, fl) in cells.items() if fl},
+        "train_instance": dict(TR_launches=tr_launches[0],
+                               lse_max_abs_err=fb["lse_max_abs_err"],
+                               **{k: v for k, v in fwd.items()},
+                               **tr_kernels["forward with LSE"])})
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:69",
+        "replaces_note": "no TPU kernel: the VJP JAX takes of the "
+                         "reference's jnp flash_attention",
+        "launches": tr_launches[1], "max_abs_err": fb["max_abs_err"],
+        "max_rel_err": fb["max_rel_err"],
+        "matches_plain": fb["max_rel_err"] <= FB_TOL,
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"], "tflops": bwd["tflops"],
+        **tr_kernels["backward"], "TR_run": tr})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

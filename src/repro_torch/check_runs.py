@@ -982,6 +982,62 @@ SHARD_CASES = [
 ]
 
 
+# The flash backward kernel's cases on the card (chip_smoke.py phase 42):
+# head dims 16 to 128, GQA groups 1, 4, 5 and 8, sequence lengths 1, 63,
+# 64, 257 and 2,048, softcap 0 and 30, batch 1 and 2, then the training
+# runs' shapes: TRP's (one 256-token sequence of qwen3-4b's 32/8 heads) and
+# TR's (8 x 2,048 tokens).
+# (name, B, S, Hq, Hkv, D, softcap)
+FB_CASES = [
+    ("one token", 1, 1, 4, 4, 16, 0.0),
+    ("G4 ragged cap", 2, 63, 8, 2, 32, 30.0),
+    ("G5 one tile", 1, 64, 10, 2, 64, 0.0),
+    ("G8 D128 cap", 2, 257, 8, 1, 128, 30.0),
+    ("G5 D16", 2, 257, 5, 1, 16, 0.0),
+    ("G1 D32 cap", 2, 64, 2, 2, 32, 30.0),
+    ("G4 D128 ragged", 1, 63, 4, 1, 128, 0.0),
+    ("long G4 D64", 1, 2048, 8, 2, 64, 0.0),
+    ("long G1 D128 cap", 1, 2048, 2, 2, 128, 30.0),
+    ("TRP", 1, 256, 32, 8, 128, 0.0),
+    ("TR", 8, 2048, 32, 8, 128, 0.0),
+]
+FB_TOL = 2e-2       # max |kernel - plain| over max |plain|, dq, dk, dv each
+FB_LSE_TOL = 1e-3   # max |kernel - plain| of the forward's log-sum-exp
+
+# The flash forward's serving instances' ptxas lines before the training
+# (LSE) instances were added (each of its eight (head dim, softcap)
+# instances, nvcc for sm_90a on an H100 host): chip_smoke.py phase 1 holds
+# the serving instances to them, so the training instances leave their
+# code as it was.
+FLASH_SERVING_PTXAS = (
+    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "Used 168 registers, used 16 barriers")
+
+# Run TRP (chip_smoke.py phase 44): qwen3-4b at its published width, 2
+# layers, ``numpy_leaves(cfg, TRP_SEED)`` weights, one sequence of
+# TRP_SEQ tokens (``trp_tokens``), three AdamW steps under
+# wsd(*TRP_LR), remat on, the loss in 256-position chunks: each step's
+# (loss, grad_norm) of the JAX package on the CPU in bf16 (TRP_PINS) and
+# fp32 (TRP_FP32_PINS).  The port in bf16 on the card is held within
+# 1.5x the reference's own bf16-vs-fp32 distance, step by step and metric
+# by metric.  Printed by ``PYTHONPATH=src:tests python
+# tests/test_torch_train.py``.
+TRP_LAYERS, TRP_SEQ, TRP_SEED = 2, 256, 0
+TRP_LR = (1e-3, 1, 3, 3)            # peak, warmup, stable, decay
+TRP_PINS = [(12.497682571411133, 17.161861419677734),
+            (7.178867340087891, 12.381077766418457),
+            (5.727762222290039, 38.083946228027344)]
+TRP_FP32_PINS = [(12.49720287322998, 17.09320068359375),
+                 (7.177514553070068, 12.41751480102539),
+                 (5.762852191925049, 37.94412612915039)]
+
+
+def trp_tokens(cfg) -> np.ndarray:
+    """TRP's one sequence, (1, TRP_SEQ) int32."""
+    return np.random.default_rng(TRP_SEED + 1).integers(
+        0, cfg.vocab_size, (1, TRP_SEQ)).astype(np.int32)
+
+
 # The flash kernel's cases on the card (chip_smoke.py phase 11 and
 # tests/test_torch_kernel_gpu.py): tests/test_flash_kernel.py's shapes
 # causal and not, ragged lengths, extends, per-row kv_len, GQA groups 1,

@@ -51,7 +51,13 @@ _C_API = {
     "flash_attention": {    # q, k, v, out, kv_len or NULL; B, Sq, Skv,
         "flash_attention_launch":   # Hq, Hkv, D; k and v's (b, s, h) strides;
             ([_P] * 5 + [_I] * 15      # causal, q_offset, kv_len default;
-             + [_F, _F, _P], _I), **_ERR},    # softcap, scale
+             + [_F, _F, _P], _I),       # softcap, scale
+        "flash_attention_train_launch":     # q, k, v, out, lse; B, S, Hq,
+            ([_P] * 5 + [_I] * 5 + [_F, _F, _P], _I),  # Hkv, D; softcap,
+        **_ERR},                                       # scale
+    "flash_attention_bwd": {    # q, k, v, o, dO, lse, delta, dq, dk, dv;
+        "flash_attention_bwd_launch":   # B, S, Hq, Hkv, D; softcap, scale
+            ([_P] * 10 + [_I] * 5 + [_F, _F, _P], _I), **_ERR},
     "l2_chase": {
         "l2_chase_launch": ([_P, _I, _P, _P], _I)},
     "sketch_baseline": {    # first designs: as reset, estimate, admit

@@ -51,10 +51,18 @@
 //   masked P of 0 times a NaN there is NaN.  So the consumers zero the V
 //   rows from kv_len to the end of the last tile in shared memory before
 //   its P V (scores of such keys are masked by a select, so K needs none).
+//
+// The training instances (flash_attention_train_launch: causal, q_offset 0,
+// the whole of k and v) also write each row's log-sum-exp of its scores,
+// m + log l in fp32 at (B, Hq, Sq), which the backward kernel
+// (flash_attention_bwd.cu) reads to recompute P.  Their parameters are a
+// TrainParams, so the serving instances keep their Params and their code.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -73,6 +81,10 @@ struct Params {
   int b, sq, skv, hq, hkv, gp;    // gp: query heads per work item
   int causal, q_offset, kv_len_default;
   float softcap, scale;
+};
+
+struct TrainParams : Params {
+  float* lse;                     // (B, Hq, Sq): m + log l of each row
 };
 
 // Shared-memory layout (bytes from a 1024-aligned base) for head dim D.
@@ -412,10 +424,11 @@ __device__ __forceinline__ int next_item(int u) {
   return r * g + (r & 1 ? g - 1 - c : c);
 }
 
-template <int D, bool SOFTCAP>
+template <int D, bool SOFTCAP, class P>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attention_kernel(const __grid_constant__ Params p) {
+flash_attention_kernel(const __grid_constant__ P p) {
   using L = Layout<D>;
+  constexpr bool LSE = std::is_same<P, TrainParams>::value;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -636,6 +649,17 @@ flash_attention_kernel(const __grid_constant__ Params p) {
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float d0 = 1.f / fmaxf(l0, 1e-30f), d1 = 1.f / fmaxf(l1, 1e-30f);
+      if constexpr (LSE) {
+        // m is in the units of the scores before the scale, unless capped
+        if ((lane & 3) == 0) {
+          const float cm = SOFTCAP ? 1.f : p.scale;
+          float* lse = p.lse + (static_cast<size_t>(it.bi) * p.hq + it.h0)
+                                   * p.sq;
+          if (pos0 < p.sq) lse[(r0 % p.gp) * p.sq + pos0] = m0 * cm + logf(l0);
+          if (pos1 < p.sq)
+            lse[((r0 + 8) % p.gp) * p.sq + pos1] = m1 * cm + logf(l1);
+        }
+      }
       __nv_bfloat16* out0 = p.out + ((static_cast<size_t>(it.bi) * p.sq
                                       + pos0) * p.hq + it.h0 + r0 % p.gp)
                                     * D + c;
@@ -709,8 +733,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int h, int s, int b,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool SOFTCAP>
-cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
+template <int D, bool SOFTCAP, class P>
+cudaError_t launch(P& p, const void* q, const void* k, const void* v,
                    int b, int d, long long ksb, long long kss, long long ksh,
                    long long vsb, long long vss, long long vsh,
                    cudaStream_t stream) {
@@ -727,7 +751,7 @@ cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
   static bool sized = false;      // per instantiation: above 48 KB opt-in
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D, SOFTCAP>,
+        flash_attention_kernel<D, SOFTCAP, P>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (err != cudaSuccess) return err;
     sized = true;
@@ -741,9 +765,63 @@ cudaError_t launch(Params& p, const void* q, const void* k, const void* v,
     if (sms < 1) sms = 1;
   }
   const int items = (p.sq + npos - 1) / npos * (p.hq / p.gp) * b;
-  flash_attention_kernel<D, SOFTCAP>
+  flash_attention_kernel<D, SOFTCAP, P>
       <<<items < sms ? items : sms, THREADS, L::BYTES, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The instance for head dim d and the softcap, over the parameter type.
+template <class P>
+cudaError_t dispatch(P& p, const void* q, const void* k, const void* v, int d,
+                     int ksb, int kss, int ksh, int vsb, int vss, int vsh,
+                     cudaStream_t s) {
+  const bool cap = p.softcap > 0.f;
+  const int b = p.b;
+  switch (d) {
+    case 16: return cap ? launch<16, true>(p, q, k, v, b, d, ksb, kss, ksh,
+                                           vsb, vss, vsh, s)
+                        : launch<16, false>(p, q, k, v, b, d, ksb, kss, ksh,
+                                            vsb, vss, vsh, s);
+    case 32: return cap ? launch<32, true>(p, q, k, v, b, d, ksb, kss, ksh,
+                                           vsb, vss, vsh, s)
+                        : launch<32, false>(p, q, k, v, b, d, ksb, kss, ksh,
+                                            vsb, vss, vsh, s);
+    case 64: return cap ? launch<64, true>(p, q, k, v, b, d, ksb, kss, ksh,
+                                           vsb, vss, vsh, s)
+                        : launch<64, false>(p, q, k, v, b, d, ksb, kss, ksh,
+                                            vsb, vss, vsh, s);
+    case 128: return cap ? launch<128, true>(p, q, k, v, b, d, ksb, kss, ksh,
+                                             vsb, vss, vsh, s)
+                         : launch<128, false>(p, q, k, v, b, d, ksb, kss,
+                                              ksh, vsb, vss, vsh, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Query heads of one KV group per work item: the largest power of two that
+// divides Hq / Hkv, at most 16.
+int heads_per_item(int hq, int hkv) {
+  int gp = 1;
+  while (gp < 16 && (hq / hkv) % (2 * gp) == 0) gp *= 2;
+  return gp;
+}
+
+void fill(Params& p, void* out, const int* kv_len, int b, int sq, int skv,
+          int hq, int hkv, int causal, int q_offset, int kv_len_default,
+          float softcap, float scale) {
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.kv_len = kv_len;
+  p.b = b;
+  p.sq = sq;
+  p.skv = skv;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.gp = heads_per_item(hq, hkv);
+  p.causal = causal;
+  p.q_offset = q_offset;
+  p.kv_len_default = kv_len_default;
+  p.softcap = softcap;
+  p.scale = scale;
 }
 
 }  // namespace
@@ -754,45 +832,26 @@ extern "C" int flash_attention_launch(
     int vsb, int vss, int vsh, int causal, int q_offset, int kv_len_default,
     float softcap, float scale, void* stream) {
   if (sq == 0 || b == 0) return 0;
-  int gp = 1;                     // query heads of one KV group per CTA
-  while (gp < 16 && (hq / hkv) % (2 * gp) == 0) gp *= 2;
   Params p{};
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.kv_len = kv_len;
-  p.b = b;
-  p.sq = sq;
-  p.skv = skv;
-  p.hq = hq;
-  p.hkv = hkv;
-  p.gp = gp;
-  p.causal = causal;
-  p.q_offset = q_offset;
-  p.kv_len_default = kv_len_default;
-  p.softcap = softcap;
-  p.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool cap = softcap > 0.f;
-  cudaError_t err;
-  switch (d) {
-    case 16: err = cap ? launch<16, true>(p, q, k, v, b, d, ksb, kss, ksh, vsb,
-                                          vss, vsh, s)
-                       : launch<16, false>(p, q, k, v, b, d, ksb, kss, ksh,
-                                           vsb, vss, vsh, s); break;
-    case 32: err = cap ? launch<32, true>(p, q, k, v, b, d, ksb, kss, ksh, vsb,
-                                          vss, vsh, s)
-                       : launch<32, false>(p, q, k, v, b, d, ksb, kss, ksh,
-                                           vsb, vss, vsh, s); break;
-    case 64: err = cap ? launch<64, true>(p, q, k, v, b, d, ksb, kss, ksh, vsb,
-                                          vss, vsh, s)
-                       : launch<64, false>(p, q, k, v, b, d, ksb, kss, ksh,
-                                           vsb, vss, vsh, s); break;
-    case 128: err = cap ? launch<128, true>(p, q, k, v, b, d, ksb, kss, ksh,
-                                            vsb, vss, vsh, s)
-                        : launch<128, false>(p, q, k, v, b, d, ksb, kss, ksh,
-                                             vsb, vss, vsh, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  fill(p, out, kv_len, b, sq, skv, hq, hkv, causal, q_offset, kv_len_default,
+       softcap, scale);
+  return static_cast<int>(dispatch(p, q, k, v, d, ksb, kss, ksh, vsb, vss,
+                                   vsh, static_cast<cudaStream_t>(stream)));
+}
+
+// The training forward: causal self-attention over contiguous q (B, S, Hq,
+// D), k and v (B, S, Hkv, D), q_offset 0, every key valid; writes out and
+// the rows' log-sum-exp lse (B, Hq, S, fp32).
+extern "C" int flash_attention_train_launch(
+    const void* q, const void* k, const void* v, void* out, float* lse, int b,
+    int s, int hq, int hkv, int d, float softcap, float scale, void* stream) {
+  if (s == 0 || b == 0) return 0;
+  TrainParams p{};
+  fill(p, out, nullptr, b, s, s, hq, hkv, 1, 0, s, softcap, scale);
+  p.lse = lse;
+  const int kss = hkv * d, ksb = s * kss;
+  return static_cast<int>(dispatch(p, q, k, v, d, ksb, kss, d, ksb, kss, d,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -25,6 +25,20 @@ one CTA per 128 rows of up to 16 query heads that share a KV head; see the
 source) reads K and V through their strides, so a slice of the KV cache
 goes in without a copy, and cache slots past ``kv_len`` never reach its
 output, whatever they hold.
+
+Training: when grad mode is on and q, k or v requires grad,
+``flash_attention`` goes through ``FlashAttentionFn``, whose contract is
+the training call's (causal, ``q_offset`` 0, no ``kv_len``, as many keys as
+queries; any other differentiable call raises).  Its forward is the
+kernel's training instance, which also writes each row's log-sum-exp
+(``m + log l`` of the scaled, capped scores, fp32, (B, Hq, Sq)); its
+backward is the hand-written kernel of ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``), the standard recomputation from that LSE, with
+dk and dv summed over the query heads of each KV head (the VJP of the
+reference's ``repeat_kv``).  On CPU tensors the two are the plain
+versions, ``flash_attention_ref(..., return_lse=True)`` and
+``flash_attention_bwd_ref``.  No path returns an output cut off from the
+graph.
 """
 from __future__ import annotations
 
@@ -68,11 +82,22 @@ def _visit(Sq: int, Skv: int, causal: bool, q_offset: int, kv_len) -> int:
     return n
 
 
+def _check_train(q, k, v, causal, q_offset, kv_len) -> None:
+    """The differentiable call's contract: causal self-attention over the
+    whole segment."""
+    _check(causal and q_offset == 0 and kv_len is None
+           and k.shape[1] == q.shape[1],
+           "flash_attention: a differentiable call takes causal attention "
+           "with q_offset 0, no kv_len and as many keys as queries (the "
+           "training contract)")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0, kv_len=None,
-                        softcap: float = 0.0) -> torch.Tensor:
+                        softcap: float = 0.0, return_lse: bool = False):
     """Plain version on any device; ``kv_len`` is None, an int or a (B,)
-    tensor.  Returns (B, Sq, Hq, D) in q's dtype."""
+    tensor.  Returns (B, Sq, Hq, D) in q's dtype, and with ``return_lse``
+    also each row's log-sum-exp of its scores (B, Hq, Sq) fp32."""
     _check_inputs(q, k, v, kv_len)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -109,7 +134,60 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / l.clamp(min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(dt)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(dt)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, Hq, Sq)
+    return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            softcap: float = 0.0):
+    """Plain version of the backward kernel (causal, q_offset 0, every key
+    valid), tile by tile over 64 keys: delta = rowsum(dO o O); P =
+    exp(s - lse); dV = P^T dO with P rounded to q's dtype as the forward
+    rounds it; dS = P o (dO V^T - delta), times 1 - (s / cap)^2 with a
+    softcap; dQ = dS K / sqrt(D); dK = dS^T Q / sqrt(D); dK and dV summed
+    over each KV head's query heads.  Returns (dq, dk, dv) in q's dtype."""
+    _check_inputs(q, k, v, None)
+    _check_train(q, k, v, True, 0, None)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    dt, dev = q.dtype, q.device
+    scale = 1.0 / math.sqrt(D)
+
+    def grouped(x):                     # (B, S, Hq, D) -> (B, Hkv, G, S, D)
+        return x.float().reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    qf, dof = grouped(q), grouped(do)
+    delta = (dof * grouped(o)).sum(-1)                  # (B, Hkv, G, S)
+    lsef = lse.float().reshape(B, Hkv, G, S)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, Hkv, S, D), device=dev)
+    dv = torch.zeros((B, Hkv, S, D), device=dev)
+    q_pos = torch.arange(S, device=dev)
+    for k0 in range(0, S, TILE):
+        kb = k[:, k0:k0 + TILE].to(dt).float().transpose(1, 2)  # (B,Hkv,kb,D)
+        vb = v[:, k0:k0 + TILE].to(dt).float().transpose(1, 2)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * scale
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+        k_pos = k0 + torch.arange(kb.shape[2], device=dev)
+        vis = q_pos[:, None] >= k_pos[None, :]
+        p = torch.where(vis, torch.exp(s - lsef[..., None]), 0.0)
+        dv[:, :, k0:k0 + TILE] = torch.einsum(
+            "bhgqk,bhgqd->bhkd", p.to(dt).float(), dof)
+        ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, vb)
+                  - delta[..., None])
+        if softcap:
+            ds = ds * (1.0 - t * t)
+        dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb) * scale
+        dk[:, :, k0:k0 + TILE] = torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                                              qf) * scale
+    return (dq.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(dt),
+            dk.transpose(1, 2).to(dt), dv.transpose(1, 2).to(dt))
 
 
 def _strided_ptr(name: str, t: torch.Tensor) -> int:
@@ -126,22 +204,32 @@ def _strided_ptr(name: str, t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def _check_kernel(name: str, *ts: torch.Tensor) -> None:
+    _check(all(t.is_cuda for t in ts),
+           f"{name}: the kernel takes CUDA tensors only")
+    _check(all(t.dtype == torch.bfloat16 for t in ts),
+           f"{name}: the kernel takes bf16 tensors")
+    D = ts[0].shape[3]
+    _check(D in KERNEL_HEAD_DIMS, f"{name}: head dim {D} not in "
+           f"{KERNEL_HEAD_DIMS}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with 16-byte aligned rows (the kernels' loads and
+    the TMA maps need them)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, q_offset: int, kv_len, softcap: float
             ) -> torch.Tensor:
     """One launch of ``csrc/flash_attention.cu`` on the current stream;
     returns the (B, Sq, Hq, D) output.  No host sync."""
     from ._build import launch
-    _check(q.is_cuda and k.is_cuda and v.is_cuda,
-           "flash_attention: the kernel takes CUDA tensors only")
-    _check(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-           "flash_attention: the kernel takes bf16 q, k and v")
+    _check_kernel("flash_attention", q, k, v)
     B, Sq, Hq, D = q.shape
-    _check(D in KERNEL_HEAD_DIMS, f"flash_attention: head dim {D} not in "
-           f"{KERNEL_HEAD_DIMS}")
-    q = q.contiguous()
-    if q.data_ptr() % 16:           # the kernel's TMA map needs 16-byte rows
-        q = q.clone()
+    q = _aligned(q)
     kp, vp = _strided_ptr("k", k), _strided_ptr("v", v)
     out = torch.empty_like(q)
     if isinstance(kv_len, torch.Tensor):
@@ -156,13 +244,91 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _launch_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  softcap: float):
+    """One launch of the forward kernel's training instance: (out, lse)."""
+    from ._build import launch
+    _check_kernel("flash_attention", q, k, v)
+    B, S, Hq, D = q.shape
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    launch("flash_attention", "flash_attention_train_launch", q, k, v, out,
+           lse, B, S, Hq, k.shape[2], D, float(softcap), 1.0 / math.sqrt(D))
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, softcap: float = 0.0):
+    """(dq, dk, dv) of causal attention, :func:`flash_attention_bwd_ref`'s
+    contract.  CUDA tensors: one launch of ``csrc/flash_attention_bwd.cu``
+    (its three kernels on the current stream; a failed build or launch, or
+    a call outside the contract, raises); CPU tensors: the plain
+    version."""
+    _check_inputs(q, k, v, None)
+    _check_train(q, k, v, True, 0, None)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, softcap=softcap)
+    from ._build import launch
+    _check_kernel("flash_attention_bwd", q, k, v, o, do)
+    B, S, Hq, D = q.shape
+    _check(o.shape == q.shape and do.shape == q.shape,
+           "flash_attention_bwd: o and dO must have q's shape")
+    _check(lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+           and lse.is_cuda, "flash_attention_bwd: lse must be (B, Hq, S) "
+           "fp32 on the card")
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", "flash_attention_bwd_launch", q, k, v, o,
+           do, lse, delta, dq, dk, dv, B, S, Hq, k.shape[2], D,
+           float(softcap), 1.0 / math.sqrt(D))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0    # launches since the last reset to 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal attention under autograd: the training forward (the kernel's
+    LSE instance on CUDA, the plain version on the CPU), which saves q, k,
+    v, the output and the LSE, and ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softcap: float):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_ref(q, k, v, causal=True,
+                                           softcap=softcap, return_lse=True)
+        else:
+            out, lse = _launch_train(q, k, v, softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.softcap = softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
+                                         softcap=ctx.softcap)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0, kv_len=None,
                     softcap: float = 0.0) -> torch.Tensor:
     """Attention with :func:`flash_attention_ref`'s contract.  CUDA
     tensors: one kernel launch (a failed build or launch raises); CPU
-    tensors: the plain version."""
+    tensors: the plain version.  With grad mode on and an input that
+    requires grad: ``FlashAttentionFn`` (the training contract)."""
     _check_inputs(q, k, v, kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _check_train(q, k, v, causal, q_offset, kv_len)
+        return FlashAttentionFn.apply(q, k, v, float(softcap))
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
               softcap=softcap)
     if q.device.type == "cpu":
@@ -170,4 +336,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, **kw)
 
 
-flash_attention.launches = 0    # kernel launches since the last reset to 0
+flash_attention.launches = 0    # launches of either instance since the
+                                # last reset to 0

@@ -1,12 +1,14 @@
 """Model API over the family implementations.
 
 Counterpart of ``repro/models/api.py``: ``Model`` exposes ``init``,
-``init_cache``, ``prefill``, ``decode`` and ``lm_head`` with the
-reference's arguments, plus an explicit ``device`` (the card unless
-``"cpu"``), for every family: dense, moe, vlm and audio
-(``transformer``), hybrid_ssm (``zamba``) and xlstm (``xlstm``).
-``hidden_train`` and ``input_specs`` come with the training slice
-(ROADMAP queue 1 item 14, training).
+``hidden_train``, ``init_cache``, ``prefill``, ``decode``, ``lm_head`` and
+``input_specs`` with the reference's arguments, plus an explicit
+``device`` (the card unless ``"cpu"``), for every family: dense, moe, vlm
+and audio (``transformer``), hybrid_ssm (``zamba``) and xlstm (``xlstm``).
+``module(train=True)`` and ``init(..., train=True)`` give the training
+storage (fp32 masters that require grad, stacked per reference leaf:
+``common.stack_leaves``); ``input_specs`` gives ``device="meta"`` tensors,
+the counterpart of the reference's ``jax.ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
@@ -16,10 +18,14 @@ import torch
 
 from repro_torch.kernels.sketch_common import resolve_device
 from . import transformer, xlstm, zamba
-from .common import ModelConfig
+from .common import ModelConfig, stack_leaves, train_storage
 
-_TRAINING = ("ROADMAP queue 1 item 14 (training): forward_train, "
-             "hidden_train and input_specs come with the training slice")
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
 
 
 def _family_mod(cfg: ModelConfig):
@@ -51,21 +57,26 @@ class Model:
         self.device = resolve_device(self.device)
 
     # -- parameters -----------------------------------------------------------
-    def module(self) -> torch.nn.Module:
-        """The family's parameter module, uninitialised, on the device."""
-        return _PARTS[self._mod][0](self.cfg, self.device)
+    def module(self, train: bool = False) -> torch.nn.Module:
+        """The family's parameter module, uninitialised, on the device;
+        with ``train`` in the training storage."""
+        if not train:
+            return _PARTS[self._mod][0](self.cfg, self.device)
+        with train_storage():
+            return stack_leaves(_PARTS[self._mod][0](self.cfg, self.device))
 
-    def init(self, generator: torch.Generator) -> torch.nn.Module:
+    def init(self, generator: torch.Generator,
+             train: bool = False) -> torch.nn.Module:
         """Random weights from ``generator``, which must draw on the
         model's device."""
-        return self.module().init(self.cfg, generator)
+        return self.module(train).init(self.cfg, generator)
 
-    # -- training (the next slice) --------------------------------------------
-    def hidden_train(self, params, batch, remat: bool = True):
-        raise NotImplementedError(_TRAINING)
-
-    def input_specs(self, kind: str) -> dict:
-        raise NotImplementedError(_TRAINING)
+    # -- training forward (head applied by train/losses.py, chunked) ---------
+    def hidden_train(self, params, batch: dict, remat: bool = True):
+        """(hidden (B,S',M), aux_loss) of a training module."""
+        return self._mod.forward_train(
+            params, batch["tokens"], self.cfg,
+            vision_embeds=batch.get("vision_embeds"), remat=remat)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -86,6 +97,28 @@ class Model:
 
     def lm_head(self, params, hidden: torch.Tensor) -> torch.Tensor:
         return transformer.lm_head(params, hidden, self.cfg)
+
+    # -- dry-run input specs ---------------------------------------------------
+    def input_specs(self, kind: str) -> dict:
+        """Stand-ins (``device="meta"``: shape and dtype, no storage) for
+        each input of a ``SHAPES`` kind."""
+        cfg = self.cfg
+        sh = SHAPES[kind]
+        B, S = sh["global_batch"], sh["seq_len"]
+        meta = torch.device("meta")
+
+        def tokens(s):
+            shape = (B, s, cfg.n_codebooks) if cfg.n_codebooks else (B, s)
+            return torch.empty(shape, dtype=torch.int32, device=meta)
+        if sh["kind"] in ("train", "prefill"):
+            specs = {"tokens": tokens(S)}
+            if cfg.n_vis_tokens:
+                specs["vision_embeds"] = torch.empty(
+                    (B, cfg.n_vis_tokens, cfg.d_model), dtype=torch.bfloat16,
+                    device=meta)
+            return specs
+        return {"tokens": tokens(1), "cache": self.init_cache(B, S,
+                                                              device=meta)}
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

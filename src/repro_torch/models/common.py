@@ -5,11 +5,22 @@ reference's fields and properties, with torch dtypes; the init helpers draw
 from an explicit ``torch.Generator``, so a model's weights follow from its
 seed (they are not the JAX package's numbers: the two generators differ).
 The sharding policy hooks are not ported.
+
+Two storage modes share the module classes.  Serving stores each leaf as
+the reference's ``cast_params`` leaves it (the compute dtype where it
+casts, the parameter dtype elsewhere), frozen.  Training (a module built
+under ``train_storage()``) stores every leaf in the parameter dtype (fp32
+masters) with ``requires_grad``; ``stack_leaves`` then gives each leaf of
+the reference's stacked tree one tensor, of which the per-layer parameters
+are views, with a gradient buffer laid out the same way, and
+``cast_params`` gives the compute-dtype view a training forward reads.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from dataclasses import dataclass
 from typing import Any
 
@@ -103,6 +114,20 @@ class ModelConfig:
 # init helpers
 # ---------------------------------------------------------------------------
 
+_STORAGE = threading.local()
+
+
+@contextlib.contextmanager
+def train_storage():
+    """Modules built inside store fp32 masters that require grad."""
+    prev = getattr(_STORAGE, "train", False)
+    _STORAGE.train = True
+    try:
+        yield
+    finally:
+        _STORAGE.train = prev
+
+
 def _param(shape, cfg: ModelConfig, device, cast: bool | None = None
            ) -> nn.Parameter:
     """An uninitialised parameter in the compute dtype when ``cast`` (by
@@ -113,12 +138,16 @@ def _param(shape, cfg: ModelConfig, device, cast: bool | None = None
     through ``rmsnorm``, which casts them, and stay in the parameter
     dtype; the other 1-D leaves of the Mamba2 and xLSTM stacks (biases,
     ``A_log``, ``D``), some of which enter fp32 arithmetic, pass
-    ``cast=True``."""
+    ``cast=True``.  Under ``train_storage()`` every leaf is an fp32 master
+    that requires grad, and ``cast_params`` casts the ones marked cast."""
     if cast is None:
         cast = len(shape) >= 2
-    dt = cfg.compute_dtype if cast else cfg.param_dtype
-    return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
-                        requires_grad=False)
+    train = getattr(_STORAGE, "train", False)
+    dt = cfg.compute_dtype if cast and not train else cfg.param_dtype
+    p = nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                     requires_grad=train)
+    p.ref_cast = cast               # the reference's cast_params casts it
+    return p
 
 
 def dense_init(shape, generator: torch.Generator, dtype=torch.float32,
@@ -141,3 +170,136 @@ def embed_init(shape, generator: torch.Generator, dtype=torch.float32,
     t = torch.empty(shape, dtype=torch.float32, device=device)
     t.normal_(0.0, 0.02, generator=generator)
     return t.to(dtype)
+
+
+def param_count(params) -> int:
+    """Values in a module's parameters or a tree of arrays."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return int(math.prod(params.shape))
+
+
+# ---------------------------------------------------------------------------
+# the reference's stacked tree over a module's per-layer parameters
+# ---------------------------------------------------------------------------
+
+def _owners(module: nn.Module, path=(), idx=()):
+    """(tree path, stack index, owning module, attribute) for every
+    parameter of ``module``, its ModuleLists read as stacks: a dict key is
+    an attribute, and the i-th module of a ModuleList takes index i of the
+    stack's next axis."""
+    if isinstance(module, nn.ModuleList):
+        for i, m in enumerate(module):
+            yield from _owners(m, path, idx + (i,))
+        return
+    for name, _ in module.named_parameters(recurse=False):
+        yield path + (name,), idx, module, name
+    for name, m in module.named_children():
+        yield from _owners(m, path + (name,), idx)
+
+
+def by_path(module: nn.Module) -> dict:
+    """Tree path -> [(stack index, parameter)] in stack order."""
+    out: dict = {}
+    for path, idx, owner, name in _owners(module):
+        out.setdefault(path, []).append((idx, getattr(owner, name)))
+    return out
+
+
+@dataclass
+class Leaf:
+    """One leaf of the reference's tree: ``value`` (stack axes first; the
+    per-layer parameters are views of it) and ``grad``, laid out the same
+    way, into which backward accumulates."""
+    path: tuple
+    value: torch.Tensor
+    grad: torch.Tensor
+
+
+def stack_leaves(module: nn.Module) -> nn.Module:
+    """Rebind a training module's parameters as views of one tensor per
+    reference leaf, each with a gradient view of one zeroed buffer per
+    leaf (backward adds into a defined ``.grad`` in place), and keep the
+    leaves, in the reference's order (keys sorted at every level), as
+    ``module.ref_leaves``.  Returns ``module``."""
+    groups: dict = {}
+    for path, idx, owner, name in _owners(module):
+        groups.setdefault(path, []).append((idx, owner, name))
+    leaves = {}
+    for path, items in groups.items():
+        first = getattr(items[0][1], items[0][2])
+        stack = tuple(max(i[k] for i, _, _ in items) + 1
+                      for k in range(len(items[0][0])))
+        value = torch.empty(stack + tuple(first.shape), dtype=first.dtype,
+                            device=first.device)
+        grad = torch.zeros_like(value)
+        for idx, owner, name in items:
+            old = getattr(owner, name)
+            with torch.no_grad():
+                value[idx].copy_(old)
+            p = nn.Parameter(value[idx], requires_grad=old.requires_grad)
+            p.ref_cast = old.ref_cast
+            p.grad = grad[idx]
+            setattr(owner, name, p)
+        leaves[path] = Leaf(path, value, grad)
+    module.ref_leaves = [leaves[p] for p in sorted(leaves)]
+    return module
+
+
+def leaf_tree(module: nn.Module, what: str = "value") -> dict:
+    """The reference's dict tree of ``module.ref_leaves``' values (or
+    gradients)."""
+    tree: dict = {}
+    for leaf in module.ref_leaves:
+        node = tree
+        for k in leaf.path[:-1]:
+            node = node.setdefault(k, {})
+        node[leaf.path[-1]] = getattr(leaf, what)
+    return tree
+
+
+class CastView:
+    """A module's parameters as a training forward reads them: the same
+    attributes (ModuleLists as lists, children as views), each parameter
+    the reference's ``cast_params`` casts as a differentiable ``.to`` of
+    the compute dtype, the others as they are, each made on first access
+    and kept; the module's methods run on the view."""
+
+    def __init__(self, module: nn.Module, dtype: torch.dtype):
+        self._module = module
+        self._dtype = dtype
+
+    def __getattr__(self, name):
+        m = self._module
+        if name in m._parameters:
+            p = m._parameters[name]
+            val = (p.to(self._dtype) if p.ref_cast and p.dtype ==
+                   torch.float32 else p)
+        elif name in m._modules:
+            val = _view(m._modules[name], self._dtype)
+        else:
+            attr = getattr(type(m), name)
+            return attr.__get__(self) if callable(attr) else attr
+        setattr(self, name, val)
+        return val
+
+
+def _view(m: nn.Module, dtype: torch.dtype):
+    if isinstance(m, nn.ModuleList):
+        return [_view(x, dtype) for x in m]
+    return CastView(m, dtype)
+
+
+def cast_params(params: nn.Module, cfg: ModelConfig):
+    """The compute-dtype view of a training module (the reference's
+    ``cast_params``: leaves of two or more dimensions in its stacked tree,
+    fp32 ones, to the compute dtype).  A serving module is returned as it
+    is: it stores those leaves cast already."""
+    if getattr(params, "ref_leaves", None) is None:     # serving storage
+        return params
+    if not cfg.cast_params_once:
+        raise NotImplementedError("cast_params_once=False: the port's "
+                                  "training forward reads the cast view")
+    return CastView(params, cfg.compute_dtype)

@@ -15,7 +15,10 @@ so that a large model's tree never sits whole in host memory), into the
 family's module, casting as the reference's ``cast_params`` does;
 ``params_to_numpy`` gives the tree back (fp32 numpy arrays, exact for
 bf16 weights).  With the same tree both frameworks compute the same
-function.
+function.  With ``train=True`` the module is the training storage (fp32
+masters, ``common.stack_leaves``); ``grads_to_numpy`` gives its gradients
+in the reference's tree, and ``tree_to_numpy`` / ``tree_from_numpy``
+carry an optimizer's state (a dict tree of tensors) either way.
 """
 from __future__ import annotations
 
@@ -25,27 +28,7 @@ from torch import nn
 
 from repro_torch.kernels.sketch_common import resolve_device
 from .api import Model
-from .common import ModelConfig
-
-
-def _targets(module: nn.Module, path=(), idx=()):
-    """(tree path, stack index, parameter) for every parameter of
-    ``module``, its ModuleLists read as stacks."""
-    if isinstance(module, nn.ModuleList):
-        for i, m in enumerate(module):
-            yield from _targets(m, path, idx + (i,))
-        return
-    for name, p in module.named_parameters(recurse=False):
-        yield path + (name,), idx, p
-    for name, m in module.named_children():
-        yield from _targets(m, path + (name,), idx)
-
-
-def _by_path(model: nn.Module) -> dict:
-    out: dict = {}
-    for path, idx, p in _targets(model):
-        out.setdefault(path, []).append((idx, p))
-    return out
+from .common import ModelConfig, by_path, leaf_tree
 
 
 def _flatten(tree: dict, path=()):
@@ -61,12 +44,14 @@ def _name(path) -> str:
 
 
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree, device=None) -> nn.Module:
-    """The family's module (``Model(cfg).module()``) holding ``tree``'s
-    weights, on ``device`` (the card unless ``"cpu"``).  ``tree`` is the
-    reference's dict tree or an iterable of its (path, array) leaves."""
-    model = Model(cfg, resolve_device(device)).module()
-    want = _by_path(model)
+def params_from_numpy(cfg: ModelConfig, tree, device=None,
+                      train: bool = False) -> nn.Module:
+    """The family's module (``Model(cfg).module(train)``) holding
+    ``tree``'s weights, on ``device`` (the card unless ``"cpu"``).
+    ``tree`` is the reference's dict tree or an iterable of its (path,
+    array) leaves."""
+    model = Model(cfg, resolve_device(device)).module(train)
+    want = by_path(model)
     leaves = _flatten(tree) if isinstance(tree, dict) else tree
     seen = set()
     for path, a in leaves:
@@ -95,7 +80,7 @@ def params_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
     """``model``'s weights as the JAX package's tree of fp32 numpy
     arrays."""
     tree: dict = {}
-    for path, items in _by_path(model).items():
+    for path, items in by_path(model).items():
         stack = tuple(max(i[k] for i, _ in items) + 1
                       for k in range(len(items[0][0])))
         arr = np.empty(stack + tuple(items[0][1].shape), np.float32)
@@ -106,3 +91,26 @@ def params_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = arr
     return tree
+
+
+def tree_to_numpy(tree):
+    """A dict tree of tensors as one of numpy arrays (host copies)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def tree_from_numpy(tree, device=None):
+    """A dict tree of numpy arrays as one of tensors on ``device`` (the
+    card unless ``"cpu"``); 0-d leaves (an optimizer's ``step``) stay on
+    the host."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return torch.from_numpy(a.copy()).to("cpu" if a.ndim == 0 else dev)
+
+
+def grads_to_numpy(model: nn.Module) -> dict:
+    """A training module's gradients as the reference's tree (fp32)."""
+    return tree_to_numpy(leaf_tree(model, "grad"))

@@ -16,17 +16,21 @@ of two or more dimensions to the compute dtype on each call
 (``cast_params``); the port stores those parameters in the compute dtype
 once, which gives the same values, and keeps the 1-D norm weights in the
 parameter dtype (they enter only through ``rmsnorm``, which casts them).
-The KV cache is updated in place.  ``forward_train`` comes with the
-training slice.
+The KV cache is updated in place.  ``forward_train`` reads a training
+module (fp32 masters) through ``cast_params``, as the reference does, and
+recomputes each superblock in its backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .common import ModelConfig, _param, dense_init, embed_init
+from .common import ModelConfig, _param, cast_params, dense_init, embed_init
 from .layers import (rmsnorm, rope_cos_sin, apply_rope, flash_attention,
                      decode_attention, swiglu)
 from .moe import MoE, moe_layer
@@ -235,9 +239,9 @@ def embed_tokens(params: Transformer, tokens: torch.Tensor,
     if cfg.n_codebooks:
         x = 0
         for k in range(cfg.n_codebooks):        # summed in the weights' dtype
-            x = x + emb[k][tokens[..., k]]
+            x = x + F.embedding(tokens[..., k], emb[k])
     else:
-        x = emb[tokens]
+        x = F.embedding(tokens, emb)
     x = x.to(cfg.compute_dtype) * cfg.scale_emb
     if cfg.n_vis_tokens and vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
@@ -247,6 +251,7 @@ def embed_tokens(params: Transformer, tokens: torch.Tensor,
 def lm_head(params: Transformer, x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """x (B,S,M) -> logits (B,S,V), or (B,S,K,V) with codebooks, fp32."""
+    params = cast_params(params, cfg)
     h = rmsnorm(x, params.final_norm, cfg.norm_eps)
     if cfg.n_codebooks:
         logits = torch.einsum("bsm,kmv->bskv", h, params.out_head)
@@ -257,6 +262,37 @@ def lm_head(params: Transformer, x: torch.Tensor,
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., :cfg.vocab_size]
     return logits
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def forward_train(params: Transformer, tokens: torch.Tensor,
+                  cfg: ModelConfig, *, vision_embeds=None,
+                  remat: bool = True):
+    """Returns (hidden (B,S',M) before the final norm, aux_loss): the head
+    and the loss are the caller's (``train/losses.py``)."""
+    params = cast_params(params, cfg)
+    x = embed_tokens(params, tokens, cfg, vision_embeds)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+
+    def superblock(x, aux, blk):
+        for j in range(n_attn(cfg)):
+            x, _ = attn_block_train(getattr(blk, f"attn{j}"), x, cfg,
+                                    positions)
+            x, a = ffn_or_moe(blk, j, x, cfg)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.layers:
+        if remat:
+            x, aux = checkpoint(superblock, x, aux, blk, use_reentrant=False)
+        else:
+            x, aux = superblock(x, aux, blk)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------

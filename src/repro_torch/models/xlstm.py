@@ -8,13 +8,17 @@ superblock ``mlstm``, a stack of ``{"p", "norm"}``, and ``slstm``,
 compute dtype.  The cache is
 ``{"mlstm" (n_super, n_ml, B, H, hd, hd+1), "slstm" {h, c, n, m}
 (n_super, B, M), "pos"}``, all states fp32, updated in place.
+``forward_train`` recomputes each mLSTM block in its backward, as the
+reference checkpoints each (the sLSTM blocks are not).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .common import ModelConfig, _param, dense_init, embed_init
+from .common import ModelConfig, _param, cast_params, dense_init, embed_init
 from .layers import rmsnorm
 from .mlstm import (MLSTM, SLSTM, init_mlstm_state, init_slstm_state,
                     mlstm_decode_step, mlstm_forward, slstm_decode_step,
@@ -92,7 +96,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _embed(params: XLSTM, tokens, cfg: ModelConfig) -> torch.Tensor:
-    return params.embed[tokens].to(cfg.compute_dtype)
+    return F.embedding(tokens, params.embed).to(cfg.compute_dtype)
+
+
+def forward_train(params: XLSTM, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  vision_embeds=None, remat: bool = True):
+    """Returns (hidden (B,S,M) before the final norm, aux_loss 0)."""
+    params = cast_params(params, cfg)
+    x = _embed(params, tokens, cfg)
+
+    def ml_body(x, cell):
+        h = rmsnorm(x, cell.norm, cfg.norm_eps)
+        return x + mlstm_forward(cell.p, h, cfg)[0]
+
+    for sup in params.supers:
+        for cell in sup.mlstm:
+            x = (checkpoint(ml_body, x, cell, use_reentrant=False) if remat
+                 else ml_body(x, cell))
+        h = rmsnorm(x, sup.slstm.norm, cfg.norm_eps)
+        x = x + slstm_forward(sup.slstm.p, h, cfg)[0]
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def run_stack(params: XLSTM, x: torch.Tensor, cfg: ModelConfig,

@@ -12,14 +12,18 @@ remaining layers).  Each layer's leaves but its norm weights are in the
 compute dtype (the reference's cast of its stacks).  The cache is ``{"mamba": {"conv",
 "ssm"}, "k", "v", "pos"}``, the layer axis first, updated in place; its
 conv leaf takes the dtype the reference's would come back in (that of the
-cache and the compute dtype, promoted).
+cache and the compute dtype, promoted).  ``forward_train`` recomputes each
+Mamba2 layer in its backward, as the reference checkpoints each (the shared
+block is not).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .common import ModelConfig, _param, dense_init, embed_init
+from .common import ModelConfig, _param, cast_params, dense_init, embed_init
 from .layers import rmsnorm
 from .mamba2 import (Mamba2, init_mamba_state, mamba2_decode_step,
                      mamba2_forward)
@@ -112,7 +116,7 @@ def _store_state(cache: dict, li: int, state: dict) -> None:
 
 
 def _embed(params: Zamba, tokens, cfg: ModelConfig) -> torch.Tensor:
-    return params.embed[tokens].to(cfg.compute_dtype)
+    return F.embedding(tokens, params.embed).to(cfg.compute_dtype)
 
 
 def mamba_block(layer: MambaLayer, x: torch.Tensor, cfg: ModelConfig,
@@ -130,6 +134,26 @@ def layer_schedule(params: Zamba, cfg: ModelConfig):
         g = li // cfg.attn_every
         last = li % cfg.attn_every == cfg.attn_every - 1 and g < groups
         yield li, layer, g if last else None
+
+
+def forward_train(params: Zamba, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  vision_embeds=None, remat: bool = True):
+    """Returns (hidden (B,S,M) before the final norm, aux_loss 0)."""
+    params = cast_params(params, cfg)
+    x = _embed(params, tokens, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+
+    def body(x, layer):
+        return mamba_block(layer, x, cfg, None)[0]
+
+    for _, layer, g in layer_schedule(params, cfg):
+        x = (checkpoint(body, x, layer, use_reentrant=False) if remat
+             else body(x, layer))
+        if g is not None:
+            x, _ = attn_block_train(params.shared_attn, x, cfg, positions)
+            x = mlp_block(params.shared_mlp, x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()

@@ -91,15 +91,6 @@ def test_model_init_is_seeded_and_serves(arch):
     assert cache["pos"].tolist() == [6 + cfg.n_vis_tokens]
 
 
-def test_hidden_train_raises_naming_item_14():
-    m = Model(get_config("qwen3-4b", smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        m.hidden_train(None, {"tokens": torch.zeros((1, 4),
-                                                    dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        m.input_specs("train_4k")
-
-
 if __name__ == "__main__":
     from torch_family_cases import print_depth_pins
     print_depth_pins("M1", "llama4-scout-17b-a16e", 1)

@@ -45,7 +45,11 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.serve.driver", "repro_torch.checkpoint",
            "repro_torch.checkpoint.store", "repro_torch.core.faults",
            "repro_torch.distributed", "repro_torch.distributed.mesh",
-           "repro_torch.distributed.launch"]
+           "repro_torch.distributed.launch", "repro_torch.optim",
+           "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
+           "repro_torch.train", "repro_torch.train.losses",
+           "repro_torch.train.train_step", "repro_torch.train.driver",
+           "repro_torch.data", "repro_torch.data.pipeline"]
 
 
 # the host engine runs, not only imports, with jax and repro blocked
@@ -78,13 +82,22 @@ for arch in list_archs():
     assert len(eng.run()) == 2, arch
 """
 
+# and the training driver, one step with a checkpoint
+TRAIN_DRIVE = """
+import tempfile
+from repro_torch.train.driver import train
+out = train("qwen3-4b", steps=1, out_dir=tempfile.mkdtemp(), global_batch=2,
+            seq_len=8, device="cpu")
+assert out["step"] == 1 and out["loss"] > 0
+"""
+
 
 def test_imports_with_jax_and_repro_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in MODULES)
-            + HOST_ENGINE_DRIVE + FAMILY_DRIVE
+            + HOST_ENGINE_DRIVE + FAMILY_DRIVE + TRAIN_DRIVE
             + "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,

@@ -5,7 +5,8 @@ epochs), the four batched sketch kernels (add, estimate, admit, reset; both
 paths of the add on its hazard cases and of the admit at small and large
 batches; all four at the edge geometries, past 8 doorkeeper probes too,
 and one stream of programmatic dependent launches), the flash-attention
-kernel, checkpointed and resumed runs of the engine on the card, a
+kernel (serving, and training: the LSE instance and the backward kernel),
+checkpointed and resumed runs of the engine on the card, a
 prefix of one of the paper's trace families through the engine, and each
 serving family's smoke engine.
 
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 from repro_torch.check_runs import (ADAPT_CASES, ADD_HAZARD_CASES,
-                                    ADMIT_SIZES,
+                                    ADMIT_SIZES, FB_CASES, FB_LSE_TOL,
+                                    FB_TOL,
                                     FLASH_CASES, FLASH_TAIL,
                                     FLASH_TAIL_LENS, HAZARD_CASES, LANE_CASES,
                                     LANES, PANEL_CASES, PANEL_FRACS,
@@ -871,6 +873,52 @@ def test_flash_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention._launch(q, q, q, causal=True, q_offset=0,
                                 kv_len=None, softcap=0.0)
+    assert flash_attention.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(FB_CASES) - 1),
+                         ids=[c[0] for c in FB_CASES[:-1]])
+def test_flash_bwd_kernel_matches_plain_on_card(case):
+    """The training forward (output and LSE) and the backward kernel
+    against their plain versions on chip_smoke.py phase 42's cases (dq,
+    dk, dv within FB_TOL of their largest), each launch counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, B, S, Hq, Hkv, D, cap = FB_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(case)
+    q, do = (torch.randn((B, S, Hq, D), generator=g,
+                         device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    n_fwd = flash_attention.flash_attention.launches
+    n_bwd = flash_attention.flash_attention_bwd.launches
+    out, lse = flash_attention._launch_train(q, k, v, cap)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse,
+                                              softcap=cap)
+    want_o, want_l = flash_attention.flash_attention_ref(
+        q, k, v, softcap=cap, return_lse=True)
+    want = flash_attention.flash_attention_bwd_ref(q, k, v, out, do, lse,
+                                                   softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == n_fwd + 1
+    assert flash_attention.flash_attention_bwd.launches == n_bwd + 1
+    assert float((out.float() - want_o.float()).abs().max()) <= 2e-2
+    assert float((lse - want_l).abs().max()) <= FB_LSE_TOL
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= FB_TOL * float(b.float().abs().max())
+
+
+def test_flash_train_launch_refuses_cpu_tensors():
+    """The training instance's launch path never takes CPU tensors (the
+    autograd Function routes them to the plain version), and a refused
+    launch is not counted."""
+    q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16)
+    before = flash_attention.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention._launch_train(q, q, q, 0.0)
     assert flash_attention.flash_attention.launches == before
 
 
