@@ -297,15 +297,17 @@ card, timed:
 42. FB: the flash backward kernel (``flash_attention_bwd.cu``) against
    ``flash_attention_bwd_ref`` and the forward's training instance
    (output and LSE) against ``flash_attention_ref`` on
-   ``check_runs.FB_CASES`` (head dims 16-128, GQA 1-8, S 1-2,048,
-   softcap 0 and 30, TRP's and TR's shapes): dq, dk, dv each within
-   FB_TOL of the plain version's largest, the output within FLASH_TOL,
-   the LSE within FB_LSE_TOL; ``torch.autograd.grad`` through
+   ``check_runs.FB_CASES`` (head dims 16-128, GQA 1-8, S 1-2,048, the
+   wgmma kernel's tile edges, softcap 0 and 30, batch 1-3, TRP's and TR's
+   shapes): dq, dk, dv each within FB_TOL of the plain version's largest,
+   and a second call bit-equal to the first (the kernel adds its dQ
+   partials in a fixed order), the output within FLASH_TOL, the LSE
+   within FB_LSE_TOL; ``torch.autograd.grad`` through
    ``flash_attention`` on CUDA (no gradient None, bit-equal to the
    kernels' direct calls); calls outside the training contract raise;
    both kernels timed at TR's shape against their bounds, plain versions
    and ``scaled_dot_product_attention`` (forward; backward through a
-   retained graph, KV heads repeated);
+   retained graph, KV heads repeated), every timed backward bit-equal;
 43. TF: the six families' smoke configs (qwen3, scout, llava, musicgen,
    zamba2, xLSTM) train four AdamW steps in bf16 on the card from
    ``numpy_leaves`` weights, every loss within 0.05 of the port's CPU run
@@ -1718,18 +1720,24 @@ def timed_engine(spent, sync_before=False):
                 {TIMED_HOOKS[k]: hook(TIMED_HOOKS[k], k) for k in spent})
 
 
-FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+# the flash backward's kernels (flash_attention_bwd.cu): the wgmma design's
+# prep, main and dq passes, and the mma.sync design's three
+FLASH_BWD_KERNELS = ("::prep_kernel", "dkdvq_kernel", "dq_out_kernel",
+                     "delta_kernel", "dkdv_kernel", "dq_kernel")
 
 
 def device_time_by_kind(prof):
     """(seconds of device time by kind of kernel, number of device
     activities, seconds by kernel name) of a finished torch.profiler run,
     read from its raw kineto events (building the profiler's Python event
-    tree for a whole serving run takes minutes)."""
+    tree for a whole serving run takes minutes).  The flash backward's
+    kind counts the union of its kernels' intervals: its dq pass runs
+    beside the main kernel's tail."""
     from torch.autograd import DeviceType
     kinds = {"flash": 0.0, "flash backward": 0.0, "gemm": 0.0, "copy": 0.0,
              "other": 0.0}
     names: dict = {}
+    spans = []
     n = 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
@@ -1743,9 +1751,21 @@ def device_time_by_kind(prof):
                 else "gemm" if any(w in low for w in ("gemm", "xmma", "nvjet",
                                                       "cutlass")) else
                 "copy" if "memcpy" in low or "memset" in low else "other")
-        kinds[kind] += ns / 1e9
+        if kind == "flash backward":
+            t0 = (e.start_ns() if hasattr(e, "start_ns")
+                  else e.start_us() * 1e3)
+            spans.append((t0, t0 + ns))
+        else:
+            kinds[kind] += ns / 1e9
         names[name] = names.get(name, 0.0) + ns / 1e9
         n += 1
+    end = None
+    for t0, t1 in sorted(spans):
+        if end is not None and t0 < end:
+            t0 = end
+        if t1 > t0:
+            kinds["flash backward"] += (t1 - t0) / 1e9
+        end = t1 if end is None else max(end, t1)
     return kinds, n, names
 
 
@@ -4196,8 +4216,11 @@ def fb_phase42(card):
         want, want_lse = fa.flash_attention_ref(q, k, v, softcap=cap,
                                                 return_lse=True)
         got = fa.flash_attention_bwd(q, k, v, out, do, lse, softcap=cap)
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, softcap=cap)
         ref = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, softcap=cap)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"FB {name}: two calls of the backward differ")
         o_err = float((out.float() - want.float()).abs().max())
         l_err = float((lse - want_lse).abs().max())
         check(bool(torch.isfinite(out).all()) and bool(
@@ -4221,8 +4244,8 @@ def fb_phase42(card):
         print(f"phase 42 FB {name}: B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
               f"softcap={cap}: forward max |kernel - plain| {o_err:.6f}, "
               f"LSE {l_err:.2e}; backward max |kernel - plain| over max "
-              f"|plain|: {', '.join(parts)}")
-        del q, k, v, do, out, lse, want, want_lse, got, ref
+              f"|plain|: {', '.join(parts)}; a second call bit-equal")
+        del q, k, v, do, out, lse, want, want_lse, got, again, ref
 
     # autograd through flash_attention on the card: the training forward,
     # then the backward kernel, the same numbers as the direct calls
@@ -4271,6 +4294,11 @@ def fb_phase42(card):
             rel = float((a.float() - b.float()).abs().max()) / float(
                 b.float().abs().max())
             check(rel <= FB_TOL, f"FB timed at TR's shape: {rel} > {FB_TOL}")
+    check(all(torch.equal(a, b) for got in outs[1:]
+              for a, b in zip(got, outs[0])),
+          "FB: the timed backward calls at TR's shape differ from each other")
+    print(f"phase 42 FB: the {reps} timed backward calls at TR's shape are "
+          "bit-equal to each other")
     del outs, ref
     plain_fwd = timed_ms(lambda: fa.flash_attention_ref(
         q, k, v, return_lse=True), 1)

@@ -983,10 +983,12 @@ SHARD_CASES = [
 
 
 # The flash backward kernel's cases on the card (chip_smoke.py phase 42):
-# head dims 16 to 128, GQA groups 1, 4, 5 and 8, sequence lengths 1, 63,
-# 64, 257 and 2,048, softcap 0 and 30, batch 1 and 2, then the training
-# runs' shapes: TRP's (one 256-token sequence of qwen3-4b's 32/8 heads) and
-# TR's (8 x 2,048 tokens).
+# head dims 16 to 128 (16 and 32 take the mma.sync kernels, 64 and 128 the
+# wgmma one), GQA groups 1, 2, 4, 5 and 8, sequence lengths 1, 63, 64, 127,
+# 129, 200, 257, 300, 2,047 and 2,048 (the wgmma kernel's 128-key items and
+# 64-row query tiles cut off one short, one over, and ragged), softcap 0
+# and 30, batch 1 to 3, then the training runs' shapes: TRP's (one
+# 256-token sequence of qwen3-4b's 32/8 heads) and TR's (8 x 2,048 tokens).
 # (name, B, S, Hq, Hkv, D, softcap)
 FB_CASES = [
     ("one token", 1, 1, 4, 4, 16, 0.0),
@@ -998,11 +1000,108 @@ FB_CASES = [
     ("G4 D128 ragged", 1, 63, 4, 1, 128, 0.0),
     ("long G4 D64", 1, 2048, 8, 2, 64, 0.0),
     ("long G1 D128 cap", 1, 2048, 2, 2, 128, 30.0),
+    ("S127 D128", 1, 127, 4, 1, 128, 0.0),
+    ("S129 D128 G2", 2, 129, 4, 2, 128, 0.0),
+    ("S2047 D128 G4", 1, 2047, 8, 2, 128, 0.0),
+    ("B3 G5 D64 cap", 3, 200, 10, 2, 64, 30.0),
+    ("B3 G4 D128 ragged", 3, 300, 8, 2, 128, 0.0),
     ("TRP", 1, 256, 32, 8, 128, 0.0),
     ("TR", 8, 2048, 32, 8, 128, 0.0),
 ]
 FB_TOL = 2e-2       # max |kernel - plain| over max |plain|, dq, dk, dv each
 FB_LSE_TOL = 1e-3   # max |kernel - plain| of the forward's log-sum-exp
+
+# The flash backward kernel's tiles at head dims 64 and 128
+# (csrc/flash_attention_bwd.cu HK, HQ): a work item is 128 keys, a step
+# 64 query rows.
+FB_KEY_TILE, FB_QUERY_TILE = 128, 64
+FB_SMS = 132        # the H100's SMs: CTAs resident at once (one per SM)
+
+
+def fb_super_group(Hkv: int, nkt: int) -> int:
+    """KV heads a super-group of the flash backward kernel's work items
+    (``launch_hopper``): the most that divide Hkv with at most 64 items (KV
+    heads x key tiles) a super-group."""
+    return max([c for c in range(1, Hkv + 1)
+                if Hkv % c == 0 and (c == 1 or c * nkt <= 64)])
+
+
+def fb_items(B: int, S: int, Hq: int, Hkv: int) -> list:
+    """The flash backward kernel's work items in the order CTAs take them
+    (``bwd_item``: super-groups of ``fb_super_group`` KV heads of one batch
+    row slowest, then the key tile j, then the KV head), each (j, b, hk,
+    steps) with its steps in walk order (``steps``: the group's query heads
+    fastest, then the 64-row query tiles from the last down to the key
+    tile's first), each (query head, query tile)."""
+    G = Hq // Hkv
+    nq, nkt = -(-S // FB_QUERY_TILE), -(-S // FB_KEY_TILE)
+    cg = fb_super_group(Hkv, nkt)
+    items = []
+    for b in range(B):
+        for h0 in range(0, Hkv, cg):
+            for j in range(nkt):
+                q_first = j * FB_KEY_TILE // FB_QUERY_TILE
+                for hk in range(h0, h0 + cg):
+                    items.append((j, b, hk, [
+                        (hk * G + n % G, nq - 1 - n // G)
+                        for n in range(G * (nq - q_first))]))
+    return items
+
+
+def fb_schedule(B: int, S: int, Hq: int, Hkv: int, sms: int = FB_SMS) -> dict:
+    """Python model of the flash backward kernel's schedule of dQ adds.
+
+    ``sms`` CTAs run at once; a CTA takes the next work item (``fb_items``'
+    order: the kernel's global work counter) when it starts and walks its
+    steps; each step ends with its dQ partial added to its (batch, query
+    head, query tile)'s accumulator, which waits until that tile's counter
+    reads the item's key tile j (the adds of key tiles 0 .. j - 1 are in)
+    and then bumps it.  Every round each running CTA tries its next step
+    against the counters as the round began (an add is seen one round
+    later, as a release is seen after its latency); a CTA whose add must
+    wait stalls.  A round in which no CTA moves while work is left is a
+    deadlock and raises.
+
+    Returns ``adds`` ((b, h, qi) -> key tiles in the order they added),
+    ``waits`` (each stalled step's (item, the item it waits for): the
+    one whose add is due at the counter), ``taken`` (item -> the round a
+    CTA took it) and ``rounds`` (rounds to finish: the makespan in steps
+    of this model, every step one round)."""
+    items = fb_items(B, S, Hq, Hkv)
+    index = {(j, b, hk): u for u, (j, b, hk, _) in enumerate(items)}
+    G = Hq // Hkv
+    counters: dict = {}
+    adds: dict = {}
+    waits = []
+    taken = {}
+    running = []                    # [item, next step]
+    nxt, rounds = 0, 0
+    while nxt < len(items) or running:
+        while len(running) < sms and nxt < len(items):
+            taken[nxt] = rounds
+            running.append([nxt, 0])
+            nxt += 1
+        moved = False
+        done = []
+        for cta in running:
+            u, n = cta
+            j, b, hk, steps = items[u]
+            h, qi = steps[n]
+            have = counters.get((b, h, qi), 0)
+            if have != j:
+                waits.append((u, index[(have, b, h // G)]))
+                continue
+            done.append((b, h, qi))
+            adds.setdefault((b, h, qi), []).append(j)
+            cta[1] += 1
+            moved = True
+        for t in done:
+            counters[t] = counters.get(t, 0) + 1
+        if not moved:
+            raise RuntimeError(f"fb_schedule: deadlock in round {rounds}")
+        running = [c for c in running if c[1] < len(items[c[0]][3])]
+        rounds += 1
+    return dict(adds=adds, waits=waits, taken=taken, rounds=rounds)
 
 # The flash forward's serving instances' ptxas lines before the training
 # (LSE) instances were added (each of its eight (head dim, softcap)

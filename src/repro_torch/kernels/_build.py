@@ -55,9 +55,10 @@ _C_API = {
         "flash_attention_train_launch":     # q, k, v, out, lse; B, S, Hq,
             ([_P] * 5 + [_I] * 5 + [_F, _F, _P], _I),  # Hkv, D; softcap,
         **_ERR},                                       # scale
-    "flash_attention_bwd": {    # q, k, v, o, dO, lse, delta, dq, dk, dv;
-        "flash_attention_bwd_launch":   # B, S, Hq, Hkv, D; softcap, scale
-            ([_P] * 10 + [_I] * 5 + [_F, _F, _P], _I), **_ERR},
+    "flash_attention_bwd": {    # q, k, v, o, dO, lse, work, counters,
+        "flash_attention_bwd_launch":   # dq, dk, dv; B, S, Hq, Hkv, D;
+            ([_P] * 11 + [_I] * 5 + [_F, _F, _P], _I), **_ERR},  # softcap,
+                                                                 # scale
     "l2_chase": {
         "l2_chase_launch": ([_P, _I, _P, _P], _I)},
     "sketch_baseline": {    # first designs: as reset, estimate, admit

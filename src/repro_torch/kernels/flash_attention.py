@@ -259,14 +259,28 @@ def _launch_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def bwd_scratch(B: int, S: int, Hq: int, D: int) -> tuple[int, int]:
+    """(fp32 words, int32 words) of the backward kernel's scratch.  At head
+    dims 64 and 128: per (batch, head, row) of S rounded up to 64-row query
+    tiles, the row's lse log2(e) and delta and D floats of the fp32 dQ
+    accumulator; one ordering counter per (batch, head, query tile) and
+    the work counter (the kernel zeroes them).  At 16 and 32: delta."""
+    if D < 64:
+        return B * Hq * S, 1
+    tiles = -(-S // 64)
+    return B * Hq * tiles * 64 * (2 + D), B * Hq * tiles + 1
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, softcap: float = 0.0):
     """(dq, dk, dv) of causal attention, :func:`flash_attention_bwd_ref`'s
     contract.  CUDA tensors: one launch of ``csrc/flash_attention_bwd.cu``
-    (its three kernels on the current stream; a failed build or launch, or
-    a call outside the contract, raises); CPU tensors: the plain
-    version."""
+    (its three kernels on the current stream, scratch from
+    :func:`bwd_scratch`; a failed build or launch, or a call outside the
+    contract, raises); CPU tensors: the plain version.  The kernel's
+    results do not depend on the run: its dQ partials are added in a fixed
+    order."""
     _check_inputs(q, k, v, None)
     _check_train(q, k, v, True, 0, None)
     if q.device.type == "cpu":
@@ -282,9 +296,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    n_work, n_counters = bwd_scratch(B, S, Hq, D)
+    work = torch.empty(n_work, dtype=torch.float32, device=q.device)
+    counters = torch.empty(n_counters, dtype=torch.int32, device=q.device)
     launch("flash_attention_bwd", "flash_attention_bwd_launch", q, k, v, o,
-           do, lse, delta, dq, dk, dv, B, S, Hq, k.shape[2], D,
+           do, lse, work, counters, dq, dk, dv, B, S, Hq, k.shape[2], D,
            float(softcap), 1.0 / math.sqrt(D))
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -911,6 +911,59 @@ def test_flash_bwd_kernel_matches_plain_on_card(case):
         assert err <= FB_TOL * float(b.float().abs().max())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["B3 G4 D128 ragged", "B3 G5 D64 cap",
+                                  "TR"])
+def test_flash_bwd_kernel_is_deterministic_on_card(name):
+    """Two calls of the backward kernel on the same inputs give bit-equal
+    dq, dk and dv (its dQ partials are added in a fixed order), at a
+    ragged case of each wgmma head dim and at TR's shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, B, S, Hq, Hkv, D, cap = next(c for c in FB_CASES if c[0] == name)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, do = (torch.randn((B, S, Hq, D), generator=g,
+                         device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    out, lse = flash_attention._launch_train(q, k, v, cap)
+    first = flash_attention.flash_attention_bwd(q, k, v, out, do, lse,
+                                                softcap=cap)
+    second = flash_attention.flash_attention_bwd(q, k, v, out, do, lse,
+                                                 softcap=cap)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(a).all()) for a in first)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_flash_kernels_launch_from_a_fresh_thread():
+    """The flash kernels build their TMA maps in whatever thread launches
+    them (autograd runs backward in a worker thread): a thread that has
+    launched nothing before gets the same results as the main thread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, do = (torch.randn((2, 130, 8, 64), generator=g,
+                         device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn((2, 130, 2, 64), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+
+    def both():
+        out, lse = flash_attention._launch_train(q, k, v, 0.0)
+        return (out, lse) + flash_attention.flash_attention_bwd(
+            q, k, v, out, do, lse)
+    want = both()
+    got = []
+    th = threading.Thread(target=lambda: got.append(both()))
+    th.start()
+    th.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want))
+
+
 def test_flash_train_launch_refuses_cpu_tensors():
     """The training instance's launch path never takes CPU tensors (the
     autograd Function routes them to the plain version), and a refused

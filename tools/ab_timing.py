@@ -1,6 +1,7 @@
 """The step and add kernels on the card: ptxas lines by instance, the step
 kernel's special instances against its plain version, and this tree's
-kernels against another copy of their sources, in turns.
+kernels against another copy of their sources, in turns; or (``--flash-bwd``)
+the flash backward kernel against another copy's.
 
 The engine's loader (``repro_torch.kernels._build``, into ``build/``)
 builds ``sketch_step.cu`` (static, adaptive and panel builds) and
@@ -36,13 +37,28 @@ after each epoch) and through the stale mesh instance of a one-rank mesh
 (``merge_halve_mesh``, no process group), in turns: ns per access of the
 step and ms per fold.
 
+``--flash-bwd`` (with ``--other DIR``, a directory holding another
+``flash_attention_bwd.cu`` and its headers, e.g. an earlier commit's by
+the ``git archive`` line above; ``--other`` may be given more than once)
+times this tree's flash backward kernel and each other copy's at TR's
+attention shape (8 x 2,048 tokens, 32/8 heads of 128) in turns (with one
+other copy the turns above; with more, all copies in order, then in
+reverse, then in order), 10 calls a turn with CUDA events around each,
+holds every call of each within ``check_runs.FB_TOL`` of the plain
+version's largest, and prints the device time of each of this tree's
+kernels in one call under ``torch.profiler``; it runs nothing else.  A
+copy whose launch function still takes ``delta`` (before the wgmma
+kernel) is called that way.
+
 Run on a machine with a card, from the repository root:
 
     PYTHONPATH=src python tools/ab_timing.py [--other DIR] [--cases] [--mesh]
+    PYTHONPATH=src python tools/ab_timing.py --flash-bwd --other DIR [--other DIR2 ...]
 """
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -244,23 +260,128 @@ def sharded_vs_mesh(f_trace, card):
               f"{int(state['regs'][ks.R_HITS])}; {card}", flush=True)
 
 
+def flash_bwd_lib(other):
+    """The other copy's flash backward library, and whether its launch
+    function takes (work, counters) scratch or the older (delta)."""
+    import ctypes
+    lib = _build.load_library("flash_attention_bwd", (), other)
+    new = "counters" in (other / "flash_attention_bwd.cu").read_text()
+    if not new:
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    return lib, new
+
+
+def flash_bwd_turns(others, card) -> int:
+    """TR's attention backward through this tree's kernel and each other
+    copy's in turns; returns the number of calls outside FB_TOL."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, Hq, Hkv, D = 8, 2048, 32, 8, 128
+    names = ["this"] + [str(o) for o in others]
+    with ThreadPoolExecutor(2 + len(others)) as ex:
+        jobs = [ex.submit(_build.load_library, "flash_attention"),
+                ex.submit(_build.load_library, "flash_attention_bwd")]
+        jobs += [ex.submit(flash_bwd_lib, o) for o in others]
+        libs = {"this": (jobs[1].result(), True)}
+        libs.update({n: j.result() for n, j in zip(names[1:], jobs[2:])})
+    for n in names:
+        key = ("flash_attention_bwd", ()) + (() if n == "this" else (n,))
+        for k, lines in instance_lines(_build.build_info[key]["log"]).items():
+            print(f"[{n}] {k}: {' | '.join(lines)}")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn((B, S, Hq, D), generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    out, lse = fa._launch_train(q, k, v, 0.0)
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, do, lse)
+
+    def call(turn):
+        lib, new = libs[turn]
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        if new:
+            n_work, n_ctr = fa.bwd_scratch(B, S, Hq, D)
+            scratch = (torch.empty(n_work, dtype=torch.float32,
+                                   device="cuda"),
+                       torch.empty(n_ctr, dtype=torch.int32, device="cuda"))
+        else:
+            scratch = (torch.empty((B, Hq, S), dtype=torch.float32,
+                                   device="cuda"),)
+        _build.launch("flash_attention_bwd", "flash_attention_bwd_launch", q,
+                      k, v, out, do, lse, *scratch, dq, dk, dv, B, S, Hq, Hkv,
+                      D, 0.0, 1.0 / D ** 0.5, lib=lib)
+        return dq, dk, dv
+
+    for n in names:
+        call(n)                                   # first launch: set-up
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call("this")
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            kernel = re.search(r"(\w+_kernel)<", e.key)
+            print(f"this tree's {kernel[1] if kernel else e.key[:70]}: "
+                  f"{e.device_time_total / e.count / 1e3:.4f} ms; {card}")
+    order = (["this", "other", "other", "this", "this", "other"]
+             if len(names) == 2 else names + names[::-1] + names)
+    order = [names[1] if n == "other" else n for n in order]
+    bad, ms = 0, {n: [] for n in names}
+    for turn in order:
+        pairs, outs = [], []
+        for _ in range(10):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            outs.append(call(turn))
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        ms[turn].append(round(events_ms(pairs), 4))
+        for got in outs:
+            for a, b in zip(got, ref):
+                rel = float((a.float() - b.float()).abs().max()) / float(
+                    b.float().abs().max())
+                bad += rel > cr.FB_TOL
+        print(f"flash backward at TR's shape, {turn}: "
+              f"{ms[turn][-1]:.4f} ms a call (10 calls); {card}",
+              flush=True)
+    print(f"flash backward at TR's shape, ms a call in turns: {ms}; means "
+          + ", ".join(f"{n} {statistics.mean(v):.4f}" for n, v in ms.items())
+          + f"; calls outside FB_TOL of the plain version: {bad}; {card}")
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", type=Path, default=None,
+    ap.add_argument("--other", type=Path, action="append", default=None,
                     help="directory with the other sketch_step.cu, "
-                         "sketch_update.cu and sketch_common.cuh")
+                         "sketch_update.cu and sketch_common.cuh (with "
+                         "--flash-bwd: flash_attention_bwd.cu)")
     ap.add_argument("--cases", action="store_true",
                     help="the STEP12 cases, kernel against plain")
     ap.add_argument("--mesh", action="store_true",
                     help="F4's geometry, sharded against stale mesh")
+    ap.add_argument("--flash-bwd", action="store_true",
+                    help="the flash backward kernel against --other's, "
+                         "at TR's shape, in turns (nothing else)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_timing: no CUDA device")
+    if args.flash_bwd and not args.other:
+        raise SystemExit("ab_timing: --flash-bwd needs --other DIR")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card, flush=True)
-    other = args.other.resolve() if args.other else None
+    if args.flash_bwd:
+        return 1 if flash_bwd_turns([o.resolve() for o in args.other],
+                                    card) else 0
+    if args.other and len(args.other) > 1:
+        raise SystemExit("ab_timing: one --other DIR for the step and add")
+    other = args.other[0].resolve() if args.other else None
     trees = ("this",) + (("other",) if other else ())
     with ThreadPoolExecutor(8) as ex:
         jobs = {(b, w): ex.submit(_build.load_library, src, defs,
