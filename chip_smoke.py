@@ -5,7 +5,8 @@ adaptive window, the policy panel, checkpoint/resume and fault injection,
 the paper's trace families beside the host engine), the serving-admission
 path (device and host sketch), the LLM serving path (every model family:
 dense, MoE, VLM, audio, hybrid SSM and xLSTM) and training (every family,
-through the flash forward's training instance and its backward kernel).
+through the flash forward's training instance and its backward kernel;
+sharded over a grid of ranks).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -327,7 +328,22 @@ card, timed:
    ms per step and tokens/s after one warm-up step, peak memory; one more
    step under torch.profiler (device time by kind of kernel, the flash
    kernels' ms per launch and TFLOP/s); then three Adafactor steps;
-46. print the ``kernels`` JSON line (seven kernels; the step kernel's entry
+46. TRS, the sharded training path on a one-rank NCCL group (a (1, 1)
+   ``make_debug_mesh`` grid): qwen3-4b at published width and TR's 12
+   layers through ``ShardingPolicy`` (fp32 masters and AdamW state kept
+   as this rank's blocks, the masters' bf16 cast gathered into the module
+   each step, the gradients reduce-scattered), three AdamW steps from TR's
+   seed and batches after the same three steps of the plain step (TR's
+   state freed first): losses and a digest of every master leaf bit-equal
+   to the plain step's; counts set to 0 just before the sharded run and
+   read just after (24 forward and 12 backward flash launches a step); ms
+   per step beside the plain step's and TR's, peak memory;
+47. on the same group: ``compressed_allreduce_int8`` (a 4,096 x 4,096
+   gradient with an error, a 64 x 32 tensor without) bit-equal to its CPU
+   result, and ``pipeline_apply`` (8 layers of width 1,024, 2 and 4
+   microbatches) within 1e-5 relative of its CPU result; phases 46-47
+   print their time;
+48. print the ``kernels`` JSON line (seven kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive, panel, mesh
    and wide instances' launches and checks and its checkpointed runs; the
    add's with the
@@ -335,10 +351,10 @@ card, timed:
    with their burst times, the empty launch's in a burst, their in-stream
    pairs with and without PDL and their first designs' times; the sketch
    kernels' launches in LZ, LX and LM; the flash kernel's launches in L,
-   LZ, LM and TR, its numbers at L's shapes and, per cell, at LZ's and
-   LM's, its training instance's at TR's; the backward kernel's, with TR's
-   step time, tokens/s and peak memory), the card line and the result
-   line.  Lines
+   LZ, LM, TR and TRS, its numbers at L's shapes and, per cell, at LZ's
+   and LM's, its training instance's at TR's; the backward kernel's, with
+   TR's and TRS's step time and peak memory), the card line and the
+   result line.  Lines
    ``elapsed ...`` mark the time taken after each group of phases.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -4645,6 +4661,191 @@ def tr_phase45(card, fb):
                                peak_gib=peak / 2**30, losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# phases 46-47: sharded training on a one-rank NCCL grid; the collectives
+# ---------------------------------------------------------------------------
+
+TRS_STEPS = 3
+
+
+def master_digest(leaves) -> str:
+    """A digest of fp32 tensors' bits computed on their device: per
+    tensor its shape and two sums (mod 2**64) of its words as int64, the
+    second position-weighted, over 2**24-word chunks."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in leaves:
+        v = t.detach().contiguous().view(-1).view(torch.int32)
+        w = torch.arange(1 << 24, device=v.device, dtype=torch.int64) % 1021
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=v.device)
+        for i, c in enumerate(v.split(1 << 24)):
+            q = c.to(torch.int64)
+            s1 = s1 + q.sum()
+            s2 = s2 + (q * (w[:q.numel()] + 1)).sum() * (i + 1)
+        h.update(f"{tuple(t.shape)}:{int(s1)}:{int(s2)};".encode())
+    return h.hexdigest()[:16]
+
+
+def trs_run(model, cfg, policy, dev):
+    """TRS_STEPS AdamW steps of TR's setup (seed 0, its first batches) with
+    ``policy``, the flash counts set to 0 just before and read just after:
+    (losses, seconds per step, (forward, backward) launches, peak bytes,
+    digest of the masters)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.common import NULL_POLICY
+    from repro_torch.optim import adamw, wsd
+    from repro_torch.train import build_train_step, make_train_state
+    from repro_torch.train.driver import make_pipeline, next_batch
+    opt = adamw(wsd(*TR_LR))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, opt,
+                             torch.Generator(device=dev).manual_seed(0),
+                             policy=policy)
+    pipe = make_pipeline(cfg, global_batch=TR_BATCH, seq_len=TR_SEQ, seed=0)
+    batches = [next_batch(pipe, cfg, dev) for _ in range(TRS_STEPS)]
+    step = build_train_step(model, opt, policy=policy)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+    losses, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))       # waits for the step
+        secs.append(time.perf_counter() - t0)
+    launches = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if policy is NULL_POLICY:
+        dig = master_digest(leaf.value for leaf in state.params.ref_leaves)
+    else:
+        from repro_torch.optim.optimizers import _leaves
+        dig = master_digest(
+            policy.gather(m, spec, leaf.value.shape) for leaf, spec, m in zip(
+                state.params.ref_leaves, policy.leaf_specs(state.params),
+                _leaves(state.master)))
+    del state, step, batches
+    return losses, secs, launches, peak, dig
+
+
+def collective_inputs():
+    """Phase 47's inputs, from a seed: a gradient-sized tensor and a small
+    one with their errors for the compression; a stack of 8 layers of
+    tanh(h W + b) at width 1,024 and a batch of 64 for the pipeline."""
+    import torch
+    g = torch.Generator().manual_seed(47)
+    comp = [(torch.randn((4096, 4096), generator=g) * 0.01,
+             torch.randn((4096, 4096), generator=g) * 1e-4),
+            (torch.randn((64, 32), generator=g), None)]
+    params = {"w": torch.randn((8, 1024, 1024), generator=g) / 32.0,
+              "b": torch.randn((8, 1024), generator=g) * 0.1}
+    x = torch.randn((64, 1024), generator=g)
+    return comp, params, x
+
+
+def pipe_block(p, h):
+    import torch
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def collectives_cpu():
+    """Phase 47's CPU results, before any process group exists."""
+    from repro_torch.distributed.compression import compressed_allreduce_int8
+    from repro_torch.distributed.mesh import make_debug_mesh
+    from repro_torch.distributed.pipeline import pipeline_apply
+    comp, params, x = collective_inputs()
+    cpu_comp = [compressed_allreduce_int8(t, None, e) for t, e in comp]
+    mesh = make_debug_mesh((1,), ("stage",), device="cpu")
+    cpu_pipe = {m: pipeline_apply(mesh, "stage", pipe_block, params, x, m)
+                for m in (2, 4)}
+    return cpu_comp, cpu_pipe
+
+
+def trs_phase46(card, tr, grid):
+    """Phase 46 (TRS), the slice's main run: qwen3-4b at published width,
+    TR_LAYERS layers, through ShardingPolicy on the one-rank NCCL grid
+    ``grid``: TRS_STEPS AdamW steps from TR's seed and batches, held bit
+    for bit to the plain step's (losses and a digest of every master
+    leaf), both timed in this call.  Returns the sharded run's flash
+    launches and its numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.shardings import ShardingPolicy
+    from repro_torch.models import build_model
+    from repro_torch.models.common import NULL_POLICY
+    cfg = get_config("qwen3-4b").replace(n_layers=TR_LAYERS)
+    dev = grid.device
+    model = build_model(cfg, dev)
+    plain = trs_run(model, cfg, NULL_POLICY, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    policy = ShardingPolicy(grid)
+    shard = trs_run(model, cfg, policy, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = (2 * TR_LAYERS * TRS_STEPS, TR_LAYERS * TRS_STEPS)
+    check(shard[2] == per, f"TRS: flash launches {shard[2]}, expected {per}")
+    check(shard[0] == plain[0] and shard[4] == plain[4],
+          f"TRS: sharded losses {shard[0]} digest {shard[4]} != the plain "
+          f"step's {plain[0]} {plain[4]}")
+    ms = statistics.mean(shard[1][1:]) * 1e3
+    plain_ms = statistics.mean(plain[1][1:]) * 1e3
+    print(f"phase 46 TRS: qwen3-4b full width, {TR_LAYERS} layers, "
+          f"ShardingPolicy on the one-rank NCCL grid {grid.shape}, "
+          f"{TRS_STEPS} AdamW steps of {TR_BATCH} x {TR_SEQ} tokens from "
+          f"TR's seed and batches: losses "
+          f"{', '.join(f'{x:.6f}' for x in shard[0])} and the masters' "
+          f"digest {shard[4]} == the plain step's (bit for bit)")
+    print(f"phase 46 TRS: {ms:.1f} ms per step (host clock, mean of steps "
+          f"2-{TRS_STEPS}; first {shard[1][0] * 1e3:.1f}) against the plain "
+          f"step's {plain_ms:.1f} here and TR's {tr['ms_per_step']:.1f} "
+          f"(phase 45): {ms - plain_ms:+.1f} ms for the gather and the "
+          f"reduce-scatter; max_memory_allocated {shard[3] / 2**30:.2f} GiB "
+          f"against {plain[3] / 2**30:.2f} (plain, same steps) and TR's "
+          f"{tr['peak_gib']:.2f}; flash launches {shard[2][0]} forward, "
+          f"{shard[2][1]} backward ({shard[2][0] // TRS_STEPS} and "
+          f"{shard[2][1] // TRS_STEPS} per step); {card}")
+    return shard[2], dict(ms_per_step=ms, plain_ms_per_step=plain_ms,
+                          peak_gib=shard[3] / 2**30,
+                          plain_peak_gib=plain[3] / 2**30,
+                          losses=shard[0], digest=shard[4])
+
+
+def collectives_phase47(card, grid, cpu_comp, cpu_pipe):
+    """Phase 47: compressed_allreduce_int8 and pipeline_apply on the
+    one-rank NCCL grid against their CPU results: the compression's mean
+    and error bit for bit, the pipeline within 1e-5 relative."""
+    import torch
+    from repro_torch.distributed.compression import compressed_allreduce_int8
+    from repro_torch.distributed.mesh import make_debug_mesh
+    from repro_torch.distributed.pipeline import pipeline_apply
+    comp, params, x = collective_inputs()
+    dev = grid.device
+    for (t, e), (want_m, want_e) in zip(comp, cpu_comp):
+        e_dev = None if e is None else e.to(dev)
+        t_dev = t.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, err = compressed_allreduce_int8(t_dev, grid.groups["data"], e_dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(torch.equal(m.cpu(), want_m) and torch.equal(err.cpu(), want_e),
+              f"phase 47 compression {tuple(t.shape)}: card != CPU")
+        print(f"phase 47 compressed_allreduce_int8 {tuple(t.shape)} on the "
+              f"NCCL group: mean and error == the CPU's bit for bit; "
+              f"{secs * 1e3:.3f} ms (host clock, one call); {card}")
+    mesh = make_debug_mesh((1,), ("stage",))
+    p_dev = {k: v.to(dev) for k, v in params.items()}
+    for n_micro, want in cpu_pipe.items():
+        got = pipeline_apply(mesh, "stage", pipe_block, p_dev, x.to(dev),
+                             n_micro).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        check(err <= 1e-5, f"phase 47 pipeline n_micro={n_micro}: {err}")
+        print(f"phase 47 pipeline_apply on the NCCL grid {mesh.shape}, "
+              f"n_micro={n_micro}: within {err:.2e} of the CPU's (relative)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4972,6 +5173,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     tr_launches, tr_kernels, tr = tr_phase45(card, fb)
     elapsed("phases 42-45")
+
+    # -- phases 46-47: sharded training, the collectives --------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t46 = time.perf_counter()
+    cpu_comp, cpu_pipe = collectives_cpu()
+    import torch.distributed as dist
+    from repro_torch.distributed.mesh import make_debug_mesh
+    work = Path(tempfile.mkdtemp(prefix="trs-", dir=CKPT_WORKDIR))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        f"{work}/store", 1), rank=0, world_size=1)
+    try:
+        grid = make_debug_mesh((1, 1))
+        check(grid.device.type == "cuda" and grid.size == 1,
+              f"phase 46 grid {grid}")
+        trs_launches, trs = trs_phase46(card, tr, grid)
+        collectives_phase47(card, grid, cpu_comp, cpu_pipe)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phases 46-47: {time.perf_counter() - t46:.1f} s")
+    elapsed("phases 46-47")
     err = max(max_err, lane_err, shard_err, adapt_err, panel_err,
               step12_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
@@ -5014,7 +5237,7 @@ def main() -> int:
     kernels[1].update(dk_probes_held=sorted(set(add_probes)
                                             | set(LOOP_PROBES)))
 
-    # -- phase 46: the kernels line ----------------------------------------
+    # -- phase 48: the kernels line ----------------------------------------
     flash_err = max([flash_err] + [fl["max_abs_err"]
                                    for _, fl in cells.values() if fl])
     for k in kernels[1:]:
@@ -5026,7 +5249,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:94",
-        "launches": flash_launches + tr_launches[0] + sum(
+        "launches": flash_launches + tr_launches[0] + trs_launches[0] + sum(
             launches["flash_attention"] for launches, _ in cells.values()),
         "max_abs_err": max(flash_err, fb["forward_max_abs_err"]),
         "matches_plain": max(flash_err, fb["forward_max_abs_err"])
@@ -5035,6 +5258,7 @@ def main() -> int:
         "cells": {cell: dict(launches=launches["flash_attention"], **fl)
                   for cell, (launches, fl) in cells.items() if fl},
         "train_instance": dict(TR_launches=tr_launches[0],
+                               TRS_launches=trs_launches[0],
                                lse_max_abs_err=fb["lse_max_abs_err"],
                                **{k: v for k, v in fwd.items()},
                                **tr_kernels["forward with LSE"])})
@@ -5044,13 +5268,15 @@ def main() -> int:
         "replaces": "src/repro/models/layers.py:69",
         "replaces_note": "no TPU kernel: the VJP JAX takes of the "
                          "reference's jnp flash_attention",
-        "launches": tr_launches[1], "max_abs_err": fb["max_abs_err"],
+        "launches": tr_launches[1] + trs_launches[1],
+        "TR_launches": tr_launches[1], "TRS_launches": trs_launches[1],
+        "max_abs_err": fb["max_abs_err"],
         "max_rel_err": fb["max_rel_err"],
         "matches_plain": fb["max_rel_err"] <= FB_TOL,
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"], "tflops": bwd["tflops"],
-        **tr_kernels["backward"], "TR_run": tr})
+        **tr_kernels["backward"], "TR_run": tr, "TRS_run": trs})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

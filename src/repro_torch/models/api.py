@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels.sketch_common import resolve_device
 from . import transformer, xlstm, zamba
-from .common import ModelConfig, stack_leaves, train_storage
+from .common import NULL_POLICY, ModelConfig, stack_leaves, train_storage
 
 SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
@@ -57,13 +57,15 @@ class Model:
         self.device = resolve_device(self.device)
 
     # -- parameters -----------------------------------------------------------
-    def module(self, train: bool = False) -> torch.nn.Module:
-        """The family's parameter module, uninitialised, on the device;
+    def module(self, train: bool = False, device=None) -> torch.nn.Module:
+        """The family's parameter module, uninitialised, on the model's
+        device (or ``device``: ``"meta"`` gives shapes without storage);
         with ``train`` in the training storage."""
+        dev = self.device if device is None else torch.device(device)
         if not train:
-            return _PARTS[self._mod][0](self.cfg, self.device)
+            return _PARTS[self._mod][0](self.cfg, dev)
         with train_storage():
-            return stack_leaves(_PARTS[self._mod][0](self.cfg, self.device))
+            return stack_leaves(_PARTS[self._mod][0](self.cfg, dev))
 
     def init(self, generator: torch.Generator,
              train: bool = False) -> torch.nn.Module:
@@ -72,11 +74,13 @@ class Model:
         return self.module(train).init(self.cfg, generator)
 
     # -- training forward (head applied by train/losses.py, chunked) ---------
-    def hidden_train(self, params, batch: dict, remat: bool = True):
+    def hidden_train(self, params, batch: dict, policy=NULL_POLICY,
+                     remat: bool = True):
         """(hidden (B,S',M), aux_loss) of a training module."""
         return self._mod.forward_train(
             params, batch["tokens"], self.cfg,
-            vision_embeds=batch.get("vision_embeds"), remat=remat)
+            vision_embeds=batch.get("vision_embeds"), policy=policy,
+            remat=remat)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -87,16 +91,19 @@ class Model:
                                     self.device if device is None
                                     else device)
 
-    def prefill(self, params, batch: dict, cache: dict):
+    def prefill(self, params, batch: dict, cache: dict, policy=NULL_POLICY):
         return self._mod.forward_prefill(
             params, batch["tokens"], self.cfg, cache,
-            vision_embeds=batch.get("vision_embeds"))
+            vision_embeds=batch.get("vision_embeds"), policy=policy)
 
-    def decode(self, params, tokens: torch.Tensor, cache: dict):
-        return self._mod.forward_decode(params, tokens, self.cfg, cache)
+    def decode(self, params, tokens: torch.Tensor, cache: dict,
+               policy=NULL_POLICY):
+        return self._mod.forward_decode(params, tokens, self.cfg, cache,
+                                        policy=policy)
 
-    def lm_head(self, params, hidden: torch.Tensor) -> torch.Tensor:
-        return transformer.lm_head(params, hidden, self.cfg)
+    def lm_head(self, params, hidden: torch.Tensor,
+                policy=NULL_POLICY) -> torch.Tensor:
+        return transformer.lm_head(params, hidden, self.cfg, policy)
 
     # -- dry-run input specs ---------------------------------------------------
     def input_specs(self, kind: str) -> dict:

@@ -4,7 +4,10 @@ Counterpart of ``repro/models/common.py``: ``ModelConfig`` has the
 reference's fields and properties, with torch dtypes; the init helpers draw
 from an explicit ``torch.Generator``, so a model's weights follow from its
 seed (they are not the JAX package's numbers: the two generators differ).
-The sharding policy hooks are not ported.
+``NullPolicy`` is the reference's no-op activation hook
+(``distributed/shardings.py`` provides the real one); the port draws from
+explicit generators and stacks through ``stack_leaves``, so it has no
+``KeyGen`` or ``stack_layer_params``.
 
 Two storage modes share the module classes.  Serving stores each leaf as
 the reference's ``cast_params`` leaves it (the compute dtype where it
@@ -260,25 +263,38 @@ def leaf_tree(module: nn.Module, what: str = "value") -> dict:
     return tree
 
 
+# leaves read through a lookup: with cast_params_once=False the reference
+# takes their fp32 rows and casts those
+_LOOKUP_LEAVES = ("embed",)
+
+
 class CastView:
     """A module's parameters as a training forward reads them: the same
     attributes (ModuleLists as lists, children as views), each parameter
     the reference's ``cast_params`` casts as a differentiable ``.to`` of
     the compute dtype, the others as they are, each made on first access
-    and kept; the module's methods run on the view."""
+    and kept; the module's methods run on the view.  With ``once`` False
+    (``cast_params_once=False``) only the matrices the reference casts
+    where it uses them: a layer's 1-D leaves and the embeddings stay fp32,
+    and the code that reads them casts them (or their rows) itself, as the
+    reference's does."""
 
-    def __init__(self, module: nn.Module, dtype: torch.dtype):
+    def __init__(self, module: nn.Module, dtype: torch.dtype,
+                 once: bool = True):
         self._module = module
         self._dtype = dtype
+        self._once = once
 
     def __getattr__(self, name):
         m = self._module
         if name in m._parameters:
             p = m._parameters[name]
-            val = (p.to(self._dtype) if p.ref_cast and p.dtype ==
-                   torch.float32 else p)
+            cast = (p.ref_cast and p.dtype == torch.float32
+                    and (self._once or (p.dim() >= 2
+                                        and name not in _LOOKUP_LEAVES)))
+            val = p.to(self._dtype) if cast else p
         elif name in m._modules:
-            val = _view(m._modules[name], self._dtype)
+            val = _view(m._modules[name], self._dtype, self._once)
         else:
             attr = getattr(type(m), name)
             return attr.__get__(self) if callable(attr) else attr
@@ -286,20 +302,37 @@ class CastView:
         return val
 
 
-def _view(m: nn.Module, dtype: torch.dtype):
+def _view(m: nn.Module, dtype: torch.dtype, once: bool):
     if isinstance(m, nn.ModuleList):
-        return [_view(x, dtype) for x in m]
-    return CastView(m, dtype)
+        return [_view(x, dtype, once) for x in m]
+    return CastView(m, dtype, once)
 
 
 def cast_params(params: nn.Module, cfg: ModelConfig):
     """The compute-dtype view of a training module (the reference's
     ``cast_params``: leaves of two or more dimensions in its stacked tree,
     fp32 ones, to the compute dtype).  A serving module is returned as it
-    is: it stores those leaves cast already."""
+    is: it stores those leaves cast already.  With ``cast_params_once=False``
+    the reference keeps the fp32 leaves and casts each where it is used:
+    the view casts the matrices, which gives the same values, and leaves
+    the rest fp32 (``CastView``); in a sharded step the knob also decides
+    whether the gather moves the cast or the fp32 masters
+    (``distributed/shardings.py``)."""
     if getattr(params, "ref_leaves", None) is None:     # serving storage
         return params
-    if not cfg.cast_params_once:
-        raise NotImplementedError("cast_params_once=False: the port's "
-                                  "training forward reads the cast view")
-    return CastView(params, cfg.compute_dtype)
+    return CastView(params, cfg.compute_dtype, cfg.cast_params_once)
+
+
+# ---------------------------------------------------------------------------
+# sharding policy hook (distributed/shardings.py provides the real one)
+# ---------------------------------------------------------------------------
+
+class NullPolicy:
+    """No-op activation-sharding policy (single-device paths, smoke
+    tests)."""
+
+    def act(self, x, kind: str):
+        return x
+
+
+NULL_POLICY = NullPolicy()

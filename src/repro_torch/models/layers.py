@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from .common import NULL_POLICY
 
 __all__ = ["rmsnorm", "rope_cos_sin", "apply_rope", "flash_attention",
            "decode_attention", "swiglu"]
@@ -88,5 +89,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+           w_down: torch.Tensor, policy=NULL_POLICY) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return policy.act(h, "ffn_hidden") @ w_down

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ModelConfig, _param, dense_init
+from .common import NULL_POLICY, ModelConfig, _param, dense_init
 from .layers import rmsnorm
 
 NEG_INF = -1e30
@@ -94,12 +94,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y), xp[:, -(K - 1):]
 
 
-def _split_in(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, conv_state):
+def _split_in(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, conv_state,
+              policy=NULL_POLICY):
     d_in, H, P, N = ssm_dims(cfg)
-    zxbcdt = x @ p.in_proj
+    zxbcdt = policy.act(x @ p.in_proj, "mamba_proj")
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * N, H], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p.conv_w.to(x.dtype),
                                    p.conv_b.to(x.dtype), conv_state)
+    xbc = policy.act(xbc, "mamba_proj")
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias.float())
     A = -torch.exp(p.A_log.float())
@@ -114,7 +116,7 @@ def _gated_out(p: Mamba2, y: torch.Tensor, z: torch.Tensor,
 
 
 def mamba2_forward(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
-                   initial_state: dict | None = None):
+                   initial_state: dict | None = None, policy=NULL_POLICY):
     """x (B,S,M) -> (y (B,S,M), final state {conv (B,K-1,C), ssm
     (B,H,P,N) fp32}), from ``initial_state`` (zeros if None)."""
     B, S, M = x.shape
@@ -123,7 +125,7 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
     dt_x = x.dtype
 
     conv0 = None if initial_state is None else initial_state["conv"]
-    z, xs, Bm, Cm, dt, A, conv_state = _split_in(p, x, cfg, conv0)
+    z, xs, Bm, Cm, dt, A, conv_state = _split_in(p, x, cfg, conv0, policy)
     xs = xs.reshape(B, S, H, P)
 
     # pad the time axis to a chunk multiple: padded steps are inert
@@ -139,6 +141,7 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
     dlog = dt * A                                          # log decay <= 0
 
     xs_c = (xs * dt.to(xs.dtype)[..., None]).reshape(B, nc, L, H, P)
+    xs_c = policy.act(xs_c, "mamba_chunk")
     B_c = Bm.reshape(B, nc, L, N)
     C_c = Cm.reshape(B, nc, L, N)
     cum = dlog.reshape(B, nc, L, H).cumsum(2)              # (B,nc,L,H)
@@ -149,7 +152,7 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
     dmask = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,L,L,H)
     causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     dmask = torch.where(causal[None, None, :, :, None], dmask, NEG_INF)
-    att = (torch.exp(dmask) * cb[..., None]).to(dt_x)
+    att = policy.act((torch.exp(dmask) * cb[..., None]).to(dt_x), "mamba_att")
     y_intra = torch.einsum("bclsh,bcshp->bclhp", att, xs_c)
 
     # chunk states and the loop across chunks

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ModelConfig, _param, dense_init
+from .common import NULL_POLICY, ModelConfig, _param, dense_init
 
 
 def moe_capacity(cfg: ModelConfig, seq: int) -> int:
@@ -52,7 +52,8 @@ class MoE(nn.Module):
             p.copy_(dense_init(tuple(p.shape), g, device=dev, scale=scale))
 
 
-def moe_layer(p: MoE, x: torch.Tensor, cfg: ModelConfig):
+def moe_layer(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+              policy=NULL_POLICY):
     """x (B, S, M) -> (out (B, S, M), aux_loss scalar)."""
     B, S, M = x.shape
     E = cfg.n_experts
@@ -78,12 +79,14 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     dispatched = torch.zeros((B * E * C, M), dtype=x.dtype, device=x.device)
     dispatched.index_add_(0, (rows + slot).reshape(-1),
                           (x * keep[..., None].to(x.dtype)).reshape(-1, M))
-    dispatched = dispatched.view(B, E, C, M)
+    dispatched = policy.act(dispatched.view(B, E, C, M), "moe_dispatch")
 
     # expert FFNs, batched over the expert axis
     h = (F.silu(torch.einsum("becm,emf->becf", dispatched, p.w_gate))
          * torch.einsum("becm,emf->becf", dispatched, p.w_up))
+    h = policy.act(h, "moe_hidden")
     eout = torch.einsum("becf,efm->becm", h, p.w_down)              # (B,E,C,M)
+    eout = policy.act(eout, "moe_combine")
 
     # gather combine
     out = eout.reshape(B, E * C, M).gather(

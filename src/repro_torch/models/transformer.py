@@ -19,7 +19,11 @@ parameter dtype (they enter only through ``rmsnorm``, which casts them).
 The KV cache is updated in place.  ``forward_train`` reads a training
 module (fp32 masters) through ``cast_params``, as the reference does, and
 recomputes each superblock in its backward
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  Every
+function takes the reference's ``policy`` and calls ``policy.act`` where it
+does, with its kinds; the attention reads the KV heads unrepeated, so the
+reference's two ``attn_q`` sites on the repeated K and V see them at their
+own (B, S, Hkv, hd).
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .common import ModelConfig, _param, cast_params, dense_init, embed_init
+from .common import (NULL_POLICY, ModelConfig, _param, cast_params,
+                     dense_init, embed_init)
 from .layers import (rmsnorm, rope_cos_sin, apply_rope, flash_attention,
                      decode_attention, swiglu)
 from .moe import MoE, moe_layer
@@ -154,7 +159,7 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-         positions: torch.Tensor):
+         positions: torch.Tensor, policy=NULL_POLICY):
     B, S, _ = x.shape
     hd = cfg.hd
     h = rmsnorm(x, p.norm, cfg.norm_eps)
@@ -168,6 +173,7 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     cos, sin = rope_cos_sin(positions, rot - rot % 2, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rotary_pct)
     k = apply_rope(k, cos, sin, cfg.rotary_pct)
+    q = policy.act(q, "attn_q")
     return q, k, v
 
 
@@ -179,22 +185,23 @@ def attn_out(p: Attention, x: torch.Tensor, o: torch.Tensor,
 
 
 def attn_block_train(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor):
+                     positions: torch.Tensor, policy=NULL_POLICY):
     """Causal self-attention over the whole segment (prefill); returns
     (x, (k, v))."""
-    q, k, v = _qkv(p, x, cfg, positions)
-    o = flash_attention(q, k, v, causal=True,
-                        softcap=cfg.attn_logit_softcap)
+    q, k, v = _qkv(p, x, cfg, positions, policy)
+    o = flash_attention(q, policy.act(k, "attn_q"), policy.act(v, "attn_q"),
+                        causal=True, softcap=cfg.attn_logit_softcap)
     return attn_out(p, x, o, cfg), (k, v)
 
 
 def attn_block_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                       pos: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor) -> torch.Tensor:
+                      v_cache: torch.Tensor,
+                      policy=NULL_POLICY) -> torch.Tensor:
     """x (B,1,M); pos (B,) index of the new token; caches (B,Smax,Hkv,hd),
     into which the new k/v are written in place (at pos, clamped to the
     last slot as the reference's dynamic_update_slice clamps)."""
-    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    q, k, v = _qkv(p, x, cfg, pos[:, None], policy)
     rows = torch.arange(x.shape[0], device=x.device)
     idx = pos.long().clamp(0, k_cache.shape[1] - 1)
     k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
@@ -204,19 +211,22 @@ def attn_block_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     return attn_out(p, x, o, cfg)
 
 
-def mlp_block(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(p: MLP, x: torch.Tensor, cfg: ModelConfig,
+              policy=NULL_POLICY) -> torch.Tensor:
     h = rmsnorm(x, p.norm, cfg.norm_eps)
-    return x + swiglu(h, p.w_gate, p.w_up, p.w_down) * cfg.residual_scale
+    return x + swiglu(h, p.w_gate, p.w_up, p.w_down,
+                      policy) * cfg.residual_scale
 
 
-def ffn_or_moe(block: Block, j: int, x: torch.Tensor, cfg: ModelConfig):
+def ffn_or_moe(block: Block, j: int, x: torch.Tensor, cfg: ModelConfig,
+               policy=NULL_POLICY):
     """Layer j's feed-forward half; returns (x, aux_loss)."""
     moe = getattr(block, f"moe{j}", None)
     if moe is not None:
         h = rmsnorm(x, getattr(block, f"moe{j}_norm"), cfg.norm_eps)
-        out, aux = moe_layer(moe, h, cfg)
+        out, aux = moe_layer(moe, h, cfg, policy)
         return x + out * cfg.residual_scale, aux
-    return mlp_block(getattr(block, f"mlp{j}"), x, cfg), 0.0
+    return mlp_block(getattr(block, f"mlp{j}"), x, cfg, policy), 0.0
 
 
 def layer_blocks(params: "Transformer", cfg: ModelConfig):
@@ -248,8 +258,8 @@ def embed_tokens(params: Transformer, tokens: torch.Tensor,
     return x
 
 
-def lm_head(params: Transformer, x: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def lm_head(params: Transformer, x: torch.Tensor, cfg: ModelConfig,
+            policy=NULL_POLICY) -> torch.Tensor:
     """x (B,S,M) -> logits (B,S,V), or (B,S,K,V) with codebooks, fp32."""
     params = cast_params(params, cfg)
     h = rmsnorm(x, params.final_norm, cfg.norm_eps)
@@ -257,8 +267,8 @@ def lm_head(params: Transformer, x: torch.Tensor,
         logits = torch.einsum("bsm,kmv->bskv", h, params.out_head)
     else:
         w = params.embed.T if cfg.tie_embeddings else params.out_head
-        logits = h @ w
-    logits = logits.float()
+        logits = h @ w.to(h.dtype)
+    logits = policy.act(logits.float(), "logits")
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., :cfg.vocab_size]
     return logits
@@ -270,19 +280,22 @@ def lm_head(params: Transformer, x: torch.Tensor,
 
 def forward_train(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, *, vision_embeds=None,
-                  remat: bool = True):
+                  policy=NULL_POLICY, remat: bool = True):
     """Returns (hidden (B,S',M) before the final norm, aux_loss): the head
     and the loss are the caller's (``train/losses.py``)."""
     params = cast_params(params, cfg)
     x = embed_tokens(params, tokens, cfg, vision_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    x = policy.act(x, "residual")
 
     def superblock(x, aux, blk):
         for j in range(n_attn(cfg)):
             x, _ = attn_block_train(getattr(blk, f"attn{j}"), x, cfg,
-                                    positions)
-            x, a = ffn_or_moe(blk, j, x, cfg)
+                                    positions, policy)
+            x = policy.act(x, "residual")
+            x, a = ffn_or_moe(blk, j, x, cfg, policy)
+            x = policy.act(x, "residual")
             aux = aux + a
         return x, aux
 
@@ -309,16 +322,19 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def forward_prefill(params: Transformer, tokens: torch.Tensor,
-                    cfg: ModelConfig, cache: dict, vision_embeds=None):
+                    cfg: ModelConfig, cache: dict, vision_embeds=None,
+                    policy=NULL_POLICY):
     """Run the prompt (after the vision embeddings, when given), fill the
     KV cache in place; returns (cache, last-token hidden (B,1,M))."""
     x = embed_tokens(params, tokens, cfg, vision_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    x = policy.act(x, "residual")
     for li, blk, j in layer_blocks(params, cfg):
         x, (k, v) = attn_block_train(getattr(blk, f"attn{j}"), x, cfg,
-                                     positions)
-        x, _ = ffn_or_moe(blk, j, x, cfg)
+                                     positions, policy)
+        x, _ = ffn_or_moe(blk, j, x, cfg, policy)
+        x = policy.act(x, "residual")
         cache["k"][li, :B, :S] = k.to(cache["k"].dtype)
         cache["v"][li, :B, :S] = v.to(cache["v"].dtype)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -327,14 +343,15 @@ def forward_prefill(params: Transformer, tokens: torch.Tensor,
 
 @torch.no_grad()
 def forward_decode(params: Transformer, tokens: torch.Tensor,
-                   cfg: ModelConfig, cache: dict):
+                   cfg: ModelConfig, cache: dict, policy=NULL_POLICY):
     """One decode step over every batch row.  tokens (B,1) or (B,1,K) ->
     (logits (B,1,V) or (B,1,K,V), cache), the cache updated in place."""
     x = embed_tokens(params, tokens, cfg)
     pos = cache["pos"]
+    x = policy.act(x, "residual")
     for li, blk, j in layer_blocks(params, cfg):
         x = attn_block_decode(getattr(blk, f"attn{j}"), x, cfg, pos,
-                              cache["k"][li], cache["v"][li])
-        x, _ = ffn_or_moe(blk, j, x, cfg)
+                              cache["k"][li], cache["v"][li], policy)
+        x, _ = ffn_or_moe(blk, j, x, cfg, policy)
     cache["pos"] = pos + 1
-    return lm_head(params, x, cfg), cache
+    return lm_head(params, x, cfg, policy), cache

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .common import ModelConfig, _param, cast_params, dense_init, embed_init
+from .common import (NULL_POLICY, ModelConfig, _param, cast_params,
+                     dense_init, embed_init)
 from .layers import rmsnorm
 from .mlstm import (MLSTM, SLSTM, init_mlstm_state, init_slstm_state,
                     mlstm_decode_step, mlstm_forward, slstm_decode_step,
@@ -100,21 +101,22 @@ def _embed(params: XLSTM, tokens, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward_train(params: XLSTM, tokens: torch.Tensor, cfg: ModelConfig, *,
-                  vision_embeds=None, remat: bool = True):
+                  vision_embeds=None, policy=NULL_POLICY,
+                  remat: bool = True):
     """Returns (hidden (B,S,M) before the final norm, aux_loss 0)."""
     params = cast_params(params, cfg)
-    x = _embed(params, tokens, cfg)
+    x = policy.act(_embed(params, tokens, cfg), "residual")
 
     def ml_body(x, cell):
         h = rmsnorm(x, cell.norm, cfg.norm_eps)
-        return x + mlstm_forward(cell.p, h, cfg)[0]
+        return policy.act(x + mlstm_forward(cell.p, h, cfg)[0], "residual")
 
     for sup in params.supers:
         for cell in sup.mlstm:
             x = (checkpoint(ml_body, x, cell, use_reentrant=False) if remat
                  else ml_body(x, cell))
         h = rmsnorm(x, sup.slstm.norm, cfg.norm_eps)
-        x = x + slstm_forward(sup.slstm.p, h, cfg)[0]
+        x = policy.act(x + slstm_forward(sup.slstm.p, h, cfg)[0], "residual")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -148,9 +150,10 @@ def run_stack(params: XLSTM, x: torch.Tensor, cfg: ModelConfig,
 
 @torch.no_grad()
 def forward_prefill(params: XLSTM, tokens: torch.Tensor, cfg: ModelConfig,
-                    cache: dict, vision_embeds=None):
+                    cache: dict, vision_embeds=None, policy=NULL_POLICY):
     """Run the prompt from zero states; returns (cache, last-token hidden
-    (B,1,M))."""
+    (B,1,M)).  ``policy`` as the reference's, which no hook of these blocks
+    reads."""
     x = _embed(params, tokens, cfg)
     B, S, _ = x.shape
     x = run_stack(params, x, cfg, cache, carry=False)
@@ -160,9 +163,9 @@ def forward_prefill(params: XLSTM, tokens: torch.Tensor, cfg: ModelConfig,
 
 @torch.no_grad()
 def forward_decode(params: XLSTM, tokens: torch.Tensor, cfg: ModelConfig,
-                   cache: dict):
+                   cache: dict, policy=NULL_POLICY):
     """One decode step over every batch row: (logits (B,1,V), cache)."""
     x = _embed(params, tokens, cfg)
     x = run_stack(params, x, cfg, cache, carry=True, decode=True)
     cache["pos"] = cache["pos"] + 1
-    return lm_head(params, x, cfg), cache
+    return lm_head(params, x, cfg, policy), cache

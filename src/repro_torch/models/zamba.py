@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .common import ModelConfig, _param, cast_params, dense_init, embed_init
+from .common import (NULL_POLICY, ModelConfig, _param, cast_params,
+                     dense_init, embed_init)
 from .layers import rmsnorm
 from .mamba2 import (Mamba2, init_mamba_state, mamba2_decode_step,
                      mamba2_forward)
@@ -120,9 +121,10 @@ def _embed(params: Zamba, tokens, cfg: ModelConfig) -> torch.Tensor:
 
 
 def mamba_block(layer: MambaLayer, x: torch.Tensor, cfg: ModelConfig,
-                state: dict | None):
+                state: dict | None, policy=NULL_POLICY):
     h = rmsnorm(x, layer.norm, cfg.norm_eps)
-    out, fin = mamba2_forward(layer.mamba, h, cfg, initial_state=state)
+    out, fin = mamba2_forward(layer.mamba, h, cfg, initial_state=state,
+                              policy=policy)
     return x + out, fin
 
 
@@ -137,28 +139,33 @@ def layer_schedule(params: Zamba, cfg: ModelConfig):
 
 
 def forward_train(params: Zamba, tokens: torch.Tensor, cfg: ModelConfig, *,
-                  vision_embeds=None, remat: bool = True):
+                  vision_embeds=None, policy=NULL_POLICY,
+                  remat: bool = True):
     """Returns (hidden (B,S,M) before the final norm, aux_loss 0)."""
     params = cast_params(params, cfg)
     x = _embed(params, tokens, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    x = policy.act(x, "residual")
 
     def body(x, layer):
-        return mamba_block(layer, x, cfg, None)[0]
+        return policy.act(mamba_block(layer, x, cfg, None, policy)[0],
+                          "residual")
 
     for _, layer, g in layer_schedule(params, cfg):
         x = (checkpoint(body, x, layer, use_reentrant=False) if remat
              else body(x, layer))
         if g is not None:
-            x, _ = attn_block_train(params.shared_attn, x, cfg, positions)
-            x = mlp_block(params.shared_mlp, x, cfg)
+            x, _ = attn_block_train(params.shared_attn, x, cfg, positions,
+                                    policy)
+            x = mlp_block(params.shared_mlp, x, cfg, policy)
+            x = policy.act(x, "residual")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()
 def forward_prefill(params: Zamba, tokens: torch.Tensor, cfg: ModelConfig,
-                    cache: dict, vision_embeds=None):
+                    cache: dict, vision_embeds=None, policy=NULL_POLICY):
     """Run the prompt from zero states, fill the cache in place; returns
     (cache, last-token hidden (B,1,M))."""
     x = _embed(params, tokens, cfg)
@@ -166,12 +173,12 @@ def forward_prefill(params: Zamba, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=x.device).expand(B, S)
     promote_conv(cache, x.dtype)
     for li, layer, g in layer_schedule(params, cfg):
-        x, fin = mamba_block(layer, x, cfg, None)
+        x, fin = mamba_block(layer, x, cfg, None, policy)
         _store_state(cache, li, fin)
         if g is not None:
             x, (k, v) = attn_block_train(params.shared_attn, x, cfg,
-                                         positions)
-            x = mlp_block(params.shared_mlp, x, cfg)
+                                         positions, policy)
+            x = mlp_block(params.shared_mlp, x, cfg, policy)
             cache["k"][g, :B, :S] = k.to(cache["k"].dtype)
             cache["v"][g, :B, :S] = v.to(cache["v"].dtype)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -180,7 +187,7 @@ def forward_prefill(params: Zamba, tokens: torch.Tensor, cfg: ModelConfig,
 
 @torch.no_grad()
 def forward_decode(params: Zamba, tokens: torch.Tensor, cfg: ModelConfig,
-                   cache: dict):
+                   cache: dict, policy=NULL_POLICY):
     """One decode step over every batch row: (logits (B,1,V), cache)."""
     x = _embed(params, tokens, cfg)
     pos = cache["pos"]
@@ -193,8 +200,8 @@ def forward_decode(params: Zamba, tokens: torch.Tensor, cfg: ModelConfig,
         _store_state(cache, li, fin)
         if g is not None:
             x = attn_block_decode(params.shared_attn, x, cfg, pos,
-                                  cache["k"][g], cache["v"][g])
-            x = mlp_block(params.shared_mlp, x, cfg)
+                                  cache["k"][g], cache["v"][g], policy)
+            x = mlp_block(params.shared_mlp, x, cfg, policy)
     cache["pos"] = pos + 1
-    return lm_head(params, x, cfg), cache
+    return lm_head(params, x, cfg, policy), cache
 

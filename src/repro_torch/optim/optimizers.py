@@ -19,7 +19,10 @@ on the host, so the schedule reads it without waiting for the card.
 ``params`` and ``grads`` are dict trees of tensors (``common.leaf_tree``
 of a training module and of its gradients); ``apply`` updates the
 parameters and the state in place (the stacked masters are the module's
-storage) and returns them with ``{"grad_norm", "lr"}``.
+storage) and returns them with ``{"grad_norm", "lr"}``.  ``layout``
+(``distributed.shardings.PolicyLayout``) gives the reductions over a tree
+of blocks sharded over ranks: the global norm and Adafactor's means; by
+default they are the plain ones over whole leaves.
 """
 from __future__ import annotations
 
@@ -61,6 +64,25 @@ def clip_by_global_norm(grads, max_norm: float):
     return _map(lambda g: g * scale, grads), norm
 
 
+class _Whole:
+    """The reductions over whole leaves on one process."""
+
+    def global_norm(self, grads):
+        return global_norm(grads)
+
+    def leaf(self, i: int) -> "_Whole":
+        return self
+
+    def mean(self, x, dim: int, leaf_dim=None, keepdim: bool = False):
+        return x.mean(dim, keepdim=keepdim)
+
+    def mean_all(self, x):
+        return torch.mean(x)
+
+
+WHOLE = _Whole()
+
+
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable
@@ -76,10 +98,10 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
         return {"m": _map(zeros, params), "v": _map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32)}
 
-    def apply(params, grads, state):
+    def apply(params, grads, state, layout=WHOLE):
         step = state["step"] + 1
         lr = lr_fn(step)
-        norm = global_norm(grads)
+        norm = layout.global_norm(grads)
         scale = _clip_scale(norm, max_grad_norm)        # clipped in the loop
         t = step.float()
         bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
@@ -117,29 +139,30 @@ def adafactor(lr_fn: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
         return {"f": _map(per, params),
                 "step": torch.zeros((), dtype=torch.int32)}
 
-    def apply(params, grads, state):
+    def apply(params, grads, state, layout=WHOLE):
         step = state["step"] + 1
         lr = lr_fn(step)
-        norm = global_norm(grads)
+        norm = layout.global_norm(grads)
         scale = _clip_scale(norm, max_grad_norm)        # clipped in the loop
         beta = float(1.0 - step.float() ** (-decay_rate))
         lr_f = float(lr)
-        for p, g, s in zip(_leaves(params), _leaves(grads),
-                           _states(params, state["f"])):
+        for i, (p, g, s) in enumerate(zip(_leaves(params), _leaves(grads),
+                                          _states(params, state["f"]))):
+            red = layout.leaf(i)
             g = g.float() * scale
             g2 = g * g + eps
             if p.dim() >= 2:
-                s["vr"].mul_(beta).add_((1 - beta) * g2.mean(-1))
-                s["vc"].mul_(beta).add_((1 - beta) * g2.mean(-2))
+                s["vr"].mul_(beta).add_((1 - beta) * red.mean(g2, -1))
+                s["vc"].mul_(beta).add_((1 - beta) * red.mean(g2, -2))
                 vr, vc = s["vr"], s["vc"]
-                denom = ((vr / torch.clamp(vr.mean(-1, keepdim=True),
-                                           min=eps))[..., None]
+                vr_mean = red.mean(vr, -1, leaf_dim=-2, keepdim=True)
+                denom = ((vr / torch.clamp(vr_mean, min=eps))[..., None]
                          * vc[..., None, :])
                 u = g * torch.rsqrt(denom + eps)
             else:
                 s["v"].mul_(beta).add_((1 - beta) * g2)
                 u = g * torch.rsqrt(s["v"] + eps)
-            rms = torch.sqrt(torch.mean(u * u) + eps)
+            rms = torch.sqrt(red.mean_all(u * u) + eps)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             pf = p.float()
             wd = weight_decay if p.dim() >= 2 else 0.0

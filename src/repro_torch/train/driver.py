@@ -1,14 +1,18 @@
 """End-to-end training driver: config -> model -> train loop with fault
 tolerance, on the card unless ``device="cpu"``.
 
-Counterpart of ``repro/train/driver.py`` (its ``mesh`` and ``policy``
-arguments wait for the port's shardings): a deterministic, resumable data
+Counterpart of ``repro/train/driver.py``: a deterministic, resumable data
 pipeline over the W-TinyLFU shard cache; asynchronous checkpoints of the
 train state and the pipeline's cursor in the reference's layout (either
 package resumes the other's); resume from the latest; a SIGTERM/SIGINT
 handler that checkpoints, then exits; ``metrics.jsonl`` with the
-reference's fields.  ``maybe_init_distributed`` reads the reference's
-environment variables into ``torch.distributed``.
+reference's fields.  With a ``distributed.shardings.ShardingPolicy``
+(``policy=``, over ``mesh``, a ``RankGrid``) every rank of the grid runs
+``train()``: the state is sharded, each rank trains on its block of every
+batch, and rank 0 of the grid writes the metrics and the checkpoints, in
+the canonical unsharded layout, which restores into any grid shape
+(elastic) and into either package.  ``maybe_init_distributed`` reads the
+reference's environment variables into ``torch.distributed``.
 
     python -m repro_torch.train.driver --arch qwen3-4b --steps 20 --out DIR
 """
@@ -30,6 +34,7 @@ from repro_torch.data.pipeline import (CachedShardReader, ShardSpec,
                                        SyntheticShardStore, TokenPipeline)
 from repro_torch.kernels.sketch_common import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.common import NULL_POLICY
 from repro_torch.optim import make_optimizer, wsd
 from .train_step import (build_train_step, load_state_tree, make_train_state,
                          state_tree)
@@ -72,8 +77,15 @@ def next_batch(pipeline: TokenPipeline, cfg, device) -> dict:
 def train(arch: str, *, smoke: bool = True, steps: int = 20,
           out_dir: str = "/tmp/repro_run", global_batch: int = 8,
           seq_len: int = 64, ckpt_every: int = 5, microbatches: int = 1,
-          seed: int = 0, lr: float = 1e-3, resume: bool = True,
-          optimizer: str = "adamw", device=None) -> dict:
+          mesh=None, policy=None, seed: int = 0, lr: float = 1e-3,
+          resume: bool = True, optimizer: str = "adamw",
+          device=None) -> dict:
+    """Train ``arch``'s config for ``steps`` steps; returns the last
+    step's metrics with ``wall_s``."""
+    policy = policy or NULL_POLICY
+    sharded = getattr(policy, "mesh", None) is not None
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg, dev)
@@ -82,25 +94,40 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     pipeline = make_pipeline(cfg, global_batch=global_batch,
                              seq_len=seq_len, seed=seed)
     state = make_train_state(model, opt,
-                             torch.Generator(device=dev).manual_seed(seed))
+                             torch.Generator(device=dev).manual_seed(seed),
+                             policy=policy)
+    writer = not sharded or policy.mesh.rank == 0
     ckpt_dir = os.path.join(out_dir, "ckpt")
     ckpt = AsyncCheckpointer(ckpt_dir)
     start_step = 0
     last = latest_step(ckpt_dir) if resume else None
     if last is not None:
+        tree = (policy.canonical_template(state, opt) if sharded
+                else state_tree(state))
         payload = restore_checkpoint(
-            ckpt_dir, last, {"state": state_tree(state),
-                             "data": pipeline.state_dict()}, device=dev)
-        load_state_tree(state, payload["state"])
+            ckpt_dir, last, {"state": tree, "data": pipeline.state_dict()},
+            device="cpu" if sharded else dev)
+        (policy.load_state_tree if sharded else load_state_tree)(
+            state, payload["state"])
         pipeline.load_state_dict(payload["data"])
         start_step = int(state.step)
-        print(f"[train] resumed from step {start_step}", flush=True)
+        if writer:
+            print(f"[train] resumed from step {start_step}", flush=True)
 
-    step_fn = build_train_step(model, opt, microbatches=microbatches,
-                               loss_chunk=32)
+    step_fn = build_train_step(model, opt, policy=policy,
+                               microbatches=microbatches, loss_chunk=32)
 
     # -- preemption: checkpoint then exit -------------------------------------
+    # On a grid the ranks agree each step (one all-reduce of the flag), so
+    # a signal that reaches one rank stops all of them after the same step.
     preempted = {"flag": False}
+
+    def stop() -> bool:
+        if not sharded:
+            return preempted["flag"]
+        flag = torch.tensor([float(preempted["flag"])],
+                            device=policy.mesh.device)
+        return bool(policy.mesh.all_reduce(flag).item() > 0)
 
     def _handler(signum, frame):
         preempted["flag"] = True
@@ -111,7 +138,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     metrics_out = {}
     t_start = time.time()
     try:
-        with open(os.path.join(out_dir, "metrics.jsonl"), "a") as logf:
+        with open(os.path.join(out_dir, "metrics.jsonl") if writer
+                  else os.devnull, "a") as logf:
             for step in range(start_step, steps):
                 batch = next_batch(pipeline, cfg, dev)
                 t0 = time.time()
@@ -126,16 +154,22 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
                 logf.write(json.dumps(rec) + "\n")
                 logf.flush()
                 metrics_out = rec
-                if ((step + 1) % ckpt_every == 0 or preempted["flag"]
+                stopping = stop()
+                if ((step + 1) % ckpt_every == 0 or stopping
                         or step + 1 == steps):
-                    ckpt.save(int(state.step),
-                              {"state": state_tree(state),
-                               "data": pipeline.state_dict()})
-                if preempted["flag"]:
+                    tree = (policy.state_tree(state, opt) if sharded
+                            else state_tree(state))
+                    if writer:
+                        ckpt.save(int(state.step),
+                                  {"state": tree,
+                                   "data": pipeline.state_dict()})
+                if stopping:
                     print(f"[train] preempted at step {step + 1}; "
                           "checkpoint written", flush=True)
                     break
         ckpt.wait()
+        if sharded:         # the checkpoint is on disk for every rank
+            policy.mesh.barrier()
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)

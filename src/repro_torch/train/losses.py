@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import NULL_POLICY, ModelConfig
 from repro_torch.models.layers import rmsnorm
 
 
@@ -27,13 +27,13 @@ def _head_weights(params, cfg: ModelConfig):
     return params.out_head
 
 
-def _chunk_logits(h, w, cfg: ModelConfig):
+def _chunk_logits(h, w, cfg: ModelConfig, policy=NULL_POLICY):
     """h (B, c, M) -> fp32 logits (B, c, V) or (B, c, K, V)."""
     if cfg.n_codebooks:
         logits = torch.einsum("bcm,kmv->bckv", h, w)
     else:
         logits = h @ w
-    logits = logits.float()
+    logits = policy.act(logits.float(), "logits")
     if cfg.padded_vocab != cfg.vocab_size:
         # mask storage-padding columns so softmax is over the true vocab
         col = torch.arange(cfg.padded_vocab, device=logits.device)
@@ -42,7 +42,7 @@ def _chunk_logits(h, w, cfg: ModelConfig):
 
 
 def chunked_cross_entropy(params, hidden, tokens, cfg: ModelConfig, *,
-                          chunk: int = 256):
+                          chunk: int = 256, policy=NULL_POLICY):
     """hidden (B, S', M) before the final norm (applied here); tokens
     (B, S) or (B, S, K).  Returns (mean nll, metrics): position t predicts
     token t + 1; the vlm vision prefix's positions are excluded."""
@@ -63,7 +63,7 @@ def chunked_cross_entropy(params, hidden, tokens, cfg: ModelConfig, *,
 
     def one_chunk(h_c, l_c, m_c, w, norm_w):
         h_c = rmsnorm(h_c, norm_w, cfg.norm_eps)
-        logits = _chunk_logits(h_c, w, cfg)                  # fp32
+        logits = _chunk_logits(h_c, w, cfg, policy)          # fp32
         lse = torch.logsumexp(logits, dim=-1)
         true = logits.gather(-1, l_c[..., None])[..., 0]
         nll = lse - true                                     # (B,c)[,K]

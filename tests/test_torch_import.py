@@ -7,7 +7,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "ab_timing.py",
-    ROOT / "tests" / "torch_mesh_ranks.py"]
+    ROOT / "tests" / "torch_mesh_ranks.py",
+    ROOT / "tests" / "torch_sharded_ranks.py"]
 MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.core.adaptive", "repro_torch.core.hashing",
            "repro_torch.core.simulate", "repro_torch.core.device_simulate",
@@ -45,7 +46,10 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.serve.driver", "repro_torch.checkpoint",
            "repro_torch.checkpoint.store", "repro_torch.core.faults",
            "repro_torch.distributed", "repro_torch.distributed.mesh",
-           "repro_torch.distributed.launch", "repro_torch.optim",
+           "repro_torch.distributed.launch",
+           "repro_torch.distributed.shardings",
+           "repro_torch.distributed.pipeline",
+           "repro_torch.distributed.compression", "repro_torch.optim",
            "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
            "repro_torch.train", "repro_torch.train.losses",
            "repro_torch.train.train_step", "repro_torch.train.driver",
