@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the TinyLFU engine on one GPU: the device
 trace engine (one stream, tenant lanes, sweeps, the sharded sketch, the
-adaptive window, the policy panel, checkpoint/resume and fault injection,
-the paper's trace families beside the host engine), the serving-admission
+adaptive window and its command-line driver, the policy panel,
+checkpoint/resume and fault injection, the paper's trace families beside
+the host engine), the serving-admission
 path (device and host sketch), the LLM serving path (every model family:
 dense, MoE, VLM, audio, hybrid SSM and xLSTM) and training (every family,
 through the flash forward's training instance and its backward kernel;
@@ -343,9 +344,23 @@ card, timed:
    result, and ``pipeline_apply`` (8 layers of width 1,024, 2 and 4
    microbatches) within 1e-5 relative of its CPU result; phases 46-47
    print their time;
-48. print the ``kernels`` JSON line (seven kernels; the step kernel's entry
+48. HC, the window-adaptation CLI (``repro_torch.launch.hillclimb.main``
+   in process) at its defaults on the card with ``--static-sweep``: C=1,000,
+   200,000 accesses, seed 3, 8 ways, climb epochs of 4,096, window 0.01, on
+   the phase-shift and fickle-churn traces, and a 50,000-access Zipf trace
+   on the flat tables (``check_runs.HC_RUNS``; JSONs into a temporary
+   directory under ``build/``); counts set to 0 just before each run and
+   read just after (49 adaptive and 5 x 391 static step launches for a
+   200,000-access run, 13 and 5 x 98 for the flat one; no other kernel):
+   every row's hits, the adaptive runs' final quotas and trajectories equal
+   to the current reference CLI's (``HC_PINS``), ``adaptive_table`` over
+   the directory equal to the reference's over its own JSONs
+   (``HC_TABLE``); each run's wall and accesses per second, the adaptive
+   run beside its best static run, the phase's time;
+49. print the ``kernels`` JSON line (seven kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive, panel, mesh
-   and wide instances' launches and checks and its checkpointed runs; the
+   and wide instances' launches and checks, the CLI's launches (HC) and its
+   checkpointed runs; the
    add's with the
    doorkeeper probe counts it was held at; the reset's and the estimate's
    with their burst times, the empty launch's in a burst, their in-stream
@@ -388,7 +403,8 @@ from repro_torch.check_runs import (ADAPT_CASES,  # noqa: E402
                                     F4S_PINS, STEP12_CASES, run_step_case,
                                     GA_ACCESSES,
                                     GA_CAPACITY, GA_FRACS, GA_GAP, GA_PINS,
-                                    GA_SEED, GA_TRACES,
+                                    GA_SEED, GA_TRACES, HC_PINS, HC_RUNS,
+                                    HC_TABLE, hc_pins,
                                     FLASH_CASES, FLASH_TAIL, FLASH_TAIL_LENS,
                                     FP_PINS, G1_SHARDED_HITS, GP_GOLDENS,
                                     GP_PINS, GP_REF_CAPACITY, GP_RUNS,
@@ -4846,6 +4862,145 @@ def collectives_phase47(card, grid, cpu_comp, cpu_pipe):
               f"n_micro={n_micro}: within {err:.2e} of the CPU's (relative)")
 
 
+def hc_phase48(card):
+    """Phase 48: run HC, the window-adaptation CLI (``repro_torch.launch.
+    hillclimb.main``, in process) at its own defaults on the card with
+    ``--static-sweep``: the phase-shift and fickle-churn traces at 8 ways
+    and a 50,000-access Zipf trace on the flat tables (``check_runs.
+    HC_RUNS``), JSONs into a temporary directory under ``build/``.  Counts
+    set to 0 just before each run and read just after: the adaptive run's
+    step launches (one per climb epoch) are read where the CLI enters
+    ``simulate_sweep``, the static runs' (one per 512-access chunk) after
+    it, and no other kernel may launch.  Every row's hits, the adaptive
+    run's final quota and its whole trajectory must equal the current
+    reference CLI's (``HC_PINS``), and ``adaptive_table`` over the
+    directory the reference's table over its own JSONs (``HC_TABLE``).
+    Prints each run's wall and accesses per second, the adaptive run beside
+    its best static run, and the phase's time.  Returns the launch counts
+    and the checks for the kernels line."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.analysis.report import adaptive_table
+    from repro_torch.core import device_simulate
+    from repro_torch.kernels import sketch_step as ks
+    from repro_torch.launch import hillclimb
+    t48 = time.perf_counter()
+    real_sweep = device_simulate.simulate_sweep
+    at_sweep = []
+
+    def sweep(*args, **kw):         # the adaptive run's launches end here
+        torch.cuda.synchronize()
+        at_sweep.append((ks.step.launches, time.perf_counter()))
+        return real_sweep(*args, **kw)
+
+    launches = {"adaptive": 0, "static": 0, "flat_adaptive": 0,
+                "flat_static": 0}
+    climbs, bounds = {}, {}
+    CKPT_WORKDIR.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="hillclimb-", dir=CKPT_WORKDIR))
+    device_simulate.simulate_sweep = sweep
+    try:
+        for trace, flags in HC_RUNS:
+            argv = ["--trace", trace, *flags, "--static-sweep", "--out",
+                    str(work / f"{trace}.json")]
+            args = hillclimb.parse_args(argv)
+            n, epoch = args.length, args.epoch_len
+            at_sweep.clear()
+            torch.cuda.synchronize()
+            set_launches(0)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rows = hillclimb.main(argv)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = read_launches()
+            n_adapt, t_sweep = at_sweep[0]
+            n_static = got["sketch_step"] - n_adapt
+            a, stat = rows[0], rows[1:]
+            nep = len(a["extra"].get("trajectory", {}).get("quota", []))
+            expect = (-(-n // epoch), len(stat) * -(-n // 512))
+            check(len(at_sweep) == 1 and (n_adapt, n_static) == expect
+                  and sum(got.values()) == got["sketch_step"]
+                  and nep == n // epoch,
+                  f"HC {trace}: launches {got}, {n_adapt} before the "
+                  f"sweep, {nep} climbs; expected {expect} step launches "
+                  f"and {n // epoch} climbs")
+            check(all(r["extra"]["backend"].startswith("cuda")
+                      and r["extra"]["device"] == torch.cuda.get_device_name()
+                      for r in rows), f"HC {trace}: a row ran off the card")
+            pins = hc_pins(rows)
+            check(pins == HC_PINS[trace],
+                  f"HC {trace}: {pins} != the reference CLI's "
+                  f"{HC_PINS[trace]}")
+            flat = "flat_" if args.assoc == 0 else ""
+            launches[flat + "adaptive"] += n_adapt
+            launches[flat + "static"] += n_static
+            climbs[trace] = nep
+            best = max(stat, key=lambda r: r["hit_ratio"])
+            a_wall = a["wall_s"]
+            s_wall = stat[0]["extra"]["grid_wall_s"]
+            layout = "flat" if args.assoc == 0 else f"{args.assoc} ways"
+            print(f"phase 48 HC {trace}: C={args.capacity} {layout}, {n} "
+                  f"accesses; adaptive hits {a['hits']} ({a['hit_ratio']:.6f}"
+                  f"), final quota {a['extra']['final_quota']}, {nep} climbs, "
+                  f"{n_adapt} launches, wall {a_wall:.3f} s, "
+                  f"{n / a_wall:,.0f} acc/s; best static wf="
+                  f"{best['extra']['window_frac']:.2f} hits {best['hits']} "
+                  f"({best['hit_ratio']:.6f}, gap "
+                  f"{a['hit_ratio'] - best['hit_ratio']:+.6f}), the five "
+                  f"static runs {n_static} launches, wall {s_wall:.3f} s "
+                  f"({s_wall / len(stat):.3f} s and "
+                  f"{n * len(stat) / s_wall:,.0f} acc/s each); == the "
+                  f"reference CLI's hits, quota and trajectory; the CLI "
+                  f"{t1 - t0:.3f} s (adaptive part {t_sweep - t0:.3f} s); "
+                  f"card {card}")
+            print(f"phase 48 HC {trace} CLI: "
+                  f"{out.getvalue().splitlines()[-2]}")
+            if args.assoc:
+                bounds[trace] = hc_bounds(args, n_adapt, n_static // len(stat))
+        table = adaptive_table(str(work))
+        check(tuple(table.splitlines()) == HC_TABLE,
+              f"HC: adaptive_table\n{table}\n!= the reference's\n"
+              + "\n".join(HC_TABLE))
+    finally:
+        device_simulate.simulate_sweep = real_sweep
+        shutil.rmtree(work, ignore_errors=True)
+    for line in table.splitlines():
+        print(f"phase 48 HC adaptive_table: {line}")
+    phase_s = time.perf_counter() - t48
+    print(f"phase 48 HC: launches {launches}, climbs {climbs}; "
+          f"{phase_s:.1f} s")
+    return launches, {"pins_equal": True, "table_equal": True,
+                      "climbs": climbs, "bound_ms": bounds,
+                      "phase_s": phase_s}
+
+
+def hc_bounds(args, n_adapt, n_static):
+    """The step kernel's bound (``bound_bytes``) per launch of an HC run's
+    adaptive part (one launch a climb epoch) and of its first static run
+    (window 0.01, one launch a 512-access chunk), in ms."""
+    from repro_torch.core.device_simulate import DeviceWTinyLFU
+    from repro_torch.launch import hillclimb
+    tr = hillclimb.make_trace(args.trace, args.length, args.seed)
+    out = {}
+    for part, adaptive, chunk, nl in (("adaptive", True, args.epoch_len,
+                                       n_adapt),
+                                      ("static", False, 512, n_static)):
+        wf = args.window_frac if adaptive else hillclimb.STATIC_WFS[0]
+        cfg = DeviceWTinyLFU(args.capacity, assoc=args.assoc,
+                             window_frac=wf, adaptive=adaptive)
+        total, _, _ = bound_bytes(cfg.spec(), tr, chunk, cfg.sample_size)
+        out[part] = total / nl / HBM_BYTES_PER_S * 1e3
+        print(f"phase 48 HC {args.trace} bound, {part}: {total} bytes over "
+              f"the run = {total / nl:.0f} bytes per launch over 3.35 TB/s "
+              f"= {out[part]:.6f} ms")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5195,6 +5350,10 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phases 46-47: {time.perf_counter() - t46:.1f} s")
     elapsed("phases 46-47")
+
+    # -- phase 48: HC, the window-adaptation CLI at its defaults -----------
+    hc_launches, hc_checks = hc_phase48(card)
+    elapsed("phase 48")
     err = max(max_err, lane_err, shard_err, adapt_err, panel_err,
               step12_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
@@ -5218,6 +5377,7 @@ def main() -> int:
                       adaptive_plain_ms=adapt_plain_ms,
                       adaptive_bound_ms=fa_bound_ms,
                       adaptive_climb_ms=fa_climb_ms,
+                      hillclimb_launches=hc_launches, hillclimb=hc_checks,
                       panel_launches={p: v[0] for p, v in fp.items()},
                       panel_max_abs_err=panel_err,
                       panel_ms={p: v[1] for p, v in fp.items()},
@@ -5237,7 +5397,7 @@ def main() -> int:
     kernels[1].update(dk_probes_held=sorted(set(add_probes)
                                             | set(LOOP_PROBES)))
 
-    # -- phase 48: the kernels line ----------------------------------------
+    # -- phase 49: the kernels line ----------------------------------------
     flash_err = max([flash_err] + [fl["max_abs_err"]
                                    for _, fl in cells.values() if fl])
     for k in kernels[1:]:

@@ -201,6 +201,45 @@ GA_PINS = {
 }
 
 
+# Run HC: the window-adaptation CLI (launch/hillclimb.py) at its own
+# defaults (C=1,000, 200,000 accesses, seed 3, 8 ways, epoch 4,096, window
+# 0.01) with --static-sweep on the phase-shift and fickle-churn traces, and
+# one flat run (--assoc 0) on a 50,000-access Zipf trace.  The pins are the
+# current reference CLI's (repro.launch.hillclimb, JAX on the CPU; ``python
+# tests/test_torch_hillclimb.py`` prints them), not the reference's committed
+# experiments/adaptive/*.json, whose adaptive rows predate its current
+# climber.  HC_TABLE is the reference's adaptive_table over its own JSONs of
+# the three runs (the gap column depends only on hits).
+HC_RUNS = (("phase", ()), ("fickle", ()),
+           ("zipf", ("--length", "50000", "--assoc", "0")))
+# trace -> {"adaptive": (hits, final quota, epochs, trajectory digest),
+#           "static": hits at launch.hillclimb.STATIC_WFS}
+HC_PINS = {
+    "phase": {"adaptive": (125_524, 447, 48, "3132668c5c0df79f"),
+              "static": (112_419, 112_210, 114_254, 119_340, 125_434)},
+    "fickle": {"adaptive": (120_150, 91, 48, "5cb3fdcceba3f30b"),
+               "static": (120_929, 120_653, 119_937, 118_424, 116_100)},
+    "zipf": {"adaptive": (29_694, 16, 12, "f48e5647494f2569"),
+             "static": (29_711, 29_620, 29_525, 29_357, 28_857)},
+}
+HC_TABLE = (
+    "| trace | C | adaptive hit | best static | gap | final quota | epochs |",
+    "|---|---|---|---|---|---|---|",
+    "| fickle | 1000 | 0.6008 | 0.6046 | -0.0039 | 91 | 48 |",
+    "| phase | 1000 | 0.6276 | 0.6272 | +0.0004 | 447 | 48 |",
+    "| zipf | 1000 | 0.5939 | 0.5942 | -0.0003 | 16 | 12 |",
+)
+
+
+def hc_pins(rows: list) -> dict:
+    """A hillclimb JSON's rows (adaptive first) in HC_PINS's form."""
+    a, stat = rows[0], rows[1:]
+    tj = a["extra"].get("trajectory")
+    traj = ((len(tj["quota"]), trajectory_digest(tj)) if tj is not None
+            else (0, None))
+    return {"adaptive": (a["hits"], a["extra"]["final_quota"]) + traj,
+            "static": tuple(r["hits"] for r in stat)}
+
 # Runs FP, GP and WP: the policy panel (kernel mode 1d).  FP is run F's
 # trace, capacity and warmup through simulate_trace(..., assoc=8, policy=p)
 # for each competitor, S3-FIFO at its documented small-queue share

@@ -38,6 +38,11 @@ def _family_mod(cfg: ModelConfig):
     raise ValueError(cfg.family)
 
 
+def is_subquadratic(cfg: ModelConfig) -> bool:
+    """Archs eligible for the long_500k cell (SSM / hybrid / linear-attn)."""
+    return cfg.family in ("hybrid_ssm", "xlstm")
+
+
 # each family module's parameter module and cache constructor
 _PARTS = {transformer: (transformer.Transformer, transformer.init_kv_cache),
           zamba: (zamba.Zamba, zamba.init_cache),

@@ -53,7 +53,9 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
            "repro_torch.train", "repro_torch.train.losses",
            "repro_torch.train.train_step", "repro_torch.train.driver",
-           "repro_torch.data", "repro_torch.data.pipeline"]
+           "repro_torch.data", "repro_torch.data.pipeline",
+           "repro_torch.launch", "repro_torch.launch.hillclimb",
+           "repro_torch.analysis", "repro_torch.analysis.report"]
 
 
 # the host engine runs, not only imports, with jax and repro blocked
@@ -95,13 +97,27 @@ out = train("qwen3-4b", steps=1, out_dir=tempfile.mkdtemp(), global_batch=2,
 assert out["step"] == 1 and out["loss"] > 0
 """
 
+# and the window-adaptation CLI and its report
+HILLCLIMB_DRIVE = """
+import contextlib, io, os, tempfile
+from repro_torch.analysis.report import adaptive_table
+from repro_torch.launch.hillclimb import main
+d = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    rows = main(["--trace", "fickle", "--capacity", "50", "--length", "300",
+                 "--epoch-len", "128", "--device", "cpu", "--out",
+                 os.path.join(d, "fickle.json")])
+assert len(rows[0]["extra"]["trajectory"]["quota"]) == 2
+assert len(adaptive_table(d).splitlines()) == 3
+"""
+
 
 def test_imports_with_jax_and_repro_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in MODULES)
-            + HOST_ENGINE_DRIVE + FAMILY_DRIVE + TRAIN_DRIVE
+            + HOST_ENGINE_DRIVE + FAMILY_DRIVE + TRAIN_DRIVE + HILLCLIMB_DRIVE
             + "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,

@@ -6,9 +6,9 @@ paths of the add on its hazard cases and of the admit at small and large
 batches; all four at the edge geometries, past 8 doorkeeper probes too,
 and one stream of programmatic dependent launches), the flash-attention
 kernel (serving, and training: the LSE instance and the backward kernel),
-checkpointed and resumed runs of the engine on the card, a
-prefix of one of the paper's trace families through the engine, and each
-serving family's smoke engine.
+checkpointed and resumed runs of the engine on the card, the
+window-adaptation CLI, a prefix of one of the paper's trace families
+through the engine, and each serving family's smoke engine.
 
 Imports nothing of JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py``.
@@ -321,6 +321,32 @@ def test_adaptive_engine_on_card_equals_cpu(kw):
     for k in sc_:
         np.testing.assert_array_equal(st[k].cpu().numpy(), sc_[k].numpy(),
                                       err_msg=f"state[{k}]")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assoc", ["8", "0"], ids=["8 ways", "flat"])
+def test_hillclimb_cli_on_card_equals_cpu(assoc, tmp_path):
+    """The window-adaptation CLI with --static-sweep on the card (no
+    --device) writes the rows of its --device cpu run, bar the fields
+    that say where and how long it ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import hillclimb
+    flags = ["--trace", "phase", "--capacity", "100", "--length", "1024",
+             "--epoch-len", "64", "--assoc", assoc, "--static-sweep"]
+    before = port.step.launches
+    card = hillclimb.main([*flags, "--out", str(tmp_path / "card.json")])
+    assert port.step.launches - before == 16 + 5 * 2
+    cpu = hillclimb.main([*flags, "--device", "cpu", "--out",
+                          str(tmp_path / "cpu.json")])
+    for a, b in zip(card, cpu, strict=True):
+        assert a["extra"].pop("backend").startswith("cuda")
+        assert b["extra"].pop("backend").startswith("plain")
+        for row in (a, b):
+            row.pop("wall_s")
+            row["extra"].pop("grid_wall_s", None)
+            row["extra"].pop("device")
+        assert a == b
 
 
 @pytest.mark.gpu
