@@ -357,10 +357,31 @@ card, timed:
    the directory equal to the reference's over its own JSONs
    (``HC_TABLE``); each run's wall and accesses per second, the adaptive
    run beside its best static run, the phase's time;
-49. print the ``kernels`` JSON line (seven kernels; the step kernel's entry
+49. PL, the program lint (``repro_torch.analysis.program_lint``) on the
+   card, in a fresh process (its profiler sessions drop kernel records
+   now and then in a process that has run the earlier phases' long ones),
+   on a one-rank NCCL group: ``run_matrix`` over the reference's 15
+   configurations, each at chunk lengths 96 and 192 (407 accesses), every
+   run recorded (launch events, the aten and c10d ops outside them, the
+   chunk loop under ``torch.cuda.set_sync_debug_mode("error")``) and
+   profiled; no violation, the profiler's ``sketch_step`` kernels equal to
+   the recorded launches in every run, the mesh entries on the group (the
+   stale fold's two gathers an epoch, counted there); R7 on the card: the
+   five identical-program contracts record the base's program, whose digest
+   equals the committed registry's for the card's torch (``analysis/
+   fingerprints.json``; pair equality alone for a torch it does not hold);
+   and one lint at F's
+   geometry (C=65,536, 8 ways, W=524,288, chunks of 512) over F's first
+   51,200 accesses: R0-R6 clean, 100 launches and kernels, no host read in
+   its chunk loop; a run whose profiler session delivered no device
+   activity at all is recorded again on a fresh state (at most twice; the
+   count is printed); counts set to 0 just before the phase and read just
+   after (the step kernel only); each entry's launches and op counts, and
+   the phase's time;
+50. print the ``kernels`` JSON line (seven kernels; the step kernel's entry
    with the modes it runs, its lane-grid, sharded, adaptive, panel, mesh
-   and wide instances' launches and checks, the CLI's launches (HC) and its
-   checkpointed runs; the
+   and wide instances' launches and checks, the CLI's launches (HC), the
+   lint's launches (PL) and its checkpointed runs; the
    add's with the
    doorkeeper probe counts it was held at; the reset's and the estimate's
    with their burst times, the empty launch's in a burst, their in-stream
@@ -5001,6 +5022,129 @@ def hc_bounds(args, n_adapt, n_static):
     return out
 
 
+PL_CHUNKS = 100                 # F's chunks that phase 49 lints
+
+
+def lint_child(out: str) -> int:
+    """Phase 49's work, in a fresh process (see :func:`lint_phase49`): on a
+    one-rank NCCL group it makes and destroys, as phases 46-47 do, with the
+    counts set to 0 just before and read just after, ``run_matrix`` on the
+    card, R7 on the card and F's geometry over its first ``PL_CHUNKS``
+    chunks; writes what it found to ``out`` as JSON."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import program_lint as pl
+    from repro_torch.traces.synthetic import zipf_trace
+    n = PL_CHUNKS * F_CHUNK
+    f_trace = zipf_trace(F_ACCESSES, n_items=1_000_000, alpha=0.9,
+                         seed=11)[:n]
+    CKPT_WORKDIR.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="lint-", dir=CKPT_WORKDIR))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        f"{work}/store", 1), rank=0, world_size=1)
+    try:
+        torch.cuda.synchronize()
+        set_launches(0)
+        violations, rows = pl.run_matrix(device="cuda")
+        fp_violations, notes = pl.check_fingerprints(device="cuda")
+        t_f = time.perf_counter()
+        (run,), f_bounds = pl.engine_program(
+            dict(capacity=F_CAPACITY, assoc=F_ASSOC), "cuda",
+            trips=(F_CHUNK,), trace=f_trace)
+        f_s = time.perf_counter() - t_f
+        torch.cuda.synchronize()
+        got = read_launches()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    chunks = pl._scopes(run.events).chunks
+    Path(out).write_text(json.dumps({
+        "rows": rows, "violations": [v.to_dict() for v in violations],
+        "fp_violations": [v.to_dict() for v in fp_violations],
+        "notes": notes, "env": pl.env_key("cuda"),
+        "contracts": len(pl.FINGERPRINT_CONTRACTS), "launches": got,
+        "f": {"violations": [str(v) for v in pl.lint_program(
+                  [run], f_bounds, "F geometry")],
+              "reads": sum(len(pl._ops(ev, "host_read")) for ev in chunks),
+              "launches": len(pl._launches(run.events)),
+              "kernels": run.kernels, "aborted": run.aborted,
+              "redone": run.redone, "accesses": n,
+              "per_chunk": sorted({len(pl._ops(ev)) for ev in chunks}),
+              "ops": len(pl._ops(run.events)), "seconds": f_s}}))
+    return 0
+
+
+def lint_phase49(card):
+    """Phase 49: PL, the program lint on the card (see the module
+    docstring).  Its recordings are profiled, and in a process that has
+    run the earlier phases' long profiler sessions a short session lost
+    kernel records now and then (one session in 37 in each of two whole
+    runs of this script; none in 111 in fresh processes), so the phase runs
+    in a fresh process (:func:`lint_child`), which this one waits for.
+    Returns the step kernel's launch count over the phase and the checks
+    for the kernels line."""
+    t49 = time.perf_counter()
+    CKPT_WORKDIR.mkdir(exist_ok=True)
+    out = CKPT_WORKDIR / "lint49.json"
+    out.unlink(missing_ok=True)
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; sys.exit(chip_smoke.lint_child(sys.argv[2]))",
+         str(ROOT), str(out)], capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0 and out.exists(),
+          f"PL: the lint process exited {child.returncode}:\n"
+          f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+    res = json.loads(out.read_text())
+    rows, got, f = res["rows"], res["launches"], res["f"]
+    for r in rows:
+        print(f"phase 49 PL {r['label']}: {r['status']}, chunk lengths "
+              f"{r['trips']}, launches {r['launches']}, profiled "
+              f"sketch_step kernels {r['kernels']}, recorded ops {r['ops']}, "
+              f"profiler sessions redone {r['redone']}, {r['seconds']:.2f} s")
+    check(not res["violations"], "PL: the engine on the card breaks a lint "
+          "rule:\n" + "\n".join(str(v) for v in res["violations"]))
+    check(all(r["status"] == "ok" and r["kernels"] == r["launches"]
+              for r in rows), f"PL: a row is not clean or its profiled "
+          f"kernels differ from its launches: {rows}")
+    check(len(rows) == 15, f"PL: {len(rows)} matrix entries, expected 15")
+    for note in res["notes"]:
+        print(f"phase 49 PL fingerprints: {note}")
+    check(not res["fp_violations"], f"PL R7 on the card: "
+          f"{res['fp_violations']}")
+    print(f"phase 49 PL R7: the {res['contracts']} contracts record the "
+          f"base's program on the card [{res['env']}]")
+    check(not f["violations"] and not f["aborted"] and f["reads"] == 0
+          and f["launches"] == f["kernels"] == PL_CHUNKS,
+          f"PL F geometry: {f}")
+    print(f"phase 49 PL F geometry: C={F_CAPACITY} assoc={F_ASSOC} W="
+          f"{8 * F_CAPACITY}, {f['accesses']} accesses in chunks of "
+          f"{F_CHUNK}: R0-R6 clean, {f['launches']} launches == "
+          f"{f['kernels']} profiled sketch_step kernels, {f['reads']} host "
+          f"reads in the chunk loop under set_sync_debug_mode('error'), "
+          f"engine ops per chunk {f['per_chunk']}, {f['ops']} recorded ops "
+          f"in all, profiler sessions redone {f['redone']}; "
+          f"{f['seconds']:.2f} s")
+    pins = 2 * (1 + res["contracts"])           # two chunks a pin
+    want = sum(n * (1 + d) for r in rows
+               for n, d in zip(r["launches"], r["redone"]))
+    want += pins + PL_CHUNKS * (1 + f["redone"])
+    check(got["sketch_step"] == want and sum(got.values()) == want,
+          f"PL: launches {got}, expected {want} of the step kernel only "
+          f"(the matrix's, {pins} of the R7 pins, {PL_CHUNKS} of F's)")
+    phase_s = time.perf_counter() - t49
+    print(f"phase 49 PL: {got['sketch_step']} step launches (counted in the "
+          f"lint process); {phase_s:.1f} s with the process's start; card "
+          f"{card}")
+    return got["sketch_step"], {
+        "entries": len(rows), "violations": 0,
+        "kernels_equal_launches": True, "r7_pairs_equal": True,
+        "f_geometry_host_reads": f["reads"],
+        "f_geometry_launches": f["launches"], "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5354,6 +5498,10 @@ def main() -> int:
     # -- phase 48: HC, the window-adaptation CLI at its defaults -----------
     hc_launches, hc_checks = hc_phase48(card)
     elapsed("phase 48")
+
+    # -- phase 49: PL, the program lint on the card --------------------------
+    pl_launches, pl_checks = lint_phase49(card)
+    elapsed("phase 49")
     err = max(max_err, lane_err, shard_err, adapt_err, panel_err,
               step12_err)
     kernels[0].update(modes=["flat", "set", "1a lanes", "1b sharded",
@@ -5378,6 +5526,8 @@ def main() -> int:
                       adaptive_bound_ms=fa_bound_ms,
                       adaptive_climb_ms=fa_climb_ms,
                       hillclimb_launches=hc_launches, hillclimb=hc_checks,
+                      program_lint_launches=pl_launches,
+                      program_lint=pl_checks,
                       panel_launches={p: v[0] for p, v in fp.items()},
                       panel_max_abs_err=panel_err,
                       panel_ms={p: v[1] for p, v in fp.items()},
@@ -5397,7 +5547,7 @@ def main() -> int:
     kernels[1].update(dk_probes_held=sorted(set(add_probes)
                                             | set(LOOP_PROBES)))
 
-    # -- phase 49: the kernels line ----------------------------------------
+    # -- phase 50: the kernels line ----------------------------------------
     flash_err = max([flash_err] + [fl["max_abs_err"]
                                    for _, fl in cells.values() if fl])
     for k in kernels[1:]:

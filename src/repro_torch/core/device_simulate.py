@@ -39,6 +39,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from repro_torch.analysis import program_trace
 from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels.sketch_step import (
     StepSpec, make_step_params, init_step_state, precompute_probes, step,
@@ -374,7 +375,9 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     ``fold(spec, params, state)`` (the sharded runs' ``merge_halve``, the
     adaptive runs' climb and rebalance) runs after every full chunk, never
     after a partial tail: the host knows which chunks are full, so it reads
-    nothing from the card to decide."""
+    nothing from the card to decide.  While a program is recorded
+    (``analysis.program_trace``) the loop, each chunk and each fold are
+    marked."""
     n = lo.shape[-1]
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be >= 1")
@@ -397,13 +400,24 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     lo, hi = chunk_major(lo), chunk_major(hi)
     probes = precompute_probes(spec, lo, hi)
     hits = []
+    rec = program_trace.active
+    if rec is not None:
+        rec.mark("loop_begin", program_trace.leaf_ids(state))
     for c in range(nc):
         n_valid = min(chunk, n - c * chunk)
+        if rec is not None:
+            rec.mark("chunk", c)
         _, h = fn(spec, params, state, lo[c], hi[c], n_valid,
                   tuple(p[c] for p in probes))
         hits.append(h)
         if fold is not None and n_valid == chunk:
+            if rec is not None:
+                rec.mark("fold")
             fold(spec, params, state)
+            if rec is not None:
+                rec.mark("fold_end")
+    if rec is not None:
+        rec.mark("loop_end", program_trace.leaf_ids(state))
     return state, torch.cat(hits, dim=-1)[..., :n]
 
 

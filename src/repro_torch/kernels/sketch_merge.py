@@ -32,8 +32,10 @@ from __future__ import annotations
 
 import torch
 
-from .sketch_common import _check, _i32, _u32, checksum_words, merge_words
 from dataclasses import replace
+
+from repro_torch.analysis import program_trace
+from .sketch_common import _check, _i32, _u32, checksum_words, merge_words
 
 from .sketch_step import P_SAMPLE, R_SIZE, StepSpec
 
@@ -74,11 +76,19 @@ def _shift_fields(words: torch.Tensor, k: torch.Tensor,
     return _i32((_u32(words) >> k) & mask)
 
 
+def _fold_fields(spec: StepSpec) -> dict:
+    """What a recorded fold event carries (``analysis.program_trace``)."""
+    return {"shards": spec.shards, "integrity": int(spec.integrity),
+            "mesh_devices": spec.mesh_devices, "streams": spec.streams}
+
+
 def merge_halve(spec: StepSpec, params: torch.Tensor, state: dict) -> dict:
     """Fold the deltas into the global halves and apply the deferred §3.3
     aging, in place; returns ``state``.  ``params`` is ``(NPARAMS,)`` or,
     with lanes, ``(B, NPARAMS)``."""
     _check(spec.shards > 1, "merge_halve requires StepSpec.shards > 1")
+    if program_trace.active is not None:
+        program_trace.active.fold("merge_halve", _fold_fields(spec))
     H, HD = spec.counter_words, spec.dk_words
     counters, dk, regs = state["counters"], state["doorkeeper"], state["regs"]
     lead = counters.shape[:-1]
@@ -135,6 +145,8 @@ def merge_halve_mesh(spec: StepSpec, params: torch.Tensor, state: dict,
     halves take the result and the delta blocks are zeroed."""
     _check(spec.mesh_devices > 0,
            "merge_halve_mesh requires StepSpec.mesh_devices")
+    if program_trace.active is not None:
+        program_trace.active.fold("merge_halve_mesh", _fold_fields(spec))
     H, HD = spec.counter_words, spec.dk_words
     cd = mesh.all_gather(state["dcounters"])            # (S, rows, wps)
     delta = cd.transpose(0, 1).reshape(H)

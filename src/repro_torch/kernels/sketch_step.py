@@ -76,6 +76,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from repro_torch.analysis import program_trace
 from repro_torch.core.hashing import (WSET_SALT, MSET_SALT, MSET2_SALT,
                                       set_ways, shard_geometry)
 from .sketch_common import (POLICIES, _check, _pow2, dk_probe_salts,
@@ -1315,9 +1316,11 @@ def _compact(tab, n_sets: int, A: int, meta_col: int, usable):
     keep = torch.arange(A, device=tab.device) < usable[..., None]
     metas = t3s[..., meta_col]
     evict = (metas >= 0) & (metas < _I32_MAX) & ~keep
-    blank = torch.zeros(ncols, dtype=tab.dtype, device=tab.device)
-    blank[0] = blank[1] = -1
-    blank[meta_col] = _EMPTY
+    # an empty record: lo = hi = -1, meta _EMPTY, the rest 0 (made by tensor
+    # ops: a Python scalar stored into one element waits for the card)
+    cols = torch.arange(ncols, device=tab.device)
+    blank = torch.where(cols == meta_col, _EMPTY,
+                        torch.where(cols < 2, -1, 0)).to(tab.dtype)
     return torch.where(keep[..., None], t3s, blank), t3s, evict
 
 
@@ -1543,10 +1546,24 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
     :func:`_needs_exact`), which only those instances take as the
     reference does."""
     from ._build import check_error, load_library
-    _check(spec.rows <= _MAX_ROWS,
-           f"the kernel takes rows <= {_MAX_ROWS}, not {spec.rows}")
-    if lane_grid is None:
-        lane_grid = spec.streams > 1
+    ptr = _arg_ptrs(spec, params, state, lo, hi, probes, n_valid, hits)
+    for k, v in ptr.items():
+        _check(v.is_cuda and v.dtype == torch.int32 and v.is_contiguous(),
+               f"kernel operand {k!r} must be a contiguous int32 CUDA tensor")
+    args = _Args(**{k: v.data_ptr() for k, v in ptr.items()},
+                 **_arg_ints(spec, params, lo, n_valid, lane_grid, rank,
+                             exact))
+    lib = lib or load_library("sketch_step", _defines(spec))
+    stream = torch.cuda.current_stream(lo.device).cuda_stream
+    check_error("sketch_step", lib, lib.sketch_step_launch(
+        ctypes.addressof(args), _THREADS, stream))
+    step.launches += 1
+
+
+def _arg_ptrs(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
+              probes, n_valid, hits: torch.Tensor) -> dict:
+    """The tensors whose addresses fill the pointer fields of ``StepArgs``
+    for one launch, by field name."""
     kidx, kdkb, kwset, kmset = probes
     ptr = {"lo": lo, "hi": hi, "kidx": kidx, "kdkb": kdkb, "kwset": kwset,
            "kmset": kmset, "params": params, "counters": state["counters"],
@@ -1558,43 +1575,48 @@ def _launch(spec: StepSpec, params: torch.Tensor, state: dict, lo, hi,
             ptr[k] = state[k]
     if spec.mesh_devices:
         ptr["ddk"] = state["ddoorkeeper"]
-    per_lane = isinstance(n_valid, torch.Tensor)
+    if isinstance(n_valid, torch.Tensor):
+        ptr["nvalid"] = n_valid
+    return ptr
+
+
+def _arg_ints(spec: StepSpec, params: torch.Tensor, lo, n_valid,
+              lane_grid: bool | None = None, rank: int = 0,
+              exact: bool = False) -> dict:
+    """The non-pointer fields of ``StepArgs`` for one launch: the instance
+    the kernel runs.  Plain values, from shapes and ``spec``, so they come
+    out the same for tensors on any device.  ``n_valid`` is an int, or per
+    lane a tensor or list (the kernel then reads its ``nvalid`` operand)."""
+    _check(spec.rows <= _MAX_ROWS,
+           f"the kernel takes rows <= {_MAX_ROWS}, not {spec.rows}")
+    if lane_grid is None:
+        lane_grid = spec.streams > 1
+    per_lane = isinstance(n_valid, (torch.Tensor, list, tuple))
     _check(lane_grid or not per_lane,
            "a per-lane n_valid needs the lane grid")
-    if per_lane:
-        ptr["nvalid"] = n_valid
-    for k, v in ptr.items():
-        _check(v.is_cuda and v.dtype == torch.int32 and v.is_contiguous(),
-               f"kernel operand {k!r} must be a contiguous int32 CUDA tensor")
     lanes = lo.shape[0] if lo.dim() == 2 else 1
-    args = _Args(**{k: v.data_ptr() for k, v in ptr.items()},
-                 n_valid=0 if per_lane else int(n_valid), b=lo.shape[-1],
-                 rows=spec.rows, dkp=spec.dkp, dk_bits=spec.dk_bits,
-                 counter_bits=spec.counter_bits,
-                 words_per_row=spec.words_per_row,
-                 counter_words=spec.counter_words, dk_words=spec.dk_words,
-                 window_slots=spec.window_slots, main_slots=spec.main_slots,
-                 assoc=spec.assoc or 0,
-                 wcols=spec.wcols if spec.assoc else 0,
-                 mcols=spec.mcols if spec.assoc else 0,
-                 lanes=lanes if lane_grid else 0,
-                 params_stride=NPARAMS if params.dim() == 2 else 0,
-                 halves=1 if spec.mesh_devices else spec.sketch_halves,
-                 adaptive=int(spec.adaptive),
-                 policy=POLICIES.index(spec.policy),
-                 mesh=int(spec.mesh_devices > 0),
-                 mesh_base=_mesh_base(spec, rank) if spec.mesh_devices
-                 else 0,
-                 local_shards=spec.local_shards,
-                 width_shard=spec.width_shard,
-                 dk_bits_shard=spec.dk_bits_shard,
-                 wps_shard=spec.wps_shard, dkw_shard=spec.dkw_shard,
-                 exact=int(exact))
-    lib = lib or load_library("sketch_step", _defines(spec))
-    stream = torch.cuda.current_stream(lo.device).cuda_stream
-    check_error("sketch_step", lib, lib.sketch_step_launch(
-        ctypes.addressof(args), _THREADS, stream))
-    step.launches += 1
+    return dict(n_valid=0 if per_lane else int(n_valid), b=lo.shape[-1],
+                rows=spec.rows, dkp=spec.dkp, dk_bits=spec.dk_bits,
+                counter_bits=spec.counter_bits,
+                words_per_row=spec.words_per_row,
+                counter_words=spec.counter_words, dk_words=spec.dk_words,
+                window_slots=spec.window_slots, main_slots=spec.main_slots,
+                assoc=spec.assoc or 0,
+                wcols=spec.wcols if spec.assoc else 0,
+                mcols=spec.mcols if spec.assoc else 0,
+                lanes=lanes if lane_grid else 0,
+                params_stride=NPARAMS if params.dim() == 2 else 0,
+                halves=1 if spec.mesh_devices else spec.sketch_halves,
+                adaptive=int(spec.adaptive),
+                policy=POLICIES.index(spec.policy),
+                mesh=int(spec.mesh_devices > 0),
+                mesh_base=_mesh_base(spec, rank) if spec.mesh_devices
+                else 0,
+                local_shards=spec.local_shards,
+                width_shard=spec.width_shard,
+                dk_bits_shard=spec.dk_bits_shard,
+                wps_shard=spec.wps_shard, dkw_shard=spec.dkw_shard,
+                exact=int(exact))
 
 
 def step(spec: StepSpec, params: torch.Tensor, state: dict,
@@ -1608,14 +1630,39 @@ def step(spec: StepSpec, params: torch.Tensor, state: dict,
     (only a fault's state does: the kernel writes none) take the exact
     instances, which clamp them as the reference does; :func:`_needs_exact`
     finds them.  CPU tensors: the plain version, which clamps every
-    address.
+    address.  While a program is recorded (``analysis.program_trace``) the
+    call is one ``launch`` event carrying the instance (:func:`_arg_ints`),
+    on either device.
     """
     n = _check_inputs(spec, params, state, lo, hi, n_valid, probes, rank)
-    if lo.device.type == "cpu":
-        return step_ref(spec, params, state, lo, hi, n, probes, rank)
-    if lo.device.type != "cuda":
+    if lo.device.type not in ("cpu", "cuda"):
         raise ValueError(f"step runs on CUDA or CPU tensors, not "
                          f"{lo.device.type}")
+    exact = _needs_exact(spec, state)
+    if isinstance(n, list) and len(set(n)) == 1:
+        n = n[0]                    # per-lane counts that agree: one int
+    rec = program_trace.active
+    if rec is None:
+        return _step_on_device(spec, params, state, lo, hi, n, probes, rank,
+                               exact)
+    instance = {"defines": _defines(spec),
+                **_arg_ints(spec, params, lo, n, rank=rank, exact=exact)}
+    with rec.launch("sketch_step", instance):
+        return _step_on_device(spec, params, state, lo, hi, n, probes, rank,
+                               exact)
+
+
+def _step_on_device(spec: StepSpec, params, state: dict, lo, hi, n, probes,
+                    rank: int, exact: bool):
+    """:func:`step`'s launch on CUDA tensors, its plain version on CPU
+    tensors.  The plain version, like the kernel, writes only addresses in
+    range, so a state marked in range stays marked (see
+    :func:`_needs_exact`)."""
+    if lo.device.type == "cpu":
+        state, hits = step_ref(spec, params, state, lo, hi, n, probes, rank)
+        if not exact:
+            _mark_in_range(spec, state)
+        return state, hits
     lo = lo.to(torch.int32).contiguous()
     hi = hi.to(torch.int32).contiguous()
     params = params.to(torch.int32).contiguous()
@@ -1623,10 +1670,9 @@ def step(spec: StepSpec, params: torch.Tensor, state: dict,
     if probes is None:
         probes = precompute_probes(spec, lo, hi)
     if isinstance(n, list):         # per-lane counts: one int per lane
-        n = (n[0] if len(set(n)) == 1 else
-             torch.tensor(n, dtype=torch.int32).to(lo.device))
+        n = torch.tensor(n, dtype=torch.int32).to(lo.device)
     _launch(spec, params, state, lo, hi, probes, n, hits, rank=rank,
-            exact=_needs_exact(spec, state))
+            exact=exact)
     return state, hits
 
 

@@ -55,7 +55,10 @@ MODULES = ["repro_torch", "repro_torch.check_runs",
            "repro_torch.train.train_step", "repro_torch.train.driver",
            "repro_torch.data", "repro_torch.data.pipeline",
            "repro_torch.launch", "repro_torch.launch.hillclimb",
-           "repro_torch.analysis", "repro_torch.analysis.report"]
+           "repro_torch.analysis", "repro_torch.analysis.report",
+           "repro_torch.analysis.program_trace",
+           "repro_torch.analysis.program_lint",
+           "repro_torch.analysis.lint_fixtures"]
 
 
 # the host engine runs, not only imports, with jax and repro blocked

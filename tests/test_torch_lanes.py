@@ -113,6 +113,34 @@ def test_streams1_equals_unbatched():
         pds.DeviceWTinyLFU(C).spec()
 
 
+def test_streams1_is_the_identical_program():
+    """streams=1 records the identical program, through the port's
+    fingerprint registry (R7), as tests/test_streams.py pins the
+    reference's."""
+    from repro_torch.analysis.program_lint import assert_identical_program
+    assert_identical_program("streams1", device="cpu")
+
+
+@pytest.mark.parametrize("assoc", [None, 8], ids=["flat", "ways 8"])
+def test_lane_program_has_no_per_access_op(assoc):
+    """The lane program dispatches one launch per chunk for all B lanes and
+    a fixed handful of ops around it, at two chunk lengths: no op per access
+    or per lane outside the launch, no host read, nothing table-shaped per
+    chunk (lint rules R0-R6; the reference's scatter-free lane program,
+    tests/test_streams.py)."""
+    from repro_torch.analysis import program_lint as pl
+    cfg = dict(capacity=C, streams=B, assoc=assoc)
+    runs, bounds = pl.engine_program(cfg, "cpu",
+                                     trace=lanes_trace(3, pl.ACCESSES))
+    assert not pl.lint_program(runs, bounds, "lane-program")
+    chunks = [ev for r in runs for ev in pl._scopes(r.events).chunks]
+    assert len(chunks) == 5 + 3
+    for ev in chunks:
+        (launch,) = pl._launches(ev)
+        assert dict(launch[2])["lanes"] == B
+        assert {e[1] for e in pl._ops(ev)} == {"aten.select.int"}
+
+
 @pytest.mark.parametrize("assoc", [None, 8], ids=["flat", "ways 8"])
 def test_init_state_lane_axis(assoc):
     spec = pds.DeviceWTinyLFU(C, streams=B, assoc=assoc).spec()

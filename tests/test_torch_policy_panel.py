@@ -141,6 +141,18 @@ def _init(spec_kw, wcap, mcap):
                                                         device="cpu"))
 
 
+def test_wtinylfu_policy_is_the_identical_program():
+    """The panel dispatch is static: spelling out the default policy
+    records the identical program (R7 through the port's fingerprint
+    registry), as tests/test_policy_panel.py pins the reference's; a
+    competitor's launches carry their own build and policy index."""
+    from repro_torch.analysis.program_lint import (assert_identical_program,
+                                                   pin_program_text)
+    assert_identical_program("policy-default", device="cpu")
+    arc = pin_program_text("cpu", policy="arc")
+    assert "SKETCH_STEP_PANEL" in arc and "policy=2" in arc
+
+
 def test_s3fifo_zero_way_window_set_bypasses_to_main():
     """A key whose window set has no way is its own candidate: its first
     access (estimate 1, the doorkeeper bit) stays out, its second (estimate

@@ -169,3 +169,19 @@ def test_step_api_defaults_to_the_card():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
 
+
+
+def test_shards1_is_the_identical_program():
+    """shards=1 (the default) records the identical program: the
+    exactness-ladder pin, through the port's fingerprint registry (R7,
+    repro_torch.analysis.program_lint), as the reference pins its own
+    (tests/test_sketch_step.py)."""
+    from repro_torch.analysis.program_lint import (assert_identical_program,
+                                                   pin_program_text)
+    assert_identical_program("shards1", device="cpu")
+    # ... and the sharded program is genuinely different: its launches
+    # carry the [global || delta] halves and shard widths
+    base = pin_program_text("cpu")
+    sharded = pin_program_text("cpu", shards=2)
+    assert sharded != base
+    assert "halves=2" in sharded and "halves=1" in base
