@@ -31,12 +31,33 @@ card :func:`record` can also turn on ``torch.cuda.set_sync_debug_mode
 
 When nothing records, :data:`active` is None and each dispatch point pays a
 None check.
+
+Spans and counters: the engine's phases and the ``DeviceTinyLFU`` facade's
+steps are named by :func:`span` (``engine.run`` and its children
+``engine.lanes``, ``engine.copy_in``, ``engine.state``, ``engine.probes``,
+``engine.loop``, ``engine.finish``; ``facade.record``, ``facade.estimate``
+and ``facade.admit`` with ``facade.lanes``, ``facade.copy_in`` and
+``facade.verdict_read``), and the host bytes they place on the run's
+device by :func:`count` (``bytes_in``).  Spans record exactly while a
+``torch.profiler`` records, by the profiler's own flag, into a bounded
+in-memory log read by :func:`spans_between`; their times are on the clock
+of the profiler's events (Unix-epoch ns, ``time.time_ns()``), so a span
+can be set against the profiler's window and device operations as they
+are.  They are not profiler events (no ``record_function``: on the card
+that would mirror each onto the device's timeline) and dispatch no aten
+op, so a recorded program is the same with them on or off.  Off, a span
+costs one flag check and is the shared :data:`NULL_SPAN`.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
+import time
 
 import torch
+from torch.autograd import profiler as _profiler
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 
@@ -163,3 +184,88 @@ def record(sync_debug: bool = False):
     finally:
         rec.release()
         active = None
+
+
+# ---------------------------------------------------------------------------
+# spans and counters, on while a torch.profiler records
+# ---------------------------------------------------------------------------
+
+SPAN_LOG_SIZE = 4096        # spans kept: ~10 replays x 7 a window is ~70
+NULL_SPAN = contextlib.nullcontext()    # what span() returns when off
+
+_log: collections.deque = collections.deque(maxlen=SPAN_LOG_SIZE)
+_runs = itertools.count(1)
+_open = threading.local()   # .stack: this thread's open spans, outermost first
+
+
+class Span:
+    """One span, a context manager: ``name``; its ``parent``'s name (None
+    for a root); ``run``, the identifier shared by a root and every span
+    inside it; ``start_ns`` and ``end_ns`` on the profiler's clock;
+    ``counters``, each counted inside it (its children's included).  It is
+    logged when it closes."""
+    __slots__ = ("name", "parent", "run", "start_ns", "end_ns", "counters")
+
+    def __init__(self, name, parent=None, run=None, start_ns=0):
+        self.name, self.parent, self.run = name, parent, run
+        self.start_ns, self.end_ns, self.counters = start_ns, 0, {}
+
+    @property
+    def duration_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+    def __enter__(self):
+        stack = _stack()
+        up = stack[-1] if stack else None
+        self.parent = up.name if up else None
+        self.run = up.run if up else next(_runs)
+        self.start_ns = time.time_ns()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        stack = _stack()
+        stack.pop()
+        if stack:                   # counters roll up into the parent
+            up = stack[-1].counters
+            for k, v in self.counters.items():
+                up[k] = up.get(k, 0) + v
+        _log.append(self)
+        return False
+
+
+def _stack() -> list:
+    stack = getattr(_open, "stack", None)
+    if stack is None:
+        stack = _open.stack = []
+    return stack
+
+
+def span(name: str):
+    """A context manager naming the block ``name`` in the span log while a
+    ``torch.profiler`` records (the child of the innermost open span of
+    this thread, or a new run's root); otherwise :data:`NULL_SPAN`."""
+    if not _profiler._is_profiler_enabled:
+        return NULL_SPAN
+    return Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of this thread's innermost open
+    span, while spans record; each span's counters pass to its parent when
+    it closes, so a root holds its run's totals."""
+    if not _profiler._is_profiler_enabled:
+        return
+    stack = getattr(_open, "stack", None)
+    if stack:
+        c = stack[-1].counters
+        c[name] = c.get(name, 0) + int(n)
+
+
+def spans_between(t0_ns: int, t1_ns: int) -> list:
+    """The logged spans that lie wholly within ``[t0_ns, t1_ns]``, by start
+    (the log holds the last :data:`SPAN_LOG_SIZE` spans closed)."""
+    return sorted((s for s in list(_log)
+                   if s.start_ns >= t0_ns and s.end_ns <= t1_ns),
+                  key=lambda s: s.start_ns)

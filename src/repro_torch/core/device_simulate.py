@@ -313,8 +313,21 @@ class DeviceWTinyLFU:
 
 def _trace_lanes(trace: np.ndarray, device) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
-    lo, hi = keys_to_lanes(np.asarray(trace).astype(np.uint64))
-    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device))
+    with program_trace.span("engine.lanes"):
+        lo, hi = keys_to_lanes(np.asarray(trace).astype(np.uint64))
+    with program_trace.span("engine.copy_in"):
+        program_trace.count("bytes_in", lo.nbytes + hi.nbytes)
+        return (torch.from_numpy(lo).to(device),
+                torch.from_numpy(hi).to(device))
+
+
+def _host_in(x, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) placed on the run's device,
+    its bytes counted as the engine's ``bytes_in``."""
+    t = torch.as_tensor(x)
+    if t.device.type == "cpu":
+        program_trace.count("bytes_in", t.nbytes)
+    return t.to(device, dtype)
 
 
 def _check_trace_streams(cfg: DeviceWTinyLFU, trace: np.ndarray):
@@ -377,48 +390,54 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     after a partial tail: the host knows which chunks are full, so it reads
     nothing from the card to decide.  While a program is recorded
     (``analysis.program_trace``) the loop, each chunk and each fold are
-    marked."""
+    marked.  The probes' set-up and the loop are the spans
+    ``engine.probes`` and ``engine.loop``; nothing is added to a chunk."""
     n = lo.shape[-1]
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be >= 1")
     if n == 0:
         return state, torch.zeros(lo.shape, dtype=torch.int32,
                                   device=lo.device)
-    pad = (-n) % chunk
-    if pad:
-        z = torch.zeros(lo.shape[:-1] + (pad,), dtype=lo.dtype,
-                        device=lo.device)
-        lo = torch.cat([lo, z], dim=-1)
-        hi = torch.cat([hi, z], dim=-1)
-    nc = lo.shape[-1] // chunk
+    with program_trace.span("engine.probes"):
+        pad = (-n) % chunk
+        if pad:
+            z = torch.zeros(lo.shape[:-1] + (pad,), dtype=lo.dtype,
+                            device=lo.device)
+            lo = torch.cat([lo, z], dim=-1)
+            hi = torch.cat([hi, z], dim=-1)
+        nc = lo.shape[-1] // chunk
 
-    def chunk_major(x):             # (..., nc * chunk) -> (nc, ..., chunk)
-        if x.dim() == 1:
-            return x.reshape(nc, chunk)
-        return x.reshape(x.shape[0], nc, chunk).transpose(0, 1).contiguous()
+        def chunk_major(x):         # (..., nc * chunk) -> (nc, ..., chunk)
+            if x.dim() == 1:
+                return x.reshape(nc, chunk)
+            x = x.reshape(x.shape[0], nc, chunk)
+            return x.transpose(0, 1).contiguous()
 
-    lo, hi = chunk_major(lo), chunk_major(hi)
-    probes = precompute_probes(spec, lo, hi)
-    hits = []
-    rec = program_trace.active
-    if rec is not None:
-        rec.mark("loop_begin", program_trace.leaf_ids(state))
-    for c in range(nc):
-        n_valid = min(chunk, n - c * chunk)
+        lo, hi = chunk_major(lo), chunk_major(hi)
+        probes = precompute_probes(spec, lo, hi)
+    with program_trace.span("engine.loop"):
+        hits = []
+        rec = program_trace.active
         if rec is not None:
-            rec.mark("chunk", c)
-        _, h = fn(spec, params, state, lo[c], hi[c], n_valid,
-                  tuple(p[c] for p in probes))
-        hits.append(h)
-        if fold is not None and n_valid == chunk:
+            rec.mark("loop_begin", program_trace.leaf_ids(state))
+        for c in range(nc):
+            n_valid = min(chunk, n - c * chunk)
             if rec is not None:
-                rec.mark("fold")
-            fold(spec, params, state)
-            if rec is not None:
-                rec.mark("fold_end")
-    if rec is not None:
-        rec.mark("loop_end", program_trace.leaf_ids(state))
-    return state, torch.cat(hits, dim=-1)[..., :n]
+                rec.mark("chunk", c)
+            _, h = fn(spec, params, state, lo[c], hi[c], n_valid,
+                      tuple(p[c] for p in probes))
+            hits.append(h)
+            if fold is not None and n_valid == chunk:
+                if rec is not None:
+                    rec.mark("fold")
+                fold(spec, params, state)
+                if rec is not None:
+                    rec.mark("fold_end")
+        if rec is not None:
+            rec.mark("loop_end", program_trace.leaf_ids(state))
+        out = torch.cat(hits, dim=-1)[..., :n]
+        hits.clear()        # a chunk's flags are freed inside the span
+        return state, out
 
 
 def _ops(spec: StepSpec, mesh):
@@ -768,130 +787,147 @@ def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
 
     A save copies the state to host memory before it returns (which waits
     for the card); the disk write runs on a background thread while the
-    next segment runs, and its error, if any, is raised here."""
-    climb = climb or ClimbSpec()
-    segmenting = checkpoint_dir is not None or fault_hook is not None
-    if segmenting and cfg.streams > 1:
-        raise ValueError(
-            f"streams {cfg.streams} does not combine with checkpoint_dir/"
-            "fault_hook: the checkpoint tree and fault surface are the "
-            "single-tenant state layout — run per-tenant streams=1 runs "
-            "for fault-tolerant execution")
-    dev = _run_device(cfg, device)
-    trace = np.asarray(trace)
-    _check_trace_streams(cfg, trace)
-    every = (_resolve_every(cfg, climb, checkpoint_every) if segmenting
-             else None)
-    spec = cfg.spec()
-    mesh = cfg.mesh
+    next segment runs, and its error, if any, is raised here.
 
-    def canonical(st):              # the single-device layout (collective)
-        return st if mesh is None else _from_mesh_state(spec, st, mesh)
+    The call is the span ``engine.run`` (``analysis.program_trace``), its
+    phases in order its children: ``engine.lanes`` and ``engine.copy_in``
+    (the trace's key lanes), ``engine.state``, then ``engine.probes`` and
+    ``engine.loop`` a segment, and ``engine.finish``; its ``bytes_in``
+    counts every host array placed on the run's device."""
+    with program_trace.span("engine.run"):
+        climb = climb or ClimbSpec()
+        segmenting = checkpoint_dir is not None or fault_hook is not None
+        if segmenting and cfg.streams > 1:
+            raise ValueError(
+                f"streams {cfg.streams} does not combine with checkpoint_dir/"
+                "fault_hook: the checkpoint tree and fault surface are the "
+                "single-tenant state layout — run per-tenant streams=1 runs "
+                "for fault-tolerant execution")
+        dev = _run_device(cfg, device)
+        trace = np.asarray(trace)
+        _check_trace_streams(cfg, trace)
+        every = (_resolve_every(cfg, climb, checkpoint_every) if segmenting
+                 else None)
+        spec = cfg.spec()
+        mesh = cfg.mesh
 
-    params = cfg.params(warmup=warmup, device=dev)
-    lo, hi = _trace_lanes(trace, dev)
-    n = lo.shape[-1]
-    state = (_state if _state is not None else
-             init_step_state(spec, cfg.window_cap, cfg.main_cap, device=dev))
-    cvec = (torch.as_tensor(climb.resolve(cfg), device=dev) if cfg.adaptive
-            else None)
-    carry = _carry.to(dev) if _carry is not None else None
-    ck = None
-    if checkpoint_dir is not None:
-        from repro_torch.checkpoint.store import AsyncCheckpointer
-        meta = _config_meta(cfg, climb, warmup, n)
-        if mesh is None or mesh.rank == 0:      # one writer per mesh
-            ck = AsyncCheckpointer(checkpoint_dir)
-    zeros = torch.zeros(lo.shape[:-1] + (0,), dtype=torch.int32, device=dev)
+        def canonical(st):          # the single-device layout (collective)
+            return st if mesh is None else _from_mesh_state(spec, st, mesh)
 
-    def joined(parts):
-        return (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-                ) if parts else zeros
+        lo, hi = _trace_lanes(trace, dev)
+        n = lo.shape[-1]
+        with program_trace.span("engine.state"):
+            params = cfg.params(warmup=warmup, device=dev)
+            state = (_state if _state is not None else
+                     init_step_state(spec, cfg.window_cap, cfg.main_cap,
+                                     device=dev))
+            cvec = (_host_in(climb.resolve(cfg), dev) if cfg.adaptive
+                    else None)
+            carry = _host_in(_carry, dev) if _carry is not None else None
+            ck = None
+            if checkpoint_dir is not None:
+                from repro_torch.checkpoint.store import AsyncCheckpointer
+                meta = _config_meta(cfg, climb, warmup, n)
+                if mesh is None or mesh.rank == 0:      # one writer per mesh
+                    ck = AsyncCheckpointer(checkpoint_dir)
+            zeros = torch.zeros(lo.shape[:-1] + (0,), dtype=torch.int32,
+                                device=dev)
 
-    t0 = time.perf_counter()
-    hits_parts = ([] if _hits_prefix is None
-                  else [torch.as_tensor(_hits_prefix).to(dev, torch.int32)])
-    traj_parts = []
-    if _traj_prefix is not None:
-        traj_parts.append(torch.stack([torch.as_tensor(x).to(dev, torch.int32)
-                                       for x in _traj_prefix], dim=1))
-    i = _start
-    while True:
-        j = n if every is None else min(n, i + every)
-        if j > i:
-            state, hits, traj, carry = _segment(
-                cfg, spec, params, state, lo[..., i:j], hi[..., i:j], climb,
-                cvec, carry, chunk)
-            hits_parts.append(hits)
-            if traj is not None:
-                traj_parts.append(traj)
-        i = j
-        if checkpoint_dir is not None:
-            tree = {"state": canonical(state),
-                    "carry": (carry if carry is not None else
-                              torch.zeros((6,), dtype=torch.int32)),
-                    "hits": joined(hits_parts)}
-            if cfg.adaptive:
-                traj = torch.cat(traj_parts) if traj_parts else None
-                tree["ehits"] = traj[:, 0] if traj is not None else zeros
-                tree["quotas"] = traj[:, 1] if traj is not None else zeros
+            def joined(parts):
+                return (parts[0] if len(parts) == 1 else
+                        torch.cat(parts, dim=-1)) if parts else zeros
+
+            t0 = time.perf_counter()
+            hits_parts = ([] if _hits_prefix is None
+                          else [_host_in(_hits_prefix, dev, torch.int32)])
+            traj_parts = []
+            if _traj_prefix is not None:
+                traj_parts.append(torch.stack(
+                    [_host_in(x, dev, torch.int32) for x in _traj_prefix],
+                    dim=1))
+        i = _start
+        while True:
+            j = n if every is None else min(n, i + every)
+            if j > i:
+                state, hits, traj, carry = _segment(
+                    cfg, spec, params, state, lo[..., i:j], hi[..., i:j],
+                    climb, cvec, carry, chunk)
+                hits_parts.append(hits)
+                if traj is not None:
+                    traj_parts.append(traj)
+            i = j
+            if checkpoint_dir is not None:
+                tree = {"state": canonical(state),
+                        "carry": (carry if carry is not None else
+                                  torch.zeros((6,), dtype=torch.int32)),
+                        "hits": joined(hits_parts)}
+                if cfg.adaptive:
+                    traj = torch.cat(traj_parts) if traj_parts else None
+                    tree["ehits"] = traj[:, 0] if traj is not None else zeros
+                    tree["quotas"] = (traj[:, 1] if traj is not None
+                                      else zeros)
+                if ck is not None:
+                    ck.save(i, tree, extra_meta={**meta, "cursor": i})
+                if on_checkpoint is not None:
+                    on_checkpoint(i)
+            if i >= n:
+                break
+            if fault_hook is not None:
+                # the checkpoint just written holds the state before the
+                # fault; a meshed run's hook sees (and returns) the
+                # canonical layout
+                mutated = fault_hook(i, canonical(state))
+                if mutated is not None:
+                    cspec = replace(spec, mesh_devices=0)
+                    state = _hook_state(cspec, mutated, dev)
+                    if mesh is not None:
+                        state = _to_mesh_state(spec, state, mesh)
+        with program_trace.span("engine.finish"):
             if ck is not None:
-                ck.save(i, tree, extra_meta={**meta, "cursor": i})
-            if on_checkpoint is not None:
-                on_checkpoint(i)
-        if i >= n:
-            break
-        if fault_hook is not None:
-            # the checkpoint just written holds the state before the fault;
-            # a meshed run's hook sees (and returns) the canonical layout
-            mutated = fault_hook(i, canonical(state))
-            if mutated is not None:
-                cspec = replace(spec, mesh_devices=0)
-                state = _hook_state(cspec, mutated, dev)
-                if mesh is not None:
-                    state = _to_mesh_state(spec, state, mesh)
-    if ck is not None:
-        ck.wait()
-    if mesh is not None and checkpoint_dir is not None:
-        mesh.barrier()          # no rank returns before the last save
+                ck.wait()
+            if mesh is not None and checkpoint_dir is not None:
+                mesh.barrier()      # no rank returns before the last save
 
-    state = canonical(state)
-    hits = joined(hits_parts)
-    regs = state["regs"].cpu()                   # waits for the device
-    traj = torch.cat(traj_parts).cpu() if traj_parts else None
-    wall = time.perf_counter() - t0
+            state = canonical(state)
+            hits = joined(hits_parts)
+            regs = state["regs"].cpu()              # waits for the device
+            traj = torch.cat(traj_parts).cpu() if traj_parts else None
+            wall = time.perf_counter() - t0
 
-    # warmup applies per lane (each lane's own R_T register counts it)
-    counted = (n - warmup) * cfg.streams
-    extra = {"backend": "cuda" if dev.type == "cuda" else "plain",
-             "window_frac": cfg.window_frac, "assoc": cfg.assoc,
-             "device": _device_name(dev),
-             **_row_extra(cfg, climb, cfg.adaptive)}
-    if cfg.adaptive:
-        extra["adaptive"] = True
-        extra["final_quota"] = ([int(q) for q in regs[:, R_WQUOTA]]
-                                if cfg.streams > 1 else int(regs[R_WQUOTA]))
-        if traj is not None:
-            extra["trajectory"] = {"epoch_len": climb.epoch_len,
-                                   "epoch_hits": traj[:, 0].tolist(),
-                                   "quota": traj[:, 1].tolist()}
-    if cfg.streams > 1:
-        extra["lane_hits"] = [int(h) for h in regs[:, R_HITS]]
-        n_hits = sum(extra["lane_hits"])
-    else:
-        n_hits = int(regs[R_HITS])
-    if checkpoint_dir is not None:
-        extra["checkpoint_every"] = every
-    if _start:
-        extra["resumed_at"] = int(_start)
-    res = SimResult(policy=_policy_label(cfg, cfg.adaptive),
-                    cache_size=cfg.capacity, trace=trace_name,
-                    accesses=counted, hits=n_hits,
-                    hit_ratio=n_hits / max(1, counted), wall_s=wall,
-                    extra=extra)
-    if return_state:
-        return res, state, hits
-    return res
+            # warmup applies per lane (each lane's own R_T register counts
+            # it)
+            counted = (n - warmup) * cfg.streams
+            extra = {"backend": "cuda" if dev.type == "cuda" else "plain",
+                     "window_frac": cfg.window_frac, "assoc": cfg.assoc,
+                     "device": _device_name(dev),
+                     **_row_extra(cfg, climb, cfg.adaptive)}
+            if cfg.adaptive:
+                extra["adaptive"] = True
+                extra["final_quota"] = (
+                    [int(q) for q in regs[:, R_WQUOTA]] if cfg.streams > 1
+                    else int(regs[R_WQUOTA]))
+                if traj is not None:
+                    extra["trajectory"] = {
+                        "epoch_len": climb.epoch_len,
+                        "epoch_hits": traj[:, 0].tolist(),
+                        "quota": traj[:, 1].tolist()}
+            if cfg.streams > 1:
+                extra["lane_hits"] = [int(h) for h in regs[:, R_HITS]]
+                n_hits = sum(extra["lane_hits"])
+            else:
+                n_hits = int(regs[R_HITS])
+            if checkpoint_dir is not None:
+                extra["checkpoint_every"] = every
+            if _start:
+                extra["resumed_at"] = int(_start)
+            res = SimResult(policy=_policy_label(cfg, cfg.adaptive),
+                            cache_size=cfg.capacity, trace=trace_name,
+                            accesses=counted, hits=n_hits,
+                            hit_ratio=n_hits / max(1, counted),
+                            wall_s=wall, extra=extra)
+            if return_state:
+                return res, state, hits
+            return res
 
 
 def resume_trace(trace, cfg: DeviceWTinyLFU, *, checkpoint_dir: str,

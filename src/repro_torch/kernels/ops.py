@@ -12,12 +12,19 @@ The ops update the state in place and return it.
 decision reads no device memory: recording a batch on the card queues one
 add launch (and, when W is reached, one reset launch) and never waits for
 the card.
+
+While a ``torch.profiler`` records, each ``DeviceTinyLFU`` call is a span
+of ``analysis.program_trace`` (``facade.record``, ``facade.estimate``,
+``facade.admit``), its key split and stack ``facade.lanes``, its copy in
+``facade.copy_in`` (whose bytes are its ``bytes_in``) and, where it
+returns an answer, the read that waits for the card ``facade.verdict_read``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import program_trace
 from repro_torch.core.hashing import _pow2ceil
 from .admission import admit
 from .sketch_common import (DeviceSketchConfig, init_state, keys_to_lanes,
@@ -57,9 +64,18 @@ def make_config(num_blocks: int, sample_factor: int = 8,
 def _lanes_on(device: torch.device, *keys: np.ndarray) -> list:
     """uint64 key arrays -> their (lo, hi) int32 lanes on ``device``, all
     in one host-to-device copy."""
-    rows = [lane for k in keys for lane in keys_to_lanes(k)]
-    t = torch.from_numpy(np.stack(rows)).to(device, non_blocking=True)
-    return list(t.unbind(0))
+    with program_trace.span("facade.lanes"):
+        rows = np.stack([lane for k in keys for lane in keys_to_lanes(k)])
+    with program_trace.span("facade.copy_in"):
+        program_trace.count("bytes_in", rows.nbytes)
+        t = torch.from_numpy(rows).to(device, non_blocking=True)
+        return list(t.unbind(0))
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """A verdict on the host: waits for the card."""
+    with program_trace.span("facade.verdict_read"):
+        return t.cpu().numpy()
 
 
 class DeviceTinyLFU:
@@ -79,17 +95,20 @@ class DeviceTinyLFU:
     def record(self, keys: np.ndarray) -> None:
         if len(keys) == 0:
             return
-        lo, hi = _lanes_on(self.device, keys)
-        add(self.cfg, self.state, lo, hi)
+        with program_trace.span("facade.record"):
+            lo, hi = _lanes_on(self.device, keys)
+            add(self.cfg, self.state, lo, hi)
 
     def estimate(self, keys: np.ndarray) -> np.ndarray:
         if len(keys) == 0:
             return np.zeros(0, np.int32)
-        lo, hi = _lanes_on(self.device, keys)
-        return estimate(self.cfg, self.state, lo, hi).cpu().numpy()
+        with program_trace.span("facade.estimate"):
+            lo, hi = _lanes_on(self.device, keys)
+            return _read(estimate(self.cfg, self.state, lo, hi))
 
     def admit(self, cands: np.ndarray, victims: np.ndarray) -> np.ndarray:
         if len(cands) == 0:
             return np.zeros(0, bool)
-        lanes = _lanes_on(self.device, cands, victims)
-        return admit(self.cfg, self.state, *lanes).cpu().numpy()
+        with program_trace.span("facade.admit"):
+            lanes = _lanes_on(self.device, cands, victims)
+            return _read(admit(self.cfg, self.state, *lanes))

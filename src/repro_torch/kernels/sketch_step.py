@@ -264,6 +264,7 @@ def make_step_params(window_cap: int, main_cap: int, prot_cap: int,
            f"cap {cap} does not fit {counter_bits}-bit counters")
     p = [int(window_cap), int(main_cap), int(prot_cap), int(sample_size),
          int(cap), int(warmup)] + [0] * (NPARAMS - 6)
+    program_trace.count("bytes_in", 4 * NPARAMS)
     return torch.tensor(p, dtype=torch.int32, device=resolve_device(device))
 
 
@@ -385,12 +386,14 @@ def state_from_numpy(spec: StepSpec, arrays: dict, device=None) -> dict:
     shapes = _state_shapes(spec)
     _check(set(arrays) == set(shapes),
            f"state keys {sorted(arrays)} != {sorted(shapes)}")
-    out = {}
+    out, nbytes = {}, 0
     for k in _state_keys(spec):
         a = np.ascontiguousarray(np.asarray(arrays[k]).astype(np.int32))
         _check(a.shape == shapes[k],
                f"state[{k!r}] shape {a.shape} != {shapes[k]}")
         out[k] = torch.from_numpy(a.copy()).to(dev)
+        nbytes += a.nbytes
+    program_trace.count("bytes_in", nbytes)
     if not tables_out_of_range(spec, arrays):
         _mark_in_range(spec, out)
     return out
