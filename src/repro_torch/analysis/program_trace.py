@@ -37,16 +37,18 @@ steps are named by :func:`span` (``engine.run`` and its children
 ``engine.lanes``, ``engine.copy_in``, ``engine.state``, ``engine.probes``,
 ``engine.loop``, ``engine.finish``; ``facade.record``, ``facade.estimate``
 and ``facade.admit`` with ``facade.lanes``, ``facade.copy_in`` and
-``facade.verdict_read``), and the host bytes they place on the run's
-device by :func:`count` (``bytes_in``).  Spans record exactly while a
-``torch.profiler`` records, by the profiler's own flag, into a bounded
-in-memory log read by :func:`spans_between`; their times are on the clock
-of the profiler's events (Unix-epoch ns, ``time.time_ns()``), so a span
-can be set against the profiler's window and device operations as they
-are.  They are not profiler events (no ``record_function``: on the card
-that would mirror each onto the device's timeline) and dispatch no aten
-op, so a recorded program is the same with them on or off.  Off, a span
-costs one flag check and is the shared :data:`NULL_SPAN`.
+``facade.verdict_read``), and by :func:`count` the host bytes they place
+on the run's device (``bytes_in``) and the keys of a trace the engine had
+to convert on the host before its copy (``keys_converted``).  Spans
+record exactly while a ``torch.profiler`` records, by the profiler's own
+flag, into a bounded in-memory log read by :func:`spans_between`; their
+times are on the clock of the profiler's events (Unix-epoch ns,
+``time.time_ns()``), so a span can be set against the profiler's window
+and device operations as they are.  They are not profiler events (no
+``record_function``: on the card that would mirror each onto the device's
+timeline) and dispatch no aten op, so a recorded program is the same with
+them on or off.  Off, a span costs one flag check and is the shared
+:data:`NULL_SPAN`.
 """
 from __future__ import annotations
 

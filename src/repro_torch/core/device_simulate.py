@@ -44,7 +44,7 @@ from repro_torch.kernels import sketch_step as ks
 from repro_torch.kernels.sketch_step import (
     StepSpec, make_step_params, init_step_state, precompute_probes, step,
     rebalance, resolve_device, R_EHITS, R_HITS, R_WQUOTA)
-from repro_torch.kernels.sketch_common import keys_to_lanes, POLICIES
+from repro_torch.kernels.sketch_common import POLICIES
 from repro_torch.kernels.sketch_merge import merge_halve, merge_halve_mesh
 from repro_torch.distributed.mesh import SPLIT_LEAVES, ShardMesh
 from .adaptive import resolve_climb, window_cap_max
@@ -313,12 +313,31 @@ class DeviceWTinyLFU:
 
 def _trace_lanes(trace: np.ndarray, device) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
+    """The trace's keys as (lo, hi) contiguous int32 tensors on ``device``,
+    bit for bit ``keys_to_lanes`` of the trace, in its shape.
+
+    The span ``engine.lanes`` normalises the trace on the host: a
+    C-contiguous, writeable uint64 or int64 NumPy array is taken as it is,
+    viewed as pairs of int32 words; anything else is converted as
+    ``keys_to_lanes`` converts it (``astype(uint64)``, C order), counted as
+    ``keys_converted``.  The span ``engine.copy_in`` copies the 64-bit keys
+    to the device once (``bytes_in``, 8 bytes a key) and splits them there
+    into their little-endian 32-bit words, even words ``lo``, odd ``hi``;
+    the device copy of the keys is released on return, and ``lo`` and
+    ``hi`` never alias the caller's array."""
     with program_trace.span("engine.lanes"):
-        lo, hi = keys_to_lanes(np.asarray(trace).astype(np.uint64))
+        keys = np.asarray(trace)
+        if (not isinstance(trace, np.ndarray)
+                or keys.dtype not in (np.uint64, np.int64)
+                or not keys.flags.c_contiguous or not keys.flags.writeable):
+            program_trace.count("keys_converted", keys.size)
+            keys = keys.astype(np.uint64, order="C")
+        words = keys.reshape(-1).view(np.int32).reshape(*keys.shape, 2)
     with program_trace.span("engine.copy_in"):
-        program_trace.count("bytes_in", lo.nbytes + hi.nbytes)
-        return (torch.from_numpy(lo).to(device),
-                torch.from_numpy(hi).to(device))
+        program_trace.count("bytes_in", words.nbytes)
+        words = torch.from_numpy(words).to(device)
+        return (words[..., 0].clone(memory_format=torch.contiguous_format),
+                words[..., 1].clone(memory_format=torch.contiguous_format))
 
 
 def _host_in(x, device, dtype=None) -> torch.Tensor:
@@ -390,7 +409,9 @@ def run_chunks(spec: StepSpec, params, state: dict, lo, hi, chunk: int,
     after a partial tail: the host knows which chunks are full, so it reads
     nothing from the card to decide.  While a program is recorded
     (``analysis.program_trace``) the loop, each chunk and each fold are
-    marked.  The probes' set-up and the loop are the spans
+    marked.  ``lo`` and ``hi`` arrive split on the run's device
+    (:func:`_trace_lanes`, the spans ``engine.lanes`` and
+    ``engine.copy_in``); the probes' set-up and the loop are the spans
     ``engine.probes`` and ``engine.loop``; nothing is added to a chunk."""
     n = lo.shape[-1]
     if chunk < 1:
@@ -790,10 +811,14 @@ def _run_checkpointed(cfg: DeviceWTinyLFU, trace, *, warmup=0, device=None,
     next segment runs, and its error, if any, is raised here.
 
     The call is the span ``engine.run`` (``analysis.program_trace``), its
-    phases in order its children: ``engine.lanes`` and ``engine.copy_in``
-    (the trace's key lanes), ``engine.state``, then ``engine.probes`` and
+    phases in order its children: ``engine.lanes`` (the trace's keys made
+    64-bit on the host, a view unless they must be converted) and
+    ``engine.copy_in`` (their one copy to the run's device and the split
+    into lanes there), ``engine.state``, then ``engine.probes`` and
     ``engine.loop`` a segment, and ``engine.finish``; its ``bytes_in``
-    counts every host array placed on the run's device."""
+    counts every host array placed on the run's device, and its
+    ``keys_converted`` the keys that were converted (see
+    :func:`_trace_lanes`)."""
     with program_trace.span("engine.run"):
         climb = climb or ClimbSpec()
         segmenting = checkpoint_dir is not None or fault_hook is not None

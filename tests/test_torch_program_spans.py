@@ -160,6 +160,23 @@ def test_bytes_in_counts_every_host_array_placed_on_the_device(streams, kw):
         **kw)
 
 
+@pytest.mark.parametrize("streams", [1, 2])
+def test_a_64_bit_trace_is_copied_as_it_is(streams):
+    """A uint64 or int64 trace is not converted on the host: its
+    ``engine.lanes`` span carries no counter, and ``engine.copy_in``
+    carries its 8 bytes a key (lo and hi, split on the device)."""
+    tr = _trace(streams)
+    assert tr.dtype in (np.uint64, np.int64) and tr.flags.c_contiguous
+    for keys in (tr, tr.astype(np.uint64)):
+        _, spans, _ = _profiled(lambda: ds.simulate_trace(
+            keys, CAP, warmup=WARMUP, chunk=CHUNK, device="cpu",
+            **GEO, **({"streams": streams} if streams > 1 else {})))
+        lanes, = [s for s in spans if s.name == "engine.lanes"]
+        copy_in, = [s for s in spans if s.name == "engine.copy_in"]
+        assert lanes.counters == {}
+        assert copy_in.counters == {"bytes_in": 8 * keys.size}
+
+
 def test_no_profiler_no_spans_and_the_shared_null_context():
     assert not torch.autograd.profiler._is_profiler_enabled
     sp = program_trace.span("engine.run")
